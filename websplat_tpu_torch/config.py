@@ -1,0 +1,192 @@
+"""Render configuration and per-frame splatting arguments.
+
+Counterpart of ``websplat_tpu/config.py``.  ``SplattingArgs``,
+``ResolvedSettings`` and ``resolve_settings`` are the same host-side
+dataclasses.  ``RasterConfig`` keeps only the fields whose values change
+what a frame computes, plus the capacity helpers that size the instance
+streams; every TPU scheduling knob of the JAX config (DMA chunking, sort
+ladder, raster segment/batch/band tuning, MXU precision) has no meaning
+here and is absent.  Values of the remaining fields that the port does not
+implement raise at construction instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+# Reference: DEFAULT_KERNEL_SIZE (web-splat renderer.rs:601)
+DEFAULT_KERNEL_SIZE: float = 0.3
+
+# Reference: fragment cutoff sqrt(log(255)) (web-splat gaussian.wgsl:2)
+CUTOFF: float = 2.3539888583335364
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterConfig:
+    """Static configuration of the tile pipeline (see the JAX config for
+    the measured rationale behind each default)."""
+
+    tile_w: int = 32
+    tile_h: int = 32
+    # tile instances each splat emits in the frontend (row-major ranks
+    # [0, tile_slots)); larger rects continue in the overflow walk
+    tile_slots: int = 6
+    # clamped-splat capture ceiling, walk rank ceiling, giant/mega capacity
+    overflow_capacity: int = 1 << 20
+    overflow_slots: int = 32
+    overflow_grid_capacity: int = 2048
+    overflow_window_slots: int = 160
+    overflow_walk_factor: int = 8
+    overflow_dense_compact: int = 16384
+    alpha_threshold: float = 1.0 / 255.0
+    transmittance_eps: float = 4e-3
+    instance_capacity_factor: float = 2.0
+    # Fields kept only so that configurations written for the JAX package
+    # fail loudly here: each accepts its default value alone.
+    composite: str = "scan"
+    qform: str = "monomial"
+    sort_backend: str = "xla"
+    raster_backend: str = "pallas"
+    y_bands: int = 1
+    compact: bool = True
+
+    def __post_init__(self):
+        unsupported = {
+            "composite": (self.composite, "scan"),
+            "qform": (self.qform, "monomial"),
+            "sort_backend": (self.sort_backend, "xla"),
+            "raster_backend": (self.raster_backend, "pallas"),
+            "y_bands": (self.y_bands, 1),
+            "compact": (self.compact, True),
+        }
+        for name, (value, only) in unsupported.items():
+            if value != only:
+                raise ValueError(
+                    f"RasterConfig.{name}={value!r} is not implemented by the "
+                    f"PyTorch port (only {only!r})"
+                )
+        if not self.overflow_enabled:
+            raise ValueError(
+                "the PyTorch port always runs the overflow stage: "
+                "overflow_capacity must be > 0 and overflow_slots > tile_slots"
+            )
+        if not (
+            self.overflow_grid_capacity > 0
+            and self.overflow_window_slots > self.overflow_slots
+        ):
+            raise ValueError(
+                "the PyTorch port always runs the window and dense stages: "
+                "overflow_grid_capacity must be > 0 and "
+                "overflow_window_slots > overflow_slots"
+            )
+        if self.tile_slots < 1:
+            raise ValueError("tile_slots must be >= 1")
+
+    @property
+    def overflow_enabled(self) -> bool:
+        return self.overflow_capacity > 0 and self.overflow_slots > self.tile_slots
+
+    def overflow_capacity_for(self, n: int) -> int:
+        """Clamped-splat capture capacity for an n-splat cloud (~n/24, all
+        of a cloud up to 2048 splats)."""
+        full_small = min(-(-n // 128) * 128, 2048)
+        return min(
+            self.overflow_capacity,
+            max(full_small, -(-n // (24 * 128)) * 128),
+        )
+
+    def overflow_grid_capacity_for(self, capacity_c: int) -> int:
+        """Giant (n_rect > overflow_slots) window capacity."""
+        if self.overflow_grid_capacity <= 0:
+            return 0
+        return min(self.overflow_grid_capacity, max(128, capacity_c // 16))
+
+    def overflow_dense_capacity_for(self, capacity_c: int) -> int:
+        """Mega (n_rect > overflow_window_slots) dense-grid capacity."""
+        if self.overflow_grid_capacity <= 0:
+            return 0
+        return min(self.overflow_grid_capacity, max(64, capacity_c // 256))
+
+    def overflow_walk_capacity_for(self, capacity_c: int) -> int:
+        worst = (self.overflow_slots - self.tile_slots) * capacity_c
+        return min(worst, max(capacity_c * self.overflow_walk_factor, 65536))
+
+    def overflow_window_capacity_for(self, g_cap: int) -> int:
+        worst = (self.overflow_window_slots - self.overflow_slots) * g_cap
+        return min(worst, max(g_cap * 32, 65536))
+
+    def tiles_for(self, width: int, height: int) -> Tuple[int, int]:
+        return (-(-width // self.tile_w), -(-height // self.tile_h))
+
+    def key_bits(self, width: int, height: int) -> Tuple[int, int]:
+        """(tile_bits, depth_bits) of the packed 32-bit sort key
+        ``tile_id << depth_bits | depth_q``; 0xFFFFFFFF is the sentinel."""
+        tx, ty = self.tiles_for(width, height)
+        num_tiles = tx * ty
+        tile_bits = max(1, int(np.ceil(np.log2(num_tiles + 1))))
+        return tile_bits, 32 - tile_bits
+
+
+@dataclasses.dataclass(frozen=True)
+class SplattingArgs:
+    """Per-frame render settings (web-splat renderer.rs:585-599)."""
+
+    gaussian_scaling: float = 1.0
+    max_sh_deg: int = 3
+    mip_splatting: Optional[bool] = None
+    kernel_size: Optional[float] = None
+    clipping_box_min: Optional[Tuple[float, float, float]] = None
+    clipping_box_max: Optional[Tuple[float, float, float]] = None
+    walltime: float = 100.0
+    scene_center: Optional[Tuple[float, float, float]] = None
+    scene_extend: Optional[float] = None
+    background_color: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedSettings:
+    """SplattingArgs with per-cloud defaults substituted."""
+
+    gaussian_scaling: float
+    max_sh_deg: int
+    mip_splatting: bool
+    kernel_size: float
+    clipping_box_min: Tuple[float, float, float]
+    clipping_box_max: Tuple[float, float, float]
+    walltime: float
+    scene_center: Tuple[float, float, float]
+    scene_extend: float
+    background_color: Tuple[float, float, float]
+
+
+def resolve_settings(args: SplattingArgs, pc) -> ResolvedSettings:
+    """Resolve Optional args against point-cloud metadata
+    (web-splat SplattingArgsUniform::from_args_and_pc)."""
+    bbox_min, bbox_max = pc.aabb
+    radius = float(np.linalg.norm((np.asarray(bbox_max) - np.asarray(bbox_min)) / 2.0))
+    mip = args.mip_splatting
+    if mip is None:
+        mip = bool(pc.mip_splatting) if pc.mip_splatting is not None else False
+    kernel = args.kernel_size
+    if kernel is None:
+        kernel = pc.kernel_size if pc.kernel_size is not None else DEFAULT_KERNEL_SIZE
+    extend = args.scene_extend if args.scene_extend is not None else radius
+    extend = max(extend, radius)
+    center = args.scene_center if args.scene_center is not None else tuple(pc.center)
+    cb_min = args.clipping_box_min if args.clipping_box_min is not None else tuple(bbox_min)
+    cb_max = args.clipping_box_max if args.clipping_box_max is not None else tuple(bbox_max)
+    return ResolvedSettings(
+        gaussian_scaling=float(args.gaussian_scaling),
+        max_sh_deg=int(args.max_sh_deg),
+        mip_splatting=bool(mip),
+        kernel_size=float(kernel),
+        clipping_box_min=tuple(float(x) for x in cb_min),
+        clipping_box_max=tuple(float(x) for x in cb_max),
+        walltime=float(args.walltime),
+        scene_center=tuple(float(x) for x in center),
+        scene_extend=float(extend),
+        background_color=tuple(float(x) for x in args.background_color),
+    )
