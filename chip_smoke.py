@@ -7,18 +7,25 @@ renders the committed golden scene, and drives the main path at full size.
 
 Phases (one line each; any failure raises and the exit code is nonzero):
   0 probe    torch / CUDA versions, the card, nvcc, nvidia-smi name + limit
-  1 build    nvcc build of websplat_tpu_torch/csrc into one library
-  2 kernels  frontend, overflow walk, compaction and rasterizer against
-             their plain versions on the card, at the shapes of the bench
-             scene's first view (1,244,819 splats, 1200x799), with times;
-             the walk also with the alpha bound off; the wrappers refuse
-             bad arguments
+  1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
+             in parallel) linked into one library
+  2 kernels  frontend, overflow walk, compaction, both rasterizers (the
+             slab one at mxu/highest, mxu/high, mxu/default and hybrid) and
+             the packed emission against their plain versions on the card,
+             at the shapes of the bench scene's first view (1,244,819
+             splats, 1200x799), with times; the walk also with the alpha
+             bound off; the packed emission also at half its row count;
+             the wrappers refuse bad arguments
   3 golden   the 500-splat golden scene through the kernels vs
              tests/goldens/oracle_500.png (PSNR > 40 dB)
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer(
              device="cuda") over the 8 orbit views of bench.py; launch
              counts, diagnostics, plain-path PSNR, ms/frame, per-stage ms,
              device busy ms and idle share (torch.profiler)
+  4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
+             counts, diagnostics and PSNR against the scan frames; view 0
+             with composite="mxu" at each precision; ms/frame, busy ms and
+             idle share
   5 result   a JSON line of per-kernel numbers, then the final JSON line
 
 It imports nothing of JAX.  Without CUDA it exits nonzero and prints no
@@ -44,6 +51,21 @@ N_VIEWS = 8
 TIMED_PASSES = 3
 STREAM_TOL = 1e-4  # allowed fraction of differing rows, kernel vs plain
 RASTER_TOL = 1e-4  # max abs difference per channel, kernel vs plain
+# Slab rasterizer, kernel vs plain (max abs per channel).  Both compute the
+# same bf16 splits with exact products; only the order of the f32 sums
+# differs (the MMA's against the plain matmuls and prefix sums).  One bf16
+# pass ("default") also rounds loga and the weights once, and a sum-order
+# step can move them across a bf16 rounding boundary (2^-9 relative).
+MXU_TOL = {"highest": 1e-4, "high": 1e-4, "hybrid": 1e-4, "default": 2e-3}
+# ... except on a handful of pixels: the quadratic form's terms reach ~1e3,
+# so its sum order moves na by ~1e-4, and where that flips the discard
+# comparison na > t5 alpha jumps by up to exp(t5) = op * exp(-2 CUTOFF)
+# ~ 0.009 op (a flipped stop vote blends one more slab, <= eps * rgb).  At
+# most MXU_SLACK of the pixels may exceed MXU_TOL, none by more than
+# MXU_FLIP_TOL.  (The hybrid's quadratic form is exact f32 on both sides.)
+MXU_SLACK = 1e-5
+MXU_FLIP_TOL = 2e-2
+SLAB_PSNR = 50.0  # slab composites vs the scan frame of the same view
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -55,6 +77,10 @@ KERNELS = {
                 "websplat_tpu/ops/compact_pallas.py:51"),
     "rasterize": ("websplat_tpu_torch/csrc/rasterize.cu",
                   "websplat_tpu/ops/rasterize_pallas.py:508"),
+    "rasterize_mxu": ("websplat_tpu_torch/csrc/rasterize_mxu.cu",
+                      "websplat_tpu/ops/rasterize_pallas.py:138"),
+    "emit_compact": ("websplat_tpu_torch/csrc/emit_compact.cu",
+                     "websplat_tpu/ops/emit_compact_pallas.py:81"),
 }
 
 
@@ -78,6 +104,26 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def event_ms(fn):
+    """(fn()'s result, its device time in ms by CUDA events): one run."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def mxu_config(variant):
+    from websplat_tpu_torch.config import RasterConfig
+
+    if variant == "hybrid":
+        return RasterConfig(composite="hybrid")
+    return RasterConfig(composite="mxu", mxu_precision=variant)
 
 
 def probe():
@@ -148,7 +194,11 @@ def kernels_vs_plain(cloud, results):
     from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
     from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
     from websplat_tpu_torch.ops.preprocess import dense_grid_emit
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops.emit_compact import emit_compact, emit_compact_torch
+    from websplat_tpu_torch.ops.preprocess import preprocess_packed
     from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
+    from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
     from websplat_tpu_torch.render.renderer import build_instance_stream, upload_cloud
     from websplat_tpu_torch.synth import bench_cameras
@@ -248,22 +298,6 @@ def kernels_vs_plain(cloud, results):
         ms=cuda_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap), 50),
         plain_ms=cuda_ms(lambda: compact_torch(dkeys, dwords, capacity=dcap), 5))
 
-    # the wrappers refuse arguments their kernels cannot take
-    bad_calls = {
-        "payload on the CPU": lambda: compact_instances(dkeys, dwords.cpu(), capacity=dcap),
-        "int64 keys": lambda: compact_instances(dkeys.long(), dwords, capacity=dcap),
-        "host row count": lambda: overflow_walk(
-            fk.cid, 5, cap_c, rank_lo=6, rank_hi=32, giant_thresh=32, capacity=10,
-            giant_capacity=0, **geo),
-    }
-    for what, call in bad_calls.items():
-        try:
-            call()
-        except ValueError:
-            continue
-        raise AssertionError(f"a wrapper accepted {what}")
-    say("kernels", f"wrappers refuse: {', '.join(bad_calls)}")
-
     # rasterizer on the kernel path's sorted stream
     keys, words, _ = build_instance_stream(dc, fs, **geo)
     sk, sw = sort_instances(keys, words)
@@ -281,6 +315,99 @@ def kernels_vs_plain(cloud, results):
     results["rasterize"] = dict(
         max_abs_err=err_r, ms=cuda_ms(lambda: rasterize(sw, ranges, bg, **geo), 20),
         plain_ms=cuda_ms(lambda: rasterize_torch(sw, ranges, bg, **geo), 1))
+
+    # slab rasterizer, each variant on the same sorted stream: every error
+    # is printed before any is judged
+    variants = {}
+    for v in ("highest", "high", "default", "hybrid"):
+        vcfg = mxu_config(v)
+        vgeo = dict(geo, config=vcfg)
+        bk = rasterize_mxu(sw, ranges, bg, **vgeo)
+        bp, plain_ms = event_ms(lambda: rasterize_mxu_torch(sw, ranges, bg, **vgeo))
+        err = float((bk - bp).abs().max())
+        n_off = int(((bk - bp).abs() > MXU_TOL[v]).any(dim=-1).sum())
+        variants[v] = dict(max_abs_err=err, tol=MXU_TOL[v], pixels_over_tol=n_off,
+                           pixels_allowed=int(MXU_SLACK * bk.shape[0] * bk.shape[1]),
+                           finite=bool(torch.isfinite(bk).all()),
+                           ms=cuda_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo), 10),
+                           plain_ms=plain_ms, mean_abs_vs_scan=float((bk - rk).abs().mean()))
+        say("kernels", f"rasterize_mxu {v}: max |kernel - plain| = {err:.3g} ({n_off} "
+                       f"pixels over {MXU_TOL[v]}, allowed {variants[v]['pixels_allowed']} "
+                       f"up to {MXU_FLIP_TOL}), mean |kernel - scan| "
+                       f"{variants[v]['mean_abs_vs_scan']:.3g}, kernel "
+                       f"{variants[v]['ms']:.3f} ms, plain {plain_ms:.3f} ms")
+    for v, r in variants.items():
+        if not (r["finite"] and r["pixels_over_tol"] <= r["pixels_allowed"]
+                and r["max_abs_err"] <= MXU_FLIP_TOL):
+            raise AssertionError(f"rasterize_mxu {v}: kernel disagrees with its plain version")
+    results["rasterize_mxu"] = dict(variants["hybrid"], variants=variants)
+
+    # packed emission + compaction of the view's packed preprocess; its
+    # launches are counted here: no render path calls it
+    pk = preprocess_packed(dc, fs, **geo)
+    egeo = dict(slots=cfg.tile_slots, tx_tiles=tx, depth_bits=cfg.key_bits(W, H)[1])
+    full_cap = n * cfg.tile_slots
+    build.LAUNCHES["emit_compact"] = 0
+    ek = emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
+    ep = emit_compact_torch(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
+    n_valid = int(ek[2])
+    if n_valid != int(ep[2]) or int(ek[3]) != 0:
+        raise AssertionError(f"emit_compact count {n_valid} != plain {int(ep[2])} "
+                             f"(dropped {int(ek[3])})")
+    full_rows = stream_rows(ek[0], ek[1], n=n_valid)
+    err_e = check_rows(f"emit_compact ({n} splats)", full_rows,
+                       stream_rows(ep[0], ep[1], n=n_valid),
+                       f"; visible {int(pk.num_visible)}, clamped {int(pk.num_clamped)}")
+    half = n_valid // 2
+    hk = emit_compact(pk.depth_q, pk.rect, pk.words, capacity=half, **egeo)
+    # the kept rows are a sub-multiset of the full stream iff the two
+    # multisets differ by exactly the rows left out
+    n_diff, _ = compare_rows(stream_rows(hk[0], hk[1], n=half), full_rows)
+    if not (int(hk[2]) == n_valid and int(hk[3]) == n_valid - half
+            and (hk[0].cpu().numpy().view(np.uint32) != 0xFFFFFFFF).all()
+            and n_diff == n_valid - half):
+        raise AssertionError(f"emit_compact at capacity {half}: num_valid {int(hk[2])}, "
+                             f"num_dropped {int(hk[3])}, rows outside the full stream "
+                             f"{n_diff - (n_valid - half)}")
+    say("kernels", f"emit_compact at capacity {half}: {half} rows kept, all from the full "
+                   f"stream, num_dropped {int(hk[3])}")
+    launches_f = build.LAUNCHES["emit_compact"]
+    results["emit_compact"] = dict(
+        max_abs_err=err_e, launches=launches_f,
+        launches_counted_in="phase 2 (no render path calls it)",
+        ms=cuda_ms(lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap,
+                                        **egeo), 20),
+        plain_ms=cuda_ms(lambda: emit_compact_torch(pk.depth_q, pk.rect, pk.words,
+                                                    capacity=full_cap, **egeo), 3))
+
+    # the wrappers refuse arguments their kernels cannot take
+    bad_mxu = mxu_config("highest")
+    object.__setattr__(bad_mxu, "mxu_precision", "fp8")  # past the config's own check
+    bad_calls = {
+        "ranges on the CPU": lambda: rasterize_mxu(sw, ranges.cpu(), bg, **dict(
+            geo, config=mxu_config("hybrid"))),
+        "int64 words": lambda: rasterize_mxu(sw.long(), ranges, bg, **dict(
+            geo, config=mxu_config("hybrid"))),
+        "mxu_precision='fp8' (config)": lambda: RasterConfig(composite="mxu",
+                                                             mxu_precision="fp8"),
+        "mxu_precision='fp8' (wrapper)": lambda: rasterize_mxu(sw, ranges, bg, **dict(
+            geo, config=bad_mxu)),
+        "int64 packed words": lambda: emit_compact(pk.depth_q, pk.rect, pk.words.long(),
+                                                   capacity=16, **egeo),
+        "payload on the CPU": lambda: compact_instances(dkeys, dwords.cpu(), capacity=dcap),
+        "int64 keys": lambda: compact_instances(dkeys.long(), dwords, capacity=dcap),
+        "host row count": lambda: overflow_walk(
+            fk.cid, 5, cap_c, rank_lo=6, rank_hi=32, giant_thresh=32, capacity=10,
+            giant_capacity=0, **geo),
+    }
+    for what, call in bad_calls.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"a wrapper accepted {what}")
+    say("kernels", f"wrappers refuse: {', '.join(bad_calls)}")
+
     for name in KERNELS:
         r = results[name]
         say("kernels", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
@@ -305,11 +432,9 @@ def golden():
 
 def main_path(cloud):
     """Phase 4: the user's entry points at full size, 8 orbit views."""
-    import torch
-
     from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
     from websplat_tpu_torch.kernels import build
-    from websplat_tpu_torch.render.renderer import StageTimer, render_frame
+    from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
@@ -345,16 +470,28 @@ def main_path(cloud):
     if not p >= 50.0:
         raise AssertionError(f"plain-path PSNR {p:.2f} dB < 50")
 
-    # warm frame time: spans between the CUDA events of the stage marks
-    # (device timeline, host-paced gaps included); host clock around each
-    # synchronised frame
+    frame_timing("main", renderer, blocks)
+    return launches, images, blocks
+
+
+def frame_timing(phase, renderer, blocks):
+    """Warm frame time of a renderer's config over the views: spans between
+    the CUDA events of the stage marks (device timeline, host-paced gaps
+    included) and the host clock around each synchronised frame; then the
+    device busy time of one profiled pass (torch.profiler: the union of the
+    device activity intervals, per frame) against the event span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from websplat_tpu_torch.render.renderer import StageTimer, render_frame
+
+    geo = dict(width=W, height=H, config=renderer.config)
     stages, frame_ms, wall_ms = {}, [], []
     for _ in range(TIMED_PASSES):
         for fs, st in blocks:
             timer = StageTimer()
             t0 = time.perf_counter()
-            render_frame(renderer.device_cloud, fs, st.background_color, width=W, height=H,
-                         config=renderer.config, timer=timer)
+            render_frame(renderer.device_cloud, fs, st.background_color, timer=timer, **geo)
             ms = timer.stages_ms()
             wall_ms.append(1e3 * (time.perf_counter() - t0))
             frame_ms.append(sum(ms.values()))
@@ -362,19 +499,14 @@ def main_path(cloud):
                 stages.setdefault(k, []).append(v)
     med = statistics.median(frame_ms)
     split = ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in stages.items())
-    say("main", f"warm frame (median of {len(frame_ms)}): {med:.3f} ms event span "
-                f"({1e3 / med:.1f} FPS), {statistics.median(wall_ms):.3f} ms host wall; "
-                f"stages ms: {split}; peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    # device busy time (torch.profiler): the union of the device activity
-    # intervals of one profiled pass, per frame, against the event span
-    from torch.profiler import ProfilerActivity, profile
+    say(phase, f"warm frame (median of {len(frame_ms)}): {med:.3f} ms event span "
+               f"({1e3 / med:.1f} FPS), {statistics.median(wall_ms):.3f} ms host wall; "
+               f"stages ms: {split}; peak device memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for fs, st in blocks:
-            render_frame(renderer.device_cloud, fs, st.background_color, width=W, height=H,
-                         config=renderer.config)
+            render_frame(renderer.device_cloud, fs, st.background_color, **geo)
         torch.cuda.synchronize()
     iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -385,9 +517,53 @@ def main_path(cloud):
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
     busy = busy_us / 1e3 / len(blocks)
-    say("main", f"device busy {busy:.3f} ms per frame in {len(iv) / len(blocks):.0f} device "
-                f"activities (torch.profiler); idle share of the event span "
-                f"{1 - busy / med:.3f}")
+    say(phase, f"device busy {busy:.3f} ms per frame in {len(iv) / len(blocks):.0f} device "
+               f"activities (torch.profiler); idle share of the event span "
+               f"{1 - busy / med:.3f}")
+
+
+def slab_path(cloud, scan_images, blocks):
+    """Phase 4b: the user's entry point with the slab composites, the 8
+    views against the scan frames of phase 4."""
+    from websplat_tpu_torch import GaussianRenderer, SplattingArgs
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils.image import psnr
+
+    renderer = GaussianRenderer(cloud, mxu_config("hybrid"), device="cuda")
+    cams = bench_cameras()
+    build.reset_launches()
+    images, diags = [], []
+    for cam in cams:
+        images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
+        diags.append(dict(renderer._last_diag))
+    launches = dict(build.LAUNCHES)
+    say("slab", f"hybrid, {N_VIEWS} views {W}x{H}: launches {launches}")
+    for i, (img, d) in enumerate(zip(images, diags)):
+        p = psnr(img, scan_images[i])
+        say("slab", f"view {i}: PSNR vs scan {p:.2f} dB, {d}")
+        if not (img.shape == (H, W, 3) and np.isfinite(img).all()):
+            raise AssertionError(f"hybrid view {i}: image not finite or wrong shape {img.shape}")
+        if not (d["num_dropped"] == 0 and d["num_clamped"] == 0 and p >= SLAB_PSNR):
+            raise AssertionError(f"hybrid view {i}: PSNR {p:.2f} dB, diagnostics {d}")
+    need = {"rasterize_mxu": N_VIEWS, "frontend": N_VIEWS, "overflow_walk": N_VIEWS,
+            "compact": 1}
+    for name, k in need.items():
+        if launches[name] < k:
+            raise AssertionError(f"{name} launched {launches[name]} times on the hybrid path, "
+                                 f"expected >= {k}")
+
+    for v in ("highest", "high", "default"):
+        r = GaussianRenderer(cloud, mxu_config(v), device="cuda")
+        img = r.render(cams[0], (W, H), SplattingArgs())
+        p = psnr(img, scan_images[0])
+        gate = v != "default"  # one bf16 pass is printed, not gated
+        say("slab", f"mxu/{v}, view 0: PSNR vs scan {p:.2f} dB"
+                    + ("" if gate else " (not gated)"))
+        if not np.isfinite(img).all() or (gate and not p >= SLAB_PSNR):
+            raise AssertionError(f"mxu/{v} view 0: PSNR {p:.2f} dB or not finite")
+
+    frame_timing("slab", renderer, blocks)
     return launches
 
 
@@ -398,12 +574,14 @@ def main() -> int:
     results = {}
     kernels_vs_plain(cloud, results)
     golden()
-    launches = main_path(cloud)
+    launches, scan_images, blocks = main_path(cloud)
+    launches["rasterize_mxu"] = slab_path(cloud, scan_images, blocks)["rasterize_mxu"]
+    launches["emit_compact"] = results["emit_compact"].pop("launches")
     import torch
 
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
-             **{f: results[k][f] for f in ("max_abs_err", "ms", "plain_ms")})
+             **{f: v for f, v in results[k].items() if f != "finite"})
         for k, (src, rep) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

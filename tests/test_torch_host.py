@@ -140,13 +140,26 @@ def test_raster_config_capacities_equal():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("composite", "mxu"), ("composite", "tree"), ("qform", "direct"),
-    ("sort_backend", "u64"), ("y_bands", 2), ("raster_backend", "xla"),
+    ("composite", "bogus"), ("mxu_precision", "fp8"), ("composite", "tree"),
+    ("qform", "direct"), ("sort_backend", "u64"), ("y_bands", 2), ("raster_backend", "xla"),
     ("compact", False), ("overflow_capacity", 0), ("overflow_slots", 6),
 ])
 def test_raster_config_rejects_unported_values(field, value):
     with pytest.raises(ValueError):
         tconfig.RasterConfig(**{field: value})
+
+
+@pytest.mark.parametrize("composite,precision", [
+    ("scan", "highest"), ("mxu", "default"), ("mxu", "high"), ("mxu", "highest"),
+    ("hybrid", "highest"),
+])
+def test_raster_config_accepts_ported_composites(composite, precision):
+    """The values JAX's RasterConfig takes for these fields, with its
+    default precision."""
+    t = tconfig.RasterConfig(composite=composite, mxu_precision=precision)
+    j = JaxRasterConfig(composite=composite, mxu_precision=precision)
+    assert (t.composite, t.mxu_precision) == (j.composite, j.mxu_precision)
+    assert tconfig.RasterConfig().mxu_precision == JaxRasterConfig().mxu_precision
 
 
 def test_upload_bit_equal_to_jax():

@@ -5,9 +5,13 @@ Counterpart of ``websplat_tpu/config.py``.  ``SplattingArgs``,
 dataclasses.  ``RasterConfig`` keeps only the fields whose values change
 what a frame computes, plus the capacity helpers that size the instance
 streams; every TPU scheduling knob of the JAX config (DMA chunking, sort
-ladder, raster segment/batch/band tuning, MXU precision) has no meaning
-here and is absent.  Values of the remaining fields that the port does not
-implement raise at construction instead of being ignored.
+ladder, raster segment/batch/band tuning) has no meaning here and is
+absent.  ``composite`` picks the rasterizer: "scan" (the default, one
+pixel per lane, ``ops/rasterize.py``) or the slab rasterizer "mxu" /
+"hybrid" (``ops/rasterize_mxu.py``), whose three contractions run on the
+tensor cores at the ``mxu_precision`` pass count.  Values of the remaining
+fields that the port does not implement raise at construction instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ DEFAULT_KERNEL_SIZE: float = 0.3
 
 # Reference: fragment cutoff sqrt(log(255)) (web-splat gaussian.wgsl:2)
 CUTOFF: float = 2.3539888583335364
+
+COMPOSITES = ("scan", "mxu", "hybrid")
+MXU_PRECISIONS = ("default", "high", "highest")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +51,15 @@ class RasterConfig:
     alpha_threshold: float = 1.0 / 255.0
     transmittance_eps: float = 4e-3
     instance_capacity_factor: float = 2.0
+    # "scan" (ops/rasterize.py) or the slab rasterizer "mxu" / "hybrid"
+    # (ops/rasterize_mxu.py); "tree" is not ported yet
+    composite: str = "scan"
+    # bf16 pass count of the "mxu" composite's contractions: "default" 1
+    # pass, "high" 3 (both operands split hi/lo), "highest" 6 (three-way
+    # split, f32-grade); "hybrid" fixes its own passes and ignores it
+    mxu_precision: str = "highest"
     # Fields kept only so that configurations written for the JAX package
     # fail loudly here: each accepts its default value alone.
-    composite: str = "scan"
     qform: str = "monomial"
     sort_backend: str = "xla"
     raster_backend: str = "pallas"
@@ -54,9 +67,22 @@ class RasterConfig:
     compact: bool = True
 
     def __post_init__(self):
+        if self.composite not in COMPOSITES:
+            raise ValueError(
+                f"RasterConfig.composite={self.composite!r}: the PyTorch port runs "
+                f"{COMPOSITES}" + (" ('tree' is still to be ported, ROADMAP.md Queue 1)"
+                                   if self.composite == "tree" else "")
+            )
+        if self.mxu_precision not in MXU_PRECISIONS:
+            raise ValueError(
+                f"RasterConfig.mxu_precision={self.mxu_precision!r}: one of {MXU_PRECISIONS}"
+            )
+        if self.qform != "monomial":
+            raise ValueError(
+                f"RasterConfig.qform={self.qform!r} is not implemented by the PyTorch port "
+                "(only 'monomial'; 'direct' is still to be ported, ROADMAP.md Queue 1)"
+            )
         unsupported = {
-            "composite": (self.composite, "scan"),
-            "qform": (self.qform, "monomial"),
             "sort_backend": (self.sort_backend, "xla"),
             "raster_backend": (self.raster_backend, "pallas"),
             "y_bands": (self.y_bands, 1),

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``.  The build runs at first
-use, from the sources in the checkout only, into ``websplat_tpu_torch/_build``
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use, from
+the sources in the checkout only, into ``websplat_tpu_torch/_build``
 (git-ignored); the library's file name carries a hash of the sources and the
 flags, so an edited source rebuilds.  Nothing here is imported or compiled
 when the package is imported: the first kernel launch triggers it.
@@ -33,20 +34,21 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
-SOURCES = ("rasterize.cu", "compact.cu", "frontend.cu", "overflow.cu")
+SOURCES = ("rasterize.cu", "rasterize_mxu.cu", "compact.cu", "emit_compact.cu", "frontend.cu",
+           "overflow.cu")
 HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-fmad=false",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
-LAUNCHES: Dict[str, int] = {"rasterize": 0, "frontend": 0, "overflow_walk": 0, "compact": 0}
+LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_mxu": 0, "frontend": 0,
+                            "overflow_walk": 0, "compact": 0, "emit_compact": 0}
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
 _SIGNATURES = {
     "ws_rasterize": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp],
+    "ws_rasterize_mxu": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
+    "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _vp],
     "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _vp],
     "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp],
     "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp],
@@ -95,17 +97,28 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(CSRC), "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
-    if verbose:
-        print(proc.stderr, proc.stdout, sep="\n")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = nvcc_path()
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        objs = [str(Path(tmp) / (Path(src).stem + ".o")) for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-I", str(CSRC), "-c",
+                                   "-o", obj, str(CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        outs = [p.communicate() for p in procs]  # (stdout, stderr) each
+        failed = [f"{src} (nvcc {p.returncode}):\n{err}\n{so}"
+                  for src, p, (so, err) in zip(SOURCES, procs, outs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        if verbose:
+            for src, (so, err) in zip(SOURCES, outs):
+                print(f"--- {src}", err, so, sep="\n")
+        lib_tmp = str(Path(tmp) / out.name)
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib_tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
+        os.replace(lib_tmp, out)
     return out
 
 

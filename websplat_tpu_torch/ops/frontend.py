@@ -36,6 +36,7 @@ from websplat_tpu_torch.ops.preprocess import (
     core_math,
     make_reaches,
     pack_rect4,
+    slot_tiles,
 )
 
 MAX_TILES_PER_AXIS = 127  # the JAX frontend's limit (frontend_pallas.py:513)
@@ -67,16 +68,13 @@ def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
     _, depth_bits = config.key_bits(width, height)
     slots = config.tile_slots
     d = core_math(cloud, fs, width=width, height=height, config=config)
-    visible, n_rect, w_t = d["visible"], d["n_rect"], d["w_t"]
+    visible, n_rect = d["visible"], d["n_rect"]
     reaches = make_reaches(*d["reach"], config.tile_w, config.tile_h)
     words = torch.stack(d["words"])  # (4, N) int64
 
     key_parts, idx_parts = [], []
     for j in range(slots):
-        dy = j // w_t
-        tx = d["tx0"] + (j - dy * w_t)
-        ty = d["ty0"] + dy
-        ok = visible & (j < n_rect) & reaches(tx, ty)
+        tx, ty, ok = slot_tiles(d, j, reaches)
         (idx,) = torch.nonzero(ok, as_tuple=True)
         key_parts.append(((ty[idx] * tx_tiles + tx[idx]) << depth_bits) | d["depth_q"][idx])
         idx_parts.append(idx)

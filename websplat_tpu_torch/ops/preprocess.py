@@ -13,10 +13,11 @@ square roots are correctly rounded (``packing.sqrt``) and logarithms are
 taken in f64 and rounded to f32 (``log32``), so the CPU, the plain CUDA
 path and the kernels compute the same values.
 
-Also here: the row-major slot walk of the frontend (``slot_tiles``), the
-reach test rebuilt from decoded records (``make_reaches``, used by the
-overflow walk), the rect4 codec and the dense extreme-tail grid
-(``dense_grid_emit``, plain tensor code in both packages).
+Also here: the row-major slot walk (``slot_tiles``) of the frontend and of
+the packed emission (``preprocess_packed``, the per-splat input of
+``ops/emit_compact.py``), the reach test rebuilt from decoded records
+(``make_reaches``, used by the overflow walk), the rect4 codec and the dense
+extreme-tail grid (``dense_grid_emit``, plain tensor code in both packages).
 """
 
 from __future__ import annotations
@@ -271,6 +272,65 @@ def core_math(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
         tx0=tx0, ty0=ty0, tx1=tx1, ty1=ty1,
         w_t=w_t, h_t=h_t, n_rect=w_t * h_t,
         reach=(px, py, half_a, conic_b, half_c, a_max),
+    )
+
+
+def slot_tiles(d, j: int, reaches):
+    """Rank j of every splat's row-major rect walk (core_math output ``d``):
+    its tile (tx, ty) and whether the splat emits it (visible, inside the
+    rect, reached)."""
+    dy = j // d["w_t"]
+    tx = d["tx0"] + (j - dy * d["w_t"])
+    ty = d["ty0"] + dy
+    return tx, ty, d["visible"] & (j < d["n_rect"]) & reaches(tx, ty)
+
+
+# rect word of the packed emission (emit_compact_pallas.py:61-66): tx0 in 7
+# bits, ty0 in 7, min(w_t, 15) in 4, the slot mask from bit 18
+TX0_BITS, TY0_BITS, WT_BITS = 7, 7, 4
+MASK_SHIFT = TX0_BITS + TY0_BITS + WT_BITS
+MAX_PACKED_SLOTS = 8
+MAX_PACKED_TILES = (1 << TX0_BITS) - 1
+
+
+class PackedOut(NamedTuple):
+    """Per-splat input of emit_compact, int32 tensors of u32 bits."""
+
+    depth_q: torch.Tensor  # (N,)
+    rect: torch.Tensor  # (N,) rect word; 0 emits nothing
+    words: torch.Tensor  # (4, N) packed record
+    num_visible: torch.Tensor  # 0-d
+    num_clamped: torch.Tensor  # 0-d: visible splats with n_rect > tile_slots
+
+
+def preprocess_packed(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
+                      config: RasterConfig) -> PackedOut:
+    """``preprocess(emit="packed")`` (preprocess.py:585-612): core_math and
+    the pure row-major walk for every splat (``iter_slots(center_out=False)``),
+    packed as each splat's rect word, depth and record.  Plain tensor code on
+    every device, as in JAX (XLA there).  Unlike JAX it does not pad N."""
+    tx_tiles, ty_tiles = config.tiles_for(width, height)
+    slots = config.tile_slots
+    if tx_tiles > MAX_PACKED_TILES or ty_tiles > MAX_PACKED_TILES or slots > MAX_PACKED_SLOTS:
+        raise ValueError(
+            f"packed emission limits: <= {MAX_PACKED_TILES} tiles per axis, <= "
+            f"{MAX_PACKED_SLOTS} slots (got {tx_tiles}x{ty_tiles} tiles, {slots} slots)"
+        )
+    d = core_math(cloud, fs, width=width, height=height, config=config)
+    reaches = make_reaches(*d["reach"], config.tile_w, config.tile_h)
+    mask = torch.zeros_like(d["tx0"])
+    for j in range(slots):
+        _, _, ok = slot_tiles(d, j, reaches)
+        mask = mask | (ok.to(torch.int64) << j)
+    rect = (d["tx0"] | (d["ty0"] << TX0_BITS)
+            | (torch.clamp(d["w_t"], max=15) << (TX0_BITS + TY0_BITS)) | (mask << MASK_SHIFT))
+    visible = d["visible"]
+    return PackedOut(
+        depth_q=packing.to_i32(d["depth_q"]),
+        rect=packing.to_i32(rect),
+        words=packing.to_i32(torch.stack(d["words"])),
+        num_visible=visible.sum().to(torch.int32),
+        num_clamped=(visible & (d["n_rect"] > slots)).sum().to(torch.int32),
     )
 
 

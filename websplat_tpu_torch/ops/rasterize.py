@@ -4,6 +4,11 @@ Counterpart of ``websplat_tpu/ops/rasterize_pallas.py:rasterize_pallas``
 (composite="scan", qform="monomial") and of its plain XLA twin
 ``rasterize_xla.py``.  ``rasterize_torch`` is the plain version;
 ``rasterize`` launches ``csrc/rasterize.cu`` for a stream on the card.
+Both evaluate the quadratic form directly, from each pixel's offset to the
+splat centre; the TPU kernel expands it into tile-local monomials (which
+bounded f32 cancellation on its VPU).  The images agree to f32 rounding
+(tests/test_torch_sort_raster.py); the monomial form is the slab
+rasterizer's (ops/rasterize_mxu.py).
 
 Blend rule, identical in both: pixels walk their tile's span
 ``[ranges[t], ranges[t+1])`` in key order; splat i with quadratic form
@@ -35,7 +40,8 @@ from websplat_tpu_torch.ops.packing import u32
 _EXIT_CHECK = 64  # span positions between saturation checks (host syncs)
 
 
-def _check(words, ranges, width, height, config):
+def check_stream(words, ranges, width, height, config):
+    """Shape checks shared by both rasterizers."""
     tx, ty = config.tiles_for(width, height)
     if words.dim() != 2 or words.shape[0] != 4:
         raise ValueError(f"words must be (4, M), got {tuple(words.shape)}")
@@ -48,7 +54,7 @@ def _check(words, ranges, width, height, config):
 def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
                     width: int, height: int, config: RasterConfig) -> torch.Tensor:
     """Plain PyTorch rasterizer, on any device -> (H, W, 3) f32."""
-    _check(words, ranges, width, height, config)
+    check_stream(words, ranges, width, height, config)
     dev = words.device
     tw, th = config.tile_w, config.tile_h
     tx_tiles, ty_tiles = config.tiles_for(width, height)
@@ -102,7 +108,7 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[fl
                                config=config)
     if dev.type != "cuda":
         raise ValueError(f"rasterize: unsupported device {dev}")
-    _check(words, ranges, width, height, config)
+    check_stream(words, ranges, width, height, config)
     build.require(words, "words", dtype=torch.int32, device=dev)
     build.require(ranges, "ranges", dtype=torch.int32, device=dev)
     tx_tiles, _ = config.tiles_for(width, height)

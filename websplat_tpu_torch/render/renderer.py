@@ -7,7 +7,8 @@ single-device frame of an uncompressed cloud (``render_frame_impl`` with
     frontend (ops/frontend.py)  ->  overflow walk x2 (ops/overflow.py)
       ->  dense extreme-tail grid (ops/preprocess.py) + compaction
           (ops/compact.py)  ->  sort + tile ranges (ops/sort.py)
-      ->  rasterize (ops/rasterize.py)
+      ->  rasterize (ops/rasterize.py; ops/rasterize_mxu.py for
+          composite="mxu" / "hybrid")
 
 On the card every stage but the dense grid, the sort and the ranges is a
 hand-written CUDA kernel; on the CPU each stage runs its plain PyTorch
@@ -36,6 +37,7 @@ from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
 from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
 from websplat_tpu_torch.ops.preprocess import DeviceCloud, FrameScalars, dense_grid_emit
 from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
+from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
 from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
 
 
@@ -200,7 +202,10 @@ def render_frame(cloud: DeviceCloud, fs: FrameScalars, background: Sequence[floa
     _, depth_bits = config.key_bits(width, height)
     ranges = tile_ranges(sorted_keys, tx_tiles * ty_tiles, depth_bits)
     mark("ranges")
-    raster = rasterize_torch if plain else rasterize
+    if config.composite == "scan":
+        raster = rasterize_torch if plain else rasterize
+    else:
+        raster = rasterize_mxu_torch if plain else rasterize_mxu
     img = raster(sorted_words, ranges, background, width=width, height=height, config=config)
     mark("raster")
     if return_diag:
