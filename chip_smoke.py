@@ -8,25 +8,39 @@ renders the committed golden scene, and drives the main path at full size.
 Phases (one line each; any failure raises and the exit code is nonzero):
   0 probe    torch / CUDA versions, the card, nvcc, nvidia-smi name + limit
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
-             in parallel) linked into one library
+             in parallel, with -Xptxas -v) linked into one library; each
+             kernel's registers, shared memory, spills and CTAs per SM
   2 kernels  frontend, overflow walk, compaction, both rasterizers (the
              slab one at mxu/highest, mxu/high, mxu/default and hybrid) and
              the packed emission against their plain versions on the card,
              at the shapes of the bench scene's first view (1,244,819
-             splats, 1200x799), with times; the walk also with the alpha
-             bound off; the packed emission also at half its row count;
-             the wrappers refuse bad arguments
+             splats, 1200x799); the walk also with the alpha bound off; the
+             packed emission also at half its row count; the wrappers refuse
+             bad arguments.  Per kernel: the wrapper's CUDA-event span, the
+             kernel-only time (torch.profiler, by kernel name), its roofline
+             bound from this run's work counts (utils/roofline.py) with the
+             bounding term and the share bound / kernel time, the plain
+             version's time and, for the compaction, the boolean-mask index
+             that computes the same function (library_ms); for the scan
+             rasterizer its span distribution and pair counts
+             (ops/rasterize.py:rasterize_work_torch), for the slab one its
+             slab and alpha > 0 pair counts (ops/rasterize_mxu.py:
+             rasterize_mxu_work_torch)
   3 golden   the 500-splat golden scene through the kernels vs
-             tests/goldens/oracle_500.png (PSNR > 40 dB)
+             tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
+             rasterizer at two other tile shapes (its other pixel maps)
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer(
              device="cuda") over the 8 orbit views of bench.py; launch
              counts, diagnostics, plain-path PSNR, ms/frame, per-stage ms,
-             device busy ms and idle share (torch.profiler)
+             device busy ms, idle share and device ms by kernel
+             (torch.profiler)
   4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
              counts, diagnostics and PSNR against the scan frames; view 0
              with composite="mxu" at each precision; ms/frame, busy ms and
              idle share
-  5 result   a JSON line of per-kernel numbers, then the final JSON line
+  5 result   per kernel: launches per frame and ms above its bound per
+             frame; a JSON line of per-kernel numbers, then the final JSON
+             line
 
 It imports nothing of JAX.  Without CUDA it exits nonzero and prints no
 result.
@@ -68,24 +82,65 @@ MXU_FLIP_TOL = 2e-2
 SLAB_PSNR = 50.0  # slab composites vs the scan frame of the same view
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces)
+    # name: (source, TPU kernel it replaces, CUDA function, threads per CTA)
     "frontend": ("websplat_tpu_torch/csrc/frontend.cu",
-                 "websplat_tpu/ops/frontend_pallas.py:124"),
+                 "websplat_tpu/ops/frontend_pallas.py:124", "frontend_kernel", 256),
     "overflow_walk": ("websplat_tpu_torch/csrc/overflow.cu",
-                      "websplat_tpu/ops/overflow_pallas.py:66"),
+                      "websplat_tpu/ops/overflow_pallas.py:66", "overflow_walk_kernel", 128),
     "compact": ("websplat_tpu_torch/csrc/compact.cu",
-                "websplat_tpu/ops/compact_pallas.py:51"),
+                "websplat_tpu/ops/compact_pallas.py:51", "compact_kernel", 256),
     "rasterize": ("websplat_tpu_torch/csrc/rasterize.cu",
-                  "websplat_tpu/ops/rasterize_pallas.py:508"),
+                  "websplat_tpu/ops/rasterize_pallas.py:508", "rasterize_kernel", 256),
     "rasterize_mxu": ("websplat_tpu_torch/csrc/rasterize_mxu.cu",
-                      "websplat_tpu/ops/rasterize_pallas.py:138"),
+                      "websplat_tpu/ops/rasterize_pallas.py:138", "rasterize_mxu_kernel", 256),
     "emit_compact": ("websplat_tpu_torch/csrc/emit_compact.cu",
-                     "websplat_tpu/ops/emit_compact_pallas.py:81"),
+                     "websplat_tpu/ops/emit_compact_pallas.py:81", "emit_compact_kernel", 256),
 }
 
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def kernel_pattern(name: str):
+    """Regex of a kernel's CUDA function in a profiler or ptxas name (demangled
+    or mangled); "compact_kernel" does not match "emit_compact_kernel"."""
+    import re
+
+    return re.compile(rf"(?<![A-Za-z_]){KERNELS[name][2]}")
+
+
+def kernel_only_ms(fn, name: str, reps: int) -> float:
+    """Median device time of the kernel's own launches over reps calls of
+    fn() (torch.profiler, by kernel name; one launch per call), after one
+    warm-up call.  The profiler has been seen to drop some kernel records
+    on the H100 machine: a pass that keeps fewer than half is repeated."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    pat = kernel_pattern(name)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
+        if 2 * len(ev) >= reps:
+            return statistics.median(ev)
+    raise AssertionError(f"{name}: the profiler saw {len(ev)} of {reps} launches of "
+                         f"{KERNELS[name][2]}")
+
+
+def with_bound(r: dict, work) -> None:
+    """Adds a kernel's roofline bound (utils/roofline.py) and its share."""
+    from websplat_tpu_torch.utils import roofline
+
+    bound_ms, term = roofline.bound(work)
+    r.update(bound_ms=bound_ms, bound_by=roofline.bound_by(term), bound_term=term,
+             share=bound_ms / r["kernel_ms"], work=work._asdict())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -155,11 +210,20 @@ def probe():
 
 def build_kernels():
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.utils import roofline
 
     t0 = time.perf_counter()
-    path = build.build()
+    usage = build.build_report()  # compiles with -Xptxas -v
     build.lib()
-    say("build", f"{path.name} in {time.perf_counter() - t0:.1f} s")
+    say("build", f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        pat, threads = kernel_pattern(name), KERNELS[name][3]
+        for entry, u in usage.items():
+            if pat.search(entry):
+                say("build", f"{name} ({entry}): {u['registers']} registers, {u['smem']} B "
+                             f"static smem, spills {u['spill_stores']}/{u['spill_loads']} B "
+                             f"(stores/loads), {threads} threads -> "
+                             f"{roofline.ctas_per_sm(u['registers'], u['smem'], threads)} CTAs/SM")
 
 
 def bench_cloud():
@@ -193,15 +257,16 @@ def kernels_vs_plain(cloud, results):
     from websplat_tpu_torch.ops.compact import compact_instances, compact_torch
     from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
     from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
-    from websplat_tpu_torch.ops.preprocess import dense_grid_emit
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.emit_compact import emit_compact, emit_compact_torch
-    from websplat_tpu_torch.ops.preprocess import preprocess_packed
-    from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
-    from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
+    from websplat_tpu_torch.ops.preprocess import core_math, dense_grid_emit, preprocess_packed
+    from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, rasterize_work_torch
+    from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
+                                                      rasterize_mxu_work_torch)
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
     from websplat_tpu_torch.render.renderer import build_instance_stream, upload_cloud
     from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils import roofline
     from websplat_tpu_torch.utils.streams import compare_rows, stream_rows
 
     cfg = RasterConfig()
@@ -240,7 +305,14 @@ def kernels_vs_plain(cloud, results):
     )
     results["frontend"] = dict(
         max_abs_err=err_f, ms=cuda_ms(lambda: front(fused_frontend), 20),
-        plain_ms=cuda_ms(lambda: front(frontend_torch), 3))
+        kernel_ms=kernel_only_ms(lambda: front(fused_frontend), "frontend", 20),
+        plain_ms=cuda_ms(lambda: front(frontend_torch), 3), library_ms=None)
+    d = core_math(dc, fs, width=W, height=H, config=cfg)
+    with_bound(results["frontend"], roofline.frontend_work(
+        n, visible, total, min(clamped, cap_c),
+        roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots),
+        fs.max_sh_deg, fs.mip))
+    del d
 
     # overflow walk, both levels on the kernel frontend's clamped rows
     def walks(fn):
@@ -253,6 +325,13 @@ def kernels_vs_plain(cloud, results):
         return w1, w2
 
     (k1, k2), (p1, p2) = walks(overflow_walk), walks(overflow_walk_torch)
+    walk_levels = (  # each level alone, on the kernel path's inputs
+        lambda fn: fn(fk.cid, fk.stats[2], cap_c, rank_lo=cfg.tile_slots,
+                      rank_hi=cfg.overflow_slots, giant_thresh=cfg.overflow_slots,
+                      capacity=walk_cap, giant_capacity=g_cap, **geo),
+        lambda fn: fn(k1.giants, k1.stats[1], g_cap, rank_lo=cfg.overflow_slots,
+                      rank_hi=cfg.overflow_window_slots, giant_thresh=cfg.overflow_window_slots,
+                      capacity=win_cap, giant_capacity=m_cap, **geo))
     errs = []
     for lvl, k, p, gc in ((1, k1, p1, g_cap), (2, k2, p2, m_cap)):
         if k.stats.tolist() != p.stats.tolist():
@@ -281,7 +360,21 @@ def kernels_vs_plain(cloud, results):
                            f"; stats [emitted, giants] = {k0.stats.tolist()}"))
     results["overflow_walk"] = dict(
         max_abs_err=max(errs), ms=cuda_ms(lambda: walks(overflow_walk), 20),
-        plain_ms=cuda_ms(lambda: walks(overflow_walk_torch), 3))
+        kernel_ms=sum(kernel_only_ms(lambda: walk(overflow_walk), "overflow_walk", 20)
+                      for walk in walk_levels),
+        plain_ms=cuda_ms(lambda: walks(overflow_walk_torch), 3), library_ms=None)
+    walk_work, walk_counts = [], []
+    for rows, n_rows, lo, hi, k, gc in ((fk.cid, fk.stats[2], cfg.tile_slots, cfg.overflow_slots,
+                                         k1, g_cap),
+                                        (k1.giants, k1.stats[1], cfg.overflow_slots,
+                                         cfg.overflow_window_slots, k2, m_cap)):
+        nr = min(int(n_rows), rows.shape[1])
+        tot, gt = k.stats.tolist()
+        tests = roofline.walk_reach_tests(rows[0, :nr], lo, hi)
+        walk_counts.append(f"{nr} rows, {tests} reach tests")
+        walk_work.append(roofline.overflow_walk_work(nr, tot, min(gt, gc), tests))
+    with_bound(results["overflow_walk"], roofline.Work(*map(sum, zip(*walk_work))))
+    say("kernels", f"overflow walk work: level 1 {walk_counts[0]}; level 2 {walk_counts[1]}")
 
     # compaction of the dense extreme-tail grid
     dkeys, dwords = dense_grid_emit(k2.giants, torch.clamp(k2.stats[1], max=m_cap), **geo)
@@ -293,10 +386,18 @@ def kernels_vs_plain(cloud, results):
     nd = min(int(ck[2]), dcap)
     err_c = check_rows(f"compact ({dkeys.shape[0]} grid rows)", stream_rows(ck[0], ck[1], n=nd),
                        stream_rows(cp[0], cp[1], n=nd))
+    def mask_index():  # the one PyTorch call with E's function; the port never calls it
+        keep = dkeys != -1
+        return dkeys[keep], dwords[:, keep]
+
     results["compact"] = dict(
         max_abs_err=err_c,
         ms=cuda_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap), 50),
-        plain_ms=cuda_ms(lambda: compact_torch(dkeys, dwords, capacity=dcap), 5))
+        kernel_ms=kernel_only_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap),
+                                 "compact", 50),
+        plain_ms=cuda_ms(lambda: compact_torch(dkeys, dwords, capacity=dcap), 5),
+        library_ms=cuda_ms(mask_index, 20))
+    with_bound(results["compact"], roofline.compact_work(dkeys.shape[0], dwords.shape[0], nd))
 
     # rasterizer on the kernel path's sorted stream
     keys, words, _ = build_instance_stream(dc, fs, **geo)
@@ -307,14 +408,34 @@ def kernels_vs_plain(cloud, results):
     rk = rasterize(sw, ranges, bg, **geo)
     rp = rasterize_torch(sw, ranges, bg, **geo)
     err_r = float((rk - rp).abs().max())
-    spans = (ranges[1:] - ranges[:-1]).max().item()
-    say("kernels", f"rasterize: {sw.shape[1]} sorted instances, longest tile span {spans}, "
-                   f"max |kernel - plain| = {err_r:.3g} (allowed {RASTER_TOL})")
+    spans = (ranges[1:] - ranges[:-1]).to(torch.float64)
+    say("kernels", f"rasterize: {sw.shape[1]} sorted instances over {tx * ty} tiles, span max "
+                   f"{int(spans.max())} p99 {float(torch.quantile(spans, 0.99)):.0f} median "
+                   f"{float(spans.median()):.0f}; max |kernel - plain| = {err_r:.3g} "
+                   f"(allowed {RASTER_TOL})")
     if not (torch.isfinite(rk).all() and err_r <= RASTER_TOL):
         raise AssertionError("rasterize: kernel disagrees with its plain version")
+    work = rasterize_work_torch(sw, ranges, **geo)
+    stop = work["tile_stop"].to(torch.float64)
+    say("kernels", f"rasterize work: pairs_live {work['pairs_live']}, pairs_blended "
+                   f"{work['pairs_blended']}, pairs visited by a per-pixel stop with no cull "
+                   f"{work['pairs_visited']}, in the record's box {work['pairs_in_box']}, in "
+                   f"the kernel's sub-blocks that meet the box {work['pairs_sub_box']} "
+                   f"({work['sub_evals']} sub-block evaluations of 32 pixels); span "
+                   f"positions walked per tile until its last pixel saturates: max "
+                   f"{int(stop.max())} p99 {float(torch.quantile(stop, 0.99)):.0f} median "
+                   f"{float(stop.median()):.0f} sum {int(stop.sum())}")
     results["rasterize"] = dict(
         max_abs_err=err_r, ms=cuda_ms(lambda: rasterize(sw, ranges, bg, **geo), 20),
-        plain_ms=cuda_ms(lambda: rasterize_torch(sw, ranges, bg, **geo), 1))
+        kernel_ms=kernel_only_ms(lambda: rasterize(sw, ranges, bg, **geo), "rasterize", 20),
+        plain_ms=cuda_ms(lambda: rasterize_torch(sw, ranges, bg, **geo), 1), library_ms=None,
+        **{k: v for k, v in work.items() if k != "tile_stop"})
+    n_walked = int(work["tile_stop"].sum())
+    with_bound(results["rasterize"], roofline.rasterize_work(n_walked, W, H, tx * ty,
+                                                             work["pairs_blended"]))
+    slab = rasterize_mxu_work_torch(sw, ranges, work["tile_stop"], **geo)
+    say("kernels", f"slab work over the slabs the tile stop leaves: {slab['slab_tiles']} (tile, "
+                   f"slab) pairs, {slab['pairs_alpha']} (pixel, splat) pairs with alpha > 0")
 
     # slab rasterizer, each variant on the same sorted stream: every error
     # is printed before any is judged
@@ -330,12 +451,20 @@ def kernels_vs_plain(cloud, results):
                            pixels_allowed=int(MXU_SLACK * bk.shape[0] * bk.shape[1]),
                            finite=bool(torch.isfinite(bk).all()),
                            ms=cuda_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo), 10),
-                           plain_ms=plain_ms, mean_abs_vs_scan=float((bk - rk).abs().mean()))
+                           kernel_ms=kernel_only_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo),
+                                                    "rasterize_mxu", 10),
+                           plain_ms=plain_ms, library_ms=None,
+                           mean_abs_vs_scan=float((bk - rk).abs().mean()))
+        with_bound(variants[v], roofline.rasterize_mxu_work(
+            slab["records"], slab["slab_tiles"], slab["pairs_alpha"], W, H, tx * ty,
+            cfg.tile_w * cfg.tile_h, SPLITS[v]))
         say("kernels", f"rasterize_mxu {v}: max |kernel - plain| = {err:.3g} ({n_off} "
                        f"pixels over {MXU_TOL[v]}, allowed {variants[v]['pixels_allowed']} "
                        f"up to {MXU_FLIP_TOL}), mean |kernel - scan| "
                        f"{variants[v]['mean_abs_vs_scan']:.3g}, kernel "
-                       f"{variants[v]['ms']:.3f} ms, plain {plain_ms:.3f} ms")
+                       f"{variants[v]['ms']:.3f} ms ({variants[v]['kernel_ms']:.3f} kernel only, "
+                       f"bound {variants[v]['bound_ms']:.3f} by {variants[v]['bound_term']} over "
+                       f"{slab['slab_tiles']} (tile, slab) pairs), plain {plain_ms:.3f} ms")
     for v, r in variants.items():
         if not (r["finite"] and r["pixels_over_tol"] <= r["pixels_allowed"]
                 and r["max_abs_err"] <= MXU_FLIP_TOL):
@@ -372,13 +501,16 @@ def kernels_vs_plain(cloud, results):
     say("kernels", f"emit_compact at capacity {half}: {half} rows kept, all from the full "
                    f"stream, num_dropped {int(hk[3])}")
     launches_f = build.LAUNCHES["emit_compact"]
+    emit = lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     results["emit_compact"] = dict(
         max_abs_err=err_e, launches=launches_f,
         launches_counted_in="phase 2 (no render path calls it)",
-        ms=cuda_ms(lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap,
-                                        **egeo), 20),
+        ms=cuda_ms(emit, 20), kernel_ms=kernel_only_ms(emit, "emit_compact", 20),
         plain_ms=cuda_ms(lambda: emit_compact_torch(pk.depth_q, pk.rect, pk.words,
-                                                    capacity=full_cap, **egeo), 3))
+                                                    capacity=full_cap, **egeo), 3),
+        library_ms=None)
+    n_emitting = int(((pk.rect.to(torch.int64) & 0xFFFFFFFF) >> 18).ne(0).sum())
+    with_bound(results["emit_compact"], roofline.emit_compact_work(n, n_emitting, n_valid))
 
     # the wrappers refuse arguments their kernels cannot take
     bad_mxu = mxu_config("highest")
@@ -410,7 +542,10 @@ def kernels_vs_plain(cloud, results):
 
     for name in KERNELS:
         r = results[name]
-        say("kernels", f"{name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+        say("kernels", f"{name}: wrapper {r['ms']:.4f} ms, kernel only {r['kernel_ms']:.4f} ms, "
+                       f"bound {r['bound_ms']:.4f} ms ({r['bound_term']}), share "
+                       f"{r['share']:.3f}, plain {r['plain_ms']:.3f} ms, library "
+                       + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"))
 
 
 def golden():
@@ -428,6 +563,37 @@ def golden():
                   f"diag {r._last_diag}")
     if not p > 40.0:
         raise AssertionError(f"golden PSNR {p:.2f} dB <= 40")
+
+    # the scan rasterizer's other pixel maps: 256 x 4 tiles give 32 x 4 warp
+    # rectangles, 33 x 31 tiles runs of row-major pixels (ops/rasterize.py:
+    # warp_layout); kernel vs plain on the same sorted stream
+    import torch
+
+    from websplat_tpu_torch.config import resolve_settings
+    from websplat_tpu_torch.models.camera import CameraUniforms
+    from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, warp_layout
+    from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+    from websplat_tpu_torch.render.renderer import build_instance_stream, camera_block
+
+    w, h = 128, 96
+    cam = make_camera(viewport=(w, h))
+    cam.fit_near_far(*cloud.aabb)
+    args = SplattingArgs(background_color=(0.05, 0.08, 0.12))
+    fs = camera_block(CameraUniforms.from_camera(cam, (w, h)), resolve_settings(args, cloud))
+    for tw, th in ((256, 4), (33, 31)):
+        cfg = RasterConfig(tile_w=tw, tile_h=th)
+        geo = dict(width=w, height=h, config=cfg)
+        keys, words, _ = build_instance_stream(r.device_cloud, fs, **geo)
+        sk, sw = sort_instances(keys, words)
+        tx, ty = cfg.tiles_for(w, h)
+        ranges = tile_ranges(sk, tx * ty, cfg.key_bits(w, h)[1])
+        err = float((rasterize(sw, ranges, args.background_color, **geo)
+                     - rasterize_torch(sw, ranges, args.background_color, **geo)).abs().max())
+        say("golden", f"rasterize at {tw}x{th} tiles (warp rectangle width "
+                      f"{warp_layout(tw, th)}): max |kernel - plain| = {err:.3g}")
+        if not err <= RASTER_TOL:
+            raise AssertionError(f"rasterize at {tw}x{th} tiles: kernel disagrees with plain")
+        torch.cuda.synchronize()
 
 
 def main_path(cloud):
@@ -520,6 +686,15 @@ def frame_timing(phase, renderer, blocks):
     say(phase, f"device busy {busy:.3f} ms per frame in {len(iv) / len(blocks):.0f} device "
                f"activities (torch.profiler); idle share of the event span "
                f"{1 - busy / med:.3f}")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in KERNELS if kernel_pattern(k).search(e.name)), e.name[:60])
+            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    split = "; ".join(f"{k} {v / 1e3 / len(blocks):.4f}" for k, v in top[:8])
+    rest = sum(v for _, v in top[8:]) / 1e3 / len(blocks)
+    say(phase, f"device ms per frame by kernel: {split}; {len(top) - 8} others {rest:.4f}")
 
 
 def slab_path(cloud, scan_images, blocks):
@@ -579,10 +754,23 @@ def main() -> int:
     launches["emit_compact"] = results["emit_compact"].pop("launches")
     import torch
 
+    # launches per frame of the path each kernel is on (the scan path of
+    # phase 4; the hybrid path of phase 4b for rasterize_mxu); the packed
+    # emission is on no render path.  kernel_ms and bound_ms cover one
+    # frame's work of phase 2's view: both walk levels for the overflow
+    # walk, one launch for the others.
+    for k, r in results.items():
+        r["launches_per_frame"] = 0.0 if k == "emit_compact" else launches[k] / N_VIEWS
+        per_call = 2 if k == "overflow_walk" else 1
+        gap = r["launches_per_frame"] / per_call * (r["kernel_ms"] - r["bound_ms"])
+        say("result", f"{k}: {r['launches_per_frame']:g} launches/frame, {per_call} in the timed "
+                      f"work; kernel only {r['kernel_ms']:.4f} ms - bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_term']}) per call = {gap:.4f} ms above the bound per frame; "
+                      f"share {r['share']:.3f}")
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
+        dict(name=k, route="cuda", source=spec[0], replaces=spec[1], launches=launches[k],
              **{f: v for f, v in results[k].items() if f != "finite"})
-        for k, (src, rep) in KERNELS.items()
+        for k, spec in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,231 @@
+"""Work counts behind the kernels' roofline bounds (utils/roofline.py,
+ops/rasterize.py:rasterize_work_torch and ops/rasterize_mxu.py:
+rasterize_mxu_work_torch) against brute-force numpy counts on
+a small scene of tests/synth.py:make_cloud, run through the port's plain
+pipeline on the CPU.
+
+The rasterizer's counts are held against a per-pixel walk of each tile's
+sorted span in numpy: the same f32 quadratic form and blend, the
+transmittance as a sequential f32 product, and torch's exp for alpha (the
+plain version's exp, applied to whole vector lanes so that every element
+takes the same code path).  Counts must be equal, not close.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tests.synth import make_camera, make_cloud
+from websplat_tpu_torch.config import RasterConfig, SplattingArgs, resolve_settings
+from websplat_tpu_torch.models.camera import CameraUniforms
+from websplat_tpu_torch.ops import packing
+from websplat_tpu_torch.ops.frontend import frontend_torch
+from websplat_tpu_torch.ops.overflow import overflow_walk_torch
+from websplat_tpu_torch.ops.preprocess import core_math
+from websplat_tpu_torch.ops.rasterize import (
+    CUTOFF2_F32,
+    rasterize_torch,
+    rasterize_work_torch,
+    splat_pixel_bounds,
+    subblock_of_pixel,
+)
+from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu_work_torch
+from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+from websplat_tpu_torch.render.renderer import (
+    build_instance_stream,
+    camera_block,
+    cloud_from_host_arrays,
+)
+from websplat_tpu_torch.utils import roofline
+
+torch.set_num_threads(2)
+
+W, H = 256, 200  # 25 rows past the last full tile row: edge pixels exist
+BG = (0.1, 0.2, 0.3)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    cloud = make_cloud(np.random.default_rng(9), n=800)
+    cam = make_camera(viewport=(W, H))
+    cam.fit_near_far(*cloud.aabb)
+    _, dc = cloud_from_host_arrays(cloud.xyz, cloud.opacity, cloud.cov, cloud.sh,
+                                   sh_deg=cloud.sh_deg, device="cpu")
+    cfg = RasterConfig()
+    fs = camera_block(CameraUniforms.from_camera(cam, (W, H)), resolve_settings(SplattingArgs(),
+                                                                                cloud))
+    keys, words, _ = build_instance_stream(dc, fs, width=W, height=H, config=cfg)
+    sk, sw = sort_instances(keys, words)
+    tx, ty = cfg.tiles_for(W, H)
+    ranges = tile_ranges(sk, tx * ty, cfg.key_bits(W, H)[1])
+    return dict(dc=dc, fs=fs, cfg=cfg, sw=sw, ranges=ranges, n=cloud.num_points)
+
+
+def _exp32(x: np.ndarray) -> np.ndarray:
+    """torch's f32 exp of x, padded to whole vector lanes."""
+    flat = x.ravel()
+    pad = (-flat.size) % 64
+    t = torch.from_numpy(np.concatenate([flat, np.zeros(pad, np.float32)]))
+    return torch.exp(t).numpy()[:flat.size].reshape(x.shape)
+
+
+def _brute_raster_counts(sw, ranges, cfg):
+    """(pairs_live, pairs_blended, pairs_in_box, tile_stop) by walking each
+    in-image pixel's span in numpy."""
+    cq = packing.CenterQuant.for_viewport(W, H)
+    rec = [v.numpy() for v in packing.unpack_record(*packing.u32(sw), cq)]
+    box = [v.numpy() for v in splat_pixel_bounds(*packing.unpack_record(
+        *packing.u32(sw), cq)[:6])]
+    eps = np.float32(cfg.transmittance_eps)
+    tw, th = cfg.tile_w, cfg.tile_h
+    tx_tiles, _ = cfg.tiles_for(W, H)
+    r = ranges.numpy().astype(np.int64)
+    live_n = blended_n = in_box_n = 0
+    stop = np.zeros(len(r) - 1, np.int64)
+    for t in range(len(r) - 1):
+        s0, s1 = r[t], r[t + 1]
+        if s1 == s0:
+            continue
+        x0, y0 = (t % tx_tiles) * tw, (t // tx_tiles) * th
+        xs, ys = np.meshgrid(np.arange(x0, min(x0 + tw, W)), np.arange(y0, min(y0 + th, H)))
+        ix, iy = xs.ravel()[:, None], ys.ravel()[:, None]  # (P, 1) in-image pixels
+        px, py, ha, hb, hc, op = (v[s0:s1][None, :] for v in rec[:6])
+        dx = (ix.astype(np.float32) + np.float32(0.5)) - px
+        dy = (iy.astype(np.float32) + np.float32(0.5)) - py
+        a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+        on = (a < np.float32(CUTOFF2_F32)) & (op > 0)
+        alpha = np.where(on, np.minimum(_exp32(-a) * op, np.float32(0.99)), np.float32(0))
+        trans = np.multiply.accumulate(np.float32(1) - alpha, axis=1)  # sequential f32
+        before = np.concatenate([np.ones((len(ix), 1), np.float32), trans[:, :-1]], axis=1)
+        live = before > eps  # a prefix of each pixel's span
+        x_lo, x_hi, y_lo, y_hi = (v[s0:s1][None, :] for v in box)
+        inside = (ix >= x_lo) & (ix <= x_hi) & (iy >= y_lo) & (iy <= y_hi)
+        live_n += int(live.sum())
+        blended_n += int((live & on).sum())
+        in_box_n += int((live & inside).sum())
+        stop[t] = int(live.sum(axis=1).max())
+    return live_n, blended_n, in_box_n, stop
+
+
+def test_raster_work_matches_per_pixel_walk(scene):
+    sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
+    work = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
+    live, blended, in_box, stop = _brute_raster_counts(sw, ranges, cfg)
+    assert work["pairs_live"] == live
+    assert work["pairs_blended"] == blended > 50_000
+    assert work["pairs_in_box"] == in_box
+    assert (work["tile_stop"].numpy() == stop).all()
+    walk = roofline.rasterize_work(int(stop.sum()), W, H, 56, blended)
+    assert walk.bytes == 16 * int(stop.sum()) + 12 * W * H + 4 * 57
+    assert walk.f32 == 21 * blended and walk.sfu == blended
+    # edge pixels: the no-cull walk visits more than the image's live pairs
+    assert work["pairs_visited"] > work["pairs_live"] >= work["pairs_sub_box"] >= in_box
+    assert 32 * work["sub_evals"] >= work["pairs_sub_box"]
+
+
+def test_raster_work_leaves_the_image_alone(scene):
+    sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
+    before = rasterize_torch(sw, ranges, BG, width=W, height=H, config=cfg)
+    rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
+    after = rasterize_torch(sw, ranges, BG, width=W, height=H, config=cfg)
+    assert torch.equal(before, after)
+
+
+def test_frontend_and_walk_counts(scene):
+    dc, fs, cfg, n = scene["dc"], scene["fs"], scene["cfg"], scene["n"]
+    geo = dict(width=W, height=H, config=cfg)
+    d = core_math(dc, fs, **geo)
+    vis, n_rect = d["visible"].numpy(), d["n_rect"].numpy()
+    brute = sum(min(int(r), cfg.tile_slots) for v, r in zip(vis, n_rect) if v)
+    assert roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots) == brute > 0
+
+    cap_c = cfg.overflow_capacity_for(n)
+    fr = frontend_torch(dc, fs, capacity=max(4096, 2 * n), capacity_c=cap_c, **geo)
+    total, visible, clamped = fr.stats.tolist()
+    assert visible == int(vis.sum()) and clamped > 0
+    work = roofline.frontend_work(n, visible, total, clamped, brute, fs.max_sh_deg, fs.mip)
+    assert work.bytes == 12 * n + 124 * visible + 20 * total + 24 * clamped
+    assert work.f32 == (44 * n + (198 + 144) * visible + 52 * brute)
+
+    rows = fr.cid[0, :clamped].numpy().view(np.uint32).astype(np.int64)
+    lo, hi = cfg.tile_slots, cfg.overflow_slots
+    brute_walk = 0
+    for r in rows:
+        w_t = ((r >> 16) & 0xFF) - (r & 0xFF) + 1
+        h_t = (r >> 24) - ((r >> 8) & 0xFF) + 1
+        brute_walk += len(range(lo, min(w_t * h_t, hi)))
+    assert roofline.walk_reach_tests(fr.cid[0, :clamped], lo, hi) == brute_walk > 0
+    w1 = overflow_walk_torch(fr.cid, clamped, cap_c, rank_lo=lo, rank_hi=hi, giant_thresh=hi,
+                             capacity=cfg.overflow_walk_capacity_for(cap_c),
+                             giant_capacity=cfg.overflow_grid_capacity_for(cap_c), **geo)
+    emitted, giants = w1.stats.tolist()
+    assert emitted <= brute_walk  # a reach test per emitted instance at least
+    walk = roofline.overflow_walk_work(clamped, emitted, giants, brute_walk)
+    assert walk.bytes == 24 * clamped + 20 * emitted + 24 * giants
+
+
+def _brute_slab_counts(sw, ranges, stop, cfg):
+    """(slab_tiles, pairs_alpha) by walking each tile's 128-aligned slabs up
+    to its stop in numpy: in-image pixels against the records of the tile's
+    span in those slabs, alpha > 0 where op > 0 and the f32 quadratic form
+    is below 2*CUTOFF."""
+    cq = packing.CenterQuant.for_viewport(W, H)
+    rec = [v.numpy() for v in packing.unpack_record(*packing.u32(sw), cq)]
+    tw, th = cfg.tile_w, cfg.tile_h
+    tx_tiles, _ = cfg.tiles_for(W, H)
+    r = ranges.numpy().astype(np.int64)
+    slab_tiles = pairs = 0
+    for t, s in enumerate(stop.numpy()):
+        if s == 0:
+            continue
+        first, last = r[t] // 128, (r[t] + int(s) - 1) // 128
+        slab_tiles += last - first + 1
+        lo, hi = max(first * 128, r[t]), min((last + 1) * 128, r[t + 1])
+        x0, y0 = (t % tx_tiles) * tw, (t // tx_tiles) * th
+        xs, ys = np.meshgrid(np.arange(x0, min(x0 + tw, W)), np.arange(y0, min(y0 + th, H)))
+        dx = (xs.ravel()[:, None].astype(np.float32) + np.float32(0.5)) - rec[0][None, lo:hi]
+        dy = (ys.ravel()[:, None].astype(np.float32) + np.float32(0.5)) - rec[1][None, lo:hi]
+        ha, hb, hc, op = (v[None, lo:hi] for v in rec[2:6])
+        a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+        pairs += int(((a < np.float32(CUTOFF2_F32)) & (op > 0)).sum())
+    return slab_tiles, pairs
+
+
+def test_slab_and_compact_counts(scene):
+    sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
+    stop = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)["tile_stop"]
+    slab = rasterize_mxu_work_torch(sw, ranges, stop, width=W, height=H, config=cfg)
+    slab_tiles, pairs_alpha = _brute_slab_counts(sw, ranges, stop, cfg)
+    assert slab["records"] == int(stop.sum())
+    assert (slab["slab_tiles"], slab["pairs_alpha"]) == (slab_tiles, pairs_alpha)
+    assert pairs_alpha > 50_000
+    work = roofline.rasterize_mxu_work(slab["records"], slab_tiles, pairs_alpha, W, H, 56,
+                                       cfg.tile_w * cfg.tile_h, (0, 2, 2))
+    assert work.f32 == 12 * slab_tiles * 1024 * 128 + 9 * pairs_alpha and work.tensor == 0
+    assert work.sfu == 3 * pairs_alpha
+
+    keys = np.array([5, -1, 7, -1, -1, 9], np.int32)
+    kept = int((keys != -1).sum())
+    assert roofline.compact_work(len(keys), 4, kept).bytes == 4 * 6 + 16 * kept + 20 * kept + 4
+
+
+def test_bound_takes_the_largest_term():
+    assert roofline.sh_flops(3) == 144 and roofline.sh_flops(0) == 6
+    ms, term = roofline.bound(roofline.Work(bytes=3.35e9))
+    assert term == "bytes" and ms == pytest.approx(1.0)
+    ms, term = roofline.bound(roofline.Work(bytes=1.0, f32=67e9, sfu=1.0))
+    assert term == "f32" and ms == pytest.approx(1.0)
+    ms, term = roofline.bound(roofline.Work(bytes=1.0, sfu=roofline.PEAK_SFU / 1e3 * 2))
+    assert term == "sfu" and ms == pytest.approx(2.0)
+    assert roofline.bound_by("sfu") == "operations" and roofline.bound_by("bytes") == "bytes"
+
+
+def test_subblocks_tile_the_warp_rectangles():
+    """32 x 32 tiles: 8 warps of 16 x 8 pixels, each cut into four 8 x 4
+    sub-blocks; other shapes still give every sub-block 32 pixels."""
+    sub = subblock_of_pixel(32, 32).reshape(32, 32)
+    assert sub[0, 0] == 0 and sub[0, 8] == 1 and sub[4, 0] == 2 and sub[4, 8] == 3
+    assert sub[0, 16] == 4 and sub[8, 0] == 8 and sub[31, 31] == 31
+    for tw, th in ((32, 32), (16, 16), (64, 16), (1024, 1), (33, 31)):
+        counts = torch.bincount(subblock_of_pixel(tw, th))
+        assert counts.max() <= 32 and counts.sum() == tw * th

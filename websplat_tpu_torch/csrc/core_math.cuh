@@ -5,7 +5,16 @@
 // same expressions in the same operand order (nvcc must not contract them:
 // -fmad=false), square roots correctly rounded (sqrtf), logarithms in f64
 // rounded to f32, true divisions.  Uncompressed clouds only.
+//
+// core_math runs in three steps, so that the frontend reads each input only
+// when the splat still needs it: frustum_cull (position only), shape_math
+// (covariance and opacity: EWA, eigen, reach, record geometry, tile rect)
+// and pack_splat (SH colour and the packed record).  Splitting moved no
+// expression: each value is computed from the same operands in the same
+// order as in the single function.
 #pragma once
+
+#include <cuda_fp16.h>
 
 #include "packing.cuh"
 
@@ -43,14 +52,6 @@ inline void frame_params_from_block(const float* s, FrameParams& p) {
   p.max_sh_deg = (int)s[51];
 }
 
-struct Splat {
-  bool visible;
-  uint32_t depth_q;
-  uint32_t w[4];
-  int tx0, ty0, tx1, ty1, w_t, h_t, n_rect;
-  Reach reach;  // unquantized values: the frontend's reach test
-};
-
 constexpr float SH_C0 = (float)0.28209479177387814;
 constexpr float SH_C1 = (float)0.4886025119029199;
 constexpr float SH_C2_0 = (float)1.0925484305920792;
@@ -66,10 +67,22 @@ constexpr float SH_C3_4 = (float)-0.4570457994644658;
 constexpr float SH_C3_5 = (float)1.445305721320277;
 constexpr float SH_C3_6 = (float)-0.5900435899266435;
 
+// Both f16 halves of a word -> f32 (low half in .x), the values
+// f16_bits_to_f32 gives: the hardware conversion is exact, and a half with
+// an all-ones exponent (inf / NaN in IEEE f16) takes the integer codec, which
+// decodes it as a finite number like the plain version does.
+__device__ __forceinline__ float2 f16x2_to_f32(uint32_t w) {
+  float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  if ((w & 0x7C00u) == 0x7C00u) v.x = f16_bits_to_f32(w);
+  if ((w & 0x7C000000u) == 0x7C000000u) v.y = f16_bits_to_f32(w >> 16);
+  return v;
+}
+
 // SH color (ops/sh.py eval_sh): coefficient k = 3*coef + channel is the
-// f16 in half (k % 2) of word k / 2.  Bands above max_sh_deg are skipped,
-// which equals the plain version's multiply-by-zero masking.
-__device__ __forceinline__ void eval_sh(const uint32_t sh[24], float x, float y, float z,
+// f16 in half (k % 2) of word k / 2, word w at sh[w * stride].  Each channel
+// sums its terms in coefficient order, as the plain version does; bands above
+// max_sh_deg are skipped, which equals its multiply-by-zero masking.
+__device__ __forceinline__ void eval_sh(const uint32_t* sh, int stride, float x, float y, float z,
                                         int deg, float rgb[3]) {
   const float xx = x * x, yy = y * y, zz = z * z;
   const float xy = x * y, yz = y * z, xz = x * z;
@@ -97,15 +110,22 @@ __device__ __forceinline__ void eval_sh(const uint32_t sh[24], float x, float y,
     basis[14] = SH_C3_5 * z * (xx - yy);
     basis[15] = SH_C3_6 * x * (xx - 3.0f * yy);
   }
+  float acc[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float acc = basis[0] * f16_bits_to_f32(sh[ch / 2] >> (16 * (ch % 2)));
-    for (int c = 1; c < nb; ++c) {
-      const int k = 3 * c + ch;
-      acc = acc + basis[c] * f16_bits_to_f32(sh[k / 2] >> (16 * (k % 2)));
+  for (int w = 0; w < 24; ++w) {
+    if (2 * w >= 3 * nb) break;
+    const float2 v = f16x2_to_f32(sh[w * stride]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 2 * w + h, c = k / 3, ch = k % 3;
+      if (c < nb) {
+        const float val = h == 0 ? v.x : v.y;
+        acc[ch] = c == 0 ? basis[0] * val : acc[ch] + basis[c] * val;
+      }
     }
-    rgb[ch] = acc + 0.5f;
   }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) rgb[ch] = acc[ch] + 0.5f;
 }
 
 __device__ __forceinline__ float smoothstep01(float x) {
@@ -113,25 +133,49 @@ __device__ __forceinline__ float smoothstep01(float x) {
   return t * t * (3.0f - 2.0f * t);
 }
 
-__device__ __forceinline__ Splat core_math(float x_w, float y_w, float z_w, const float cov6[6],
-                                           float opacity, const uint32_t sh[24],
-                                           const FrameParams& p) {
-  Splat out;
+// Step 1: the clipping-box and 1.2 w frustum cull, from the position alone.
+struct Frustum {
+  float cam_x, cam_y, cam_z, clip_x, clip_y, clip_z, clip_w;
+  bool visible;
+};
+
+__device__ __forceinline__ Frustum frustum_cull(float x_w, float y_w, float z_w,
+                                                const FrameParams& p) {
+  Frustum f;
   const float* v = p.view;
   const float* m = p.proj;
   const bool inside = (x_w >= p.cb_min[0]) && (x_w <= p.cb_max[0]) && (y_w >= p.cb_min[1]) &&
                       (y_w <= p.cb_max[1]) && (z_w >= p.cb_min[2]) && (z_w <= p.cb_max[2]);
-  const float cam_x = v[0] * x_w + v[1] * y_w + v[2] * z_w + v[3];
-  const float cam_y = v[4] * x_w + v[5] * y_w + v[6] * z_w + v[7];
-  const float cam_z = v[8] * x_w + v[9] * y_w + v[10] * z_w + v[11];
-  const float clip_x = m[0] * cam_x + m[1] * cam_y + m[2] * cam_z + m[3];
-  const float clip_y = m[4] * cam_x + m[5] * cam_y + m[6] * cam_z + m[7];
-  const float clip_z = m[8] * cam_x + m[9] * cam_y + m[10] * cam_z + m[11];
-  const float clip_w = m[12] * cam_x + m[13] * cam_y + m[14] * cam_z + m[15];
-  const float bounds = 1.2f * clip_w;
-  const float z_ndc = clip_z / clip_w;
-  bool visible = (z_ndc > 0.0f) && (z_ndc < 1.0f) && (clip_x >= -bounds) &&
-                 (clip_x <= bounds) && (clip_y >= -bounds) && (clip_y <= bounds) && inside;
+  f.cam_x = v[0] * x_w + v[1] * y_w + v[2] * z_w + v[3];
+  f.cam_y = v[4] * x_w + v[5] * y_w + v[6] * z_w + v[7];
+  f.cam_z = v[8] * x_w + v[9] * y_w + v[10] * z_w + v[11];
+  f.clip_x = m[0] * f.cam_x + m[1] * f.cam_y + m[2] * f.cam_z + m[3];
+  f.clip_y = m[4] * f.cam_x + m[5] * f.cam_y + m[6] * f.cam_z + m[7];
+  f.clip_z = m[8] * f.cam_x + m[9] * f.cam_y + m[10] * f.cam_z + m[11];
+  f.clip_w = m[12] * f.cam_x + m[13] * f.cam_y + m[14] * f.cam_z + m[15];
+  const float bounds = 1.2f * f.clip_w;
+  const float z_ndc = f.clip_z / f.clip_w;
+  f.visible = (z_ndc > 0.0f) && (z_ndc < 1.0f) && (f.clip_x >= -bounds) &&
+              (f.clip_x <= bounds) && (f.clip_y >= -bounds) && (f.clip_y <= bounds) && inside;
+  return f;
+}
+
+// Step 2: everything of the splat but its colour.
+struct Shape {
+  bool visible;
+  float px, py, half_a, conic_b, half_c, opacity, a_max;
+  uint32_t depth_q;
+  int tx0, ty0, tx1, ty1, w_t, h_t, n_rect;
+};
+
+__device__ __forceinline__ Shape shape_math(float x_w, float y_w, float z_w, const Frustum& f,
+                                            const float cov6[6], float opacity,
+                                            const FrameParams& p) {
+  Shape out;
+  const float* v = p.view;
+  const float cam_x = f.cam_x, cam_y = f.cam_y, cam_z = f.cam_z;
+  const float clip_x = f.clip_x, clip_y = f.clip_y, clip_z = f.clip_z, clip_w = f.clip_w;
+  bool visible = f.visible;
 
   // walltime grow-in (preprocess.wgsl:196-203)
   const float dcx = x_w - p.center[0], dcy = y_w - p.center[1], dcz = z_w - p.center[2];
@@ -212,13 +256,6 @@ __device__ __forceinline__ Splat core_math(float x_w, float y_w, float z_w, cons
   const float px = (ndc_x + 1.0f) * 0.5f * (float)p.width;
   const float py = (1.0f - ndc_y) * 0.5f * (float)p.height;
 
-  // SH color (preprocess.wgsl:255-260)
-  const float dvx = x_w - p.cam_pos[0], dvy = y_w - p.cam_pos[1], dvz = z_w - p.cam_pos[2];
-  const float inv_dn = 1.0f / pmax(sqrtf(dvx * dvx + dvy * dvy + dvz * dvz), 1e-12f);
-  float rgb[3];
-  eval_sh(sh, dvx * inv_dn, dvy * inv_dn, dvz * inv_dn, p.max_sh_deg, rgb);
-  for (int c = 0; c < 3; ++c) rgb[c] = pmax(rgb[c], 0.0f);
-
   // depth key: top depth_bits of the non-negative clip-z bits
   out.depth_q = f2u(pmax(clip_z, 0.0f)) >> (32 - p.depth_bits);
 
@@ -238,12 +275,34 @@ __device__ __forceinline__ Splat core_math(float x_w, float y_w, float z_w, cons
   out.h_t = max(out.ty1 - out.ty0 + 1, 1);
   out.n_rect = out.w_t * out.h_t;
 
-  const float half_a = 0.5f * conic_a;
-  const float half_c = 0.5f * conic_c;
-  pack_record(px, py, half_a, conic_b, half_c, opacity, rgb[0], rgb[1], rgb[2], p.cq, out.w);
-  out.reach = Reach{px, py, half_a, conic_b, half_c, a_max};
+  out.px = px;
+  out.py = py;
+  out.half_a = 0.5f * conic_a;
+  out.conic_b = conic_b;
+  out.half_c = 0.5f * conic_c;
+  out.opacity = opacity;
+  out.a_max = a_max;
   out.visible = visible;
   return out;
+}
+
+// The reach test of a shaped splat (unquantized values).
+__device__ __forceinline__ Reach reach_of(const Shape& s) {
+  return Reach{s.px, s.py, s.half_a, s.conic_b, s.half_c, s.a_max};
+}
+
+// Step 3: the SH colour (preprocess.wgsl:255-260) and the packed record w.
+// sh: the splat's 24 words, word k at sh[k * sh_stride].
+__device__ __forceinline__ void pack_splat(const Shape& s, float x_w, float y_w, float z_w,
+                                           const uint32_t* sh, int sh_stride,
+                                           const FrameParams& p, uint32_t w[4]) {
+  const float dvx = x_w - p.cam_pos[0], dvy = y_w - p.cam_pos[1], dvz = z_w - p.cam_pos[2];
+  const float inv_dn = 1.0f / pmax(sqrtf(dvx * dvx + dvy * dvy + dvz * dvz), 1e-12f);
+  float rgb[3];
+  eval_sh(sh, sh_stride, dvx * inv_dn, dvy * inv_dn, dvz * inv_dn, p.max_sh_deg, rgb);
+  for (int c = 0; c < 3; ++c) rgb[c] = pmax(rgb[c], 0.0f);
+  pack_record(s.px, s.py, s.half_a, s.conic_b, s.half_c, s.opacity, rgb[0], rgb[1], rgb[2], p.cq,
+              w);
 }
 
 }  // namespace ws

@@ -5,64 +5,110 @@
 // fused_frontend), on the branch the main path takes (overflow on: pure
 // row-major walk over ranks [0, slots), frontend_pallas.py:348).
 //
-// What bounds it on the card: it reads 136 bytes per splat (34 f32/u32
-// attribute rows) and writes 20 bytes per emitted instance plus 24 per
-// clamped splat -- memory traffic of ~0.2 GB per frame at 1.24M splats --
-// and runs ~400 f32 operations per splat (EWA, eigen, 48 SH terms, record
-// codecs, up to `slots` reach tests), with IEEE divisions and square roots
-// because the build forbids fast math.  Its design: one thread per splat, so
-// the 34 attribute rows are read coalesced straight from the column-major
-// cloud (no interleaved relayout, which the TPU needed to cut DMA streams);
-// the per-thread slot bitmask is counted, one block scan gives each thread
-// its offset, and ONE atomicAdd per block reserves the block's run of the
-// exact-prefix output (stream.cuh) -- the TPU's sequential SMEM cursor and
-// ordered-overlap DMA protocol have no counterpart here.
+// What bounds it on the card: memory traffic.  The function needs 12 bytes
+// of position per splat, the other 124 bytes of attributes (covariance,
+// opacity, 24 words of SH) only for splats that pass the cull, and writes
+// 20 bytes per emitted instance plus 24 per clamped splat; its ~400 f32
+// operations per visible splat (EWA, eigen, 48 SH terms, record codecs, up
+// to `slots` reach tests) sit below the memory time.  Its design: one thread
+// per splat, reading the column-major cloud coalesced (no interleaved
+// relayout, which the TPU needed to cut DMA streams), in the order the math
+// needs it:
+//  - the position first, then the frustum cull (core_math.cuh:frustum_cull);
+//  - for splats that pass it, the 24 SH words go to shared memory by
+//    cp.async at once (24 KB per CTA), and the covariance and opacity are
+//    loaded; EWA, eigen, the reach, the slot walk and the block scan run
+//    while the SH copies fly, and only a splat that writes a row evaluates
+//    SH and packs its record (core_math.cuh:pack_splat), from shared memory;
+//  - ONE block scan over each thread's packed (instances, clamped, visible)
+//    counts and at most three atomics per block reserve the block's runs of
+//    the exact-prefix outputs (the TPU's sequential SMEM cursor and
+//    ordered-overlap DMA protocol have no counterpart here).
 #include <cstdint>
 
+#include <cub/block/block_scan.cuh>
+
 #include "core_math.cuh"
-#include "stream.cuh"
+#include "cp_async.cuh"
 
 namespace ws {
 
 constexpr int FRONT_BLOCK = 256;
+// 5 CTAs per SM: 48 registers and no spills (ptxas); a cap at 6 spills and
+// ran slower on the H100
+constexpr int FRONT_MIN_BLOCKS = 5;
+constexpr int SH_WORDS = 24;
+// fields of the packed per-thread count: instances in bits 0-12 (a block
+// emits at most 16 x 256), clamped rows in 13-21 and visible splats in
+// 22-30 (at most 256 each), so the block sums never carry across fields
+constexpr int CLAMP_SHIFT = 13;
+constexpr int VIS_SHIFT = 22;
+constexpr int FIELD_MASK = (1 << 9) - 1;
 
 // stats: [0] instances emitted (may exceed capacity), [1] visible splats,
 // [2] clamped splats (visible, n_rect > slots; may exceed capacity_c)
-__global__ void __launch_bounds__(FRONT_BLOCK)
+__global__ void __launch_bounds__(FRONT_BLOCK, FRONT_MIN_BLOCKS)
     frontend_kernel(const float* __restrict__ xyz, const float* __restrict__ cov,
                     const float* __restrict__ opacity, const uint32_t* __restrict__ sh, int n,
                     FrameParams p, uint32_t* __restrict__ keys, uint32_t* __restrict__ words,
                     int capacity, uint32_t* __restrict__ cid, int capacity_c,
                     int* __restrict__ stats) {
-  __shared__ BlockAppend<FRONT_BLOCK> append;
+  using Scan = cub::BlockScan<int, FRONT_BLOCK>;
+  __shared__ uint32_t s_sh[SH_WORDS][FRONT_BLOCK];  // word k of thread t at [k][t]
+  __shared__ typename Scan::TempStorage scan;
+  __shared__ int s_base[2];
   const int i = blockIdx.x * FRONT_BLOCK + threadIdx.x;
-  const bool active = i < n;
 
-  Splat s;
+  float x_w = 0.0f, y_w = 0.0f, z_w = 0.0f;
+  Shape s;
   s.visible = false;
-  if (active) {
-    float cov6[6];
-    uint32_t shw[24];
+  if (i < n) {
+    x_w = xyz[i];
+    y_w = xyz[(int64_t)n + i];
+    z_w = xyz[2 * (int64_t)n + i];
+    const Frustum f = frustum_cull(x_w, y_w, z_w, p);
+    if (f.visible) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) cov6[k] = cov[(int64_t)k * n + i];
+      for (int k = 0; k < SH_WORDS; ++k) cp_async4(&s_sh[k][threadIdx.x], &sh[(int64_t)k * n + i]);
+      float cov6[6];
 #pragma unroll
-    for (int k = 0; k < 24; ++k) shw[k] = sh[(int64_t)k * n + i];
-    s = core_math(xyz[i], xyz[(int64_t)n + i], xyz[2 * (int64_t)n + i], cov6, opacity[i], shw,
-                  p);
+      for (int k = 0; k < 6; ++k) cov6[k] = cov[(int64_t)k * n + i];
+      s = shape_math(x_w, y_w, z_w, f, cov6, opacity[i], p);
+    }
   }
 
   // row-major slot walk: rank j -> (j % w_t, j / w_t) of the rect
   uint32_t mask = 0u;
   if (s.visible) {
+    const Reach reach = reach_of(s);
     for (int j = 0; j < p.slots; ++j) {
       if (j >= s.n_rect) break;
       const int dy = j / s.w_t;
       const int tx = s.tx0 + (j - dy * s.w_t);
       const int ty = s.ty0 + dy;
-      if (s.reach.reaches(tx, ty, p.ts_x, p.ts_y)) mask |= 1u << j;
+      if (reach.reaches(tx, ty, p.ts_x, p.ts_y)) mask |= 1u << j;
     }
   }
-  int pos = append.reserve(__popc(mask), &stats[0]);
+  const bool clamped = s.visible && s.n_rect > p.slots;
+  const int count = __popc(mask) | ((clamped ? 1 : 0) << CLAMP_SHIFT) |
+                    ((s.visible ? 1 : 0) << VIS_SHIFT);
+  int excl, total;
+  Scan(scan).ExclusiveSum(count, excl, total);
+  if (threadIdx.x == 0) {
+    const int n_inst = total & ((1 << CLAMP_SHIFT) - 1);
+    const int n_clamped = (total >> CLAMP_SHIFT) & FIELD_MASK;
+    const int n_visible = total >> VIS_SHIFT;
+    s_base[0] = n_inst > 0 ? atomicAdd(&stats[0], n_inst) : 0;
+    s_base[1] = n_clamped > 0 ? atomicAdd(&stats[2], n_clamped) : 0;
+    if (n_visible > 0) atomicAdd(&stats[1], n_visible);
+  }
+  __syncthreads();
+  cp_async_wait_all();  // this thread's SH words (it reads no other thread's)
+  if (mask == 0u && !clamped) return;
+
+  uint32_t w[4];
+  pack_splat(s, x_w, y_w, z_w, &s_sh[0][threadIdx.x], FRONT_BLOCK, p, w);
+  int pos = s_base[0] + (excl & ((1 << CLAMP_SHIFT) - 1));
   for (int j = 0; mask != 0u; ++j) {
     if (!(mask & (1u << j))) continue;
     mask &= ~(1u << j);
@@ -71,22 +117,20 @@ __global__ void __launch_bounds__(FRONT_BLOCK)
       const uint32_t tile = (uint32_t)((s.ty0 + dy) * p.tx_tiles + s.tx0 + (j - dy * s.w_t));
       keys[pos] = (tile << p.depth_bits) | s.depth_q;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = s.w[k];
+      for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[k];
     }
     ++pos;
   }
 
   // clamped-splat rows (rect4, w0..w3, depth_q) for the overflow walk
-  const bool clamped = s.visible && s.n_rect > p.slots;
-  const int cpos = append.reserve(clamped ? 1 : 0, &stats[2]);
+  const int cpos = s_base[1] + ((excl >> CLAMP_SHIFT) & FIELD_MASK);
   if (clamped && cpos < capacity_c) {
     cid[cpos] = (uint32_t)(s.tx0 & 0xFF) | ((uint32_t)(s.ty0 & 0xFF) << 8) |
                 ((uint32_t)(s.tx1 & 0xFF) << 16) | ((uint32_t)(s.ty1 & 0xFF) << 24);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) cid[(int64_t)(1 + k) * capacity_c + cpos] = s.w[k];
+    for (int k = 0; k < 4; ++k) cid[(int64_t)(1 + k) * capacity_c + cpos] = w[k];
     cid[(int64_t)5 * capacity_c + cpos] = s.depth_q;
   }
-  block_count(s.visible, &stats[1]);
 }
 
 }  // namespace ws

@@ -5,116 +5,258 @@
 // including the wrapper's tile assembly and background composite
 // (rasterize_pallas.py:1112-1116): the kernel writes the (H, W, 3) image.
 //
-// What bounds it on the card: arithmetic.  Every (instance, pixel) pair costs
-// ~15 f32 operations and one expf; at the bench scene (~1.8M instances,
-// 1024-pixel tiles) that is ~1.8G pairs before early termination, against
-// only 16 bytes read per instance.  Its design:
-//  - one CTA per tile and 256 threads with 4 pixels each;
-//  - records are staged through shared memory in batches of 256: each
-//    thread loads and decodes ONE record (u16 center, e5m12/rho16 conic,
-//    op12, rgb9e5 -- the codecs of packing.cuh) into f32 arrays, so decode
-//    work is per instance, not per pixel;
+// What bounds it on the card: f32 arithmetic.  A blended (instance, pixel)
+// pair costs 21 f32 operations and one expf, against 16 bytes read per
+// instance; but most pairs of a tile's span change nothing -- a splat covers
+// a few pixels of its 32x32 tile -- and a pair must be evaluated to know it.
+// So the design cuts the pairs it evaluates, without divergence:
+//  - one CTA per tile, 8 warps; each warp owns a compact rectangle (16 x 8
+//    on 32 x 32 tiles, ops/rasterize.py:warp_layout) cut into four 8 x 4
+//    sub-blocks, and lane l holds pixel l of each sub-block; pixels outside
+//    the image start dead (T = 0) and are never written;
+//  - records are staged through shared memory in batches of 256: cp.async
+//    copies the next batch's 4 raw words while the CTA blends the current
+//    one; each thread decodes ONE record (the codecs of packing.cuh), its
+//    conservative pixel box (record_box) and a 32-bit mask of the
+//    sub-blocks the box meets, so decode work is per instance;
+//  - each warp walks only the records that meet one of its live
+//    sub-blocks, in span order (a ballot over 32 masks at a time), and
+//    evaluates only those sub-blocks: warp-uniform branches;
 //  - the quadratic form is the DIRECT one, a = ha dx^2 + hb dx dy + hc dy^2
-//    with per-pixel dx, dy (rasterize_xla.py:48-57).  The TPU kernel's
-//    tile-local monomial expansion bounded f32 cancellation on its VPU; with
-//    per-pixel offsets the direct form is already well conditioned;
+//    with per-pixel dx, dy (rasterize_xla.py:48-57);
 //  - a pixel stops after the splat that takes its transmittance to <= eps,
-//    and the CTA stops when all its pixels have (__syncthreads_count after
+//    a warp when all its pixels have (__any_sync), a sub-block at the next
+//    batch, and the CTA when all its warps have (__syncthreads_count after
 //    each batch).  The TPU stopped whole tiles at chunk granularity, so the
-//    two differ by < eps * max(rgb) per channel.
-// The blend arithmetic (alpha = min(0.99, exp(-a) * op) for a < 2*CUTOFF
-// and op > 0; w = alpha*T; C += w*c; T *= 1 - alpha) is the plain version's
-// (ops/rasterize.py:rasterize_torch), operation for operation.
+//    two differ by < eps * max(rgb).
+// Every written pixel blends the same pairs in the same order with the same
+// f32 operations as the plain version (ops/rasterize.py:rasterize_torch):
+// alpha = min(0.99, exp(-a) * op) for a < 2*CUTOFF and op > 0; w = alpha*T;
+// C += w*c; T *= 1 - alpha.  A skipped pair is one whose alpha is 0 there.
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "packing.cuh"
 
 namespace ws {
 
 constexpr int RASTER_THREADS = 256;
+// 4 CTAs per SM: 64 registers and at most 12 / 16 bytes of spill stores /
+// loads per thread (ptxas); uncapped, the kernel fits 2 CTAs per SM and ran
+// slower on the H100
+constexpr int RASTER_MIN_BLOCKS = 4;
 constexpr int RASTER_BATCH = 256;
 constexpr int MAX_PIX_PER_THREAD = 4;  // tiles of up to 1024 pixels
+static_assert(RASTER_BATCH <= RASTER_THREADS, "one thread stages and decodes each record");
+constexpr int WARP_PIXELS = 32 * MAX_PIX_PER_THREAD;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+
+// record_box constants: ops/rasterize.py BOX_* (the proof of the margin is
+// there, beside splat_pixel_bounds, the plain mirror of record_box)
+constexpr float BOX_GAMMA = 8.0f / 16777216.0f;  // 8 * 2^-24
+constexpr float BOX_MAX_GR = 0.5f;
+constexpr float BOX_PAD = 1.0f / 65536.0f;  // 2^-16
+constexpr float BOX_ABS = 1.0f / 1024.0f;   // 2^-10
+constexpr float BOX_FAR = 1073741824.0f;    // 2^30
 
 struct RasterParams {
   int width, height, tile_w, tile_h, tx_tiles;
+  int warp_w;  // width of each warp's pixel rectangle; 0: row-major runs of 128
   float eps;
   float bg[3];
   CenterQuant cq;
 };
 
-__global__ void __launch_bounds__(RASTER_THREADS)
+// A record's pixel box in tile-local pixel indices (x_lo, x_hi, y_lo, y_hi),
+// clamped to [-1, tile size]: every pixel where the blend's f32 quadratic
+// form is < 2*CUTOFF and op > 0 lies inside it.  The determinant, which
+// cancels for needles, in f64, the rest in f32; the whole tile where
+// det <= 0, a value is not finite or the conic is a needle, and empty where
+// op <= 0.
+__device__ __forceinline__ int4 record_box(const Record& r, int tile_x, int tile_y, int tile_w,
+                                           int tile_h) {
+  if (!(r.op > 0.0f)) return make_int4(tile_w, -1, tile_h, -1);
+  const double det64 = (double)r.ha * (double)r.hc - 0.25 * (double)r.hb * (double)r.hb;
+  const float det = (float)det64;
+  const float rho = fabsf(r.hb) / (2.0f * sqrtf(r.ha * r.hc));
+  const float r1 = 1.0f + rho;
+  const float gr = BOX_GAMMA * r1 * r1 * r.ha * r.hc / det;
+  const bool finite = isfinite(r.px) && isfinite(r.py) && isfinite(gr);
+  if (!(det64 > 0.0 && det > 0.0f && finite && gr < BOX_MAX_GR))
+    return make_int4(0, tile_w - 1, 0, tile_h - 1);
+  const float kp = CUTOFF2 / (1.0f - gr);
+  const float ex = sqrtf(kp * r.hc / det) * (1.0f + BOX_PAD) + BOX_ABS;
+  const float ey = sqrtf(kp * r.ha / det) * (1.0f + BOX_PAD) + BOX_ABS;
+  auto local = [](float v, int origin, int size) {
+    v = fminf(fmaxf(v, -BOX_FAR), BOX_FAR) - (float)origin;
+    return (int)fminf(fmaxf(v, -1.0f), (float)size);
+  };
+  return make_int4(local(ceilf(r.px - ex - 0.5f), tile_x, tile_w),
+                   local(floorf(r.px + ex - 0.5f), tile_x, tile_w),
+                   local(ceilf(r.py - ey - 0.5f), tile_y, tile_h),
+                   local(floorf(r.py + ey - 0.5f), tile_y, tile_h));
+}
+
+// Thread-to-pixel map.  Warp w owns a rectangle of 128 pixels (warp_w wide,
+// ops/rasterize.py:warp_layout) cut into 4 sub-blocks of 32 pixels; lane l
+// holds pixel l of each sub-block k, row-major in it.  Sub-blocks are 8 x 4
+// on 16 x 8 rectangles (the 32 x 32 tile's layout).  With warp_w == 0, warp
+// w owns the tile's row-major pixels [128 w, 128 w + 128) and sub-block k
+// is the run [128 w + 32 k, 128 w + 32 k + 32).
+struct PixelMap {
+  int sb_w, sb_h, per_row;  // sub-block width and height, sub-blocks per rectangle row
+};
+
+__device__ __forceinline__ PixelMap pixel_map(const RasterParams& p) {
+  if (p.warp_w == 0) return PixelMap{0, 0, 0};
+  const int rh = WARP_PIXELS / p.warp_w;
+  const int sb_w = max(min(p.warp_w, 8), 32 / rh);
+  return PixelMap{sb_w, 32 / sb_w, p.warp_w / sb_w};
+}
+
+// tile-local pixel of lane l in sub-block k of warp w
+__device__ __forceinline__ int2 pixel_of(int w, int k, int l, const PixelMap& m,
+                                         const RasterParams& p) {
+  if (m.sb_w == 0) {
+    const int q = w * WARP_PIXELS + 32 * k + l;
+    return make_int2(q % p.tile_w, q / p.tile_w);
+  }
+  const int gw = (p.tile_w + p.warp_w - 1) / p.warp_w;
+  const int x0 = (w % gw) * p.warp_w + (k % m.per_row) * m.sb_w;
+  const int y0 = (w / gw) * (WARP_PIXELS / p.warp_w) + (k / m.per_row) * m.sb_h;
+  return make_int2(x0 + l % m.sb_w, y0 + l / m.sb_w);
+}
+
+// bounding box (x0, x1, y0, y1) of sub-block k of warp w
+__device__ __forceinline__ int4 sub_block_box(int w, int k, const PixelMap& m,
+                                              const RasterParams& p) {
+  const int2 a = pixel_of(w, k, 0, m, p), b = pixel_of(w, k, 31, m, p);
+  if (m.sb_w == 0 && a.y != b.y) return make_int4(0, p.tile_w - 1, a.y, b.y);
+  return make_int4(min(a.x, b.x), max(a.x, b.x), a.y, b.y);
+}
+
+__global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
     rasterize_kernel(const uint32_t* __restrict__ words, int64_t stride,
                      const int* __restrict__ ranges, RasterParams p, float* __restrict__ out) {
-  __shared__ float s_px[RASTER_BATCH], s_py[RASTER_BATCH], s_ha[RASTER_BATCH],
-      s_hb[RASTER_BATCH], s_hc[RASTER_BATCH], s_op[RASTER_BATCH], s_r[RASTER_BATCH],
-      s_g[RASTER_BATCH], s_b[RASTER_BATCH];
+  __shared__ uint32_t s_raw[2][4][RASTER_BATCH];  // raw words, double-buffered
+  // decoded records: (px, py, ha, hb), (hc, op, r, g), b
+  __shared__ float4 s_ra[RASTER_BATCH], s_rb[RASTER_BATCH];
+  __shared__ float s_rc[RASTER_BATCH];
+  // bit 4 w + k: the record's box meets sub-block k of warp w
+  __shared__ uint32_t s_hits[RASTER_BATCH];
+  __shared__ int4 s_sub[32];  // bounding box of sub-block k of warp w at [4 w + k]
 
   const int t = blockIdx.x;
   const int start = ranges[t];
   const int end = ranges[t + 1];
   const int tile_x = (t % p.tx_tiles) * p.tile_w;
   const int tile_y = (t / p.tx_tiles) * p.tile_h;
-  const int n_pix = p.tile_w * p.tile_h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const PixelMap map = pixel_map(p);
 
-  float pix_x[MAX_PIX_PER_THREAD], pix_y[MAX_PIX_PER_THREAD];
-  float T[MAX_PIX_PER_THREAD], cr[MAX_PIX_PER_THREAD], cg[MAX_PIX_PER_THREAD],
-      cb[MAX_PIX_PER_THREAD];
+  // the centres of the thread's pixels, their transmittance and colour
+  float cx[MAX_PIX_PER_THREAD], cy[MAX_PIX_PER_THREAD], T[MAX_PIX_PER_THREAD],
+      cr[MAX_PIX_PER_THREAD], cg[MAX_PIX_PER_THREAD], cb[MAX_PIX_PER_THREAD];
 #pragma unroll
   for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
-    const int q = threadIdx.x + k * RASTER_THREADS;
-    pix_x[k] = (float)(tile_x + q % p.tile_w) + 0.5f;
-    pix_y[k] = (float)(tile_y + q / p.tile_w) + 0.5f;
-    T[k] = q < n_pix ? 1.0f : 0.0f;  // pixels past the tile never blend
+    const int2 q = pixel_of(warp, k, lane, map, p);
+    cx[k] = (float)(tile_x + q.x) + 0.5f;
+    cy[k] = (float)(tile_y + q.y) + 0.5f;
+    const int x = tile_x + q.x, y = tile_y + q.y;
+    const bool in_image = x - tile_x < p.tile_w && y - tile_y < p.tile_h && x < p.width &&
+                          y < p.height;
+    T[k] = in_image ? 1.0f : 0.0f;  // pixels off the tile or the image never blend
     cr[k] = cg[k] = cb[k] = 0.0f;
   }
 
-  for (int b0 = start; b0 < end; b0 += RASTER_BATCH) {
+  // bit k: some pixel of the warp's sub-block k is still live
+  auto live_subs = [&]() {
+    uint32_t m = 0u;
+#pragma unroll
+    for (int k = 0; k < MAX_PIX_PER_THREAD; ++k)
+      m |= __any_sync(FULL_MASK, T[k] > p.eps) ? 1u << k : 0u;
+    return m;
+  };
+  uint32_t live_sub = live_subs();
+  if (threadIdx.x < 32) s_sub[threadIdx.x] = sub_block_box(threadIdx.x >> 2, threadIdx.x & 3, map, p);
+  __syncthreads();
+
+  auto stage = [&](int b0, int buf) {  // thread i copies record i of the batch
     const int idx = b0 + threadIdx.x;
-    if (idx < end) {
-      const Record r = unpack_record(words[idx], words[stride + idx], words[2 * stride + idx],
-                                     words[3 * stride + idx], p.cq);
-      s_px[threadIdx.x] = r.px;
-      s_py[threadIdx.x] = r.py;
-      s_ha[threadIdx.x] = r.ha;
-      s_hb[threadIdx.x] = r.hb;
-      s_hc[threadIdx.x] = r.hc;
-      s_op[threadIdx.x] = r.op;
-      s_r[threadIdx.x] = r.r;
-      s_g[threadIdx.x] = r.g;
-      s_b[threadIdx.x] = r.b;
+    if ((int)threadIdx.x < RASTER_BATCH && idx < end) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) cp_async4(&s_raw[buf][w][threadIdx.x], &words[w * stride + idx]);
     }
-    __syncthreads();
+  };
+  if (start < end) stage(start, 0);
+
+  for (int b0 = start, buf = 0; b0 < end; b0 += RASTER_BATCH, buf ^= 1) {
+    cp_async_wait_all();  // this thread's record of the batch has landed
     const int nb = min(RASTER_BATCH, end - b0);
-    for (int s = 0; s < nb; ++s) {
-      const float px = s_px[s], py = s_py[s], ha = s_ha[s], hb = s_hb[s], hc = s_hc[s],
-                  op = s_op[s];
-#pragma unroll
-      for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
-        if (!(T[k] > p.eps)) continue;
-        const float dx = pix_x[k] - px;
-        const float dy = pix_y[k] - py;
-        const float a = ha * dx * dx + hb * dx * dy + hc * dy * dy;
-        if (!(a < CUTOFF2 && op > 0.0f)) continue;
-        const float alpha = fminf(0.99f, expf(-a) * op);
-        const float w = alpha * T[k];
-        cr[k] = cr[k] + w * s_r[s];
-        cg[k] = cg[k] + w * s_g[s];
-        cb[k] = cb[k] + w * s_b[s];
-        T[k] = T[k] * (1.0f - alpha);
+    if ((int)threadIdx.x < nb) {
+      const int s = threadIdx.x;
+      const Record r = unpack_record(s_raw[buf][0][s], s_raw[buf][1][s], s_raw[buf][2][s],
+                                     s_raw[buf][3][s], p.cq);
+      s_ra[s] = make_float4(r.px, r.py, r.ha, r.hb);
+      s_rb[s] = make_float4(r.hc, r.op, r.r, r.g);
+      s_rc[s] = r.b;
+      const int4 box = record_box(r, tile_x, tile_y, p.tile_w, p.tile_h);
+      uint32_t hits = 0u;
+      for (int j = 0; j < 32; ++j) {
+        const int4 sb = s_sub[j];
+        if (box.y >= sb.x && box.x <= sb.y && box.w >= sb.z && box.z <= sb.w) hits |= 1u << j;
       }
+      s_hits[s] = hits;
     }
-    bool live = false;
+    // the other buffer held the previous batch, decoded before the last barrier
+    if (b0 + RASTER_BATCH < end) stage(b0 + RASTER_BATCH, buf ^ 1);
+    __syncthreads();  // decoded records visible
+
+    if (live_sub != 0u) {
+      // this warp's records of the batch, in order: 32 hit flags per ballot
+      for (int c0 = 0; c0 < nb && live_sub != 0u; c0 += 32) {
+        const uint32_t mine =
+            c0 + lane < nb ? (s_hits[c0 + lane] >> (4 * warp)) & live_sub : 0u;
+        for (uint32_t bits = __ballot_sync(FULL_MASK, mine != 0u); bits != 0u;
+             bits &= bits - 1u) {
+          const int src = __ffs(bits) - 1, s = c0 + src;
+          const uint32_t sub = __shfl_sync(FULL_MASK, mine, src);  // live sub-blocks it meets
+          const float4 ra = s_ra[s], rb = s_rb[s];  // (px, py, ha, hb), (hc, op, r, g)
+          bool live = false;
 #pragma unroll
-    for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) live = live || (T[k] > p.eps);
-    // also the barrier that frees the shared arrays for the next batch
-    if (__syncthreads_count(live) == 0) break;
+          for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
+            if (((sub >> k) & 1u) && T[k] > p.eps) {
+              const float dx = cx[k] - ra.x;
+              const float dy = cy[k] - ra.y;
+              const float a = ra.z * dx * dx + ra.w * dx * dy + rb.x * dy * dy;
+              if (a < CUTOFF2 && rb.y > 0.0f) {
+                const float alpha = fminf(0.99f, expf(-a) * rb.y);
+                const float w = alpha * T[k];
+                cr[k] = cr[k] + w * rb.z;
+                cg[k] = cg[k] + w * rb.w;
+                cb[k] = cb[k] + w * s_rc[s];
+                T[k] = T[k] * (1.0f - alpha);
+              }
+            }
+            live = live || (T[k] > p.eps);
+          }
+          if (!__any_sync(FULL_MASK, live)) {  // every pixel of the warp saturated
+            live_sub = 0u;
+            break;
+          }
+        }
+      }
+      if (live_sub != 0u) live_sub = live_subs();
+    }
+    // also the barrier that frees the decoded arrays for the next batch
+    if (__syncthreads_count(live_sub != 0u && lane == 0) == 0) break;
   }
+  cp_async_wait_all();  // no copy may outlive the CTA
 
 #pragma unroll
   for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
-    const int q = threadIdx.x + k * RASTER_THREADS;
-    const int x = tile_x + q % p.tile_w, y = tile_y + q / p.tile_w;
-    if (q < n_pix && x < p.width && y < p.height) {
+    const int x = (int)cx[k], y = (int)cy[k];
+    if (x - tile_x < p.tile_w && y - tile_y < p.tile_h && x < p.width && y < p.height) {
       float* o = out + ((int64_t)y * p.width + x) * 3;
       o[0] = cr[k] + T[k] * p.bg[0];
       o[1] = cg[k] + T[k] * p.bg[1];
@@ -128,19 +270,23 @@ __global__ void __launch_bounds__(RASTER_THREADS)
 extern "C" {
 
 // words: 4 rows of `stride` u32 (sorted records); ranges: num_tiles + 1
-// ints; bg_host: 3 floats on the host; out: (height, width, 3) f32
+// ints; bg_host: 3 floats on the host; out: (height, width, 3) f32;
+// warp_w: ops/rasterize.py:warp_layout
 int ws_rasterize(const uint32_t* words, int64_t stride, const int* ranges, const float* bg_host,
                  float* out, int width, int height, int tile_w, int tile_h, int tx_tiles,
-                 float eps, float margin, float scale_x, float scale_y, void* stream) {
+                 int warp_w, float eps, float margin, float scale_x, float scale_y,
+                 void* stream) {
   if (tile_w * tile_h > ws::RASTER_THREADS * ws::MAX_PIX_PER_THREAD)
     return (int)cudaErrorInvalidValue;
-  ws::RasterParams p{width, height, tile_w, tile_h, tx_tiles, eps,
+  if (warp_w < 0 || warp_w > ws::WARP_PIXELS || (warp_w > 0 && ws::WARP_PIXELS % warp_w != 0))
+    return (int)cudaErrorInvalidValue;
+  ws::RasterParams p{width, height, tile_w, tile_h, tx_tiles, warp_w, eps,
                      {bg_host[0], bg_host[1], bg_host[2]}, ws::CenterQuant{margin, scale_x, scale_y}};
   const int ty_tiles = (height + tile_h - 1) / tile_h;
   const int num_tiles = tx_tiles * ty_tiles;
   if (num_tiles > 0) {
-    ws::rasterize_kernel<<<num_tiles, ws::RASTER_THREADS, 0, (cudaStream_t)stream>>>(
-        words, stride, ranges, p, out);
+    cudaStream_t s = (cudaStream_t)stream;
+    ws::rasterize_kernel<<<num_tiles, ws::RASTER_THREADS, 0, s>>>(words, stride, ranges, p, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Exact-prefix stream appends shared by the frontend, overflow walk and
-// compaction kernels.
+// Exact-prefix stream appends shared by the overflow walk, compaction and
+// packed emission kernels.
 //
 // Replaces the TPU kernels' sequential SMEM cursor and ordered-overlap DMA
 // writer (frontend_pallas.py:263-321): on the GPU, blocks run in parallel and
@@ -33,11 +33,5 @@ struct BlockAppend {
     return base + excl;
   }
 };
-
-// Collective block count of `pred`, added to a global counter.
-__device__ __forceinline__ void block_count(bool pred, int* counter) {
-  const int c = __syncthreads_count(pred);
-  if (threadIdx.x == 0 && c > 0) atomicAdd(counter, c);
-}
 
 }  // namespace ws

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,7 +37,7 @@ BUILD_DIR = PKG / "_build"
 
 SOURCES = ("rasterize.cu", "rasterize_mxu.cu", "compact.cu", "emit_compact.cu", "frontend.cu",
            "overflow.cu")
-HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh")
+HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh", "cp_async.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -46,7 +47,7 @@ LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_mxu": 0, "frontend": 0,
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
 _SIGNATURES = {
-    "ws_rasterize": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp],
+    "ws_rasterize": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp],
     "ws_rasterize_mxu": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
     "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _vp],
     "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _vp],
@@ -89,13 +90,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libwebsplat_kernels_{_digest()}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    ``verbose`` adds ``-Xptxas -v`` and returns after printing its report
-    (registers, shared memory and spills per kernel)."""
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    return _compile(False)[0]
+
+
+def build_report() -> Dict[str, dict]:
+    """Build with ``-Xptxas -v`` and return each kernel entry's resources,
+    keyed by its mangled name: registers, smem (static bytes),
+    spill_stores, spill_loads."""
+    _, report = _compile(True)
+    usage: Dict[str, dict] = {}
+    entry = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = usage.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(sm.group(1)) if sm else 0
+    return usage
+
+
+def _compile(verbose: bool):
+    """(library path, ptxas report or ""): builds unless the library for
+    these sources exists and no report is asked for."""
     out = library_path()
     if out.exists() and not verbose:
-        return out
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         nvcc = nvcc_path()
@@ -110,16 +140,14 @@ def build(verbose: bool = False) -> Path:
                   for src, p, (so, err) in zip(SOURCES, procs, outs) if p.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        if verbose:
-            for src, (so, err) in zip(SOURCES, outs):
-                print(f"--- {src}", err, so, sep="\n")
+        report = "\n".join(f"--- {src}\n{err}\n{so}" for src, (so, err) in zip(SOURCES, outs))
         lib_tmp = str(Path(tmp) / out.name)
         proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib_tmp, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}\n{proc.stdout}")
         os.replace(lib_tmp, out)
-    return out
+    return out, report if verbose else ""
 
 
 def lib() -> ctypes.CDLL:

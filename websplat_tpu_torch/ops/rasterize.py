@@ -98,6 +98,172 @@ def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Seque
     return img.reshape(ty_tiles * th, tx_tiles * tw, 3)[:height, :width].contiguous()
 
 
+# Per-record pixel box (csrc/rasterize.cu:record_box mirrors it).  The
+# blend's f32 quadratic form fl(a) carries at most 6 roundings on each of
+# its three terms (dx or dy twice, two products, two sums), so
+# |fl(a) - a| <= 6u * M with u = 2^-24 and M = |ha dx^2| + |hb dx dy| +
+# |hc dy^2|, and M <= R * a with R = (1 + |rho|) / (1 - |rho|),
+# rho = hb / (2 sqrt(ha hc)), and R = (1 + |rho|)^2 ha hc / det,
+# det = ha hc - hb^2 / 4.  Hence fl(a) < K implies the exact
+# a < K' = K / (1 - 6u R), and the exact ellipse a < K' spans |dx| <
+# sqrt(K' hc / det), |dy| < sqrt(K' ha / det).  det cancels for needles
+# and is taken in f64 (its products are exact there); the rest is f32,
+# whose few roundings (< 2^-20 relative) BOX_PAD covers, and BOX_ABS covers
+# the rounding of the pixel bounds.  BOX_GAMMA rounds 6u up.  Where
+# det <= 0, a value is not finite or BOX_GAMMA * R >= BOX_MAX_GR (needles),
+# the box is the whole tile; where op <= 0 (never blended) it is empty.
+BOX_GAMMA = 8.0 * 2.0 ** -24
+BOX_MAX_GR = 0.5
+BOX_PAD = 2.0 ** -16
+BOX_ABS = 2.0 ** -10
+BOX_FAR = 2.0 ** 30  # "every pixel" / "no pixel" bounds
+CUTOFF2_F32 = float(np.float32(2.0 * CUTOFF))  # the blend's f32 2*CUTOFF
+
+
+def splat_pixel_bounds(px, py, ha, hb, hc, op):
+    """Plain mirror of the kernel's per-record box: f32 record fields (any
+    shape) -> int64 (x_lo, x_hi, y_lo, y_hi), absolute pixel indices such
+    that every pixel i with fl(a) < 2*CUTOFF at its centre i + 0.5 and
+    op > 0 has x_lo <= i_x <= x_hi and y_lo <= i_y <= y_hi.  Whole-tile
+    fallback: (-BOX_FAR, BOX_FAR); empty: (BOX_FAR, -BOX_FAR)."""
+    f32 = lambda v: torch.full_like(px, v, dtype=torch.float32)
+    d = lambda t: t.to(torch.float64)
+    det64 = d(ha) * d(hc) - 0.25 * d(hb) * d(hb)
+    det = det64.to(torch.float32)
+    rho = hb.abs() / (2.0 * packing.sqrt(ha * hc))
+    r1 = 1.0 + rho
+    gr = f32(BOX_GAMMA) * r1 * r1 * ha * hc / det
+    finite = torch.isfinite(px) & torch.isfinite(py) & torch.isfinite(gr)
+    whole = ~((det64 > 0.0) & (det > 0.0) & finite & (gr < BOX_MAX_GR))
+    kp = f32(CUTOFF2_F32) / (1.0 - torch.where(whole, torch.zeros_like(gr), gr))
+    safe = torch.where(whole, torch.ones_like(det), det)
+    ex = packing.sqrt(kp * hc / safe) * (1.0 + BOX_PAD) + BOX_ABS
+    ey = packing.sqrt(kp * ha / safe) * (1.0 + BOX_PAD) + BOX_ABS
+    far = f32(BOX_FAR)
+    clip = lambda v: torch.clamp(torch.where(whole, v * 0.0, v), -BOX_FAR, BOX_FAR)
+    x_lo = torch.where(whole, -far, clip(torch.ceil(px - ex - 0.5)))
+    x_hi = torch.where(whole, far, clip(torch.floor(px + ex - 0.5)))
+    y_lo = torch.where(whole, -far, clip(torch.ceil(py - ey - 0.5)))
+    y_hi = torch.where(whole, far, clip(torch.floor(py + ey - 0.5)))
+    empty = ~(op > 0.0)
+    x_lo, y_lo = (torch.where(empty, far, v) for v in (x_lo, y_lo))
+    x_hi, y_hi = (torch.where(empty, -far, v) for v in (x_hi, y_hi))
+    return tuple(v.to(torch.int64) for v in (x_lo, x_hi, y_lo, y_hi))
+
+
+WARP_PIXELS = 128  # 32 lanes x 4 pixels
+RASTER_WARPS = 8
+
+
+def warp_layout(tile_w: int, tile_h: int) -> int:
+    """Width of the pixel rectangle each warp of the kernel owns (128 / width
+    rows tall): the most compact power-of-two shape whose grid covers the
+    tile with at most 8 warps, wider on ties; 0 when none does, and then
+    warp w owns the tile's row-major pixels [128 w, 128 w + 128)."""
+    fits = [rw for rw in (1, 2, 4, 8, 16, 32, 64, 128)
+            if -(-tile_w // rw) * -(-tile_h // (WARP_PIXELS // rw)) <= RASTER_WARPS]
+    return min(fits, key=lambda rw: (rw + WARP_PIXELS // rw, -rw)) if fits else 0
+
+
+def subblock_of_pixel(tile_w: int, tile_h: int) -> torch.Tensor:
+    """(tile_w * tile_h,) the kernel's sub-block 4 * warp + k holding each
+    row-major tile pixel (csrc/rasterize.cu:pixel_of): warp w's rectangle
+    cut into four 32-pixel sub-blocks, 8 x 4 on 16 x 8 rectangles; with no
+    rectangle layout, the runs of 32 row-major pixels."""
+    q = torch.arange(tile_w * tile_h)
+    rw = warp_layout(tile_w, tile_h)
+    if rw == 0:
+        return q // 32
+    lx, ly = q % tile_w, q // tile_w
+    rh = WARP_PIXELS // rw
+    sb_w = max(min(rw, 8), 32 // rh)
+    warp = (ly // rh) * -(-tile_w // rw) + lx // rw
+    k = ((ly % rh) // (32 // sb_w)) * (rw // sb_w) + (lx % rw) // sb_w
+    return 4 * warp + k
+
+
+def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: int,
+                         height: int, config: RasterConfig) -> dict:
+    """Plain count of the scan rasterizer's work on a sorted stream: the
+    loop and predicates of ``rasterize_torch``, which it leaves alone.
+
+    Returns ints ``pairs_live`` (in-image pixels still above eps at a span
+    position), ``pairs_blended`` (``rasterize_torch``'s ``on``, in-image
+    pixels), ``pairs_visited`` (live pairs over every tile pixel, the
+    image's edge included: a per-pixel stop with no cull visits these),
+    ``pairs_in_box`` (live in-image pairs inside the record's
+    ``splat_pixel_bounds`` box), ``sub_evals`` (the kernel's (sub-block,
+    record) evaluations: sub-blocks with a live pixel whose rectangle meets
+    the box), ``pairs_sub_box`` (the live in-image pixels in them) and the
+    (T,) int64 tensor ``tile_stop``: span positions each tile walks until
+    its last in-image pixel saturates (its count when one never does)."""
+    check_stream(words, ranges, width, height, config)
+    dev = words.device
+    tw, th = config.tile_w, config.tile_h
+    tx_tiles, ty_tiles = config.tiles_for(width, height)
+    n_tiles = tx_tiles * ty_tiles
+    eps = float(config.transmittance_eps)
+    cq = packing.CenterQuant.for_viewport(width, height)
+    m = words.shape[1]
+    rec = packing.unpack_record(*u32(words), cq) if m else None
+    box = splat_pixel_bounds(*rec[:6]) if m else None
+
+    tile = torch.arange(n_tiles, device=dev)[:, None]
+    q = torch.arange(tw * th, device=dev)[None, :]
+    ix = (tile % tx_tiles) * tw + q % tw  # (T, P) pixel indices
+    iy = (tile // tx_tiles) * th + q // tw
+    pix_x, pix_y = ix.to(torch.float32) + 0.5, iy.to(torch.float32) + 0.5
+    in_img = (ix < width) & (iy < height)
+    sub = subblock_of_pixel(tw, th).to(dev)
+    n_sub = int(sub.max()) + 1
+    onehot = (sub[:, None] == torch.arange(n_sub, device=dev)[None, :]).to(torch.float32)
+
+    def sub_bound(coord, fill, reduce):  # (T, n_sub) extreme pixel index of each sub-block
+        local = coord[0:1] - coord[0:1, 0:1]  # offsets in the tile
+        return torch.stack([reduce(coord[:, 0:1] + torch.where(sub == j, local, fill), 1).values
+                            for j in range(n_sub)], 1)
+
+    sx0, sx1 = sub_bound(ix, tw, torch.min), sub_bound(ix, -1, torch.max)
+    sy0, sy1 = sub_bound(iy, th, torch.min), sub_bound(iy, -1, torch.max)
+    trans = torch.ones((n_tiles, tw * th), dtype=torch.float32, device=dev)
+
+    ranges = ranges.to(torch.int64)
+    start, count = ranges[:-1], ranges[1:] - ranges[:-1]
+    stop = torch.zeros_like(count)
+    out = dict(pairs_live=0, pairs_blended=0, pairs_visited=0, pairs_in_box=0, sub_evals=0,
+               pairs_sub_box=0)
+    max_count = int(count.max()) if m else 0
+    for k in range(max_count):
+        if k % _EXIT_CHECK == 0 and k:
+            live = (trans > eps) & (count > k)[:, None]
+            if not bool(live.any()):
+                break
+        i = torch.clamp(start + k, max=m - 1)
+        px, py, ha, hb, hc, op = (v[i][:, None] for v in rec[:6])
+        dx = pix_x - px
+        dy = pix_y - py
+        a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+        live = (count > k)[:, None] & (trans > eps)
+        on = live & (a < 2.0 * CUTOFF) & (op > 0.0)
+        alpha = torch.where(on, torch.clamp(torch.exp(-a) * op, max=0.99), torch.zeros_like(a))
+        trans = trans * (1.0 - alpha)
+
+        x_lo, x_hi, y_lo, y_hi = (v[i][:, None] for v in box)
+        live_img = live & in_img
+        inside = (ix >= x_lo) & (ix <= x_hi) & (iy >= y_lo) & (iy <= y_hi)
+        meets = (sx1 >= x_lo) & (sx0 <= x_hi) & (sy1 >= y_lo) & (sy0 <= y_hi)  # (T, n_sub)
+        out["pairs_visited"] += int(live.sum())
+        out["pairs_live"] += int(live_img.sum())
+        out["pairs_blended"] += int((on & in_img).sum())
+        out["pairs_in_box"] += int((live_img & inside).sum())
+        live_per_sub = live_img.to(torch.float32) @ onehot  # (T, n_sub) live pixel counts
+        out["pairs_sub_box"] += int((live_per_sub * meets).sum())
+        out["sub_evals"] += int(((live_per_sub > 0) & meets).sum())
+        stop = torch.where(live_img.any(dim=1), torch.full_like(stop, k + 1), stop)
+    out["tile_stop"] = stop
+    return out
+
+
 def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
               width: int, height: int, config: RasterConfig) -> torch.Tensor:
     """The rasterizer: the CUDA kernel for a stream on the card, the plain
@@ -118,8 +284,9 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[fl
     err = build.lib().ws_rasterize(
         words.data_ptr(), words.shape[1], ranges.data_ptr(),
         bg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), width, height,
-        config.tile_w, config.tile_h, tx_tiles, float(config.transmittance_eps),
-        cq.margin, cq.scale_x, cq.scale_y, build.stream_ptr(dev),
+        config.tile_w, config.tile_h, tx_tiles, warp_layout(config.tile_w, config.tile_h),
+        float(config.transmittance_eps), cq.margin, cq.scale_x, cq.scale_y,
+        build.stream_ptr(dev),
     )
     build.LAUNCHES["rasterize"] += 1
     build.check(err, "rasterize kernel")

@@ -198,6 +198,57 @@ def rasterize_mxu_torch(words: torch.Tensor, ranges: torch.Tensor,
     return img.reshape(ty_tiles * th, tx_tiles * tw, 3)[:height, :width].contiguous()
 
 
+def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_stop: torch.Tensor,
+                             *, width: int, height: int, config: RasterConfig) -> dict:
+    """Plain count of the work the slab rasterizer's function needs on a
+    sorted stream, over the 128-aligned slabs that cover each tile's span
+    positions [start, start + tile_stop) (``rasterize_work_torch``'s
+    ``tile_stop``: where the tile's last pixel saturated).
+
+    Returns ints ``records`` (the span positions the tiles walk),
+    ``slab_tiles`` ((tile, slab) pairs) and ``pairs_alpha``: (in-image
+    pixel, record) pairs in those slabs, the record in the tile's span, with
+    alpha > 0, i.e. op > 0 and the scan rasterizer's f32 quadratic form
+    below 2*CUTOFF (the slab variants' own rounding moves a few pairs on
+    that boundary)."""
+    _check(words, ranges, width, height, config)
+    dev = words.device
+    tw, th = config.tile_w, config.tile_h
+    tx_tiles, _ = config.tiles_for(width, height)
+    cq = packing.CenterQuant.for_viewport(width, height)
+    m = words.shape[1]
+    ranges = ranges.to(torch.int64)
+    start, end = ranges[:-1], ranges[1:]
+    stop = tile_stop.to(torch.int64)
+    slab0 = start // SLAB
+    n_slabs = torch.where(stop > 0, (start + stop + SLAB - 1) // SLAB - slab0,
+                          torch.zeros_like(stop))
+    out = dict(records=int(stop.sum()), slab_tiles=int(n_slabs.sum()), pairs_alpha=0)
+    if m == 0:
+        return out
+    rec = packing.unpack_record(*u32(words), cq)
+    f = torch.arange(tw * th, device=dev)
+    tile = torch.arange(start.shape[0], device=dev)
+    ix = ((tile % tx_tiles) * tw)[:, None] + f % tw  # (T, P) pixel indices
+    iy = ((tile // tx_tiles) * th)[:, None] + f // tw
+    in_img = (ix < width) & (iy < height)
+    pix_x, pix_y = ix.to(torch.float32) + 0.5, iy.to(torch.float32) + 0.5
+    lane = torch.arange(SLAB, device=dev)
+    for k in range(int(n_slabs.max())):
+        (tiles,) = torch.nonzero(n_slabs > k, as_tuple=True)
+        for grp in tiles.split(_TILE_GROUP):
+            pos = (slab0[grp] + k)[:, None] * SLAB + lane  # (G, S)
+            in_span = (pos >= start[grp, None]) & (pos < end[grp, None])
+            px, py, ha, hb, hc, op = (v[torch.clamp(pos, max=m - 1)][:, None, :]
+                                      for v in rec[:6])
+            dx = pix_x[grp][:, :, None] - px
+            dy = pix_y[grp][:, :, None] - py
+            a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+            on = (a < 2.0 * CUTOFF) & (op > 0.0) & in_span[:, None, :] & in_img[grp][:, :, None]
+            out["pairs_alpha"] += int(on.sum())
+    return out
+
+
 def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
                   width: int, height: int, config: RasterConfig) -> torch.Tensor:
     """The slab rasterizer: the CUDA kernel for a stream on the card, the
