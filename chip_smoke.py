@@ -14,9 +14,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              slab one at mxu/highest, mxu/high, mxu/default and hybrid) and
              the packed emission against their plain versions on the card,
              at the shapes of the bench scene's first view (1,244,819
-             splats, 1200x799); the walk also with the alpha bound off; the
-             packed emission also at half its row count; the wrappers refuse
-             bad arguments.  Per kernel: the wrapper's CUDA-event span, the
+             splats, 1200x799); the walk also with the alpha bound off and,
+             at level 1, at capacities below its totals; the packed
+             emission also at half its row count; the wrappers refuse bad
+             arguments.  Per kernel: the wrapper's CUDA-event span, the
              kernel-only time (torch.profiler, by kernel name), its roofline
              bound from this run's work counts (utils/roofline.py) with the
              bounding term and the share bound / kernel time, the plain
@@ -24,11 +25,12 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              that computes the same function (library_ms); for the scan
              rasterizer its span distribution and pair counts
              (ops/rasterize.py:rasterize_work_torch), for the slab one its
-             slab and alpha > 0 pair counts (ops/rasterize_mxu.py:
-             rasterize_mxu_work_torch)
+             slab, alpha > 0 pair and live chunk counts (ops/rasterize_mxu.py:
+             rasterize_mxu_work_torch), for the walk each level's time
   3 golden   the 500-splat golden scene through the kernels vs
              tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
-             rasterizer at two other tile shapes (its other pixel maps)
+             rasterizer at two other tile shapes (its other pixel maps) and
+             the slab one (hybrid, highest) at two (its other block maps)
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer(
              device="cuda") over the 8 orbit views of bench.py; launch
              counts, diagnostics, plain-path PSNR, ms/frame, per-stage ms,
@@ -75,8 +77,9 @@ MXU_TOL = {"highest": 1e-4, "high": 1e-4, "hybrid": 1e-4, "default": 2e-3}
 # so its sum order moves na by ~1e-4, and where that flips the discard
 # comparison na > t5 alpha jumps by up to exp(t5) = op * exp(-2 CUTOFF)
 # ~ 0.009 op (a flipped stop vote blends one more slab, <= eps * rgb).  At
-# most MXU_SLACK of the pixels may exceed MXU_TOL, none by more than
-# MXU_FLIP_TOL.  (The hybrid's quadratic form is exact f32 on both sides.)
+# most MXU_SLACK of the pixels (but one pixel on phase 3's small images)
+# may exceed MXU_TOL, none by more than MXU_FLIP_TOL.  (The hybrid's
+# quadratic form is exact f32 on both sides.)
 MXU_SLACK = 1e-5
 MXU_FLIP_TOL = 2e-2
 SLAB_PSNR = 50.0  # slab composites vs the scan frame of the same view
@@ -86,7 +89,7 @@ KERNELS = {
     "frontend": ("websplat_tpu_torch/csrc/frontend.cu",
                  "websplat_tpu/ops/frontend_pallas.py:124", "frontend_kernel", 256),
     "overflow_walk": ("websplat_tpu_torch/csrc/overflow.cu",
-                      "websplat_tpu/ops/overflow_pallas.py:66", "overflow_walk_kernel", 128),
+                      "websplat_tpu/ops/overflow_pallas.py:66", "overflow_walk_kernel", 256),
     "compact": ("websplat_tpu_torch/csrc/compact.cu",
                 "websplat_tpu/ops/compact_pallas.py:51", "compact_kernel", 256),
     "rasterize": ("websplat_tpu_torch/csrc/rasterize.cu",
@@ -173,12 +176,27 @@ def event_ms(fn):
     return out, a.elapsed_time(b)
 
 
-def mxu_config(variant):
+def mxu_config(variant, **kw):
     from websplat_tpu_torch.config import RasterConfig
 
     if variant == "hybrid":
-        return RasterConfig(composite="hybrid")
-    return RasterConfig(composite="mxu", mxu_precision=variant)
+        return RasterConfig(composite="hybrid", **kw)
+    return RasterConfig(composite="mxu", mxu_precision=variant, **kw)
+
+
+def mxu_gate(bk, bp, variant) -> dict:
+    """The slab kernel's image against its plain version's: max abs error,
+    pixels over MXU_TOL (at most MXU_SLACK of them, or one, none over
+    MXU_FLIP_TOL), and "ok"."""
+    import torch
+
+    err = float((bk - bp).abs().max())
+    n_off = int(((bk - bp).abs() > MXU_TOL[variant]).any(dim=-1).sum())
+    allowed = max(1, int(MXU_SLACK * bk.shape[0] * bk.shape[1]))
+    finite = bool(torch.isfinite(bk).all())
+    return dict(max_abs_err=err, tol=MXU_TOL[variant], pixels_over_tol=n_off,
+                pixels_allowed=allowed, finite=finite,
+                ok=finite and n_off <= allowed and err <= MXU_FLIP_TOL)
 
 
 def probe():
@@ -358,10 +376,32 @@ def kernels_vs_plain(cloud, results):
                            stream_rows(k0.keys, k0.words, n=tot),
                            stream_rows(p0.keys, p0.words, n=tot),
                            f"; stats [emitted, giants] = {k0.stats.tolist()}"))
+    # level 1 at capacities well below its totals: the stats stay the true
+    # totals, and the kept rows are a sub-multiset of the full run's (the
+    # multisets differ by exactly the rows left out)
+    tot1, gt1 = k1.stats.tolist()
+    if not (tot1 <= walk_cap and gt1 <= g_cap):
+        raise AssertionError(f"walk level 1 stats {k1.stats.tolist()} exceed its capacities")
+    cap_s, gcap_s = tot1 // 4, gt1 // 4
+    ks = overflow_walk(fk.cid, fk.stats[2], cap_c, rank_lo=cfg.tile_slots,
+                       rank_hi=cfg.overflow_slots, giant_thresh=cfg.overflow_slots,
+                       capacity=cap_s, giant_capacity=gcap_s, **geo)
+    left_i, _ = compare_rows(stream_rows(ks.keys, ks.words, n=cap_s),
+                             stream_rows(k1.keys, k1.words, n=tot1))
+    left_g, _ = compare_rows(stream_rows(ks.giants, n=gcap_s), stream_rows(k1.giants, n=gt1))
+    say("kernels", f"overflow walk level 1 at capacity {cap_s} / giant capacity {gcap_s}: "
+                   f"stats {ks.stats.tolist()}, rows outside the full run "
+                   f"{left_i - (tot1 - cap_s)} instances, {left_g - (gt1 - gcap_s)} giants")
+    if not (ks.stats.tolist() == [tot1, gt1] and left_i == tot1 - cap_s
+            and left_g == gt1 - gcap_s):
+        raise AssertionError("overflow walk below capacity: stats or kept rows wrong")
+    level_ms = [kernel_only_ms(lambda: walk(overflow_walk), "overflow_walk", 20)
+                for walk in walk_levels]
+    say("kernels", f"overflow walk kernel only: level 1 {level_ms[0]:.4f} ms, level 2 "
+                   f"{level_ms[1]:.4f} ms")
     results["overflow_walk"] = dict(
         max_abs_err=max(errs), ms=cuda_ms(lambda: walks(overflow_walk), 20),
-        kernel_ms=sum(kernel_only_ms(lambda: walk(overflow_walk), "overflow_walk", 20)
-                      for walk in walk_levels),
+        kernel_ms=sum(level_ms), kernel_ms_levels=level_ms,
         plain_ms=cuda_ms(lambda: walks(overflow_walk_torch), 3), library_ms=None)
     walk_work, walk_counts = [], []
     for rows, n_rows, lo, hi, k, gc in ((fk.cid, fk.stats[2], cfg.tile_slots, cfg.overflow_slots,
@@ -434,8 +474,11 @@ def kernels_vs_plain(cloud, results):
     with_bound(results["rasterize"], roofline.rasterize_work(n_walked, W, H, tx * ty,
                                                              work["pairs_blended"]))
     slab = rasterize_mxu_work_torch(sw, ranges, work["tile_stop"], **geo)
+    all_chunks = slab["slab_tiles"] * cfg.tile_w * cfg.tile_h // 16 * 8
     say("kernels", f"slab work over the slabs the tile stop leaves: {slab['slab_tiles']} (tile, "
-                   f"slab) pairs, {slab['pairs_alpha']} (pixel, splat) pairs with alpha > 0")
+                   f"slab) pairs, {slab['pairs_alpha']} (pixel, splat) pairs with alpha > 0, "
+                   f"{slab['live_chunks']} live of {all_chunks} (16-pixel block, 16-splat "
+                   f"chunk) pairs ({slab['live_chunks'] / max(all_chunks, 1):.3f})")
 
     # slab rasterizer, each variant on the same sorted stream: every error
     # is printed before any is judged
@@ -445,11 +488,7 @@ def kernels_vs_plain(cloud, results):
         vgeo = dict(geo, config=vcfg)
         bk = rasterize_mxu(sw, ranges, bg, **vgeo)
         bp, plain_ms = event_ms(lambda: rasterize_mxu_torch(sw, ranges, bg, **vgeo))
-        err = float((bk - bp).abs().max())
-        n_off = int(((bk - bp).abs() > MXU_TOL[v]).any(dim=-1).sum())
-        variants[v] = dict(max_abs_err=err, tol=MXU_TOL[v], pixels_over_tol=n_off,
-                           pixels_allowed=int(MXU_SLACK * bk.shape[0] * bk.shape[1]),
-                           finite=bool(torch.isfinite(bk).all()),
+        variants[v] = dict(mxu_gate(bk, bp, v),
                            ms=cuda_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo), 10),
                            kernel_ms=kernel_only_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo),
                                                     "rasterize_mxu", 10),
@@ -458,16 +497,16 @@ def kernels_vs_plain(cloud, results):
         with_bound(variants[v], roofline.rasterize_mxu_work(
             slab["records"], slab["slab_tiles"], slab["pairs_alpha"], W, H, tx * ty,
             cfg.tile_w * cfg.tile_h, SPLITS[v]))
-        say("kernels", f"rasterize_mxu {v}: max |kernel - plain| = {err:.3g} ({n_off} "
-                       f"pixels over {MXU_TOL[v]}, allowed {variants[v]['pixels_allowed']} "
-                       f"up to {MXU_FLIP_TOL}), mean |kernel - scan| "
-                       f"{variants[v]['mean_abs_vs_scan']:.3g}, kernel "
-                       f"{variants[v]['ms']:.3f} ms ({variants[v]['kernel_ms']:.3f} kernel only, "
-                       f"bound {variants[v]['bound_ms']:.3f} by {variants[v]['bound_term']} over "
-                       f"{slab['slab_tiles']} (tile, slab) pairs), plain {plain_ms:.3f} ms")
+        r = variants[v]
+        say("kernels", f"rasterize_mxu {v}: max |kernel - plain| = {r['max_abs_err']:.3g} "
+                       f"({r['pixels_over_tol']} pixels over {MXU_TOL[v]}, allowed "
+                       f"{r['pixels_allowed']} up to {MXU_FLIP_TOL}), mean |kernel - scan| "
+                       f"{r['mean_abs_vs_scan']:.3g}, kernel {r['ms']:.3f} ms "
+                       f"({r['kernel_ms']:.4f} kernel only, bound {r['bound_ms']:.3f} by "
+                       f"{r['bound_term']} over {slab['slab_tiles']} (tile, slab) pairs), plain "
+                       f"{plain_ms:.3f} ms")
     for v, r in variants.items():
-        if not (r["finite"] and r["pixels_over_tol"] <= r["pixels_allowed"]
-                and r["max_abs_err"] <= MXU_FLIP_TOL):
+        if not r.pop("ok"):
             raise AssertionError(f"rasterize_mxu {v}: kernel disagrees with its plain version")
     results["rasterize_mxu"] = dict(variants["hybrid"], variants=variants)
 
@@ -593,6 +632,30 @@ def golden():
                       f"{warp_layout(tw, th)}): max |kernel - plain| = {err:.3g}")
         if not err <= RASTER_TOL:
             raise AssertionError(f"rasterize at {tw}x{th} tiles: kernel disagrees with plain")
+        torch.cuda.synchronize()
+
+    # the slab rasterizer's other block maps: 128 x 8 tiles give 4 x 4
+    # squares 32 to a row, 128 x 2 tiles 16-pixel row strips (ops/
+    # rasterize_mxu.py:block_pixels); kernel vs plain on the same stream
+    from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
+
+    for tw, th in ((128, 8), (128, 2)):
+        for v in ("hybrid", "highest"):
+            cfg = mxu_config(v, tile_w=tw, tile_h=th)
+            geo = dict(width=w, height=h, config=cfg)
+            keys, words, _ = build_instance_stream(r.device_cloud, fs, **geo)
+            sk, sw = sort_instances(keys, words)
+            tx, ty = cfg.tiles_for(w, h)
+            ranges = tile_ranges(sk, tx * ty, cfg.key_bits(w, h)[1])
+            bg = args.background_color
+            gate = mxu_gate(rasterize_mxu(sw, ranges, bg, **geo),
+                            rasterize_mxu_torch(sw, ranges, bg, **geo), v)
+            say("golden", f"rasterize_mxu {v} at {tw}x{th} tiles: max |kernel - plain| = "
+                          f"{gate['max_abs_err']:.3g} ({gate['pixels_over_tol']} pixels over "
+                          f"{gate['tol']}, allowed {gate['pixels_allowed']})")
+            if not gate["ok"]:
+                raise AssertionError(f"rasterize_mxu {v} at {tw}x{th} tiles: kernel disagrees "
+                                     "with plain")
         torch.cuda.synchronize()
 
 
@@ -763,10 +826,12 @@ def main() -> int:
         r["launches_per_frame"] = 0.0 if k == "emit_compact" else launches[k] / N_VIEWS
         per_call = 2 if k == "overflow_walk" else 1
         gap = r["launches_per_frame"] / per_call * (r["kernel_ms"] - r["bound_ms"])
+        levels = ("" if "kernel_ms_levels" not in r else " (levels "
+                  + " + ".join(f"{t:.4f}" for t in r["kernel_ms_levels"]) + ")")
         say("result", f"{k}: {r['launches_per_frame']:g} launches/frame, {per_call} in the timed "
-                      f"work; kernel only {r['kernel_ms']:.4f} ms - bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_term']}) per call = {gap:.4f} ms above the bound per frame; "
-                      f"share {r['share']:.3f}")
+                      f"work; kernel only {r['kernel_ms']:.4f} ms{levels} - bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_term']}) per call = {gap:.4f} ms above "
+                      f"the bound per frame; share {r['share']:.3f}")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=spec[0], replaces=spec[1], launches=launches[k],
              **{f: v for f, v in results[k].items() if f != "finite"})

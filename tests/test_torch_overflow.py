@@ -7,8 +7,12 @@ Totals, giant totals and the instance and giant multisets must be equal.
 The JAX kernel multiplies by hoisted reciprocals in its reach test where
 the port divides (make_reaches), so a tile exactly on a reach boundary
 could flip; observed: 0 differing rows, with the alpha bound on and off.
-(The production rank windows are held against the plain version on the
-card by chip_smoke.py.)
+
+At the production rank windows (6, 32, 160) the port's plain level 1,
+level 2 and dense grid together are held against the JAX package's XLA
+``ops/preprocess.py:overflow_emit`` (which divides as the port does): the
+same instance multiset.  That is the spec the kernel is held to on the
+card by chip_smoke.py, at the widths it runs.
 """
 
 from collections import Counter
@@ -21,25 +25,34 @@ import torch
 from websplat_tpu.config import RasterConfig as JaxRasterConfig
 from websplat_tpu.ops import packing as jp
 from websplat_tpu.ops.overflow_pallas import overflow_walk as jax_walk
+from websplat_tpu.ops.preprocess import overflow_emit
 from websplat_tpu_torch.config import RasterConfig
 from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
+from websplat_tpu_torch.ops.preprocess import dense_grid_emit
 
 torch.set_num_threads(2)
 
 W, H = 256, 192
 
 
-def _rows(seed, n, cfg, sigma):
+def _rows(seed, n, cfg, sigma, *, width=W, height=H, size=None):
     """6-word rows (rect4, w0..w3, depth_q) with random rects of up to 6x6
-    tiles and records packed by the JAX codecs."""
+    tiles, or of the given (w_t, h_t) arrays of sizes, and records packed by
+    the JAX codecs; sigma may be one value or one per row."""
     rng = np.random.default_rng(seed)
-    tx_tiles, ty_tiles = cfg.tiles_for(W, H)
-    tx0 = rng.integers(0, tx_tiles - 1, n)
-    ty0 = rng.integers(0, ty_tiles - 1, n)
-    tx1 = np.minimum(tx0 + rng.integers(0, 6, n), tx_tiles - 1)
-    ty1 = np.minimum(ty0 + rng.integers(0, 6, n), ty_tiles - 1)
+    tx_tiles, ty_tiles = cfg.tiles_for(width, height)
+    if size is None:
+        tx0 = rng.integers(0, tx_tiles - 1, n)
+        ty0 = rng.integers(0, ty_tiles - 1, n)
+        tx1 = np.minimum(tx0 + rng.integers(0, 6, n), tx_tiles - 1)
+        ty1 = np.minimum(ty0 + rng.integers(0, 6, n), ty_tiles - 1)
+    else:
+        w_t, h_t = size
+        tx0 = rng.integers(0, tx_tiles - w_t + 1)
+        ty0 = rng.integers(0, ty_tiles - h_t + 1)
+        tx1, ty1 = tx0 + w_t - 1, ty0 + h_t - 1
     rect = (tx0 | (ty0 << 8) | (tx1 << 16) | (ty1 << 24)).astype(np.uint32)
-    cq = jp.CenterQuant.for_viewport(W, H)
+    cq = jp.CenterQuant.for_viewport(width, height)
     px = (tx0 + rng.uniform(0.0, 1.0, n) * (tx1 - tx0 + 1)) * cfg.tile_w
     py = (ty0 + rng.uniform(0.0, 1.0, n) * (ty1 - ty0 + 1)) * cfg.tile_h
     ha = np.full(n, sigma) * rng.uniform(0.5, 2.0, n)
@@ -130,3 +143,54 @@ def test_walk_capacity_and_giant_capacity_counted():
                                  rank_hi=6, giant_thresh=6, capacity=4096, giant_capacity=128,
                                  width=W, height=H, config=RasterConfig(**c["cfg"]))
     assert capped.stats.tolist() == full.stats.tolist()
+
+
+PW, PH = 640, 480  # 20 x 15 tiles
+
+
+def test_production_windows_match_overflow_emit():
+    """Ranks [6, 32), then [32, 160) over the giants, then the dense grid
+    over the megas (the main path's three overflow stages, RasterConfig()
+    defaults) against overflow_emit on the same rows: rects up to 14 x 12
+    tiles, conics from needle-thin to wide, so that both levels cull by
+    reach and all three stages emit."""
+    cfg = RasterConfig()
+    n = 240
+    rng = np.random.default_rng(7)
+    sigma = 10.0 ** rng.uniform(-6.0, -2.5, n)
+    # about half of the rows clamped only (n_rect <= 32), 40% giants, 10%
+    # megas (n_rect > 160)
+    cls = rng.choice(3, n, p=[0.5, 0.4, 0.1])
+    w_t = np.choose(cls, [rng.integers(1, 7, n), rng.integers(5, 13, n), np.full(n, 14)])
+    h_t = np.choose(cls, [rng.integers(1, 6, n), rng.integers(7, 13, n), np.full(n, 12)])
+    rows = _rows(11, n, cfg, sigma, width=PW, height=PH, size=(w_t, h_t))
+    geo = dict(width=PW, height=PH, config=cfg)
+    g_cap = cfg.overflow_grid_capacity_for(n)
+    m_cap = cfg.overflow_dense_capacity_for(n)
+    t_rows = torch.from_numpy(rows.view(np.int32))
+    w1 = overflow_walk_torch(t_rows, n, n, rank_lo=cfg.tile_slots, rank_hi=cfg.overflow_slots,
+                             giant_thresh=cfg.overflow_slots, capacity=1 << 16,
+                             giant_capacity=g_cap, **geo)
+    n_giant = int(w1.stats[1])
+    w2 = overflow_walk_torch(w1.giants, n_giant, g_cap, rank_lo=cfg.overflow_slots,
+                             rank_hi=cfg.overflow_window_slots,
+                             giant_thresh=cfg.overflow_window_slots, capacity=1 << 16,
+                             giant_capacity=m_cap, **geo)
+    n_mega = int(w2.stats[1])
+    assert 0 < n_mega <= m_cap and n_giant <= g_cap  # every stage runs, nothing lost
+    dkeys, dwords = dense_grid_emit(w2.giants, n_mega, **geo)
+    u = lambda x: x.numpy().view(np.uint32)
+    parts = [np.concatenate([u(w.keys)[:int(w.stats[0]), None],
+                             u(w.words)[:, :int(w.stats[0])].T], 1) for w in (w1, w2)]
+    dense = np.concatenate([u(dkeys)[:, None], u(dwords).T], 1)
+    parts.append(dense[dense[:, 0] != 0xFFFFFFFF])
+    assert all(len(p) > 50 for p in parts)
+    port = np.concatenate(parts)
+
+    keys, words, residual = overflow_emit(tuple(jnp.asarray(r) for r in rows),
+                                          config=JaxRasterConfig(), width=PW, height=PH)
+    keys = np.asarray(keys)
+    jax_inst = np.stack([keys] + [np.asarray(w) for w in words], 1)[keys != 0xFFFFFFFF]
+    assert int(residual) == 0
+    assert len(port) == len(jax_inst)
+    assert _same_multiset(port, jax_inst)

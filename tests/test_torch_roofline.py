@@ -29,7 +29,7 @@ from websplat_tpu_torch.ops.rasterize import (
     splat_pixel_bounds,
     subblock_of_pixel,
 )
-from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu_work_torch
+from websplat_tpu_torch.ops.rasterize_mxu import block_pixels, rasterize_mxu_work_torch
 from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
 from websplat_tpu_torch.render.renderer import (
     build_instance_stream,
@@ -165,16 +165,19 @@ def test_frontend_and_walk_counts(scene):
 
 
 def _brute_slab_counts(sw, ranges, stop, cfg):
-    """(slab_tiles, pairs_alpha) by walking each tile's 128-aligned slabs up
-    to its stop in numpy: in-image pixels against the records of the tile's
-    span in those slabs, alpha > 0 where op > 0 and the f32 quadratic form
-    is below 2*CUTOFF."""
+    """(slab_tiles, pairs_alpha, live_chunks) by walking each tile's
+    128-aligned slabs up to its stop in numpy: pixels against the records of
+    the tile's span in those slabs, alpha > 0 where op > 0 and the f32
+    quadratic form is below 2*CUTOFF; pairs_alpha counts in-image pixels,
+    live_chunks the distinct (4x4 pixel square, position // 16) pairs of
+    such pairs over every pixel of the tile."""
     cq = packing.CenterQuant.for_viewport(W, H)
     rec = [v.numpy() for v in packing.unpack_record(*packing.u32(sw), cq)]
     tw, th = cfg.tile_w, cfg.tile_h
     tx_tiles, _ = cfg.tiles_for(W, H)
     r = ranges.numpy().astype(np.int64)
-    slab_tiles = pairs = 0
+    assert tw % 4 == 0 and th % 4 == 0
+    slab_tiles = pairs = live = 0
     for t, s in enumerate(stop.numpy()):
         if s == 0:
             continue
@@ -182,23 +185,31 @@ def _brute_slab_counts(sw, ranges, stop, cfg):
         slab_tiles += last - first + 1
         lo, hi = max(first * 128, r[t]), min((last + 1) * 128, r[t + 1])
         x0, y0 = (t % tx_tiles) * tw, (t // tx_tiles) * th
-        xs, ys = np.meshgrid(np.arange(x0, min(x0 + tw, W)), np.arange(y0, min(y0 + th, H)))
-        dx = (xs.ravel()[:, None].astype(np.float32) + np.float32(0.5)) - rec[0][None, lo:hi]
-        dy = (ys.ravel()[:, None].astype(np.float32) + np.float32(0.5)) - rec[1][None, lo:hi]
+        xs, ys = np.meshgrid(np.arange(x0, x0 + tw), np.arange(y0, y0 + th))
+        xs, ys = xs.ravel(), ys.ravel()
+        dx = (xs[:, None].astype(np.float32) + np.float32(0.5)) - rec[0][None, lo:hi]
+        dy = (ys[:, None].astype(np.float32) + np.float32(0.5)) - rec[1][None, lo:hi]
         ha, hb, hc, op = (v[None, lo:hi] for v in rec[2:6])
         a = ha * dx * dx + hb * dx * dy + hc * dy * dy
-        pairs += int(((a < np.float32(CUTOFF2_F32)) & (op > 0)).sum())
-    return slab_tiles, pairs
+        on = (a < np.float32(CUTOFF2_F32)) & (op > 0)
+        pairs += int((on & ((xs < W) & (ys < H))[:, None]).sum())
+        pix, pos = np.nonzero(on)
+        square = ((ys[pix] - y0) // 4) * (tw // 4) + (xs[pix] - x0) // 4
+        live += len(set(zip(square.tolist(), ((lo + pos) // 16).tolist())))
+    return slab_tiles, pairs, live
 
 
 def test_slab_and_compact_counts(scene):
     sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
     stop = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)["tile_stop"]
     slab = rasterize_mxu_work_torch(sw, ranges, stop, width=W, height=H, config=cfg)
-    slab_tiles, pairs_alpha = _brute_slab_counts(sw, ranges, stop, cfg)
+    slab_tiles, pairs_alpha, live_chunks = _brute_slab_counts(sw, ranges, stop, cfg)
     assert slab["records"] == int(stop.sum())
     assert (slab["slab_tiles"], slab["pairs_alpha"]) == (slab_tiles, pairs_alpha)
     assert pairs_alpha > 50_000
+    # the chunk vote skips work: some chunks are dead, many are live
+    assert slab["live_chunks"] == live_chunks
+    assert 1000 < live_chunks < slab_tiles * (1024 // 16) * 8
     work = roofline.rasterize_mxu_work(slab["records"], slab_tiles, pairs_alpha, W, H, 56,
                                        cfg.tile_w * cfg.tile_h, (0, 2, 2))
     assert work.f32 == 12 * slab_tiles * 1024 * 128 + 9 * pairs_alpha and work.tensor == 0
@@ -229,3 +240,19 @@ def test_subblocks_tile_the_warp_rectangles():
     for tw, th in ((32, 32), (16, 16), (64, 16), (1024, 1), (33, 31)):
         counts = torch.bincount(subblock_of_pixel(tw, th))
         assert counts.max() <= 32 and counts.sum() == tw * th
+
+
+@pytest.mark.parametrize("tw, th", [(32, 32), (64, 16), (128, 8), (256, 4), (128, 2)])
+def test_slab_blocks_cover_each_pixel_once(tw, th):
+    """The slab kernel's 16-pixel blocks partition the tile: 4x4 squares
+    where both sides are multiples of 4, row-major runs of 16 otherwise."""
+    bp = block_pixels(tw, th)
+    assert bp.shape == (tw * th // 16, 16)
+    assert torch.equal(torch.sort(bp.reshape(-1)).values, torch.arange(tw * th))
+    x, y = bp % tw, bp // tw
+    if th % 4 == 0:
+        assert torch.equal(x - x[:, :1], torch.arange(16).repeat(len(bp), 1) % 4)
+        assert torch.equal(y - y[:, :1], torch.arange(16).repeat(len(bp), 1) // 4)
+        assert (x[:, 0] % 4 == 0).all() and (y[:, 0] % 4 == 0).all()
+    else:
+        assert torch.equal(bp - bp[:, :1], torch.arange(16).repeat(len(bp), 1))

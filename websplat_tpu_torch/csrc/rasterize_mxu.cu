@@ -39,18 +39,42 @@
 // if one of its lanes is live and some pixel of the tile still has
 // clog > log(eps) (a CTA-wide vote); once no pixel has, the tile is done.
 //
-// What bounds it on the card: per (splat, pixel) pair three transcendentals
-// (expf, log1pf, expf) on the CUDA cores, and 2*128*128*P FLOP per slab and
-// loga split for the prefix on the tensor cores; it evaluates every pixel of
-// a tile for every slab until the whole tile saturates (the scan kernel
-// stops pixel by pixel), so it is expected to be slower than the scan
-// kernel.  Its design: one CTA per tile, 8 warps, each warp owning 16-pixel
-// row blocks; mma.sync.m16n8k16 bf16 with f32 accumulators; per slab the
-// first 128 threads decode the records into shared memory (coefficients
-// already split into bf16 pairs); each pixel's acc and clog live in shared
-// memory between slabs.  The float steps outside the contractions are
-// operation for operation those of ops/rasterize_mxu.py:rasterize_mxu_torch
-// (built with -fmad=false, no fast math).
+// What bounds it on the card: the function needs the quadratic form of
+// every (pixel, splat) pair of the slabs the tile stop leaves (f32 work,
+// the bound's term), but exp, log1p, exp and the blend only for the pairs
+// with alpha > 0: 13% of them at the bench scene.  Its time goes to that
+// per-pair work on the CUDA cores (in development builds, taking out any
+// one stage of it cut the time), so the design cuts what a pair costs:
+// - Each 16-pixel block walks its slab in k16 chunks of 16 splats: the
+//   chunk's quadratic form, then a warp vote on alpha > 0.  A chunk where no
+//   (pixel, splat) pair has alpha > 0 adds exactly nothing (log1p(-0) = -0,
+//   w = 0 * exp(cum + clog) = 0 as cum + clog <= 0, zero colour products),
+//   so all that follows is skipped.  At the bench scene 86.5% of the
+//   chunks stay live: 16 splats of a depth-sorted span rarely all miss a
+//   block.
+// - In a live chunk only ~40 of the 256 pairs have alpha > 0, so the warp
+//   packs those pairs into shared memory (ballot + popc) and its lanes run
+//   exp, log1p and the second exp over the packed list only; each lane
+//   reads its own pairs back.  Same operations per pair, so bit-equal to
+//   evaluating every pair.
+// - The prefix is each pixel's running carry (the f32 sum of the earlier
+//   chunks' bf16 split parts of loga, reduced over the quad by shuffles) plus
+//   one strictly-upper 16x16 triangle per chunk on the tensor cores (2 n8
+//   tiles x NL splits: 32 MMAs per block and slab for the hybrid); the carry
+//   enters as the MMA's accumulator.
+// - A block is a 4x4 pixel square when tile_w and tile_h are multiples of 4
+//   (16-pixel row strips otherwise), so a chunk of small splats can miss it.
+// - Per-chunk state is [2][4] per thread; built for 3 CTAs per SM (<= 80
+//   registers; "highest" spills a few bytes).
+// One CTA per tile, 8 warps, each warp owning blocks blk = warp + 8k; per
+// slab the first 128 threads decode the records into shared memory
+// (coefficients already split into bf16 pairs); each pixel's acc and clog
+// live in shared memory between slabs.  What is left is the per-chunk
+// work of the live chunks (the hybrid's quadratic form alone is 88 f32
+// operations per thread and chunk; splits, packs and shuffles around each
+// contraction).  The float steps outside the contractions are operation
+// for operation those of ops/rasterize_mxu.py:rasterize_mxu_torch (built
+// with -fmad=false, no fast math).
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -62,13 +86,16 @@ namespace ws {
 constexpr int MXU_THREADS = 256;
 constexpr int MXU_WARPS = MXU_THREADS / 32;
 constexpr int SLAB = 128;
+constexpr int CHUNK = 16;
 constexpr int MXU_MAX_PIX = 1024;
 constexpr float DEAD_C5 = -1.0e30f;
 constexpr uint32_t BF16_ONE = 0x3F80u;
 constexpr uint32_t BF16_ONES = 0x3F803F80u;
+constexpr unsigned MXU_FULL = 0xffffffffu;
 
 struct MxuParams {
   int width, height, tile_w, tile_h, tx_tiles;
+  int square;  // 1: 4x4 pixel blocks, 0: 16-pixel row strips
   float log_eps;
   float bg[3];
   CenterQuant cq;
@@ -77,11 +104,13 @@ struct MxuParams {
 template <int NQ, int NC>
 struct MxuSmem {
   uint32_t coef[NQ > 0 ? NQ : 1][SLAB][3];  // bf16 pairs (c0,c1), (c2,c3), (c4,c5)
-  float coef32[6][SLAB];                    // the hybrid's f32 coefficients
+  float coef32[NQ > 0 ? 1 : 6][SLAB];       // the hybrid's f32 coefficients
   float t5[SLAB];
   uint16_t rgb[NC][3][SLAB];  // bf16 bit patterns
   float clog[MXU_MAX_PIX];
   float acc[MXU_MAX_PIX][4];  // r, g, b, unused
+  // per warp: a chunk's (pixel, splat) pairs with alpha > 0, packed
+  float packed[MXU_WARPS][2][CHUNK * 16];
 };
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -100,14 +129,11 @@ __device__ __forceinline__ void split_bf16(float x, float (&parts)[N]) {
   }
 }
 
-// A fragment (16 x 16, rows g and g + 8, cols 2q, 2q + 1 and + 8) of N
-// splits, from the accumulator values of two n8 tiles: v[0..3] of the tile
-// holding cols 0-7, v[4..7] of the tile holding cols 8-15
+// A fragments (16 x 16, rows g and g + 8, cols 2q, 2q + 1 and + 8) of N
+// splits, from split accumulator values of two n8 tiles: p[0..3] of the
+// tile holding cols 0-7, p[4..7] of the tile holding cols 8-15
 template <int N>
-__device__ __forceinline__ void a_frags(const float (&v)[8], uint32_t (&f)[N][4]) {
-  float p[8][N];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) split_bf16<N>(v[e], p[e]);
+__device__ __forceinline__ void pack_frags(const float (&p)[8][N], uint32_t (&f)[N][4]) {
 #pragma unroll
   for (int s = 0; s < N; ++s) {
     f[s][0] = pack_bf16x2(p[0][s], p[1][s]);
@@ -115,6 +141,14 @@ __device__ __forceinline__ void a_frags(const float (&v)[8], uint32_t (&f)[N][4]
     f[s][2] = pack_bf16x2(p[4][s], p[5][s]);
     f[s][3] = pack_bf16x2(p[6][s], p[7][s]);
   }
+}
+
+template <int N>
+__device__ __forceinline__ void a_frags(const float (&v)[8], uint32_t (&f)[N][4]) {
+  float p[8][N];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) split_bf16<N>(v[e], p[e]);
+  pack_frags<N>(p, f);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -137,36 +171,39 @@ __device__ __forceinline__ void mma_passes(float (&d)[4], const uint32_t (&a)[N]
   }
 }
 
-// one 16-pixel row block (pixels f0 = 16*blk + g and f0 + 8) through one slab
+// tile-local row-major index of the pixel in MMA row r (0..15) of block
+// blk (ops/rasterize_mxu.py:block_pixels)
+__device__ __forceinline__ int block_pixel(int blk, int r, const MxuParams& p) {
+  if (p.square) {
+    const int bw = p.tile_w >> 2;
+    return (4 * (blk / bw) + (r >> 2)) * p.tile_w + 4 * (blk % bw) + (r & 3);
+  }
+  return 16 * blk + r;
+}
+
+// sum over a quad (the 4 lanes holding one MMA row)
+__device__ __forceinline__ float quad_sum(float v) {
+  v = v + __shfl_xor_sync(MXU_FULL, v, 1);
+  return v + __shfl_xor_sync(MXU_FULL, v, 2);
+}
+
+// one 16-pixel block (rows g -> pixel f0, g + 8 -> pixel f1) through one slab
 template <int NQ, int NL, int NC>
 __device__ __forceinline__ bool slab_block(MxuSmem<NQ, NC>& sm, int blk, const MxuParams& p) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int f0 = 16 * blk + g, f1 = f0 + 8;
+  const int f0 = block_pixel(blk, g, p), f1 = block_pixel(blk, g + 8, p);
   const float x0 = (float)(f0 % p.tile_w) + 0.5f, y0 = (float)(f0 / p.tile_w) + 0.5f;
   const float x1 = (float)(f1 % p.tile_w) + 0.5f, y1 = (float)(f1 / p.tile_w) + 0.5f;
 
-  // ---- quadratic form: a[j][e] = na of pixel (e < 2 ? f0 : f1) and splat
-  // 8j + 2q + (e & 1), the m16n8 accumulator layout ----
-  float a[16][4];
+  // the quadratic form's pixel operand, for every chunk
+  float m0[6], m1[6];
+  uint32_t am[NQ > 0 ? NQ : 1][4];
   if constexpr (NQ == 0) {
-    const float m0[6] = {-(x0 * x0), -(x0 * y0), -(y0 * y0), x0, y0, 1.0f};
-    const float m1[6] = {-(x1 * x1), -(x1 * y1), -(y1 * y1), x1, y1, 1.0f};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int s = 8 * j + 2 * q + (e & 1);
-        const float* m = e < 2 ? m0 : m1;
-        float na = sm.coef32[0][s] * m[0];
-        na = na + sm.coef32[1][s] * m[1];
-        na = na + sm.coef32[2][s] * m[2];
-        na = na + sm.coef32[3][s] * m[3];
-        na = na + sm.coef32[4][s] * m[4];
-        na = na + sm.coef32[5][s] * m[5];
-        a[j][e] = na;
-      }
-    }
+    m0[0] = -(x0 * x0); m0[1] = -(x0 * y0); m0[2] = -(y0 * y0);
+    m0[3] = x0; m0[4] = y0; m0[5] = 1.0f;
+    m1[0] = -(x1 * x1); m1[1] = -(x1 * y1); m1[2] = -(y1 * y1);
+    m1[3] = x1; m1[4] = y1; m1[5] = 1.0f;
   } else {
     // A = the monomial matrix (k = monomial index, 6 of 16 used): this
     // thread holds monomials 2q, 2q + 1 of its two pixels
@@ -179,7 +216,6 @@ __device__ __forceinline__ bool slab_block(MxuSmem<NQ, NC>& sm, int blk, const M
     split_bf16<NQ>(hi0, sh0);
     split_bf16<NQ>(lo1, sl1);
     split_bf16<NQ>(hi1, sh1);
-    uint32_t am[NQ][4];
 #pragma unroll
     for (int s = 0; s < NQ; ++s) {
       am[s][0] = pack_bf16x2(sl0[s], sh0[s]);
@@ -187,31 +223,8 @@ __device__ __forceinline__ bool slab_block(MxuSmem<NQ, NC>& sm, int blk, const M
       am[s][2] = 0u;
       am[s][3] = 0u;
     }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      uint32_t bq[NQ][2];
-#pragma unroll
-      for (int s = 0; s < NQ; ++s) {
-        bq[s][0] = q < 3 ? sm.coef[s][8 * j + g][q < 3 ? q : 0] : 0u;
-        bq[s][1] = 0u;
-      }
-      a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.0f;
-      mma_passes<NQ>(a[j], am, bq);
-    }
   }
 
-  // ---- alpha ----
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float na = a[j][e];
-      a[j][e] = na > sm.t5[8 * j + 2 * q + (e & 1)] ? fminf(0.99f, expf(na)) : 0.0f;
-    }
-  }
-
-  // ---- prefix and colours, one k16 chunk (splats 16c .. 16c + 15) at a
-  // time: after chunk c the cum tiles 2c and 2c + 1 are final ----
   const float cl0 = sm.clog[f0], cl1 = sm.clog[f1];
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (q < 2) {
@@ -220,37 +233,138 @@ __device__ __forceinline__ bool slab_block(MxuSmem<NQ, NC>& sm, int blk, const M
     acc[2] = sm.acc[f1][2 * q];
     acc[3] = sm.acc[f1][2 * q + 1];
   }
-  float cum[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) cum[j][0] = cum[j][1] = cum[j][2] = cum[j][3] = 0.0f;
-  float ls0 = 0.0f, ls1 = 0.0f;
+  float* buf0 = sm.packed[threadIdx.x >> 5][0];
+  float* buf1 = sm.packed[threadIdx.x >> 5][1];
+  float carry0 = 0.0f, carry1 = 0.0f;  // the slab's prefix before this chunk
+  float ls0 = 0.0f, ls1 = 0.0f;        // this thread's share of sum_s loga
+  // in-chunk triangle U (k = 2q + {0,1} (+8), n = g (+8)): 1 where k < n
   const uint32_t diag = ((2 * q < g) ? BF16_ONE : 0u) | ((2 * q + 1 < g) ? BF16_ONE << 16 : 0u);
+
+#pragma unroll 1
+  for (int c = 0; c < SLAB / CHUNK; ++c) {
+    const int k0 = CHUNK * c;
+    // ---- quadratic form and alpha: a[j][e] of pixel (e < 2 ? f0 : f1)
+    // and splat k0 + 8j + 2q + (e & 1), the m16n8 accumulator layout ----
+    float a[2][4];
+    if constexpr (NQ == 0) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = k0 + 8 * j + 2 * q + (e & 1);
+          const float* m = e < 2 ? m0 : m1;
+          float na = sm.coef32[0][s] * m[0];
+          na = na + sm.coef32[1][s] * m[1];
+          na = na + sm.coef32[2][s] * m[2];
+          na = na + sm.coef32[3][s] * m[3];
+          na = na + sm.coef32[4][s] * m[4];
+          na = na + sm.coef32[5][s] * m[5];
+          a[j][e] = na;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bq[NQ][2];
+#pragma unroll
+        for (int s = 0; s < NQ; ++s) {
+          bq[s][0] = q < 3 ? sm.coef[s][k0 + 8 * j + g][q < 3 ? q : 0] : 0u;
+          bq[s][1] = 0u;
+        }
+        a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.0f;
+        mma_passes<NQ>(a[j], am, bq);
+      }
+    }
+    bool on[2][4];
+    bool hit = false;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        on[j][e] = a[j][e] > sm.t5[k0 + 8 * j + 2 * q + (e & 1)];
+        hit = hit || on[j][e];
+      }
+    }
+    // no pair of the block and chunk has alpha > 0: the chunk adds exactly
+    // nothing to cum, clog or acc
+    if (!__any_sync(MXU_FULL, hit)) continue;
+
+    // ---- alpha and loga of the pairs with alpha > 0 only: the warp packs
+    // their na into shared memory (slot pos[4j + e]), its lanes evaluate
+    // the packed list, and each lane reads its own pairs back; a pair with
+    // alpha = 0 has loga = log1p(-0) = -0 ----
+    const unsigned lt = (1u << lane) - 1u;
+    int pos[8];
+    int n_on = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned m = __ballot_sync(MXU_FULL, on[j][e]);
+        pos[4 * j + e] = n_on + __popc(m & lt);
+        n_on += __popc(m);
+        if (on[j][e]) buf0[pos[4 * j + e]] = a[j][e];
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n_on; i += 32) {
+      const float al = fminf(0.99f, expf(buf0[i]));
+      buf0[i] = al;
+      buf1[i] = log1pf(-al);
+    }
+    __syncwarp();
     float l[8];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      l[e] = log1pf(-a[2 * c][e]);
-      l[4 + e] = log1pf(-a[2 * c + 1][e]);
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[j][e] = on[j][e] ? buf0[pos[4 * j + e]] : 0.0f;
+        l[4 * j + e] = on[j][e] ? buf1[pos[4 * j + e]] : -0.0f;
+      }
     }
+    __syncwarp();  // before buf0 is reused
+
+    // ---- prefix: cum = carry + the in-chunk triangle of loga's splits ----
     ls0 = ls0 + ((l[0] + l[1]) + (l[4] + l[5]));
     ls1 = ls1 + ((l[2] + l[3]) + (l[6] + l[7]));
+    float lp[8][NL];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split_bf16<NL>(l[e], lp[e]);
     uint32_t lf[NL][4];
-    a_frags<NL>(l, lf);
+    pack_frags<NL>(lp, lf);
+    float cum[2][4] = {{carry0, carry0, carry1, carry1}, {carry0, carry0, carry1, carry1}};
 #pragma unroll
-    for (int j = 2 * c; j < 16; ++j) {
-      // U block (k = 16c + 2q + {0,1} (+8), n = 8j + g): 1 where k < n
-      const uint32_t u0 = j == 2 * c ? diag : BF16_ONES;
-      const uint32_t u1 = j == 2 * c ? 0u : j == 2 * c + 1 ? diag : BF16_ONES;
-#pragma unroll
-      for (int s = NL - 1; s >= 0; --s) mma_bf16(cum[j], lf[s], u0, u1);
+    for (int s = NL - 1; s >= 0; --s) {
+      mma_bf16(cum[0], lf[s], diag, 0u);
+      mma_bf16(cum[1], lf[s], BF16_ONES, diag);
     }
+    // the carry sums the same split parts the triangle contracts
+    float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+    for (int s = NL - 1; s >= 0; --s) {
+      r0 = r0 + ((lp[0][s] + lp[1][s]) + (lp[4][s] + lp[5][s]));
+      r1 = r1 + ((lp[2][s] + lp[3][s]) + (lp[6][s] + lp[7][s]));
+    }
+    carry0 = carry0 + quad_sum(r0);
+    carry1 = carry1 + quad_sum(r1);
+
+    // ---- colours: w = alpha * exp(cum + clog), the exp again only for
+    // the packed pairs (w = 0 where alpha = 0) ----
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (on[j][e]) buf0[pos[4 * j + e]] = cum[j][e] + (e < 2 ? cl0 : cl1);
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n_on; i += 32) buf0[i] = expf(buf0[i]);
+    __syncwarp();
     float w[8];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float cl = e < 2 ? cl0 : cl1;
-      w[e] = a[2 * c][e] * expf(cum[2 * c][e] + cl);
-      w[4 + e] = a[2 * c + 1][e] * expf(cum[2 * c + 1][e] + cl);
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[4 * j + e] = on[j][e] ? a[j][e] * buf0[pos[4 * j + e]] : 0.0f;
     }
     uint32_t wf[NC][4];
     a_frags<NC>(w, wf);
@@ -259,18 +373,14 @@ __device__ __forceinline__ bool slab_block(MxuSmem<NQ, NC>& sm, int blk, const M
     for (int s = 0; s < NC; ++s) {
       // B = RGB (k = splat, n = channel g; channels 3-7 are zero)
       const uint16_t* row = sm.rgb[s][g < 3 ? g : 0];
-      br[s][0] = g < 3 ? *reinterpret_cast<const uint32_t*>(row + 16 * c + 2 * q) : 0u;
-      br[s][1] = g < 3 ? *reinterpret_cast<const uint32_t*>(row + 16 * c + 8 + 2 * q) : 0u;
+      br[s][0] = g < 3 ? *reinterpret_cast<const uint32_t*>(row + k0 + 2 * q) : 0u;
+      br[s][1] = g < 3 ? *reinterpret_cast<const uint32_t*>(row + k0 + 8 + 2 * q) : 0u;
     }
     mma_passes<NC>(acc, wf, br);
   }
 
   // ---- state: clog += sum over the slab of loga (f32, quad reduction) ----
-  ls0 = ls0 + __shfl_xor_sync(0xffffffffu, ls0, 1);
-  ls0 = ls0 + __shfl_xor_sync(0xffffffffu, ls0, 2);
-  ls1 = ls1 + __shfl_xor_sync(0xffffffffu, ls1, 1);
-  ls1 = ls1 + __shfl_xor_sync(0xffffffffu, ls1, 2);
-  const float n0 = cl0 + ls0, n1 = cl1 + ls1;
+  const float n0 = cl0 + quad_sum(ls0), n1 = cl1 + quad_sum(ls1);
   __syncwarp();
   if (q < 2) {
     sm.acc[f0][2 * q] = acc[0];
@@ -286,7 +396,7 @@ __device__ __forceinline__ bool slab_block(MxuSmem<NQ, NC>& sm, int blk, const M
 }
 
 template <int NQ, int NL, int NC>
-__global__ void __launch_bounds__(MXU_THREADS, 1)
+__global__ void __launch_bounds__(MXU_THREADS, 3)
     rasterize_mxu_kernel(const uint32_t* __restrict__ words, int64_t stride,
                          const int* __restrict__ ranges, MxuParams p, float* __restrict__ out) {
   __shared__ MxuSmem<NQ, NC> sm;
@@ -400,7 +510,8 @@ int ws_rasterize_mxu(const uint32_t* words, int64_t stride, const int* ranges,
                      float scale_y, int mode, void* stream) {
   const int n_pix = tile_w * tile_h;
   if (n_pix % 128 != 0 || n_pix > ws::MXU_MAX_PIX) return (int)cudaErrorInvalidValue;
-  ws::MxuParams p{width, height, tile_w, tile_h, tx_tiles, log_eps,
+  const int square = (tile_w % 4 == 0 && tile_h % 4 == 0) ? 1 : 0;
+  ws::MxuParams p{width, height, tile_w, tile_h, tx_tiles, square, log_eps,
                   {bg_host[0], bg_host[1], bg_host[2]}, ws::CenterQuant{margin, scale_x, scale_y}};
   const int ty_tiles = (height + tile_h - 1) / tile_h;
   const int num_tiles = tx_tiles * ty_tiles;

@@ -1,5 +1,5 @@
-// Exact-prefix stream appends shared by the overflow walk, compaction and
-// packed emission kernels.
+// Exact-prefix stream appends shared by the compaction and packed emission
+// kernels (the overflow walk keeps the same rule with per-warp counts).
 //
 // Replaces the TPU kernels' sequential SMEM cursor and ordered-overlap DMA
 // writer (frontend_pallas.py:263-321): on the GPU, blocks run in parallel and

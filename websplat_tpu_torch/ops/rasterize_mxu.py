@@ -37,6 +37,18 @@ refuses to run with TF32 matmuls allowed, which would round the splits
 again.  The kernel's MMA sums in another order, so kernel and plain version
 agree to f32 rounding of sums, not bit for bit.
 
+The kernel walks each slab in chunks of 16 splats per 16-pixel block
+(``block_pixels``: 4x4 squares, or row strips where the tile's sides are
+not multiples of 4) and skips a chunk where no (pixel, splat) pair of the
+block has alpha > 0.  That is exact, not an approximation: such a chunk's
+loga is log1p(-0) = -0, so it adds nothing to cum or clog, and its weights
+are 0 * exp(cum + clog) = 0 (cum + clog <= 0), so it adds nothing to acc.
+Within a live chunk it evaluates exp, log1p and exp only for the pairs
+with alpha > 0 (the others are those same zeros), packed per warp.  The
+prefix it computes is each pixel's running carry over the earlier chunks
+plus an in-chunk triangle, both over the same bf16 split parts of loga;
+against the plain version's prefix sums only the f32 sum order differs.
+
 The plain version loops over slab index and is batched over the tiles that
 still run at that index (in groups of ``_TILE_GROUP`` to bound memory).
 """
@@ -57,6 +69,7 @@ from websplat_tpu_torch.ops.preprocess import log32
 from websplat_tpu_torch.ops.rasterize import check_stream
 
 SLAB = 128
+CHUNK = 16  # splats per chunk of the kernel's per-block walk
 DEAD_C5 = -1.0e30
 # bf16 splits of the (quadratic form, prefix, colour) operands; 0 = exact
 # f32 multiply-adds (the hybrid's quadratic form)
@@ -104,6 +117,20 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
             term = sa[i] @ sb[t - i]
             out = term if out is None else out + term
     return out
+
+
+def block_pixels(tile_w: int, tile_h: int, device=None) -> torch.Tensor:
+    """(tile_w * tile_h // 16, 16) tile-local row-major indices of the
+    pixels of the kernel's 16-pixel blocks, column r being the block's MMA
+    row r (csrc/rasterize_mxu.cu:block_pixel): 4x4 squares, row-major over
+    the tile, when tile_w and tile_h are multiples of 4; else 16-pixel
+    runs of row-major pixels."""
+    blk = torch.arange(tile_w * tile_h // 16, device=device)[:, None]
+    r = torch.arange(16, device=device)
+    if tile_w % 4 == 0 and tile_h % 4 == 0:
+        bw = tile_w // 4
+        return (4 * (blk // bw) + r // 4) * tile_w + 4 * (blk % bw) + r % 4
+    return 16 * blk + r
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -206,11 +233,15 @@ def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_sto
     ``tile_stop``: where the tile's last pixel saturated).
 
     Returns ints ``records`` (the span positions the tiles walk),
-    ``slab_tiles`` ((tile, slab) pairs) and ``pairs_alpha``: (in-image
+    ``slab_tiles`` ((tile, slab) pairs), ``pairs_alpha``: (in-image
     pixel, record) pairs in those slabs, the record in the tile's span, with
     alpha > 0, i.e. op > 0 and the scan rasterizer's f32 quadratic form
     below 2*CUTOFF (the slab variants' own rounding moves a few pairs on
-    that boundary)."""
+    that boundary), and ``live_chunks``: (16-pixel block of
+    ``block_pixels``, 16-position chunk) pairs in those slabs where such a
+    pair exists for some pixel of the block, in the image or not -- the
+    chunks whose vote in the kernel passes (``slab_tiles * tile_pixels / 16
+    * 8`` is every chunk)."""
     _check(words, ranges, width, height, config)
     dev = words.device
     tw, th = config.tile_w, config.tile_h
@@ -223,7 +254,8 @@ def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_sto
     slab0 = start // SLAB
     n_slabs = torch.where(stop > 0, (start + stop + SLAB - 1) // SLAB - slab0,
                           torch.zeros_like(stop))
-    out = dict(records=int(stop.sum()), slab_tiles=int(n_slabs.sum()), pairs_alpha=0)
+    out = dict(records=int(stop.sum()), slab_tiles=int(n_slabs.sum()), pairs_alpha=0,
+               live_chunks=0)
     if m == 0:
         return out
     rec = packing.unpack_record(*u32(words), cq)
@@ -233,6 +265,8 @@ def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_sto
     iy = ((tile // tx_tiles) * th)[:, None] + f // tw
     in_img = (ix < width) & (iy < height)
     pix_x, pix_y = ix.to(torch.float32) + 0.5, iy.to(torch.float32) + 0.5
+    blocks = block_pixels(tw, th, dev)
+    n_blk = blocks.shape[0]
     lane = torch.arange(SLAB, device=dev)
     for k in range(int(n_slabs.max())):
         (tiles,) = torch.nonzero(n_slabs > k, as_tuple=True)
@@ -244,8 +278,10 @@ def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_sto
             dx = pix_x[grp][:, :, None] - px
             dy = pix_y[grp][:, :, None] - py
             a = ha * dx * dx + hb * dx * dy + hc * dy * dy
-            on = (a < 2.0 * CUTOFF) & (op > 0.0) & in_span[:, None, :] & in_img[grp][:, :, None]
-            out["pairs_alpha"] += int(on.sum())
+            on = (a < 2.0 * CUTOFF) & (op > 0.0) & in_span[:, None, :]
+            out["pairs_alpha"] += int((on & in_img[grp][:, :, None]).sum())
+            chunks = on[:, blocks].reshape(len(grp), n_blk, 16, SLAB // CHUNK, CHUNK)
+            out["live_chunks"] += int(chunks.any(dim=4).any(dim=2).sum())
     return out
 
 
