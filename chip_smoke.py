@@ -10,37 +10,43 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM
-  2 kernels  frontend, overflow walk, compaction, both rasterizers (the
-             slab one at mxu/highest, mxu/high, mxu/default and hybrid) and
-             the packed emission against their plain versions on the card,
-             at the shapes of the bench scene's first view (1,244,819
-             splats, 1200x799); the walk also with the alpha bound off and,
-             at level 1, at capacities below its totals; the packed
-             emission also at half its row count; the wrappers refuse bad
-             arguments.  Per kernel: the wrapper's CUDA-event span, the
-             kernel-only time (torch.profiler, by kernel name), its roofline
-             bound from this run's work counts (utils/roofline.py) with the
-             bounding term and the share bound / kernel time, the plain
-             version's time and, for the compaction, the boolean-mask index
-             that computes the same function (library_ms); for the scan
-             rasterizer its span distribution and pair counts
-             (ops/rasterize.py:rasterize_work_torch), for the slab one its
-             slab, alpha > 0 pair and live chunk counts (ops/rasterize_mxu.py:
+  2 kernels  frontend, overflow walk, the dense stage (grid emitted and
+             compacted in one kernel), the general compaction (on the plain
+             dense grid), both rasterizers (the slab one at mxu/highest,
+             mxu/high, mxu/default and hybrid) and the packed emission
+             against their plain versions on the card, at the shapes of the
+             bench scene's first view (1,244,819 splats, 1200x799); the walk
+             also with the alpha bound off and, at level 1, at capacities
+             below its totals; the dense stage also at a quarter of its
+             count and with its row count at 0; the packed emission also at
+             half its row count and on its first 100,003 splats (also with
+             every slot set); the wrappers refuse bad arguments.  Per
+             kernel: the wrapper's CUDA-event span, the kernel-only time
+             (torch.profiler, by kernel name), its roofline bound from this
+             run's work counts (utils/roofline.py) with the bounding term and
+             the share bound / kernel time, the plain version's time and, for
+             the compaction, the boolean-mask index that computes the same
+             function (library_ms); the host ops and device activities of one
+             call of the plain dense stage; for the scan rasterizer its span
+             distribution and pair counts (ops/rasterize.py:
+             rasterize_work_torch), for the slab one its slab, alpha > 0 pair
+             and live chunk counts (ops/rasterize_mxu.py:
              rasterize_mxu_work_torch), for the walk each level's time
   3 golden   the 500-splat golden scene through the kernels vs
              tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
              rasterizer at two other tile shapes (its other pixel maps) and
              the slab one (hybrid, highest) at two (its other block maps)
-  4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer(
-             device="cuda") over the 8 orbit views of bench.py; launch
-             counts, diagnostics, plain-path PSNR, ms/frame, per-stage ms,
-             device busy ms, idle share and device ms by kernel
-             (torch.profiler)
+  4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer (on
+             the card by default) over the 8 orbit views of bench.py; launch
+             counts (the dense grid itself only on the plain path),
+             diagnostics, plain-path PSNR, ms/frame, per-stage ms, device
+             busy ms, idle share and device ms by kernel (torch.profiler)
   4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
              counts, diagnostics and PSNR against the scan frames; view 0
              with composite="mxu" at each precision; ms/frame, busy ms and
              idle share
-  5 result   per kernel: launches per frame and ms above its bound per
+  5 result   per kernel: launches per frame (of the main path; of the
+             hybrid path for the slab rasterizer) and ms above its bound per
              frame; a JSON line of per-kernel numbers, then the final JSON
              line
 
@@ -92,6 +98,8 @@ KERNELS = {
                       "websplat_tpu/ops/overflow_pallas.py:66", "overflow_walk_kernel", 256),
     "compact": ("websplat_tpu_torch/csrc/compact.cu",
                 "websplat_tpu/ops/compact_pallas.py:51", "compact_kernel", 256),
+    "dense_compact": ("websplat_tpu_torch/csrc/compact.cu",
+                      "websplat_tpu/ops/compact_pallas.py:51", "dense_compact_kernel", 256),
     "rasterize": ("websplat_tpu_torch/csrc/rasterize.cu",
                   "websplat_tpu/ops/rasterize_pallas.py:508", "rasterize_kernel", 256),
     "rasterize_mxu": ("websplat_tpu_torch/csrc/rasterize_mxu.cu",
@@ -135,6 +143,37 @@ def kernel_only_ms(fn, name: str, reps: int) -> float:
             return statistics.median(ev)
     raise AssertionError(f"{name}: the profiler saw {len(ev)} of {reps} launches of "
                          f"{KERNELS[name][2]}")
+
+
+def op_counts(fn):
+    """(top-level host aten ops, device activities) of one call of fn()
+    (torch.profiler), after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+               and e.cpu_parent is None and e.name.startswith("aten::"))
+    device = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    return host, device
+
+
+def counting(module, name: str):
+    """Replaces module.name by a wrapper that counts its calls; returns
+    (the one-element count list, a function that restores it)."""
+    orig, calls = getattr(module, name), [0]
+
+    def wrapped(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+
+    setattr(module, name, wrapped)
+    return calls, lambda: setattr(module, name, orig)
 
 
 def with_bound(r: dict, work) -> None:
@@ -272,7 +311,8 @@ def kernels_vs_plain(cloud, results):
     import torch
 
     from websplat_tpu_torch.config import RasterConfig
-    from websplat_tpu_torch.ops.compact import compact_instances, compact_torch
+    from websplat_tpu_torch.ops.compact import (compact_instances, compact_torch, dense_compact,
+                                                dense_compact_torch)
     from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
     from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
     from websplat_tpu_torch.kernels import build
@@ -416,9 +456,53 @@ def kernels_vs_plain(cloud, results):
     with_bound(results["overflow_walk"], roofline.Work(*map(sum, zip(*walk_work))))
     say("kernels", f"overflow walk work: level 1 {walk_counts[0]}; level 2 {walk_counts[1]}")
 
-    # compaction of the dense extreme-tail grid
-    dkeys, dwords = dense_grid_emit(k2.giants, torch.clamp(k2.stats[1], max=m_cap), **geo)
+    # the dense extreme-tail stage on the level-2 giants, as the main path
+    # runs it: the grid emitted and compacted in one kernel
     dcap = cfg.overflow_dense_compact
+    n_tiles = int(np.prod(cfg.tiles_for(W, H)))
+    dense_k = lambda cap=dcap, n_mega=k2.stats[1]: dense_compact(k2.giants, n_mega, capacity=cap,
+                                                                 **geo)
+    dense_p = lambda: dense_compact_torch(k2.giants, k2.stats[1], capacity=dcap, **geo)
+    dk, dp = dense_k(), dense_p()
+    n_dense = int(dk[2])
+    if n_dense != int(dp[2]) or n_dense > dcap:
+        raise AssertionError(f"dense_compact count {n_dense} != plain {int(dp[2])} or over "
+                             f"its capacity {dcap}")
+    dense_rows = stream_rows(dk[0], dk[1], n=n_dense)
+    n_diff, err_d = compare_rows(dense_rows, stream_rows(dp[0], dp[1], n=n_dense))
+    n_megas = min(int(k2.stats[1]), m_cap)
+    dense_tests = roofline.walk_reach_tests(k2.giants[0, :n_megas], cfg.overflow_window_slots,
+                                            n_tiles)
+    say("kernels", f"dense_compact: {n_megas} mega rows, {dense_tests} reach tests, "
+                   f"{n_dense} rows kernel and plain, {n_diff} differing (allowed 0)")
+    if n_diff != 0:
+        raise AssertionError("dense_compact: kernel disagrees with its plain version")
+    # at a quarter of its count the count stays the true total and the kept
+    # rows are a sub-multiset of the full run's; with no rows, nothing
+    cap_q = n_dense // 4
+    qk = dense_k(cap=cap_q)
+    left, _ = compare_rows(stream_rows(qk[0], qk[1], n=cap_q), dense_rows)
+    zk = dense_k(n_mega=torch.zeros((), dtype=torch.int32, device=k2.giants.device))
+    say("kernels", f"dense_compact at capacity {cap_q}: count {int(qk[2])}, rows outside the "
+                   f"full run {left - (n_dense - cap_q)}; with the row count at 0: count "
+                   f"{int(zk[2])}")
+    if not (int(qk[2]) == n_dense and left == n_dense - cap_q and int(zk[2]) == 0):
+        raise AssertionError("dense_compact below capacity or with no rows: count or rows wrong")
+    host_ops, dev_acts = op_counts(dense_p)
+    say("kernels", f"plain dense stage (dense_grid_emit + compact_torch), one call: {host_ops} "
+                   f"top-level host aten ops, {dev_acts} device activities (torch.profiler)")
+    results["dense_compact"] = dict(
+        max_abs_err=err_d, ms=cuda_ms(dense_k, 50),
+        kernel_ms=kernel_only_ms(dense_k, "dense_compact", 50),
+        plain_ms=cuda_ms(dense_p, 5), plain_host_ops=host_ops, plain_device_activities=dev_acts,
+        library_ms=None)
+    with_bound(results["dense_compact"],
+               roofline.dense_compact_work(n_megas, dense_tests, n_dense))
+
+    # the general compaction, on the plain dense grid (the main path no
+    # longer launches it)
+    dkeys, dwords = dense_grid_emit(k2.giants, k2.stats[1], **geo)
+    build.LAUNCHES["compact"] = 0
     ck, cp = (compact_instances(dkeys, dwords, capacity=dcap),
               compact_torch(dkeys, dwords, capacity=dcap))
     if int(ck[2]) != int(cp[2]):
@@ -430,8 +514,9 @@ def kernels_vs_plain(cloud, results):
         keep = dkeys != -1
         return dkeys[keep], dwords[:, keep]
 
+    launches_e = build.LAUNCHES["compact"]
     results["compact"] = dict(
-        max_abs_err=err_c,
+        max_abs_err=err_c, launches_phase2=launches_e,
         ms=cuda_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap), 50),
         kernel_ms=kernel_only_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap),
                                  "compact", 50),
@@ -539,11 +624,25 @@ def kernels_vs_plain(cloud, results):
                              f"{n_diff - (n_valid - half)}")
     say("kernels", f"emit_compact at capacity {half}: {half} rows kept, all from the full "
                    f"stream, num_dropped {int(hk[3])}")
+    # a splat count that is not a multiple of any block size, with the
+    # view's slot masks and with every slot set (6 rows per splat overflow
+    # the kernel's staging buffer, so rows also take its direct path)
+    m = 100_003
+    all_slots = ((1 << cfg.tile_slots) - 1) << 18
+    for what, rect_m in (("", pk.rect[:m]), (", every slot set", pk.rect[:m] | all_slots)):
+        part = (pk.depth_q[:m], rect_m.contiguous(), pk.words[:, :m].contiguous())
+        mk, mp = (fn(*part, capacity=m * cfg.tile_slots, **egeo)
+                  for fn in (emit_compact, emit_compact_torch))
+        if int(mk[2]) != int(mp[2]) or int(mk[3]) != 0:
+            raise AssertionError(f"emit_compact on {m} splats{what}: count {int(mk[2])} != "
+                                 f"plain {int(mp[2])}")
+        err_e = max(err_e, check_rows(f"emit_compact ({m} splats{what})",
+                                      stream_rows(mk[0], mk[1], n=int(mk[2])),
+                                      stream_rows(mp[0], mp[1], n=int(mk[2]))))
     launches_f = build.LAUNCHES["emit_compact"]
     emit = lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     results["emit_compact"] = dict(
-        max_abs_err=err_e, launches=launches_f,
-        launches_counted_in="phase 2 (no render path calls it)",
+        max_abs_err=err_e, launches_phase2=launches_f,
         ms=cuda_ms(emit, 20), kernel_ms=kernel_only_ms(emit, "emit_compact", 20),
         plain_ms=cuda_ms(lambda: emit_compact_torch(pk.depth_q, pk.rect, pk.words,
                                                     capacity=full_cap, **egeo), 3),
@@ -566,6 +665,10 @@ def kernels_vs_plain(cloud, results):
         "int64 packed words": lambda: emit_compact(pk.depth_q, pk.rect, pk.words.long(),
                                                    capacity=16, **egeo),
         "payload on the CPU": lambda: compact_instances(dkeys, dwords.cpu(), capacity=dcap),
+        "mega row count on the CPU": lambda: dense_compact(k2.giants, k2.stats[1].cpu(),
+                                                           capacity=dcap, **geo),
+        "int64 mega rows": lambda: dense_compact(k2.giants.long(), k2.stats[1], capacity=dcap,
+                                                 **geo),
         "int64 keys": lambda: compact_instances(dkeys.long(), dwords, capacity=dcap),
         "host row count": lambda: overflow_walk(
             fk.cid, 5, cap_c, rank_lo=6, rank_hi=32, giant_thresh=32, capacity=10,
@@ -663,30 +766,37 @@ def main_path(cloud):
     """Phase 4: the user's entry points at full size, 8 orbit views."""
     from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops import compact
     from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
-    renderer = GaussianRenderer(cloud, RasterConfig(), device="cuda")
+    renderer = GaussianRenderer(cloud, RasterConfig())  # the card, by default
     cams = bench_cameras()
+    grids, restore = counting(compact, "dense_grid_emit")
     build.reset_launches()
     images, diags = [], []
     for cam in cams:
         images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
         diags.append(dict(renderer._last_diag))
     launches = dict(build.LAUNCHES)
-    say("main", f"{N_VIEWS} views {W}x{H}: launches {launches}")
+    grids_kernel = grids[0]
+    say("main", f"{N_VIEWS} views {W}x{H}: launches {launches}; dense grids built "
+                f"{grids_kernel}")
     for i, (img, d) in enumerate(zip(images, diags)):
         say("main", f"view {i}: {d}")
         if not (img.shape == (H, W, 3) and np.isfinite(img).all()):
             raise AssertionError(f"view {i}: image not finite or wrong shape {img.shape}")
         if not (d["num_visible"] > 0 and d["num_dropped"] == 0 and d["num_clamped"] == 0):
             raise AssertionError(f"view {i}: diagnostics {d}")
-    need = {"rasterize": N_VIEWS, "frontend": N_VIEWS, "overflow_walk": N_VIEWS, "compact": 1}
+    need = {"rasterize": N_VIEWS, "frontend": N_VIEWS, "overflow_walk": N_VIEWS}
     for name, k in need.items():
         if launches[name] < k:
             raise AssertionError(f"{name} launched {launches[name]} times on the main path, "
                                  f"expected >= {k}")
+    if launches["dense_compact"] != N_VIEWS or grids_kernel != 0:
+        raise AssertionError(f"dense_compact launched {launches['dense_compact']} times and the "
+                             f"dense grid built {grids_kernel} times on the main path")
 
     # view 0 through the plain versions on the card
     blocks = [view_block(cloud, cam) for cam in cams]
@@ -694,10 +804,13 @@ def main_path(cloud):
     kw = dict(width=W, height=H, config=renderer.config, return_diag=True)
     img_p, diag_p = render_frame(renderer.device_cloud, fs0, settings.background_color,
                                  plain=True, **kw)
+    restore()
     p = psnr(img_p.cpu().numpy(), images[0])
-    say("main", f"view 0 plain path: PSNR vs kernel frame {p:.2f} dB, diag {diag_p}")
-    if not p >= 50.0:
-        raise AssertionError(f"plain-path PSNR {p:.2f} dB < 50")
+    say("main", f"view 0 plain path: PSNR vs kernel frame {p:.2f} dB, diag {diag_p}, dense "
+                f"grids built {grids[0] - grids_kernel}")
+    if not (p >= 50.0 and grids[0] - grids_kernel == 1):
+        raise AssertionError(f"plain-path PSNR {p:.2f} dB < 50 or the plain path built "
+                             f"{grids[0] - grids_kernel} dense grids")
 
     frame_timing("main", renderer, blocks)
     return launches, images, blocks
@@ -765,18 +878,22 @@ def slab_path(cloud, scan_images, blocks):
     views against the scan frames of phase 4."""
     from websplat_tpu_torch import GaussianRenderer, SplattingArgs
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops import compact
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
     renderer = GaussianRenderer(cloud, mxu_config("hybrid"), device="cuda")
     cams = bench_cameras()
+    grids, restore = counting(compact, "dense_grid_emit")
     build.reset_launches()
     images, diags = [], []
     for cam in cams:
         images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
         diags.append(dict(renderer._last_diag))
     launches = dict(build.LAUNCHES)
-    say("slab", f"hybrid, {N_VIEWS} views {W}x{H}: launches {launches}")
+    restore()
+    say("slab", f"hybrid, {N_VIEWS} views {W}x{H}: launches {launches}; dense grids built "
+                f"{grids[0]}")
     for i, (img, d) in enumerate(zip(images, diags)):
         p = psnr(img, scan_images[i])
         say("slab", f"view {i}: PSNR vs scan {p:.2f} dB, {d}")
@@ -784,12 +901,14 @@ def slab_path(cloud, scan_images, blocks):
             raise AssertionError(f"hybrid view {i}: image not finite or wrong shape {img.shape}")
         if not (d["num_dropped"] == 0 and d["num_clamped"] == 0 and p >= SLAB_PSNR):
             raise AssertionError(f"hybrid view {i}: PSNR {p:.2f} dB, diagnostics {d}")
-    need = {"rasterize_mxu": N_VIEWS, "frontend": N_VIEWS, "overflow_walk": N_VIEWS,
-            "compact": 1}
+    need = {"rasterize_mxu": N_VIEWS, "frontend": N_VIEWS, "overflow_walk": N_VIEWS}
     for name, k in need.items():
         if launches[name] < k:
             raise AssertionError(f"{name} launched {launches[name]} times on the hybrid path, "
                                  f"expected >= {k}")
+    if launches["dense_compact"] != N_VIEWS or grids[0] != 0:
+        raise AssertionError(f"dense_compact launched {launches['dense_compact']} times and the "
+                             f"dense grid built {grids[0]} times on the hybrid path")
 
     for v in ("highest", "high", "default"):
         r = GaussianRenderer(cloud, mxu_config(v), device="cuda")
@@ -814,16 +933,16 @@ def main() -> int:
     golden()
     launches, scan_images, blocks = main_path(cloud)
     launches["rasterize_mxu"] = slab_path(cloud, scan_images, blocks)["rasterize_mxu"]
-    launches["emit_compact"] = results["emit_compact"].pop("launches")
     import torch
 
     # launches per frame of the path each kernel is on (the scan path of
-    # phase 4; the hybrid path of phase 4b for rasterize_mxu); the packed
-    # emission is on no render path.  kernel_ms and bound_ms cover one
+    # phase 4; the hybrid path of phase 4b for rasterize_mxu); the general
+    # compaction and the packed emission are on no render path (their
+    # launches_phase2 count phase 2's).  kernel_ms and bound_ms cover one
     # frame's work of phase 2's view: both walk levels for the overflow
     # walk, one launch for the others.
     for k, r in results.items():
-        r["launches_per_frame"] = 0.0 if k == "emit_compact" else launches[k] / N_VIEWS
+        r["launches_per_frame"] = launches[k] / N_VIEWS
         per_call = 2 if k == "overflow_walk" else 1
         gap = r["launches_per_frame"] / per_call * (r["kernel_ms"] - r["bound_ms"])
         levels = ("" if "kernel_ms_levels" not in r else " (levels "

@@ -77,15 +77,20 @@ def test_cuda_renderer_raises_without_cuda():
         GaussianRenderer(make_cloud(np.random.default_rng(0), n=10), device="cuda")
 
 
-def test_renderer_requires_explicit_device():
+def test_renderer_defaults_to_the_card():
+    """With no device named the renderer runs on the card: on a host
+    without CUDA it raises instead of rendering on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal is for CPU-only hosts")
     from websplat_tpu_torch import GaussianRenderer
     from websplat_tpu_torch.synth import make_cloud
 
-    with pytest.raises(TypeError):
+    with pytest.raises(RuntimeError, match="CUDA"):
         GaussianRenderer(make_cloud(np.random.default_rng(0), n=10))
 
 
-@pytest.mark.parametrize("stage", ["frontend", "overflow_walk", "compact", "rasterize"])
+@pytest.mark.parametrize("stage", ["frontend", "overflow_walk", "compact", "dense_compact",
+                                   "rasterize"])
 def test_wrappers_reject_other_devices(stage):
     """A stream on a device that is neither CPU nor CUDA raises: no silent
     plain fallback."""
@@ -105,6 +110,7 @@ def test_wrappers_reject_other_devices(stage):
             meta(6, 8), meta(), 8, rank_lo=6, rank_hi=32, giant_thresh=32, capacity=8,
             giant_capacity=8, **geo),
         "compact": lambda: compact.compact_instances(meta(8), meta(4, 8), capacity=8),
+        "dense_compact": lambda: compact.dense_compact(meta(6, 8), meta(), capacity=8, **geo),
         "rasterize": lambda: rasterize.rasterize(meta(4, 8), meta(5), (0, 0, 0), **geo),
     }
     with pytest.raises(ValueError, match="unsupported device"):

@@ -220,6 +220,36 @@ def test_slab_and_compact_counts(scene):
     assert roofline.compact_work(len(keys), 4, kept).bytes == 4 * 6 + 16 * kept + 20 * kept + 4
 
 
+def test_dense_compact_counts():
+    """The dense stage's reach tests and bytes against a brute force over
+    the tile grid: one test per (valid row, in-rect tile of rank >= the
+    window); ranks past a rect and rows past n_mega count nothing."""
+    from tests.test_torch_dense_grid import H as DH, W as DW, _mega_rows
+    from websplat_tpu_torch.ops.compact import dense_compact_torch
+
+    cfg = RasterConfig()
+    rows = _mega_rows(7)
+    tx_tiles, ty_tiles = cfg.tiles_for(DW, DH)
+    n_tiles, lo = tx_tiles * ty_tiles, cfg.overflow_window_slots
+    ty, tx = np.divmod(np.arange(n_tiles)[:, None], tx_tiles)
+    r = rows[0].astype(np.int64)
+    tx0, ty0, tx1, ty1 = r & 0xFF, r >> 8 & 0xFF, r >> 16 & 0xFF, r >> 24
+    rank = (ty - ty0) * np.maximum(tx1 - tx0 + 1, 1) + (tx - tx0)
+    in_rect = (tx >= tx0) & (tx <= tx1) & (ty >= ty0) & (ty <= ty1) & (rank >= lo)
+    for n_mega in (0, 48, rows.shape[1]):
+        brute = int(in_rect[:, :n_mega].sum())
+        tests = roofline.walk_reach_tests(torch.from_numpy(rows[0, :n_mega].view(np.int32)),
+                                          lo, n_tiles)
+        assert tests == brute and (brute > 10_000 or n_mega == 0)
+        _, _, kept = dense_compact_torch(torch.from_numpy(rows.view(np.int32)), n_mega,
+                                         capacity=n_tiles * rows.shape[1], width=DW, height=DH,
+                                         config=cfg)
+        assert int(kept) <= brute and (int(kept) > 0 or n_mega == 0)
+        work = roofline.dense_compact_work(n_mega, tests, int(kept))
+        assert work.bytes == 24 * n_mega + 20 * int(kept) + 4
+        assert work.f32 == 18 * n_mega + 52 * brute and work.sfu == n_mega
+
+
 def test_bound_takes_the_largest_term():
     assert roofline.sh_flops(3) == 144 and roofline.sh_flops(0) == 6
     ms, term = roofline.bound(roofline.Work(bytes=3.35e9))

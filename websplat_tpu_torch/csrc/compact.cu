@@ -1,18 +1,37 @@
-// Stream compaction: drop rows keyed 0xFFFFFFFF.
+// Stream compaction, and the dense extreme-tail grid emitted and compacted
+// in one pass.
 //
-// Replaces websplat_tpu/ops/compact_pallas.py:_compact_kernel (called by
-// compact_instances).  On the main path it compacts the dense extreme-tail
-// candidate grid (n_tiles x mega capacity rows, 192,850 at the bench scene)
-// before the sort.
+// Both replace websplat_tpu/ops/compact_pallas.py:_compact_kernel (called by
+// compact_instances).
 //
-// What bounds it on the card: pure memory traffic -- it reads 4 + 4 *
-// n_payload bytes per row and writes the same per kept row (~4 MB per frame
-// at the bench scene, a few microseconds at HBM rate, so launch latency
-// dominates).  Its design: one thread per row, a block scan of the keep
-// flags and one atomicAdd per block (stream.cuh) -- the TPU version's
-// bit-serial monotone shuffle, ALIGN-rounded block offsets and chained DMAs
-// existed only because the TPU has no scatter and no atomics.  The output is
-// an exact prefix (the TPU left up to 127 sentinels per 4096-row block).
+// compact_kernel drops rows keyed 0xFFFFFFFF from any stream: the general
+// compactor (the main path no longer launches it).  What bounds it on the
+// card: pure memory traffic -- it reads 4 + 4 * n_payload bytes per row and
+// writes the same per kept row -- and, at the sizes it sees, launch latency.
+// Its design: one thread per row, a block scan of the keep flags and one
+// atomicAdd per block (stream.cuh) -- the TPU version's bit-serial monotone
+// shuffle, ALIGN-rounded block offsets and chained DMAs existed only because
+// the TPU has no scatter and no atomics.  The output is an exact prefix (the
+// TPU left up to 127 sentinels per 4096-row block).
+//
+// dense_compact_kernel is the main path's form of the same stage: the JAX
+// frame builds the dense (n_tiles x mega capacity) candidate grid in XLA
+// (preprocess.py:dense_grid_emit, 192,850 rows of 5 words at the bench
+// scene, nearly all sentinels) and compacts it with the kernel above
+// (renderer.py:510-522).  Here the grid never exists: for each of the first
+// min(*n_ptr, m_cap) 6-word mega rows (rect4, w0..w3, depth_q) the kernel
+// walks the rect's row-major ranks [rank_lo, n_rect) whose tile lies in the
+// grid, runs the decoded reach test and appends only the instances it
+// keeps.  What bounds it: 24 bytes per row read, 20 per kept instance
+// written and one reach test per rank -- under a microsecond at the bench
+// scene, far below one launch, so its time is latency.  Few rows (~52 at
+// the bench views) with many ranks (up to 790 each), so the grid is (row,
+// rank block): a CTA of 256 threads takes 256 ranks of one row, every
+// thread decodes the row from broadcast loads, each warp ballots its kept
+// ranks and the block makes one reservation.  Blocks of rows at or past the
+// device-side row count exit at once, so the count is never read on the
+// host.  The reach test is packing.cuh's, as in the overflow walk, so the
+// kernel stays bit-equal to decoded_reaches.
 #include <cstdint>
 
 #include "packing.cuh"
@@ -21,6 +40,7 @@
 namespace ws {
 
 constexpr int COMPACT_BLOCK = 256;
+constexpr int DENSE_BLOCK = 256;
 
 __global__ void __launch_bounds__(COMPACT_BLOCK)
     compact_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ payload,
@@ -38,6 +58,60 @@ __global__ void __launch_bounds__(COMPACT_BLOCK)
   }
 }
 
+struct DenseParams {
+  int rank_lo, tx_tiles, ty_tiles, ts_x, ts_y, depth_bits;
+  float inv_thr;
+  CenterQuant cq;
+};
+
+// counter: ends at the number of kept instances (may exceed capacity)
+__global__ void __launch_bounds__(DENSE_BLOCK)
+    dense_compact_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ n_ptr,
+                         int m_cap, DenseParams p, uint32_t* __restrict__ keys,
+                         uint32_t* __restrict__ words, int capacity, int* __restrict__ counter) {
+  __shared__ BlockAppend<DENSE_BLOCK> append;
+  const int i = blockIdx.x;
+  if (i >= min(*n_ptr, m_cap)) return;  // block-uniform: no barrier is skipped by part of it
+  uint32_t w[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) w[k] = rows[(int64_t)k * m_cap + i];
+  const int tx0 = (int)(w[0] & 0xFFu);
+  const int ty0 = (int)((w[0] >> 8) & 0xFFu);
+  const int w_t = (int)((w[0] >> 16) & 0xFFu) - tx0 + 1;
+  const int h_t = (int)(w[0] >> 24) - ty0 + 1;
+  const int n_rect = (w_t > 0 && h_t > 0) ? w_t * h_t : 0;
+  int j0 = p.rank_lo + (int)blockIdx.y * DENSE_BLOCK;
+  if (j0 >= n_rect) return;  // block-uniform
+
+  const Record r = unpack_record(w[1], w[2], w[3], w[4], p.cq);
+  const Reach reach{r.px, r.py, r.ha, r.hb, r.hc, alpha_bound(r.op, p.inv_thr)};
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  // the launch covers ranks below n_tiles; only a rect that extends past
+  // the tile grid has more, and the loop keeps those exact
+  for (; j0 < n_rect; j0 += (int)gridDim.y * DENSE_BLOCK) {
+    const int j = j0 + (int)threadIdx.x;
+    bool ok = false;
+    uint32_t key = 0u;
+    if (j < n_rect) {
+      const int dy = j / w_t;
+      const int tx = tx0 + (j - dy * w_t), ty = ty0 + dy;
+      if (tx < p.tx_tiles && ty < p.ty_tiles) {
+        ok = reach.reaches(tx, ty, p.ts_x, p.ts_y);
+        key = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | w[5];
+      }
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, ok);
+    const int warp_pos = append.reserve(lane == 0 ? __popc(mask) : 0, counter);
+    const int pos = __shfl_sync(0xffffffffu, warp_pos, 0) + __popc(mask & lt);
+    if (ok && pos < capacity) {
+      keys[pos] = key;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[1 + k];
+    }
+  }
+}
+
 }  // namespace ws
 
 extern "C" {
@@ -51,6 +125,26 @@ int ws_compact(const uint32_t* keys, const uint32_t* payload, int n_payload, int
     const int64_t grid = (m + ws::COMPACT_BLOCK - 1) / ws::COMPACT_BLOCK;
     ws::compact_kernel<<<(unsigned)grid, ws::COMPACT_BLOCK, 0, (cudaStream_t)stream>>>(
         keys, payload, n_payload, m, out_keys, out_payload, capacity, counter);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows: (6, m_cap) mega rows, the first min(*n_ptr, m_cap) valid;
+// icfg: rank_lo, tx_tiles, ty_tiles, tile_w, tile_h, depth_bits;
+// fcfg: f32(1/alpha_threshold) (0 when off), margin, scale_x, scale_y;
+// keys: capacity u32, words: (4, capacity) u32; counter: one int, zeroed
+// by the caller
+int ws_dense_compact(const uint32_t* rows, const int* n_ptr, int m_cap,
+                     const int* icfg, const float* fcfg, uint32_t* keys, uint32_t* words,
+                     int capacity, int* counter, void* stream) {
+  ws::DenseParams p{icfg[0], icfg[1], icfg[2], icfg[3], icfg[4], icfg[5],
+                    fcfg[0], ws::CenterQuant{fcfg[1], fcfg[2], fcfg[3]}};
+  if (m_cap > 0) {
+    const int span = p.tx_tiles * p.ty_tiles - p.rank_lo;
+    const int rank_blocks = span > 0 ? (span + ws::DENSE_BLOCK - 1) / ws::DENSE_BLOCK : 1;
+    const dim3 grid((unsigned)m_cap, (unsigned)rank_blocks);
+    ws::dense_compact_kernel<<<grid, ws::DENSE_BLOCK, 0, (cudaStream_t)stream>>>(
+        rows, n_ptr, m_cap, p, keys, words, capacity, counter);
   }
   return (int)cudaGetLastError();
 }

@@ -20,15 +20,19 @@ template <int BLOCK>
 struct BlockAppend {
   using Scan = cub::BlockScan<int, BLOCK>;
   typename Scan::TempStorage scan;
-  int base;
+  int base;   // the block's first global row (valid after reserve)
+  int total;  // the block's row count (valid after reserve)
 
   // Collective: every thread of the block calls it with its row count.
   // Returns the global index of this thread's first row.
   __device__ __forceinline__ int reserve(int count, int* cursor) {
-    int excl, total;
+    int excl, sum;
     __syncthreads();  // the storage may still be in use by a previous call
-    Scan(scan).ExclusiveSum(count, excl, total);
-    if (threadIdx.x == 0) base = total > 0 ? atomicAdd(cursor, total) : 0;
+    Scan(scan).ExclusiveSum(count, excl, sum);
+    if (threadIdx.x == 0) {
+      base = sum > 0 ? atomicAdd(cursor, sum) : 0;
+      total = sum;
+    }
     __syncthreads();
     return base + excl;
   }

@@ -42,7 +42,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
 LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_mxu": 0, "frontend": 0,
-                            "overflow_walk": 0, "compact": 0, "emit_compact": 0}
+                            "overflow_walk": 0, "compact": 0, "dense_compact": 0,
+                            "emit_compact": 0}
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "ws_rasterize_mxu": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
     "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _vp],
     "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _vp],
+    "ws_dense_compact": [_vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp],
     "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp],
     "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp],
 }

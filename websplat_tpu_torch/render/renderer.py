@@ -5,15 +5,15 @@ single-device frame of an uncompressed cloud (``render_frame_impl`` with
 ``RasterConfig()``):
 
     frontend (ops/frontend.py)  ->  overflow walk x2 (ops/overflow.py)
-      ->  dense extreme-tail grid (ops/preprocess.py) + compaction
-          (ops/compact.py)  ->  sort + tile ranges (ops/sort.py)
+      ->  dense extreme-tail grid + compaction (ops/compact.py:
+          dense_compact)  ->  sort + tile ranges (ops/sort.py)
       ->  rasterize (ops/rasterize.py; ops/rasterize_mxu.py for
           composite="mxu" / "hybrid")
 
-On the card every stage but the dense grid, the sort and the ranges is a
-hand-written CUDA kernel; on the CPU each stage runs its plain PyTorch
-version.  ``render_frame(..., plain=True)`` runs the plain versions on the
-card as well (for comparing the two); nothing selects them on its own.
+On the card every stage but the sort and the ranges is a hand-written
+CUDA kernel; on the CPU each stage runs its plain PyTorch version.
+``render_frame(..., plain=True)`` runs the plain versions on the card as
+well (for comparing the two); nothing selects them on its own.
 
 The JAX frame splices every stage's output into one padded buffer and
 sorts a prefix rung of it; here each stage returns an exact prefix and the
@@ -32,10 +32,10 @@ import torch
 from websplat_tpu_torch.config import RasterConfig, SplattingArgs, resolve_settings
 from websplat_tpu_torch.io.loader import GaussianCloud
 from websplat_tpu_torch.models.camera import CameraUniforms, PerspectiveCamera
-from websplat_tpu_torch.ops.compact import compact_instances, compact_torch
+from websplat_tpu_torch.ops.compact import dense_compact, dense_compact_torch
 from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
 from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
-from websplat_tpu_torch.ops.preprocess import DeviceCloud, FrameScalars, dense_grid_emit
+from websplat_tpu_torch.ops.preprocess import DeviceCloud, FrameScalars
 from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
 from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
@@ -51,7 +51,7 @@ def _pack_sh_f16(sh: np.ndarray) -> np.ndarray:
 
 
 def resolve_device(device) -> torch.device:
-    """The explicit device a renderer runs on; a CUDA device must exist."""
+    """The device a renderer runs on; a CUDA device must exist."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
@@ -122,14 +122,14 @@ class StageTimer:
 def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
                           config: RasterConfig, plain: bool = False,
                           timer: Optional[StageTimer] = None):
-    """Frontend + overflow walks + dense grid + compaction -> the unsorted
+    """Frontend + overflow walks + dense grid and compaction -> the unsorted
     instance stream (keys (M,) int32, words (4, M) int32) and the frame
     diagnostics (renderer.py:331, the walk path).  Capacities and drop
     accounting are the JAX frame's (renderer.py:365-412, config.py:80-147)."""
     mark = timer.mark if timer is not None else (lambda name: None)
     front = frontend_torch if plain else fused_frontend
     walk = overflow_walk_torch if plain else overflow_walk
-    compact = compact_torch if plain else compact_instances
+    dense = dense_compact_torch if plain else dense_compact
     n = int(cloud.opacity.shape[0])
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     capacity = max(4096, int(config.instance_capacity_factor * n))
@@ -138,9 +138,11 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
     g_cap = config.overflow_grid_capacity_for(cap_c)
     m_cap = config.overflow_dense_capacity_for(cap_c)
     win_cap = config.overflow_window_capacity_for(g_cap)
+    # the JAX frame compacts the dense grid only when it is large
+    # (renderer.py:401); otherwise the whole grid fits
     dense_len = tx_tiles * ty_tiles * m_cap
-    d_compact = dense_len > 2 * config.overflow_dense_compact
-    dcap = config.overflow_dense_compact
+    d_cap = (config.overflow_dense_compact if dense_len > 2 * config.overflow_dense_compact
+             else dense_len)
     geo = dict(width=width, height=height, config=config)
 
     mark("start")
@@ -157,24 +159,18 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
               giant_thresh=config.overflow_window_slots, capacity=win_cap,
               giant_capacity=m_cap, **geo)
     mark("overflow")
-    n_mega = torch.clamp(w2.stats[1], max=m_cap)
-    dkeys, dwords = dense_grid_emit(w2.giants, n_mega, **geo)
-    counts = [fr.stats, w1.stats, w2.stats]
-    if d_compact:
-        dkeys, dwords, d_count = compact(dkeys, dwords, capacity=dcap)
-        counts.append(d_count.reshape(1))
+    # ranks >= window_slots of the first min(megas, m_cap) level-2 giants
+    dkeys, dwords, d_count = dense(w2.giants, w2.stats[1], capacity=d_cap, **geo)
     mark("dense_compact")
 
     # the frame's one host synchronisation: every prefix length at once
-    (total, num_visible, clamped, w1_tot, g_tot, w2_tot, m_tot, *d_tot) = (
-        torch.cat(counts).tolist()
+    (total, num_visible, clamped, w1_tot, g_tot, w2_tot, m_tot, d_tot) = (
+        torch.cat([fr.stats, w1.stats, w2.stats, d_count.reshape(1)]).tolist()
     )
-    # without compaction the holey grid goes to the sort whole: its
-    # sentinels sort last, past every tile range
-    d_len = min(d_tot[0], dcap) if d_compact else dense_len
-    lens = (min(total, capacity), min(w1_tot, walk_cap), min(w2_tot, win_cap), d_len)
+    lens = (min(total, capacity), min(w1_tot, walk_cap), min(w2_tot, win_cap),
+            min(d_tot, d_cap))
     num_dropped = (max(total - capacity, 0) + max(w1_tot - walk_cap, 0)
-                   + max(w2_tot - win_cap, 0) + (max(d_tot[0] - dcap, 0) if d_compact else 0))
+                   + max(w2_tot - win_cap, 0) + max(d_tot - d_cap, 0))
     # splats that lost coverage: giants beyond the window capacity, megas
     # beyond the dense capacity, clamped splats beyond the capture capacity
     num_clamped = (max(g_tot - g_cap, 0) + max(m_tot - m_cap, 0)
@@ -214,11 +210,12 @@ def render_frame(cloud: DeviceCloud, fs: FrameScalars, background: Sequence[floa
 
 
 class GaussianRenderer:
-    """Device cloud + per-frame render (renderer.py:679).  ``device`` is
-    required: "cuda" runs the kernels, "cpu" the plain versions."""
+    """Device cloud + per-frame render (renderer.py:679).  ``device``
+    "cuda" (the default) runs the kernels and raises where CUDA is absent;
+    "cpu" runs the plain versions."""
 
     def __init__(self, cloud: GaussianCloud, config: Optional[RasterConfig] = None, *,
-                 device):
+                 device="cuda"):
         if cloud.compressed:
             raise NotImplementedError(
                 "compressed clouds are not ported yet (ROADMAP.md, Queue 1: Compressed path)"

@@ -194,12 +194,23 @@ def walk_reach_tests(rect4: torch.Tensor, rank_lo: int, rank_hi: int) -> int:
     return int(torch.clamp(torch.clamp(w_t * h_t, max=rank_hi) - rank_lo, min=0).sum())
 
 
-# --- E: compaction (csrc/compact.cu), F: packed emission (emit_compact.cu) -
+# --- E: compaction and the dense grid (csrc/compact.cu), F: packed
+# emission (csrc/emit_compact.cu) --------------------------------------------
 
 def compact_work(m: int, n_payload: int, count: int) -> Work:
     """Every key read, the payload of the kept rows read, the kept rows
     (key + payload) written, the count written."""
     return Work(bytes=4.0 * m + 4.0 * n_payload * count + 4.0 * (1 + n_payload) * count + 4.0)
+
+
+def dense_compact_work(rows: int, reach_tests: int, kept: int) -> Work:
+    """24 B per valid mega row read, 20 B per kept instance written and the
+    count; per row a record decode and the alpha bound's log, and one reach
+    test per rank past the window (``walk_reach_tests(rect4,
+    overflow_window_slots, n_tiles)`` over the valid rows)."""
+    return Work(bytes=24.0 * rows + 20.0 * kept + 4.0,
+                f32=float((DECODE_FLOPS + 1) * rows + REACH_FLOPS * reach_tests),
+                sfu=float(rows))
 
 
 def emit_compact_work(n: int, n_emitting: int, n_valid: int) -> Work:
