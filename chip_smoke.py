@@ -10,9 +10,12 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM
-  2 kernels  frontend, overflow walk, the dense stage (grid emitted and
-             compacted in one kernel), the general compaction (on the plain
-             dense grid), both rasterizers (the slab one at mxu/highest,
+  2 kernels  frontend (also with the compressed eigen clamp, on the
+             compressed bench cloud), overflow walk, the dense stage (grid
+             emitted and compacted in one kernel), the general compaction
+             (on the plain dense grid, and on the compressed cloud's culled
+             stream: 5 payload words), both rasterizers (the scan one also
+             with the tree composite; the slab one at mxu/highest,
              mxu/high, mxu/default and hybrid) and the packed emission
              against their plain versions on the card, at the shapes of the
              bench scene's first view (1,244,819 splats, 1200x799); the walk
@@ -25,7 +28,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              (torch.profiler, by kernel name), its roofline bound from this
              run's work counts (utils/roofline.py) with the bounding term and
              the share bound / kernel time, the plain version's time and, for
-             the compaction, the boolean-mask index that computes the same
+             the compactions, the boolean-mask index that computes the same
              function (library_ms); the host ops and device activities of one
              call of the plain dense stage; for the scan rasterizer its span
              distribution and pair counts (ops/rasterize.py:
@@ -39,16 +42,32 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer (on
              the card by default) over the 8 orbit views of bench.py; launch
              counts (the dense grid itself only on the plain path),
-             diagnostics, plain-path PSNR, ms/frame, per-stage ms, device
-             busy ms, idle share and device ms by kernel (torch.profiler)
+             diagnostics, plain-path PSNR, view 0 rendered twice more (PSNR
+             and max abs between the two: run-to-run reproducibility),
+             ms/frame, per-stage ms, device busy ms, idle share and device
+             ms by kernel (torch.profiler)
   4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
              counts, diagnostics and PSNR against the scan frames; view 0
              with composite="mxu" at each precision; ms/frame, busy ms and
              idle share
-  5 result   per kernel: launches per frame (of the main path; of the
-             hybrid path for the slab rasterizer) and ms above its bound per
-             frame; a JSON line of per-kernel numbers, then the final JSON
-             line
+  4c compr.  make_bench_npz (1,244,819 splats, 4096-entry codebooks) ->
+             load_gaussian_cloud(keep_compressed=True) -> GaussianRenderer
+             over the 8 views at compressed_cull_factor 0 (full-N gathers)
+             and culled (1.15 x the largest visible fraction of the views),
+             and the decode-at-load cloud; launch counts, diagnostics,
+             culled vs full-N and resident vs decoded PSNR, the plain path
+             at view 0, view 0 twice more on the culled path
+             (reproducibility), the decompression's device ms by part (the
+             codebook gathers alone), the culled and full-N paths' frame
+             timing with the "decompress" stage
+  4d tree    the 8 views with RasterConfig(composite="tree") against the
+             scan frames; qform="direct" at view 0; frame timing
+  5 result   per kernel: launches per frame (of the path that runs it: the
+             main path; the hybrid path for the slab rasterizer, the culled
+             compressed path for the compressed frontend and the general
+             compaction, the tree path for the tree rasterizer) and ms
+             above its bound per frame; a JSON line of per-kernel numbers,
+             then the final JSON line
 
 It imports nothing of JAX.  Without CUDA it exits nonzero and prints no
 result.
@@ -89,11 +108,22 @@ MXU_TOL = {"highest": 1e-4, "high": 1e-4, "hybrid": 1e-4, "default": 2e-3}
 MXU_SLACK = 1e-5
 MXU_FLIP_TOL = 2e-2
 SLAB_PSNR = 50.0  # slab composites vs the scan frame of the same view
+# the same view rendered twice: records with equal keys keep the frontend's
+# (and the culled compaction's) block-atomic append order, which varies
+# between runs, so the blend order of equal-key splats may too
+REPRO_PSNR = 60.0
+CULLED_PSNR = 60.0  # culled vs full-N compressed frame (tests/test_io.py:309)
+RESIDENT_PSNR = 45.0  # resident vs decoded-at-load compressed frame (tests/test_io.py:245)
+PLAIN_PSNR = 50.0  # plain path vs kernel path, same view
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA function, threads per CTA)
     "frontend": ("websplat_tpu_torch/csrc/frontend.cu",
                  "websplat_tpu/ops/frontend_pallas.py:124", "frontend_kernel", 256),
+    # the same kernel with the compressed eigen clamp (its compressed=True
+    # branch, websplat_tpu/ops/preprocess.py:261-265)
+    "frontend_compressed": ("websplat_tpu_torch/csrc/frontend.cu",
+                            "websplat_tpu/ops/frontend_pallas.py:124", "frontend_kernel", 256),
     "overflow_walk": ("websplat_tpu_torch/csrc/overflow.cu",
                       "websplat_tpu/ops/overflow_pallas.py:66", "overflow_walk_kernel", 256),
     "compact": ("websplat_tpu_torch/csrc/compact.cu",
@@ -102,6 +132,9 @@ KERNELS = {
                       "websplat_tpu/ops/compact_pallas.py:51", "dense_compact_kernel", 256),
     "rasterize": ("websplat_tpu_torch/csrc/rasterize.cu",
                   "websplat_tpu/ops/rasterize_pallas.py:508", "rasterize_kernel", 256),
+    # its composite="tree" branch (websplat_tpu/ops/rasterize_pallas.py:888-914)
+    "rasterize_tree": ("websplat_tpu_torch/csrc/rasterize.cu",
+                       "websplat_tpu/ops/rasterize_pallas.py:508", "rasterize_tree_kernel", 256),
     "rasterize_mxu": ("websplat_tpu_torch/csrc/rasterize_mxu.cu",
                       "websplat_tpu/ops/rasterize_pallas.py:138", "rasterize_mxu_kernel", 256),
     "emit_compact": ("websplat_tpu_torch/csrc/emit_compact.cu",
@@ -145,9 +178,10 @@ def kernel_only_ms(fn, name: str, reps: int) -> float:
                          f"{KERNELS[name][2]}")
 
 
-def op_counts(fn):
-    """(top-level host aten ops, device activities) of one call of fn()
-    (torch.profiler), after one warm-up call."""
+def profile_call(fn):
+    """torch.profiler over one call of fn(), after one warm-up call: (its
+    top-level host aten ops, its device activities, their device ms (the
+    sum of their intervals), the distinct kernel names)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -159,8 +193,9 @@ def op_counts(fn):
     events = prof.events()
     host = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
                and e.cpu_parent is None and e.name.startswith("aten::"))
-    device = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    return host, device
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (host, len(dev), sum(e.time_range.end - e.time_range.start for e in dev) / 1e3,
+            sorted({e.name[:48] for e in dev}))
 
 
 def counting(module, name: str):
@@ -295,6 +330,39 @@ def bench_cloud():
     return cloud
 
 
+def bench_npz():
+    """The compressed bench cloud (synth.make_bench_npz: bonsai's count,
+    4096-entry codebooks) loaded resident and decoded at load."""
+    from websplat_tpu_torch.io.loader import load_gaussian_cloud
+    from websplat_tpu_torch.synth import make_bench_npz
+
+    t0 = time.perf_counter()
+    blob = make_bench_npz(np.random.default_rng(0))
+    resident = load_gaussian_cloud(blob, keep_compressed=True)
+    decoded = load_gaussian_cloud(blob)
+    say("scene", f"compressed bench cloud {resident.num_points} splats via a "
+                 f"{len(blob) / 1e6:.1f} MB npz (codebooks {resident.quantized.covars.shape[0]} "
+                 f"geometry, {resident.quantized.sh_codebook.shape[0]} SH), resident and decoded, "
+                 f"in {time.perf_counter() - t0:.1f} s")
+    return resident, decoded
+
+
+def cull_factor_for(resident) -> float:
+    """compressed_cull_factor sized as scripts/bench_10m.py:111-120 sizes
+    it: 1.15 x the largest visible fraction over the 8 views, from one
+    frustum_visible count per view (outside every timing)."""
+    from websplat_tpu_torch.render.renderer import frustum_visible, upload
+    from websplat_tpu_torch.synth import bench_cameras
+
+    cc = upload(resident, "cuda")
+    fracs = [int(frustum_visible(cc.xyz, view_block(resident, cam)[0]).sum()) / resident.num_points
+             for cam in bench_cameras()]
+    factor = min(1.0, 1.15 * max(fracs))
+    say("scene", f"frustum-visible fraction per view {[round(f, 4) for f in fracs]}; "
+                 f"compressed_cull_factor {factor:.4f}")
+    return factor
+
+
 def view_block(cloud, cam):
     from websplat_tpu_torch.config import SplattingArgs, resolve_settings
     from websplat_tpu_torch.models.camera import CameraUniforms
@@ -305,9 +373,10 @@ def view_block(cloud, cam):
     return camera_block(CameraUniforms.from_camera(cam, (W, H)), settings), settings
 
 
-def kernels_vs_plain(cloud, results):
+def kernels_vs_plain(cloud, resident, cull_factor, results):
     """Phase 2: each kernel against its plain version at the main path's
-    shapes (bench scene, view 0)."""
+    shapes (bench scene, view 0; the compressed bench cloud's view 0 for
+    the compressed frontend and the culled compaction)."""
     import torch
 
     from websplat_tpu_torch.config import RasterConfig
@@ -322,7 +391,8 @@ def kernels_vs_plain(cloud, results):
     from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
                                                       rasterize_mxu_work_torch)
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
-    from websplat_tpu_torch.render.renderer import build_instance_stream, upload_cloud
+    from websplat_tpu_torch.render.renderer import (build_instance_stream, cull_stream,
+                                                    decompress_cloud, upload, upload_cloud)
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils import roofline
     from websplat_tpu_torch.utils.streams import compare_rows, stream_rows
@@ -371,6 +441,39 @@ def kernels_vs_plain(cloud, results):
         roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots),
         fs.max_sh_deg, fs.mip))
     del d
+
+    # the frontend with the compressed eigen clamp, on the compressed bench
+    # cloud expanded at full N (what the full-N compressed path feeds it)
+    cc = upload(resident, "cuda")
+    cfs, _ = view_block(resident, bench_cameras()[0])
+    cdc = decompress_cloud(cc)
+    cn = resident.num_points
+    ccap, ccap_c = max(4096, 2 * cn), cfg.overflow_capacity_for(cn)
+    cfront = lambda fn: fn(cdc, cfs, capacity=ccap, capacity_c=ccap_c, compressed=True, **geo)
+    cfk, cfp = cfront(fused_frontend), cfront(frontend_torch)
+    if cfk.stats.tolist() != cfp.stats.tolist():
+        raise AssertionError(f"frontend (compressed) stats {cfk.stats.tolist()} != plain "
+                             f"{cfp.stats.tolist()}")
+    ctotal, cvisible, cclamped = cfk.stats.tolist()
+    err_cf = max(
+        check_rows("frontend (compressed clamp) instances",
+                   stream_rows(cfk.keys, cfk.words, n=ctotal),
+                   stream_rows(cfp.keys, cfp.words, n=ctotal),
+                   f"; stats [emitted, visible, clamped] = {cfk.stats.tolist()}"),
+        check_rows("frontend (compressed clamp) clamped rows",
+                   stream_rows(cfk.cid, n=min(cclamped, ccap_c)),
+                   stream_rows(cfp.cid, n=min(cclamped, ccap_c))),
+    )
+    results["frontend_compressed"] = dict(
+        max_abs_err=err_cf, ms=cuda_ms(lambda: cfront(fused_frontend), 20),
+        kernel_ms=kernel_only_ms(lambda: cfront(fused_frontend), "frontend_compressed", 20),
+        plain_ms=cuda_ms(lambda: cfront(frontend_torch), 3), library_ms=None)
+    d = core_math(cdc, cfs, width=W, height=H, config=cfg, compressed=True)
+    with_bound(results["frontend_compressed"], roofline.frontend_work(
+        cn, cvisible, ctotal, min(cclamped, ccap_c),
+        roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots),
+        cfs.max_sh_deg, cfs.mip))
+    del d, cfk, cfp
 
     # overflow walk, both levels on the kernel frontend's clamped rows
     def walks(fn):
@@ -488,7 +591,7 @@ def kernels_vs_plain(cloud, results):
                    f"{int(zk[2])}")
     if not (int(qk[2]) == n_dense and left == n_dense - cap_q and int(zk[2]) == 0):
         raise AssertionError("dense_compact below capacity or with no rows: count or rows wrong")
-    host_ops, dev_acts = op_counts(dense_p)
+    host_ops, dev_acts, _, _ = profile_call(dense_p)
     say("kernels", f"plain dense stage (dense_grid_emit + compact_torch), one call: {host_ops} "
                    f"top-level host aten ops, {dev_acts} device activities (torch.profiler)")
     results["dense_compact"] = dict(
@@ -499,8 +602,8 @@ def kernels_vs_plain(cloud, results):
     with_bound(results["dense_compact"],
                roofline.dense_compact_work(n_megas, dense_tests, n_dense))
 
-    # the general compaction, on the plain dense grid (the main path no
-    # longer launches it)
+    # the general compaction, on the plain dense grid (the JAX frame's use
+    # of it; the port's main path runs dense_compact instead)
     dkeys, dwords = dense_grid_emit(k2.giants, k2.stats[1], **geo)
     build.LAUNCHES["compact"] = 0
     ck, cp = (compact_instances(dkeys, dwords, capacity=dcap),
@@ -514,15 +617,41 @@ def kernels_vs_plain(cloud, results):
         keep = dkeys != -1
         return dkeys[keep], dwords[:, keep]
 
+    grid_ms = kernel_only_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap), "compact", 50)
+    grid_lib_ms = cuda_ms(mask_index, 20)
+    say("kernels", f"compact on the dense grid: kernel only {grid_ms:.4f} ms, boolean-mask index "
+                   f"{grid_lib_ms:.4f} ms")
+
+    # ... and as the culled compressed path runs it: view 0's cull keys
+    # (int8 codes) and 5 payload words (position bits, codebook indices)
+    # over every splat, at the culled capacity of phase 4c
+    ckeys, cpayload = cull_stream(cc, cfs)
+    cull_cap = max(4096, int(cull_factor * cn))
+    ccomp = lambda: compact_instances(ckeys, cpayload, capacity=cull_cap)
+    ckk, ckp = ccomp(), compact_torch(ckeys, cpayload, capacity=cull_cap)
+    n_cull = int(ckk[2])
+    n_diff, err_cc = compare_rows(stream_rows(ckk[0], ckk[1], n=min(n_cull, cull_cap)),
+                                  stream_rows(ckp[0], ckp[1], n=min(n_cull, cull_cap)))
+    say("kernels", f"compact (culled stream: {cn} splats, 5 payload words, capacity {cull_cap}): "
+                   f"count {n_cull} kernel, {int(ckp[2])} plain, {n_diff} rows differing "
+                   f"(allowed 0)")
+    if n_cull != int(ckp[2]) or n_diff != 0 or n_cull > cull_cap:
+        raise AssertionError("compact on the culled stream: kernel disagrees with its plain version "
+                             "or the count passes the capacity")
+
+    def cull_mask_index():  # the one PyTorch call with E's function; the port never calls it
+        keep = ckeys != -1
+        return ckeys[keep], cpayload[:, keep]
+
     launches_e = build.LAUNCHES["compact"]
     results["compact"] = dict(
-        max_abs_err=err_c, launches_phase2=launches_e,
-        ms=cuda_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap), 50),
-        kernel_ms=kernel_only_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap),
-                                 "compact", 50),
-        plain_ms=cuda_ms(lambda: compact_torch(dkeys, dwords, capacity=dcap), 5),
-        library_ms=cuda_ms(mask_index, 20))
-    with_bound(results["compact"], roofline.compact_work(dkeys.shape[0], dwords.shape[0], nd))
+        max_abs_err=max(err_c, err_cc), launches_phase2=launches_e,
+        ms=cuda_ms(ccomp, 50), kernel_ms=kernel_only_ms(ccomp, "compact", 50),
+        plain_ms=cuda_ms(lambda: compact_torch(ckeys, cpayload, capacity=cull_cap), 5),
+        library_ms=cuda_ms(cull_mask_index, 20), grid_kernel_ms=grid_ms,
+        grid_library_ms=grid_lib_ms)
+    with_bound(results["compact"], roofline.compact_work(cn, 5, min(n_cull, cull_cap)))
+    del ckk, ckp, cdc
 
     # rasterizer on the kernel path's sorted stream
     keys, words, _ = build_instance_stream(dc, fs, **geo)
@@ -558,6 +687,31 @@ def kernels_vs_plain(cloud, results):
     n_walked = int(work["tile_stop"].sum())
     with_bound(results["rasterize"], roofline.rasterize_work(n_walked, W, H, tx * ty,
                                                              work["pairs_blended"]))
+    # the tree composite on the same stream; qform="direct" is the scan
+    # kernel's own evaluation, so it must give the same bits
+    tgeo = dict(geo, config=RasterConfig(composite="tree"))
+    tk = rasterize(sw, ranges, bg, **tgeo)
+    tp, tplain_ms = event_ms(lambda: rasterize_torch(sw, ranges, bg, **tgeo))
+    err_t = float((tk - tp).abs().max())
+    direct_equal = bool(torch.equal(rasterize(sw, ranges, bg, **dict(
+        geo, config=RasterConfig(qform="direct"))), rk))
+    twork = rasterize_work_torch(sw, ranges, **tgeo)
+    say("kernels", f"rasterize tree: max |kernel - plain| = {err_t:.3g} (allowed {RASTER_TOL}), "
+                   f"mean |tree - scan| {float((tk - rk).abs().mean()):.3g}; pairs_blended "
+                   f"{twork['pairs_blended']} (scan {work['pairs_blended']}); qform='direct' "
+                   f"bit-equal to the scan kernel's image: {direct_equal}")
+    if not (torch.isfinite(tk).all() and err_t <= RASTER_TOL and direct_equal):
+        raise AssertionError("rasterize tree disagrees with its plain version, or qform='direct' "
+                             "changed the scan image")
+    results["rasterize_tree"] = dict(
+        max_abs_err=err_t, ms=cuda_ms(lambda: rasterize(sw, ranges, bg, **tgeo), 20),
+        kernel_ms=kernel_only_ms(lambda: rasterize(sw, ranges, bg, **tgeo), "rasterize_tree", 20),
+        plain_ms=tplain_ms, library_ms=None, mean_abs_vs_scan=float((tk - rk).abs().mean()),
+        pairs_blended=twork["pairs_blended"])
+    with_bound(results["rasterize_tree"], roofline.rasterize_work(
+        int(twork["tile_stop"].sum()), W, H, tx * ty, twork["pairs_blended"], tree=True))
+    del tk, tp
+
     slab = rasterize_mxu_work_torch(sw, ranges, work["tile_stop"], **geo)
     all_chunks = slab["slab_tiles"] * cfg.tile_w * cfg.tile_h // 16 * 8
     say("kernels", f"slab work over the slabs the tile stop leaves: {slab['slab_tiles']} (tile, "
@@ -764,22 +918,15 @@ def golden():
 
 def main_path(cloud):
     """Phase 4: the user's entry points at full size, 8 orbit views."""
-    from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
-    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch import RasterConfig
     from websplat_tpu_torch.ops import compact
     from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
-    renderer = GaussianRenderer(cloud, RasterConfig())  # the card, by default
     cams = bench_cameras()
     grids, restore = counting(compact, "dense_grid_emit")
-    build.reset_launches()
-    images, diags = [], []
-    for cam in cams:
-        images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
-        diags.append(dict(renderer._last_diag))
-    launches = dict(build.LAUNCHES)
+    renderer, images, diags, launches = drive(cloud, RasterConfig())
     grids_kernel = grids[0]
     say("main", f"{N_VIEWS} views {W}x{H}: launches {launches}; dense grids built "
                 f"{grids_kernel}")
@@ -812,8 +959,40 @@ def main_path(cloud):
         raise AssertionError(f"plain-path PSNR {p:.2f} dB < 50 or the plain path built "
                              f"{grids[0] - grids_kernel} dense grids")
 
+    reproducibility("main", renderer, cams[0])
     frame_timing("main", renderer, blocks)
-    return launches, images, blocks
+    return launches, images, diags, blocks
+
+
+def reproducibility(phase, renderer, cam):
+    """Renders one view twice: PSNR and max abs between the two images,
+    gated at REPRO_PSNR."""
+    from websplat_tpu_torch import SplattingArgs
+    from websplat_tpu_torch.utils.image import psnr
+
+    a, b = (renderer.render(cam, (W, H), SplattingArgs()) for _ in range(2))
+    p, err = psnr(a, b), float(np.abs(a - b).max())
+    say(phase, f"view 0 rendered twice: PSNR {p:.2f} dB, max abs {err:.3g} (floor "
+               f"{REPRO_PSNR} dB)")
+    if not p >= REPRO_PSNR:
+        raise AssertionError(f"{phase}: view 0 moved by {p:.2f} dB between two renders")
+
+
+def drive(cloud, config):
+    """A renderer on the card (the default device) over the 8 bench views,
+    with the launch counts of that run alone: (renderer, images, diags,
+    launches)."""
+    from websplat_tpu_torch import GaussianRenderer, SplattingArgs
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.synth import bench_cameras
+
+    renderer = GaussianRenderer(cloud, config)
+    build.reset_launches()
+    images, diags = [], []
+    for cam in bench_cameras():
+        images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
+        diags.append(dict(renderer._last_diag))
+    return renderer, images, diags, dict(build.LAUNCHES)
 
 
 def frame_timing(phase, renderer, blocks):
@@ -827,7 +1006,7 @@ def frame_timing(phase, renderer, blocks):
 
     from websplat_tpu_torch.render.renderer import StageTimer, render_frame
 
-    geo = dict(width=W, height=H, config=renderer.config)
+    geo = dict(width=W, height=H, config=renderer.config, compressed=renderer.cloud.compressed)
     stages, frame_ms, wall_ms = {}, [], []
     for _ in range(TIMED_PASSES):
         for fs, st in blocks:
@@ -873,24 +1052,18 @@ def frame_timing(phase, renderer, blocks):
     say(phase, f"device ms per frame by kernel: {split}; {len(top) - 8} others {rest:.4f}")
 
 
+
 def slab_path(cloud, scan_images, blocks):
     """Phase 4b: the user's entry point with the slab composites, the 8
     views against the scan frames of phase 4."""
     from websplat_tpu_torch import GaussianRenderer, SplattingArgs
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops import compact
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
-    renderer = GaussianRenderer(cloud, mxu_config("hybrid"), device="cuda")
     cams = bench_cameras()
     grids, restore = counting(compact, "dense_grid_emit")
-    build.reset_launches()
-    images, diags = [], []
-    for cam in cams:
-        images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
-        diags.append(dict(renderer._last_diag))
-    launches = dict(build.LAUNCHES)
+    renderer, images, diags, launches = drive(cloud, mxu_config("hybrid"))
     restore()
     say("slab", f"hybrid, {N_VIEWS} views {W}x{H}: launches {launches}; dense grids built "
                 f"{grids[0]}")
@@ -924,23 +1097,124 @@ def slab_path(cloud, scan_images, blocks):
     return launches
 
 
+def compressed_path(resident, decoded, cull_factor):
+    """Phase 4c: the compressed bench cloud through the user's entry
+    points: resident at full N and culled, and decoded at load."""
+    from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.render.renderer import (decompress_cloud, decompress_cloud_culled,
+                                                    render_frame)
+    from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils.image import psnr
+
+    runs = {"full-N": drive(resident, RasterConfig()),
+            "culled": drive(resident, RasterConfig(compressed_cull_factor=cull_factor)),
+            "decoded": drive(decoded, RasterConfig())}
+    for what, (r, images, diags, launches) in runs.items():
+        say("compressed", f"{what}, {N_VIEWS} views {W}x{H}: launches {launches}")
+        for i, (img, d) in enumerate(zip(images, diags)):
+            if not (img.shape == (H, W, 3) and np.isfinite(img).all()):
+                raise AssertionError(f"{what} view {i}: image not finite or wrong shape")
+            if not (d["num_visible"] > 0 and d["num_dropped"] == d["num_clamped"]
+                    == d["num_culled_dropped"] == 0):
+                raise AssertionError(f"{what} view {i}: diagnostics {d}")
+        need = dict(frontend_compressed=N_VIEWS, dense_compact=N_VIEWS, rasterize=N_VIEWS,
+                    compact=N_VIEWS if what == "culled" else 0, frontend=0)
+        if (any(launches[k] != v for k, v in need.items())
+                or launches["overflow_walk"] < N_VIEWS):
+            raise AssertionError(f"{what}: launches {launches}, expected {need} and overflow_walk "
+                                 f">= {N_VIEWS}")
+    full, culled, dec = (runs[k] for k in ("full-N", "culled", "decoded"))
+    for i in range(N_VIEWS):
+        p_cull, p_dec = psnr(culled[1][i], full[1][i]), psnr(full[1][i], dec[1][i])
+        same = all(culled[2][i][k] == full[2][i][k] for k in ("num_visible", "num_instances"))
+        say("compressed", f"view {i}: culled vs full-N {p_cull:.2f} dB, resident vs decoded "
+                          f"{p_dec:.2f} dB; full-N {full[2][i]}; culled {culled[2][i]}")
+        if not (p_cull >= CULLED_PSNR and same and p_dec > RESIDENT_PSNR):
+            raise AssertionError(f"compressed view {i}: culled {p_cull:.2f} dB (diagnostics equal: "
+                                 f"{same}), resident vs decoded {p_dec:.2f} dB")
+
+    renderer = culled[0]
+    blocks = [view_block(resident, cam) for cam in bench_cameras()]
+    fs0, settings = blocks[0]
+    img_p, diag_p = render_frame(renderer.device_cloud, fs0, settings.background_color, width=W,
+                                 height=H, config=renderer.config, compressed=True, plain=True,
+                                 return_diag=True)
+    p = psnr(img_p.cpu().numpy(), culled[1][0])
+    say("compressed", f"view 0 plain path (culled): PSNR vs kernel frame {p:.2f} dB, diag {diag_p}")
+    if not p >= PLAIN_PSNR:
+        raise AssertionError(f"compressed plain-path PSNR {p:.2f} dB < {PLAIN_PSNR}")
+    # the decompression's device work by part (the gathers are index_select)
+    cc = renderer.device_cloud
+    cull_cap = max(4096, int(cull_factor * resident.num_points))
+    gathers = lambda n: (cc.covars.index_select(1, cc.geom_idx[:n]),
+                         cc.sh_cb.index_select(1, cc.sh_idx[:n]))
+    for what, fn in (("codebook gathers at full N", lambda: gathers(resident.num_points)),
+                     (f"codebook gathers at the culled capacity {cull_cap}",
+                      lambda: gathers(cull_cap)),
+                     ("decompress_cloud (full N)", lambda: decompress_cloud(cc)),
+                     ("decompress_cloud_culled", lambda: decompress_cloud_culled(
+                         cc, fs0, capacity=cull_cap))):
+        _, acts, ms, names = profile_call(fn)
+        say("compressed", f"{what}: {ms:.4f} device ms in {acts} device activities "
+                          f"(torch.profiler; kernels {names})")
+    reproducibility("compressed", renderer, bench_cameras()[0])
+    frame_timing("compressed", renderer, blocks)
+    frame_timing("compressed full-N", full[0], blocks)
+    return culled[3]
+
+
+def tree_path(cloud, scan_images, scan_diags, blocks):
+    """Phase 4d: the 8 views with the tree composite against phase 4's
+    scan frames, and view 0 with qform="direct"."""
+    from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.utils.image import psnr
+
+    renderer, images, diags, launches = drive(cloud, RasterConfig(composite="tree"))
+    say("tree", f"{N_VIEWS} views {W}x{H}: launches {launches}")
+    for i, (img, d) in enumerate(zip(images, diags)):
+        p = psnr(img, scan_images[i])
+        say("tree", f"view {i}: PSNR vs scan {p:.2f} dB, {d}")
+        if not (np.isfinite(img).all() and p >= SLAB_PSNR and d == scan_diags[i]):
+            raise AssertionError(f"tree view {i}: PSNR {p:.2f} dB, diagnostics {d} vs scan "
+                                 f"{scan_diags[i]}")
+    if launches["rasterize_tree"] != N_VIEWS or launches["rasterize"] != 0:
+        raise AssertionError(f"tree path launches {launches}")
+    direct = drive(cloud, RasterConfig(qform="direct"))[1][0]
+    p = psnr(direct, scan_images[0])
+    say("tree", f"qform='direct', view 0: PSNR vs the scan frame {p:.2f} dB, bit-equal "
+                f"{np.array_equal(direct, scan_images[0])} (the same evaluation; equal-key "
+                f"order may move between renders, floor {REPRO_PSNR} dB)")
+    if not p >= REPRO_PSNR:
+        raise AssertionError(f"qform='direct' view 0: {p:.2f} dB from the scan frame")
+    frame_timing("tree", renderer, blocks)
+    return launches
+
+
 def main() -> int:
     name, smi = probe()
     build_kernels()
     cloud = bench_cloud()
+    resident, decoded = bench_npz()
+    cull_factor = cull_factor_for(resident)
     results = {}
-    kernels_vs_plain(cloud, results)
+    kernels_vs_plain(cloud, resident, cull_factor, results)
     golden()
-    launches, scan_images, blocks = main_path(cloud)
+    launches, scan_images, scan_diags, blocks = main_path(cloud)
     launches["rasterize_mxu"] = slab_path(cloud, scan_images, blocks)["rasterize_mxu"]
+    c_launches = compressed_path(resident, decoded, cull_factor)
+    for k in ("frontend_compressed", "compact"):
+        launches[k] = c_launches[k]
+    launches["rasterize_tree"] = tree_path(cloud, scan_images, scan_diags,
+                                           blocks)["rasterize_tree"]
     import torch
 
     # launches per frame of the path each kernel is on (the scan path of
-    # phase 4; the hybrid path of phase 4b for rasterize_mxu); the general
-    # compaction and the packed emission are on no render path (their
-    # launches_phase2 count phase 2's).  kernel_ms and bound_ms cover one
-    # frame's work of phase 2's view: both walk levels for the overflow
-    # walk, one launch for the others.
+    # phase 4; the hybrid path of phase 4b for rasterize_mxu; the culled
+    # compressed path of phase 4c for frontend_compressed and compact; the
+    # tree path of phase 4d for rasterize_tree); the packed emission is on
+    # no render path (its launches_phase2 counts phase 2's).  kernel_ms and
+    # bound_ms cover one frame's work of phase 2's view: both walk levels
+    # for the overflow walk, one launch for the others.
     for k, r in results.items():
         r["launches_per_frame"] = launches[k] / N_VIEWS
         per_call = 2 if k == "overflow_walk" else 1

@@ -66,9 +66,25 @@ def test_ply_interchange(writer):
         tc.kernel_size, tc.mip_splatting, tc.background_color)
 
 
-def test_npz_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="Compressed path"):
-        load_gaussian_cloud(b"PK\x03\x04" + bytes(64))
+@pytest.mark.parametrize("keep", [False, True])
+def test_loader_reads_npz(keep):
+    """An npz blob (by its PK magic) loads through the port's loader as the
+    JAX loader loads it: a compressed cloud, resident or decoded."""
+    from websplat_tpu.io.npz import dumps_npz as jax_dumps_npz
+
+    rng = np.random.default_rng(5)
+    n = 40
+    blob = jax_dumps_npz(rng.normal(size=(n, 3)), rng.uniform(-4, -2, size=(n, 3)),
+                         rng.normal(size=(n, 4)), rng.uniform(0.1, 0.9, size=n),
+                         rng.normal(size=(n, 16, 3)) * 0.3, sh_deg=2, kernel_size=0.2)
+    jc, tc = jax_load(blob, keep_compressed=keep), load_gaussian_cloud(blob, keep_compressed=keep)
+    assert tc.compressed and tc.sh_deg == 2 and tc.num_points == n
+    assert (tc.quantized is not None) == keep and tc.kernel_size == jc.kernel_size
+    np.testing.assert_array_equal(tc.xyz, jc.xyz)
+    for x, y in zip(tc.aabb, jc.aabb):
+        np.testing.assert_array_equal(x, y)
+    if not keep:
+        _same_cloud(jc, tc)
 
 
 @pytest.mark.parametrize("seed,n", [(0, 1), (1, 257), (2, 3000)])
@@ -140,8 +156,9 @@ def test_raster_config_capacities_equal():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("composite", "bogus"), ("mxu_precision", "fp8"), ("composite", "tree"),
-    ("qform", "direct"), ("sort_backend", "u64"), ("y_bands", 2), ("raster_backend", "xla"),
+    ("composite", "bogus"), ("mxu_precision", "fp8"), ("qform", "bogus"),
+    ("compressed_cull_factor", -0.5), ("compressed_cull_factor", float("nan")),
+    ("sort_backend", "u64"), ("y_bands", 2), ("raster_backend", "xla"),
     ("compact", False), ("overflow_capacity", 0), ("overflow_slots", 6),
 ])
 def test_raster_config_rejects_unported_values(field, value):
@@ -151,7 +168,7 @@ def test_raster_config_rejects_unported_values(field, value):
 
 @pytest.mark.parametrize("composite,precision", [
     ("scan", "highest"), ("mxu", "default"), ("mxu", "high"), ("mxu", "highest"),
-    ("hybrid", "highest"),
+    ("hybrid", "highest"), ("tree", "highest"),
 ])
 def test_raster_config_accepts_ported_composites(composite, precision):
     """The values JAX's RasterConfig takes for these fields, with its
@@ -160,6 +177,16 @@ def test_raster_config_accepts_ported_composites(composite, precision):
     j = JaxRasterConfig(composite=composite, mxu_precision=precision)
     assert (t.composite, t.mxu_precision) == (j.composite, j.mxu_precision)
     assert tconfig.RasterConfig().mxu_precision == JaxRasterConfig().mxu_precision
+
+
+@pytest.mark.parametrize("field,value", [
+    ("qform", "direct"), ("qform", "monomial"), ("compressed_cull_factor", 0.0),
+    ("compressed_cull_factor", 0.8),
+])
+def test_raster_config_accepts_jax_values(field, value):
+    """qform and compressed_cull_factor take the JAX config's values."""
+    assert getattr(tconfig.RasterConfig(**{field: value}), field) == getattr(
+        JaxRasterConfig(**{field: value}), field) == value
 
 
 def test_upload_bit_equal_to_jax():

@@ -14,6 +14,7 @@ MODULES = [
     "websplat_tpu_torch.config",
     "websplat_tpu_torch.synth",
     "websplat_tpu_torch.io.loader",
+    "websplat_tpu_torch.io.npz",
     "websplat_tpu_torch.io.ply",
     "websplat_tpu_torch.models.camera",
     "websplat_tpu_torch.utils.gmath",
@@ -34,7 +35,9 @@ MODULES = [
 
 def test_imports_without_jax_and_renders():
     """In a fresh interpreter where importing jax or websplat_tpu fails,
-    every module imports and a small frame renders on the CPU."""
+    every module imports, a small frame renders on the CPU, and so does an
+    npz written by the port's dumps_npz, loaded resident (through the
+    culled decompression) and decoded."""
     code = textwrap.dedent(f"""
         import sys
         for blocked in ("jax", "jaxlib", "websplat_tpu"):
@@ -48,6 +51,15 @@ def test_imports_without_jax_and_renders():
         r = GaussianRenderer(make_cloud(np.random.default_rng(0), n=50), device="cpu")
         img = r.render(make_camera(viewport=(64, 64)), (64, 64))
         assert img.shape == (64, 64, 3) and np.isfinite(img).all()
+        from websplat_tpu_torch import RasterConfig, load_gaussian_cloud
+        from websplat_tpu_torch.synth import make_bench_npz
+        blob = make_bench_npz(np.random.default_rng(1), n=200, n_geom=16, n_sh=16)
+        for keep in (True, False):
+            cloud = load_gaussian_cloud(blob, keep_compressed=keep)
+            assert cloud.compressed and (cloud.quantized is not None) == keep
+            r = GaussianRenderer(cloud, RasterConfig(compressed_cull_factor=1.0), device="cpu")
+            img = r.render(make_camera(viewport=(64, 64)), (64, 64), with_diag=True)
+            assert np.isfinite(img).all() and r.num_visible_points > 0
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                   or m.startswith("websplat_tpu.") or m == "websplat_tpu"]
         assert all(sys.modules[m] is None for m in loaded), loaded
@@ -90,7 +102,7 @@ def test_renderer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("stage", ["frontend", "overflow_walk", "compact", "dense_compact",
-                                   "rasterize"])
+                                   "rasterize", "frontend_compressed", "rasterize_tree"])
 def test_wrappers_reject_other_devices(stage):
     """A stream on a device that is neither CPU nor CUDA raises: no silent
     plain fallback."""
@@ -112,6 +124,12 @@ def test_wrappers_reject_other_devices(stage):
         "compact": lambda: compact.compact_instances(meta(8), meta(4, 8), capacity=8),
         "dense_compact": lambda: compact.dense_compact(meta(6, 8), meta(), capacity=8, **geo),
         "rasterize": lambda: rasterize.rasterize(meta(4, 8), meta(5), (0, 0, 0), **geo),
+        "frontend_compressed": lambda: frontend.fused_frontend(
+            DeviceCloud(meta(3, 4, dtype=torch.float32), meta(6, 4, dtype=torch.float32),
+                        meta(4, dtype=torch.float32), meta(24, 4)),
+            None, capacity=8, capacity_c=8, compressed=True, **geo),
+        "rasterize_tree": lambda: rasterize.rasterize(
+            meta(4, 8), meta(5), (0, 0, 0), **dict(geo, config=RasterConfig(composite="tree"))),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[stage]()

@@ -69,9 +69,10 @@ def _exp32(x: np.ndarray) -> np.ndarray:
     return torch.exp(t).numpy()[:flat.size].reshape(x.shape)
 
 
-def _brute_raster_counts(sw, ranges, cfg):
+def _brute_raster_counts(sw, ranges, cfg, tree=False):
     """(pairs_live, pairs_blended, pairs_in_box, tile_stop) by walking each
-    in-image pixel's span in numpy."""
+    in-image pixel's span in numpy.  ``tree``: a pixel stays live through
+    the group of 8 absolute stream positions in which it saturates."""
     cq = packing.CenterQuant.for_viewport(W, H)
     rec = [v.numpy() for v in packing.unpack_record(*packing.u32(sw), cq)]
     box = [v.numpy() for v in splat_pixel_bounds(*packing.unpack_record(
@@ -97,6 +98,9 @@ def _brute_raster_counts(sw, ranges, cfg):
         alpha = np.where(on, np.minimum(_exp32(-a) * op, np.float32(0.99)), np.float32(0))
         trans = np.multiply.accumulate(np.float32(1) - alpha, axis=1)  # sequential f32
         before = np.concatenate([np.ones((len(ix), 1), np.float32), trans[:, :-1]], axis=1)
+        if tree:  # the transmittance at the start of each position's group
+            k = np.arange(s1 - s0)
+            before = before[:, np.maximum.accumulate(np.where((s0 + k) % 8 == 0, k, 0))]
         live = before > eps  # a prefix of each pixel's span
         x_lo, x_hi, y_lo, y_hi = (v[s0:s1][None, :] for v in box)
         inside = (ix >= x_lo) & (ix <= x_hi) & (iy >= y_lo) & (iy <= y_hi)
@@ -121,6 +125,24 @@ def test_raster_work_matches_per_pixel_walk(scene):
     # edge pixels: the no-cull walk visits more than the image's live pairs
     assert work["pairs_visited"] > work["pairs_live"] >= work["pairs_sub_box"] >= in_box
     assert 32 * work["sub_evals"] >= work["pairs_sub_box"]
+
+
+def test_tree_raster_work_matches_per_pixel_walk(scene):
+    """The tree composite's counts: a pixel blends on to the end of the
+    group in which it saturates, so it blends at least the scan's pairs;
+    23 f32 operations per blended pair (the scan's 21 + 2)."""
+    sw, ranges = scene["sw"], scene["ranges"]
+    tree_cfg = RasterConfig(composite="tree")
+    work = rasterize_work_torch(sw, ranges, width=W, height=H, config=tree_cfg)
+    live, blended, in_box, stop = _brute_raster_counts(sw, ranges, tree_cfg, tree=True)
+    assert (work["pairs_live"], work["pairs_blended"], work["pairs_in_box"]) == (
+        live, blended, in_box)
+    assert (work["tile_stop"].numpy() == stop).all()
+    scan = rasterize_work_torch(sw, ranges, width=W, height=H, config=scene["cfg"])
+    assert scan["pairs_blended"] < blended and (scan["tile_stop"] <= work["tile_stop"]).all()
+    tw = roofline.rasterize_work(int(stop.sum()), W, H, 56, blended, tree=True)
+    sw_ = roofline.rasterize_work(int(stop.sum()), W, H, 56, blended)
+    assert tw.f32 == 23 * blended == sw_.f32 + 2 * blended and tw.bytes == sw_.bytes
 
 
 def test_raster_work_leaves_the_image_alone(scene):
@@ -218,6 +240,26 @@ def test_slab_and_compact_counts(scene):
     keys = np.array([5, -1, 7, -1, -1, 9], np.int32)
     kept = int((keys != -1).sum())
     assert roofline.compact_work(len(keys), 4, kept).bytes == 4 * 6 + 16 * kept + 20 * kept + 4
+
+
+def test_compact_counts_at_five_payload_words():
+    """compact_work at the culled decompression's 5 payload words (position
+    bits and two codebook indices) against a per-row count: every key read,
+    a kept row's payload read and its key + payload written, the count."""
+    from websplat_tpu_torch.ops.compact import compact_torch
+
+    rng = np.random.default_rng(4)
+    m = 5000
+    keep = rng.random(m) < 0.37
+    keys = torch.from_numpy(np.where(keep, rng.integers(0, 1 << 16, m), -1).astype(np.int32))
+    payload = torch.from_numpy(rng.integers(-2**31, 2**31, (5, m)).astype(np.int32))
+    _, out, count = compact_torch(keys, payload, capacity=m)
+    kept = int(count)
+    assert kept == int(keep.sum()) and torch.equal(out[:, :kept], payload[:, keep])
+    brute = 4  # the count
+    for k in keep:
+        brute += 4 + (5 * 4 + 6 * 4 if k else 0)
+    assert roofline.compact_work(m, 5, kept).bytes == brute
 
 
 def test_dense_compact_counts():

@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Times checkouts of the PyTorch port against each other on one card.
+
+    python3 time_checkout.py ROOT [ROOT ...]
+
+Each ROOT is a directory that holds a ``websplat_tpu_torch`` package: "."
+for this checkout, or a second checkout unpacked with ``git archive``. The
+roots run one after another, each in a fresh process that builds its own
+kernels, so two versions are compared within one call on one card (give
+them in turns: A B B A). Per root, on the bench scene (1,244,819 splats,
+1200x799, chip_smoke.py's scene and views):
+  - the main path's frame over the 8 views: median CUDA-event span and
+    host wall of 5 warm passes, and the span's quartiles;
+  - the scan and tree rasterizers' kernel-only ms on view 0's sorted
+    stream (torch.profiler, median of 30 launches), with each kernel's
+    registers and spill bytes (ptxas); "n/a" where the checkout has no
+    tree composite.
+Needs CUDA; exits nonzero without it.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def time_root(root: str) -> None:
+    sys.path.insert(0, root)
+    sys.path.insert(1, HERE)
+    import torch
+    import websplat_tpu_torch
+
+    if not websplat_tpu_torch.__file__.startswith(root + os.sep):
+        raise SystemExit(f"imported {websplat_tpu_torch.__file__}, not the package under {root}")
+    import chip_smoke as cs
+    from websplat_tpu_torch import GaussianRenderer, RasterConfig
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops.rasterize import rasterize
+    from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+    from websplat_tpu_torch.render.renderer import StageTimer, build_instance_stream, render_frame
+    from websplat_tpu_torch.synth import bench_cameras
+
+    usage = build.build_report()
+    cloud = cs.bench_cloud()
+    renderer = GaussianRenderer(cloud, RasterConfig())
+    blocks = [cs.view_block(cloud, cam) for cam in bench_cameras()]
+    geo = dict(width=cs.W, height=cs.H, config=renderer.config)
+    span, wall = [], []
+    for p in range(6):  # the first pass warms up
+        for fs, st in blocks:
+            timer = StageTimer()
+            t0 = time.perf_counter()
+            render_frame(renderer.device_cloud, fs, st.background_color, timer=timer, **geo)
+            ms = sum(timer.stages_ms().values())
+            if p:
+                span.append(ms)
+                wall.append(1e3 * (time.perf_counter() - t0))
+    q = statistics.quantiles(span, n=4)
+    out = [f"main span {statistics.median(span):.3f} ms (quartiles {q[0]:.3f}, {q[2]:.3f}), "
+           f"wall {statistics.median(wall):.3f} ms"]
+
+    fs, st = blocks[0]
+    keys, words, _ = build_instance_stream(renderer.device_cloud, fs, **geo)
+    sk, sw = sort_instances(keys, words)
+    cfg = renderer.config
+    tx, ty = cfg.tiles_for(cs.W, cs.H)
+    ranges = tile_ranges(sk, tx * ty, cfg.key_bits(cs.W, cs.H)[1])
+    for name, composite in (("rasterize", "scan"), ("rasterize_tree", "tree")):
+        try:
+            rcfg = RasterConfig(composite=composite)
+        except ValueError:
+            out.append(f"{name} n/a")
+            continue
+        rgeo = dict(geo, config=rcfg)
+        kernel_ms = cs.kernel_only_ms(lambda: rasterize(sw, ranges, st.background_color, **rgeo),
+                                      name, 30)
+        regs = [f"{u['registers']} registers, {u['spill_stores']} B spills"
+                for entry, u in usage.items() if cs.kernel_pattern(name).search(entry)]
+        out.append(f"{name} {kernel_ms:.4f} ms ({'; '.join(regs)})")
+    torch.cuda.synchronize()
+    print(f"[time] {root}: " + "; ".join(out), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--in-process":
+        time_root(os.path.abspath(sys.argv[2]))
+        return 0
+    if len(sys.argv) < 2:
+        raise SystemExit(__doc__)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_checkout: torch.cuda.is_available() is False -- needs an NVIDIA GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    for root in sys.argv[1:]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--in-process", root],
+                       check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,17 @@
 """websplat_tpu_torch -- the PyTorch + CUDA port of websplat_tpu.
 
-The default single-device frame of an uncompressed cloud, on tensors:
-a fused frontend, two overflow walks, the dense extreme-tail grid with a
-compaction, the sort and tile ranges, and the tile rasterizer (the scan
-composite, or the slab composites "mxu" / "hybrid").  Beside the frame, the
-packed emission (``ops/preprocess.py:preprocess_packed`` and
-``ops/emit_compact.py``).  On an NVIDIA Hopper card the frontend, the
-overflow walk, the compactor, both rasterizers and the packed emission are
-hand-written CUDA kernels (``csrc/``, built by nvcc at first use,
-``kernels/build.py``); on the CPU each runs its plain PyTorch version.
+The single-device frame of an uncompressed (PLY) or compressed (c3dgs
+npz) cloud, on tensors: for a compressed cloud the per-frame expansion of
+its int8 streams and codebooks (optionally frustum-culled and compacted
+first), then a fused frontend, two overflow walks, the dense extreme-tail
+grid with a compaction, the sort and tile ranges, and the tile rasterizer
+(the scan or tree composite, or the slab composites "mxu" / "hybrid").
+Beside the frame, the packed emission (``ops/preprocess.py:
+preprocess_packed`` and ``ops/emit_compact.py``).  On an NVIDIA Hopper card
+the frontend, the overflow walk, the compactor, both rasterizers and the
+packed emission are hand-written CUDA kernels (``csrc/``, built by nvcc at
+first use, ``kernels/build.py``); on the CPU each runs its plain PyTorch
+version.
 The JAX package ``websplat_tpu`` is the reference this package is held
 against; this package imports neither it nor JAX.
 """

@@ -6,12 +6,15 @@ dataclasses.  ``RasterConfig`` keeps only the fields whose values change
 what a frame computes, plus the capacity helpers that size the instance
 streams; every TPU scheduling knob of the JAX config (DMA chunking, sort
 ladder, raster segment/batch/band tuning) has no meaning here and is
-absent.  ``composite`` picks the rasterizer: "scan" (the default, one
-pixel per lane, ``ops/rasterize.py``) or the slab rasterizer "mxu" /
-"hybrid" (``ops/rasterize_mxu.py``), whose three contractions run on the
-tensor cores at the ``mxu_precision`` pass count.  Values of the remaining
-fields that the port does not implement raise at construction instead of
-being ignored.
+absent.  ``composite`` picks the rasterizer: "scan" (the default) or
+"tree" (the same blend over 8-splat groups composited pairwise), one pixel
+per lane (``ops/rasterize.py``), or the slab rasterizer "mxu" / "hybrid"
+(``ops/rasterize_mxu.py``), whose three contractions run on the tensor
+cores at the ``mxu_precision`` pass count.  ``qform`` "monomial" and
+"direct" run the same (direct) quadratic form in the scan and tree
+rasterizers (``ops/rasterize.py``).  Values of the remaining fields that
+the port does not implement raise at construction instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ DEFAULT_KERNEL_SIZE: float = 0.3
 # Reference: fragment cutoff sqrt(log(255)) (web-splat gaussian.wgsl:2)
 CUTOFF: float = 2.3539888583335364
 
-COMPOSITES = ("scan", "mxu", "hybrid")
+COMPOSITES = ("scan", "tree", "mxu", "hybrid")
+QFORMS = ("monomial", "direct")
 MXU_PRECISIONS = ("default", "high", "highest")
 
 
@@ -51,16 +55,24 @@ class RasterConfig:
     alpha_threshold: float = 1.0 / 255.0
     transmittance_eps: float = 4e-3
     instance_capacity_factor: float = 2.0
-    # "scan" (ops/rasterize.py) or the slab rasterizer "mxu" / "hybrid"
-    # (ops/rasterize_mxu.py); "tree" is not ported yet
+    # "scan" or "tree" (ops/rasterize.py), or the slab rasterizer "mxu" /
+    # "hybrid" (ops/rasterize_mxu.py)
     composite: str = "scan"
     # bf16 pass count of the "mxu" composite's contractions: "default" 1
     # pass, "high" 3 (both operands split hi/lo), "highest" 6 (three-way
     # split, f32-grade); "hybrid" fixes its own passes and ignores it
     mxu_precision: str = "highest"
+    # the scan / tree rasterizers' quadratic form: both values evaluate it
+    # directly from each pixel's offset (ops/rasterize.py)
+    qform: str = "monomial"
+    # compressed clouds: when > 0, frustum-cull the resident positions
+    # first, compact the survivors to max(4096, int(factor * N)) rows and
+    # run the codebook gathers over those only (render/renderer.py:
+    # decompress_cloud_culled); splats past that capacity are dropped and
+    # counted as num_culled_dropped.  0 gathers at full N.
+    compressed_cull_factor: float = 0.0
     # Fields kept only so that configurations written for the JAX package
     # fail loudly here: each accepts its default value alone.
-    qform: str = "monomial"
     sort_backend: str = "xla"
     raster_backend: str = "pallas"
     y_bands: int = 1
@@ -68,19 +80,16 @@ class RasterConfig:
 
     def __post_init__(self):
         if self.composite not in COMPOSITES:
-            raise ValueError(
-                f"RasterConfig.composite={self.composite!r}: the PyTorch port runs "
-                f"{COMPOSITES}" + (" ('tree' is still to be ported, ROADMAP.md Queue 1)"
-                                   if self.composite == "tree" else "")
-            )
+            raise ValueError(f"RasterConfig.composite={self.composite!r}: one of {COMPOSITES}")
         if self.mxu_precision not in MXU_PRECISIONS:
             raise ValueError(
                 f"RasterConfig.mxu_precision={self.mxu_precision!r}: one of {MXU_PRECISIONS}"
             )
-        if self.qform != "monomial":
+        if self.qform not in QFORMS:
+            raise ValueError(f"RasterConfig.qform={self.qform!r}: one of {QFORMS}")
+        if not self.compressed_cull_factor >= 0.0:
             raise ValueError(
-                f"RasterConfig.qform={self.qform!r} is not implemented by the PyTorch port "
-                "(only 'monomial'; 'direct' is still to be ported, ROADMAP.md Queue 1)"
+                f"RasterConfig.compressed_cull_factor={self.compressed_cull_factor!r} must be >= 0"
             )
         unsupported = {
             "sort_backend": (self.sort_backend, "xla"),

@@ -5,7 +5,8 @@
 // compact_instances).
 //
 // compact_kernel drops rows keyed 0xFFFFFFFF from any stream: the general
-// compactor (the main path no longer launches it).  What bounds it on the
+// compactor, launched by the culled compressed decompression (render/
+// renderer.py:decompress_cloud_culled, 5 payload words).  What bounds it on the
 // card: pure memory traffic -- it reads 4 + 4 * n_payload bytes per row and
 // writes the same per kept row -- and, at the sizes it sees, launch latency.
 // Its design: one thread per row, a block scan of the keep flags and one

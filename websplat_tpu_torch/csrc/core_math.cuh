@@ -4,7 +4,8 @@
 // plain PyTorch twin websplat_tpu_torch/ops/preprocess.py:core_math: the
 // same expressions in the same operand order (nvcc must not contract them:
 // -fmad=false), square roots correctly rounded (sqrtf), logarithms in f64
-// rounded to f32, true divisions.  Uncompressed clouds only.
+// rounded to f32, true divisions.  FrameParams.compressed selects the
+// compressed clouds' eigen clamp (preprocess.py:261-265).
 //
 // core_math runs in three steps, so that the frontend reads each input only
 // when the splat still needs it: frustum_cull (position only), shape_math
@@ -28,6 +29,7 @@ struct FrameParams {
   float scaling, kernel, walltime, extend;
   int mip, max_sh_deg;
   int width, height, ts_x, ts_y, tx_tiles, ty_tiles, depth_bits, slots;
+  int compressed;  // 1: the compressed eigen clamp
   float thr, inv_thr;  // alpha_threshold and f32(1/alpha_threshold); 0 = off
   CenterQuant cq;
 };
@@ -224,8 +226,12 @@ __device__ __forceinline__ Shape shape_math(float x_w, float y_w, float z_w, con
   const float mid = 0.5f * (diag1 + diag2);
   const float half_d = (diag1 - diag2) / 2.0f;
   const float radius = sqrtf(half_d * half_d + off * off);
-  const float lambda1 = mid + radius;
-  const float lambda2 = pmax(mid - radius, 0.1f);
+  // compressed (preprocess_compressed.wgsl:296-297): lambda2 may reach <= 0,
+  // and the cull below takes such a splat out before its reach and
+  // extent are used (the slot walk and the rows run for visible splats only)
+  const float r_c = p.compressed ? pmax(radius, 0.1f) : radius;
+  const float lambda1 = mid + r_c;
+  const float lambda2 = p.compressed ? mid - r_c : pmax(mid - radius, 0.1f);
   visible = visible && (lambda2 > 0.0f);
 
   const float ev0 = off, ev1 = lambda1 - diag1;

@@ -3,7 +3,9 @@
 //
 // Replaces websplat_tpu/ops/frontend_pallas.py:_make_kernel (called by
 // fused_frontend), on the branch the main path takes (overflow on: pure
-// row-major walk over ranks [0, slots), frontend_pallas.py:348).
+// row-major walk over ranks [0, slots), frontend_pallas.py:348), for
+// uncompressed and compressed clouds: p.compressed, uniform over the launch,
+// selects the compressed eigen clamp (core_math.cuh:shape_math).
 //
 // What bounds it on the card: memory traffic.  The function needs 12 bytes
 // of position per splat, the other 124 bytes of attributes (covariance,
@@ -15,6 +17,9 @@
 // relayout, which the TPU needed to cut DMA streams), in the order the math
 // needs it:
 //  - the position first, then the frustum cull (core_math.cuh:frustum_cull);
+//    a NaN position (the culled compressed decompression's rows past its
+//    count) fails every one of its comparisons (no fast math), so such a
+//    row is not visible, copies no SH and counts nowhere;
 //  - for splats that pass it, the 24 SH words go to shared memory by
 //    cp.async at once (24 KB per CTA), and the covariance and opacity are
 //    loaded; EWA, eigen, the reach, the slot walk and the block scan run
@@ -139,7 +144,8 @@ extern "C" {
 
 const char* ws_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// cfg: width, height, tile_w, tile_h, tx_tiles, ty_tiles, depth_bits, slots
+// cfg: width, height, tile_w, tile_h, tx_tiles, ty_tiles, depth_bits, slots,
+//      compressed (0 / 1)
 // fcfg: alpha_threshold, f32(1/alpha_threshold) (0 when off), margin,
 //       scale_x, scale_y
 int ws_frontend(const float* xyz, const float* cov, const float* opacity, const uint32_t* sh,
@@ -156,6 +162,7 @@ int ws_frontend(const float* xyz, const float* cov, const float* opacity, const 
   p.ty_tiles = cfg[5];
   p.depth_bits = cfg[6];
   p.slots = cfg[7];
+  p.compressed = cfg[8];
   p.thr = fcfg[0];
   p.inv_thr = fcfg[1];
   p.cq = ws::CenterQuant{fcfg[2], fcfg[3], fcfg[4]};

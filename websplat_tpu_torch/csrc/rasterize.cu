@@ -1,9 +1,11 @@
 // Tile rasterizer: front-to-back blending of each tile's depth-sorted span.
 //
 // Replaces websplat_tpu/ops/rasterize_pallas.py:_make_kernel on its
-// composite="scan" / qform="monomial" branch (called by rasterize_pallas),
-// including the wrapper's tile assembly and background composite
-// (rasterize_pallas.py:1112-1116): the kernel writes the (H, W, 3) image.
+// composite="scan" and composite="tree" branches, with either qform (called
+// by rasterize_pallas), including the wrapper's tile assembly and
+// background composite (rasterize_pallas.py:1112-1116): the kernel writes
+// the (H, W, 3) image.  rasterize_kernel blends splat by splat (scan);
+// rasterize_tree_kernel composites 8-splat groups (tree, below).
 //
 // What bounds it on the card: f32 arithmetic.  A blended (instance, pixel)
 // pair costs 21 f32 operations and one expf, against 16 bytes read per
@@ -23,16 +25,26 @@
 //    sub-blocks, in span order (a ballot over 32 masks at a time), and
 //    evaluates only those sub-blocks: warp-uniform branches;
 //  - the quadratic form is the DIRECT one, a = ha dx^2 + hb dx dy + hc dy^2
-//    with per-pixel dx, dy (rasterize_xla.py:48-57);
-//  - a pixel stops after the splat that takes its transmittance to <= eps,
-//    a warp when all its pixels have (__any_sync), a sub-block at the next
-//    batch, and the CTA when all its warps have (__syncthreads_count after
-//    each batch).  The TPU stopped whole tiles at chunk granularity, so the
-//    two differ by < eps * max(rgb).
+//    with per-pixel dx, dy (rasterize_xla.py:48-57), for both qform values:
+//    the TPU's tile-local monomials bounded its VPU's f32 cancellation and
+//    have no use here (qform="direct" is this form, rasterize_pallas.py:
+//    790-818);
+//  - a pixel stops after the splat (scan) or the group (tree) that takes
+//    its transmittance to <= eps, a warp when all its pixels have
+//    (__any_sync), a sub-block at the next batch, and the CTA when all its
+//    warps have (__syncthreads_count after each batch).  The TPU stopped
+//    whole tiles at chunk granularity, so the two differ by < eps * max(rgb).
 // Every written pixel blends the same pairs in the same order with the same
 // f32 operations as the plain version (ops/rasterize.py:rasterize_torch):
-// alpha = min(0.99, exp(-a) * op) for a < 2*CUTOFF and op > 0; w = alpha*T;
-// C += w*c; T *= 1 - alpha.  A skipped pair is one whose alpha is 0 there.
+// alpha = min(0.99, exp(-a) * op) for a < 2*CUTOFF and op > 0.  Scan:
+// w = alpha*T; C += w*c; T *= 1 - alpha.  Tree (rasterize_pallas.py:888-914):
+// a group is the 8 absolute stream positions [8g, 8g + 8); each pair is
+// (alpha*c, 1 - alpha), x o y = (c_x + t_x c_y, t_x t_y) composites them as
+// ((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7)), and the pixel takes C += T*c_g,
+// T *= t_g.  A skipped pair, and a position outside the tile's span, is one
+// whose alpha is 0 there: the identity (0, 1), which composites exactly, so
+// the tree walks the same records as the scan and keeps per pixel only the
+// pair, quad and half partials of the group in hand.
 #include <cstdint>
 
 #include "cp_async.cuh"
@@ -41,10 +53,14 @@
 namespace ws {
 
 constexpr int RASTER_THREADS = 256;
-// 4 CTAs per SM: 64 registers and at most 12 / 16 bytes of spill stores /
-// loads per thread (ptxas); uncapped, the kernel fits 2 CTAs per SM and ran
-// slower on the H100
+// scan: 4 CTAs per SM: 64 registers and at most 12 / 16 bytes of spill
+// stores / loads per thread (ptxas); uncapped, the kernel fits 2 CTAs per SM
+// and ran slower on the H100.  tree: 3 CTAs per SM (80 registers, no
+// spill, room for the group's partials); it ran 14% faster than at 2 (84
+// registers) on the H100
 constexpr int RASTER_MIN_BLOCKS = 4;
+constexpr int TREE_MIN_BLOCKS = 3;
+constexpr int GROUP = 8;  // the tree composite's group (rasterize_pallas.py GROUP)
 constexpr int RASTER_BATCH = 256;
 constexpr int MAX_PIX_PER_THREAD = 4;  // tiles of up to 1024 pixels
 static_assert(RASTER_BATCH <= RASTER_THREADS, "one thread stages and decodes each record");
@@ -135,9 +151,71 @@ __device__ __forceinline__ int4 sub_block_box(int w, int k, const PixelMap& m,
   return make_int4(min(a.x, b.x), max(a.x, b.x), a.y, b.y);
 }
 
-__global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
-    rasterize_kernel(const uint32_t* __restrict__ words, int64_t stride,
-                     const int* __restrict__ ranges, RasterParams p, float* __restrict__ out) {
+// the tree composite's over operator on (c.rgb, t) pairs
+__device__ __forceinline__ float4 over(const float4 x, const float4 y) {
+  return make_float4(x.x + x.w * y.x, x.y + x.w * y.y, x.z + x.w * y.z, x.w * y.w);
+}
+
+// The tree composite over the four 8-record groups of a 32-record ballot
+// (records c0 .. c0 + 31 of the batch, group-aligned): `mine` is lane l's
+// mask of this warp's live sub-blocks that record c0 + l meets.  Each pixel
+// still live at a group's start folds the group's records that meet its
+// sub-block in order -- the others are the identity -- into pair, quad and
+// half partials, then takes the group.  Returns whether some pixel of the
+// warp is still live.
+__device__ __forceinline__ bool tree_groups(int c0, uint32_t mine, const float* cx,
+                                            const float* cy, float* T, float* cr, float* cg,
+                                            float* cb, const float4* s_ra, const float4* s_rb,
+                                            const float* s_rc, float eps) {
+  const uint32_t bits = __ballot_sync(FULL_MASK, mine != 0u);
+  bool live = true;
+  for (int g = 0; g < 32 / GROUP; ++g) {
+    if (((bits >> (GROUP * g)) & 0xFFu) == 0u) continue;  // warp-uniform
+    uint32_t sub[GROUP], any = 0u;
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) {
+      sub[j] = __shfl_sync(FULL_MASK, mine, GROUP * g + j);
+      any |= sub[j];
+    }
+    live = false;
+#pragma unroll
+    for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
+      if (((any >> k) & 1u) && T[k] > eps) {
+        float4 pr, qd, hf;
+#pragma unroll
+        for (int j = 0; j < GROUP; ++j) {
+          float4 e = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+          if ((sub[j] >> k) & 1u) {
+            const int s = c0 + GROUP * g + j;
+            const float4 ra = s_ra[s], rb = s_rb[s];  // (px, py, ha, hb), (hc, op, r, g)
+            const float dx = cx[k] - ra.x;
+            const float dy = cy[k] - ra.y;
+            const float a = ra.z * dx * dx + ra.w * dx * dy + rb.x * dy * dy;
+            if (a < CUTOFF2 && rb.y > 0.0f) {
+              const float alpha = fminf(0.99f, expf(-a) * rb.y);
+              e = make_float4(alpha * rb.z, alpha * rb.w, alpha * s_rc[s], 1.0f - alpha);
+            }
+          }
+          if (j % 2 == 0) pr = e; else pr = over(pr, e);
+          if (j % 4 == 1) qd = pr; else if (j % 4 == 3) qd = over(qd, pr);
+          if (j == 3) hf = qd; else if (j == 7) hf = over(hf, qd);
+        }
+        cr[k] = cr[k] + T[k] * hf.x;
+        cg[k] = cg[k] + T[k] * hf.y;
+        cb[k] = cb[k] + T[k] * hf.z;
+        T[k] = T[k] * hf.w;
+      }
+      live = live || (T[k] > eps);
+    }
+    if (!__any_sync(FULL_MASK, live)) return false;
+  }
+  return true;
+}
+
+template <bool TREE>
+__device__ __forceinline__ void raster_tile(const uint32_t* __restrict__ words, int64_t stride,
+                                            const int* __restrict__ ranges, const RasterParams& p,
+                                            float* __restrict__ out) {
   __shared__ uint32_t s_raw[2][4][RASTER_BATCH];  // raw words, double-buffered
   // decoded records: (px, py, ha, hb), (hc, op, r, g), b
   __shared__ float4 s_ra[RASTER_BATCH], s_rb[RASTER_BATCH];
@@ -149,6 +227,9 @@ __global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
   const int t = blockIdx.x;
   const int start = ranges[t];
   const int end = ranges[t + 1];
+  // the tree's batches start on a group boundary, so no group straddles two
+  // batches or two ballots; positions before `start` stay out of every mask
+  const int base = TREE ? start & ~(GROUP - 1) : start;
   const int tile_x = (t % p.tx_tiles) * p.tile_w;
   const int tile_y = (t / p.tx_tiles) * p.tile_h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -183,17 +264,19 @@ __global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
 
   auto stage = [&](int b0, int buf) {  // thread i copies record i of the batch
     const int idx = b0 + threadIdx.x;
-    if ((int)threadIdx.x < RASTER_BATCH && idx < end) {
+    if ((int)threadIdx.x < RASTER_BATCH && (!TREE || idx >= start) && idx < end) {
 #pragma unroll
       for (int w = 0; w < 4; ++w) cp_async4(&s_raw[buf][w][threadIdx.x], &words[w * stride + idx]);
     }
   };
-  if (start < end) stage(start, 0);
+  if (start < end) stage(base, 0);
 
-  for (int b0 = start, buf = 0; b0 < end; b0 += RASTER_BATCH, buf ^= 1) {
+  for (int b0 = base, buf = 0; b0 < end; b0 += RASTER_BATCH, buf ^= 1) {
     cp_async_wait_all();  // this thread's record of the batch has landed
     const int nb = min(RASTER_BATCH, end - b0);
-    if ((int)threadIdx.x < nb) {
+    if (TREE && (int)threadIdx.x < nb && b0 + (int)threadIdx.x < start) {
+      s_hits[threadIdx.x] = 0u;  // before the span (tree): the identity
+    } else if ((int)threadIdx.x < nb) {
       const int s = threadIdx.x;
       const Record r = unpack_record(s_raw[buf][0][s], s_raw[buf][1][s], s_raw[buf][2][s],
                                      s_raw[buf][3][s], p.cq);
@@ -217,6 +300,11 @@ __global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
       for (int c0 = 0; c0 < nb && live_sub != 0u; c0 += 32) {
         const uint32_t mine =
             c0 + lane < nb ? (s_hits[c0 + lane] >> (4 * warp)) & live_sub : 0u;
+        if constexpr (TREE) {
+          if (!tree_groups(c0, mine, cx, cy, T, cr, cg, cb, s_ra, s_rb, s_rc, p.eps))
+            live_sub = 0u;  // every pixel of the warp saturated
+          continue;
+        }
         for (uint32_t bits = __ballot_sync(FULL_MASK, mine != 0u); bits != 0u;
              bits &= bits - 1u) {
           const int src = __ffs(bits) - 1, s = c0 + src;
@@ -265,16 +353,29 @@ __global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
   }
 }
 
+__global__ void __launch_bounds__(RASTER_THREADS, RASTER_MIN_BLOCKS)
+    rasterize_kernel(const uint32_t* __restrict__ words, int64_t stride,
+                     const int* __restrict__ ranges, RasterParams p, float* __restrict__ out) {
+  raster_tile<false>(words, stride, ranges, p, out);
+}
+
+__global__ void __launch_bounds__(RASTER_THREADS, TREE_MIN_BLOCKS)
+    rasterize_tree_kernel(const uint32_t* __restrict__ words, int64_t stride,
+                          const int* __restrict__ ranges, RasterParams p,
+                          float* __restrict__ out) {
+  raster_tile<true>(words, stride, ranges, p, out);
+}
+
 }  // namespace ws
 
 extern "C" {
 
 // words: 4 rows of `stride` u32 (sorted records); ranges: num_tiles + 1
 // ints; bg_host: 3 floats on the host; out: (height, width, 3) f32;
-// warp_w: ops/rasterize.py:warp_layout
+// warp_w: ops/rasterize.py:warp_layout; tree: 1 for the tree composite
 int ws_rasterize(const uint32_t* words, int64_t stride, const int* ranges, const float* bg_host,
                  float* out, int width, int height, int tile_w, int tile_h, int tx_tiles,
-                 int warp_w, float eps, float margin, float scale_x, float scale_y,
+                 int warp_w, float eps, float margin, float scale_x, float scale_y, int tree,
                  void* stream) {
   if (tile_w * tile_h > ws::RASTER_THREADS * ws::MAX_PIX_PER_THREAD)
     return (int)cudaErrorInvalidValue;
@@ -286,7 +387,11 @@ int ws_rasterize(const uint32_t* words, int64_t stride, const int* ranges, const
   const int num_tiles = tx_tiles * ty_tiles;
   if (num_tiles > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    ws::rasterize_kernel<<<num_tiles, ws::RASTER_THREADS, 0, s>>>(words, stride, ranges, p, out);
+    if (tree)
+      ws::rasterize_tree_kernel<<<num_tiles, ws::RASTER_THREADS, 0, s>>>(words, stride, ranges, p,
+                                                                         out);
+    else
+      ws::rasterize_kernel<<<num_tiles, ws::RASTER_THREADS, 0, s>>>(words, stride, ranges, p, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 """Gaussian point-cloud container + loader dispatch.
 
-Counterpart of ``websplat_tpu/io/loader.py`` for uncompressed clouds:
-dispatches by magic bytes (web-splat io/mod.rs:45-61), computes the AABB
-and the scene center/up via the weighted plane fit (io/mod.rs:74-89).
+Counterpart of ``websplat_tpu/io/loader.py``: dispatches by magic bytes
+("ply" or a PK-zip npz, web-splat io/mod.rs:45-61), computes the AABB and
+the scene center/up via the weighted plane fit (io/mod.rs:74-89).
 """
 
 from __future__ import annotations
@@ -14,10 +14,9 @@ from typing import BinaryIO, Optional, Tuple, Union
 
 import numpy as np
 
+from websplat_tpu_torch.io import npz as npz_io
 from websplat_tpu_torch.io import ply as ply_io
 from websplat_tpu_torch.utils.gmath import plane_from_points
-
-NPZ_MAGIC = b"PK"
 
 
 @dataclasses.dataclass
@@ -35,6 +34,9 @@ class GaussianCloud:
     mip_splatting: Optional[bool] = None
     background_color: Optional[Tuple[float, float, float]] = None
     compressed: bool = False
+    # device-residency streams of a compressed cloud (io/npz.py); when set,
+    # opacity/cov/sh above are None and the device expands them per frame
+    quantized: Optional[npz_io.QuantizedStreams] = None
 
     # derived scene metadata
     aabb: Tuple[np.ndarray, np.ndarray] = None  # (min, max)
@@ -63,14 +65,15 @@ class GaussianCloud:
         return (mn + mx) / 2.0
 
 
-def load_gaussian_cloud(source: Union[str, bytes, BinaryIO]) -> GaussianCloud:
-    """Load a .ply Gaussian cloud.  Compressed .npz clouds raise
-    NotImplementedError: that path is still to be ported (ROADMAP.md,
-    Queue 1, "Compressed path")."""
+def load_gaussian_cloud(source: Union[str, bytes, BinaryIO],
+                        keep_compressed: bool = False) -> GaussianCloud:
+    """Load a .ply or c3dgs .npz Gaussian cloud.  ``keep_compressed`` keeps
+    an npz's int8 streams and codebooks for device residency (``quantized``);
+    otherwise the npz is decoded here into f16 arrays.  A PLY ignores it."""
     if isinstance(source, (str, os.PathLike)):
         with open(source, "rb") as f:
             data = f.read()
-        return load_gaussian_cloud(data)
+        return load_gaussian_cloud(data, keep_compressed)
     if isinstance(source, (bytes, bytearray)):
         f: BinaryIO = _io.BytesIO(source)
     else:
@@ -79,9 +82,6 @@ def load_gaussian_cloud(source: Union[str, bytes, BinaryIO]) -> GaussianCloud:
     f.seek(0)
     if magic.startswith(ply_io.MAGIC):
         return GaussianCloud(**ply_io.read_ply(f))
-    if magic.startswith(NPZ_MAGIC):
-        raise NotImplementedError(
-            "compressed .npz clouds are not ported yet "
-            "(ROADMAP.md, Queue 1: Compressed path)"
-        )
+    if magic.startswith(npz_io.MAGIC):
+        return GaussianCloud(**npz_io.read_npz(f, keep_compressed=keep_compressed))
     raise ValueError("Unknown file format")

@@ -41,14 +41,14 @@ HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh", "cp_async.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
-LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_mxu": 0, "frontend": 0,
-                            "overflow_walk": 0, "compact": 0, "dense_compact": 0,
-                            "emit_compact": 0}
+LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_tree": 0, "rasterize_mxu": 0,
+                            "frontend": 0, "frontend_compressed": 0, "overflow_walk": 0,
+                            "compact": 0, "dense_compact": 0, "emit_compact": 0}
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
 _SIGNATURES = {
-    "ws_rasterize": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp],
+    "ws_rasterize": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
     "ws_rasterize_mxu": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
     "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _vp],
     "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _vp],

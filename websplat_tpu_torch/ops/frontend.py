@@ -2,10 +2,13 @@
 
 Counterpart of ``websplat_tpu/ops/frontend_pallas.py:fused_frontend`` on the
 main path's branch (overflow on, so every splat walks its rect row-major
-over ranks [0, tile_slots)).  ``frontend_torch`` is the plain PyTorch
-version; ``fused_frontend`` launches the CUDA kernel
-(``csrc/frontend.cu``) for a cloud on the card and runs ``frontend_torch``
-for a cloud on the CPU.
+over ranks [0, tile_slots)), for uncompressed and, with ``compressed=True``,
+compressed clouds (the compressed shader's eigen clamp).
+``frontend_torch`` is the plain PyTorch version; ``fused_frontend``
+launches the CUDA kernel (``csrc/frontend.cu``) for a cloud on the card and
+runs ``frontend_torch`` for a cloud on the CPU.  The kernel counts its
+launches under "frontend", or "frontend_compressed" for the compressed
+clamp.
 
 Outputs (``FrontendOut``), all int32 tensors holding u32 bit patterns:
   keys   (capacity,)      ``tile << depth_bits | depth_q`` instance keys
@@ -60,14 +63,15 @@ def _check_limits(width, height, config):
 
 
 def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
-                   config: RasterConfig, capacity: int, capacity_c: int) -> FrontendOut:
+                   config: RasterConfig, capacity: int, capacity_c: int,
+                   compressed: bool = False) -> FrontendOut:
     """Plain PyTorch frontend, on any device (vectorised over splats)."""
     _check_limits(width, height, config)
     dev = cloud.opacity.device
     tx_tiles, _ = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)
     slots = config.tile_slots
-    d = core_math(cloud, fs, width=width, height=height, config=config)
+    d = core_math(cloud, fs, width=width, height=height, config=config, compressed=compressed)
     visible, n_rect = d["visible"], d["n_rect"]
     reaches = make_reaches(*d["reach"], config.tile_w, config.tile_h)
     words = torch.stack(d["words"])  # (4, N) int64
@@ -105,13 +109,14 @@ def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
 
 
 def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
-                   config: RasterConfig, capacity: int, capacity_c: int) -> FrontendOut:
+                   config: RasterConfig, capacity: int, capacity_c: int,
+                   compressed: bool = False) -> FrontendOut:
     """The frontend: the CUDA kernel for a cloud on the card, the plain
     version for a cloud on the CPU; any other device raises."""
     dev = cloud.opacity.device
     if dev.type == "cpu":
         return frontend_torch(cloud, fs, width=width, height=height, config=config,
-                              capacity=capacity, capacity_c=capacity_c)
+                              capacity=capacity, capacity_c=capacity_c, compressed=compressed)
     if dev.type != "cuda":
         raise ValueError(f"fused_frontend: unsupported device {dev}")
     _check_limits(width, height, config)
@@ -129,7 +134,7 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
     cq = packing.CenterQuant.for_viewport(width, height)
     scal = np.ascontiguousarray(fs.block(), np.float32)
     cfg = np.asarray([width, height, config.tile_w, config.tile_h, tx_tiles, ty_tiles,
-                      depth_bits, config.tile_slots], np.int32)
+                      depth_bits, config.tile_slots, int(compressed)], np.int32)
     fcfg = np.asarray([thr, 1.0 / thr if thr > 0.0 else 0.0,
                        cq.margin, cq.scale_x, cq.scale_y], np.float32)
 
@@ -146,6 +151,6 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
         stats.data_ptr(), build.stream_ptr(dev),
     )
     if n > 0:  # the C entry launches nothing for an empty cloud
-        build.LAUNCHES["frontend"] += 1
+        build.LAUNCHES["frontend_compressed" if compressed else "frontend"] += 1
     build.check(err, "frontend kernel")
     return FrontendOut(keys, words, cid, stats)

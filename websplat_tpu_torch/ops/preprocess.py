@@ -23,7 +23,7 @@ extreme-tail grid (``dense_grid_emit``, plain tensor code in both packages).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,25 @@ class DeviceCloud(NamedTuple):
     cov: torch.Tensor  # (6, N) f32 (decoded from the f16 wire format)
     opacity: torch.Tensor  # (N,) f32
     sh: torch.Tensor  # (24, N) int32: packed f16 coefficient pairs
+
+
+class CompressedDeviceCloud(NamedTuple):
+    """Device-resident compressed cloud (io/npz.py QuantizedStreams): int8
+    and index streams plus the codebooks, expanded to a DeviceCloud per
+    frame (render/renderer.py:decompress_cloud).  Scalars are Python
+    floats (f32-valued)."""
+
+    xyz: torch.Tensor  # (3, N) f32
+    opacity_q: torch.Tensor  # (N,) int8
+    opacity_scale: float
+    opacity_zp: float
+    scale_factor_q: Optional[torch.Tensor]  # (N,) int8, or None (factor 1)
+    sf_scale: float
+    sf_zp: float
+    covars: torch.Tensor  # (6, C) f32 codebook
+    geom_idx: torch.Tensor  # (N,) int32 into covars
+    sh_cb: torch.Tensor  # (24, C_sh) int32: packed f16 pairs (DeviceCloud.sh layout)
+    sh_idx: torch.Tensor  # (N,) int32 into sh_cb
 
 
 def _f32(v) -> float:
@@ -128,10 +147,10 @@ def _smoothstep01(x):
 
 
 def core_math(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
-              config: RasterConfig):
-    """The per-splat preprocess over (N,) tensors (preprocess.py:142,
-    uncompressed clouds).  Returns a dict of per-splat tensors; record
-    words are int64 u32 values."""
+              config: RasterConfig, compressed: bool = False):
+    """The per-splat preprocess over (N,) tensors (preprocess.py:142).
+    ``compressed`` selects the compressed shader's eigen clamp.  Returns a
+    dict of per-splat tensors; record words are int64 u32 values."""
     ts_x, ts_y = config.tile_w, config.tile_h
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)
@@ -208,8 +227,15 @@ def core_math(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
     mid = 0.5 * (diag1 + diag2)
     half_d = (diag1 - diag2) / 2.0
     radius = sqrt(half_d * half_d + off * off)
-    lambda1 = mid + radius
-    lambda2 = torch.clamp(mid - radius, min=0.1)
+    if compressed:
+        # preprocess_compressed.wgsl:296-297: lambda2 may reach <= 0, and the
+        # cull below takes such a splat out
+        r_c = torch.clamp(radius, min=0.1)
+        lambda1 = mid + r_c
+        lambda2 = mid - r_c
+    else:
+        lambda1 = mid + radius
+        lambda2 = torch.clamp(mid - radius, min=0.1)
     visible = visible & (lambda2 > 0.0)
 
     ev0, ev1 = off, lambda1 - diag1

@@ -1,27 +1,35 @@
 """Tile rasterizer: front-to-back blending of each tile's sorted span.
 
 Counterpart of ``websplat_tpu/ops/rasterize_pallas.py:rasterize_pallas``
-(composite="scan", qform="monomial") and of its plain XLA twin
-``rasterize_xla.py``.  ``rasterize_torch`` is the plain version;
+(composite="scan" or "tree", qform="monomial" or "direct") and of its plain
+XLA twin ``rasterize_xla.py``.  ``rasterize_torch`` is the plain version;
 ``rasterize`` launches ``csrc/rasterize.cu`` for a stream on the card.
 Both evaluate the quadratic form directly, from each pixel's offset to the
-splat centre; the TPU kernel expands it into tile-local monomials (which
-bounded f32 cancellation on its VPU).  The images agree to f32 rounding
-(tests/test_torch_sort_raster.py); the monomial form is the slab
-rasterizer's (ops/rasterize_mxu.py).
+splat centre, whichever ``qform`` the config names: "direct" is exactly
+this form (rasterize_pallas.py:790-818), while the TPU kernel's "monomial"
+expands it into tile-local monomials, which bounded f32 cancellation on its
+VPU and buys nothing on the card.  The images agree to f32 rounding
+(tests/test_torch_sort_raster.py, tests/test_torch_raster_tree.py); the
+monomial form is the slab rasterizer's (ops/rasterize_mxu.py).
 
 Blend rule, identical in both: pixels walk their tile's span
 ``[ranges[t], ranges[t+1])`` in key order; splat i with quadratic form
 ``a = ha dx^2 + hb dx dy + hc dy^2`` at the pixel center has
 ``alpha = min(0.99, exp(-a) * op)`` if ``a < 2*CUTOFF`` and ``op > 0``
-(web-splat gaussian.wgsl:59-67), else 0; ``C += alpha*T*rgb`` and
-``T *= 1 - alpha``.  A pixel stops after the splat that takes its T to
-<= transmittance_eps.  The image is ``C + T * background``.
+(web-splat gaussian.wgsl:59-67), else 0.  Scan: ``C += alpha*T*rgb`` and
+``T *= 1 - alpha``, and a pixel stops after the splat that takes its T to
+<= transmittance_eps.  Tree (rasterize_pallas.py:888-914): the span is cut
+into the groups of 8 absolute stream positions ``[8g, 8g+8)`` (positions
+outside the span are the identity); each splat gives ``(alpha*rgb,
+1 - alpha)``, the over operator ``x o y = (c_x + t_x c_y, t_x t_y)``
+composites a group as ``((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7))``, the
+pixel takes ``C += T*c_g`` and ``T *= t_g``, and it stops after the group
+that takes its T to <= eps.  The image is ``C + T * background``.
 
-The plain version loops over span positions and is vectorised over every
-tile and pixel at once, so its per-pixel operation order is the kernel's:
-on the card the two agree to float rounding of exp.  It reads no span past
-its tile's range (unlike rasterize_xla, it has no per-tile cap).
+The plain version loops over span positions (groups) and is vectorised over
+every tile and pixel at once, so its per-pixel operation order is the
+kernel's: on the card the two agree to float rounding of exp.  It reads no
+span past its tile's range (unlike rasterize_xla, it has no per-tile cap).
 """
 
 from __future__ import annotations
@@ -51,30 +59,11 @@ def check_stream(words, ranges, width, height, config):
         raise ValueError("tiles of at most 1024 pixels")
 
 
-def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
-                    width: int, height: int, config: RasterConfig) -> torch.Tensor:
-    """Plain PyTorch rasterizer, on any device -> (H, W, 3) f32."""
-    check_stream(words, ranges, width, height, config)
-    dev = words.device
-    tw, th = config.tile_w, config.tile_h
-    tx_tiles, ty_tiles = config.tiles_for(width, height)
-    n_tiles = tx_tiles * ty_tiles
-    eps = float(config.transmittance_eps)
-    cq = packing.CenterQuant.for_viewport(width, height)
-    m = words.shape[1]
-    rec = packing.unpack_record(*u32(words), cq) if m else None
-
-    tile = torch.arange(n_tiles, device=dev)[:, None]
-    q = torch.arange(tw * th, device=dev)[None, :]
-    pix_x = ((tile % tx_tiles) * tw + q % tw).to(torch.float32) + 0.5  # (T, P)
-    pix_y = ((tile // tx_tiles) * th + q // tw).to(torch.float32) + 0.5
-    trans = torch.ones((n_tiles, tw * th), dtype=torch.float32, device=dev)
-    acc = [torch.zeros_like(trans) for _ in range(3)]
-
-    ranges = ranges.to(torch.int64)
-    start, count = ranges[:-1], ranges[1:] - ranges[:-1]
-    max_count = int(count.max()) if m else 0
-    for k in range(max_count):
+def _blend_scan(rec, start, count, pix_x, pix_y, trans, acc, eps):
+    """The scan composite over every tile's span (module docstring):
+    updates acc in place and returns the final transmittance."""
+    m = rec[0].shape[0]
+    for k in range(int(count.max())):
         if k % _EXIT_CHECK == 0 and k:
             live = (trans > eps) & (count > k)[:, None]
             if not bool(live.any()):
@@ -92,6 +81,76 @@ def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Seque
         acc[1] = acc[1] + w * g
         acc[2] = acc[2] + w * b
         trans = trans * (1.0 - alpha)
+    return trans
+
+
+def _over(x, y):
+    """The tree composite's over operator on (r, g, b, t) tuples."""
+    return (x[0] + x[3] * y[0], x[1] + x[3] * y[1], x[2] + x[3] * y[2], x[3] * y[3])
+
+
+def _blend_tree(rec, start, count, pix_x, pix_y, trans, acc, eps):
+    """The tree composite over every tile's groups (module docstring):
+    updates acc in place and returns the final transmittance."""
+    m = rec[0].shape[0]
+    end = start + count
+    g0 = torch.div(start, 8, rounding_mode="floor")
+    n_groups = torch.where(count > 0, torch.div(end + 7, 8, rounding_mode="floor") - g0, 0)
+    for q in range(int(n_groups.max())):
+        if q % (_EXIT_CHECK // 8) == 0 and q:
+            if not bool(((trans > eps) & (n_groups > q)[:, None]).any()):
+                break
+        live = (n_groups > q)[:, None] & (trans > eps)
+        for j in range(8):
+            pos = (g0 + q) * 8 + j
+            valid = ((pos >= start) & (pos < end))[:, None]
+            px, py, ha, hb, hc, op, r, g, b = (v[torch.clamp(pos, 0, m - 1)][:, None] for v in rec)
+            dx = pix_x - px
+            dy = pix_y - py
+            a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+            on = valid & live & (a < 2.0 * CUTOFF) & (op > 0.0)
+            alpha = torch.where(on, torch.clamp(torch.exp(-a) * op, max=0.99),
+                                torch.zeros_like(a))
+            e = (alpha * r, alpha * g, alpha * b, 1.0 - alpha)
+            pair = e if j % 2 == 0 else _over(pair, e)
+            if j % 4 == 1:
+                quad = pair
+            elif j % 4 == 3:
+                quad = _over(quad, pair)
+            if j == 3:
+                half = quad
+            elif j == 7:
+                half = _over(half, quad)
+        for c in range(3):  # a pixel that is not live takes the identity
+            acc[c] = acc[c] + trans * half[c]
+        trans = trans * half[3]
+    return trans
+
+
+def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
+                    width: int, height: int, config: RasterConfig) -> torch.Tensor:
+    """Plain PyTorch rasterizer (scan or tree composite), on any device ->
+    (H, W, 3) f32."""
+    check_stream(words, ranges, width, height, config)
+    dev = words.device
+    tw, th = config.tile_w, config.tile_h
+    tx_tiles, ty_tiles = config.tiles_for(width, height)
+    n_tiles = tx_tiles * ty_tiles
+    eps = float(config.transmittance_eps)
+    cq = packing.CenterQuant.for_viewport(width, height)
+
+    tile = torch.arange(n_tiles, device=dev)[:, None]
+    q = torch.arange(tw * th, device=dev)[None, :]
+    pix_x = ((tile % tx_tiles) * tw + q % tw).to(torch.float32) + 0.5  # (T, P)
+    pix_y = ((tile // tx_tiles) * th + q // tw).to(torch.float32) + 0.5
+    trans = torch.ones((n_tiles, tw * th), dtype=torch.float32, device=dev)
+    acc = [torch.zeros_like(trans) for _ in range(3)]
+
+    if words.shape[1]:
+        rec = packing.unpack_record(*u32(words), cq)
+        ranges = ranges.to(torch.int64)
+        blend = _blend_tree if config.composite == "tree" else _blend_scan
+        trans = blend(rec, ranges[:-1], ranges[1:] - ranges[:-1], pix_x, pix_y, trans, acc, eps)
 
     img = torch.stack([acc[c] + trans * float(background[c]) for c in range(3)], dim=-1)
     img = img.reshape(ty_tiles, tx_tiles, th, tw, 3).permute(0, 2, 1, 3, 4)
@@ -196,7 +255,11 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     record) evaluations: sub-blocks with a live pixel whose rectangle meets
     the box), ``pairs_sub_box`` (the live in-image pixels in them) and the
     (T,) int64 tensor ``tile_stop``: span positions each tile walks until
-    its last in-image pixel saturates (its count when one never does)."""
+    its last in-image pixel saturates (its count when one never does).
+    With composite="tree" a pixel is live through the group (8 absolute
+    positions) in which it saturates; the sequential product of (1 - alpha)
+    stands in for the group's composited transmittance (they differ by
+    rounding)."""
     check_stream(words, ranges, width, height, config)
     dev = words.device
     tw, th = config.tile_w, config.tile_h
@@ -226,6 +289,7 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     sx0, sx1 = sub_bound(ix, tw, torch.min), sub_bound(ix, -1, torch.max)
     sy0, sy1 = sub_bound(iy, th, torch.min), sub_bound(iy, -1, torch.max)
     trans = torch.ones((n_tiles, tw * th), dtype=torch.float32, device=dev)
+    t_live = trans  # the transmittance that decides liveness: at the group's start (tree)
 
     ranges = ranges.to(torch.int64)
     start, count = ranges[:-1], ranges[1:] - ranges[:-1]
@@ -234,8 +298,12 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
                pairs_sub_box=0)
     max_count = int(count.max()) if m else 0
     for k in range(max_count):
+        if config.composite != "tree":
+            t_live = trans
+        elif k:
+            t_live = torch.where(((start + k) % 8 == 0)[:, None], trans, t_live)
         if k % _EXIT_CHECK == 0 and k:
-            live = (trans > eps) & (count > k)[:, None]
+            live = (t_live > eps) & (count > k)[:, None]
             if not bool(live.any()):
                 break
         i = torch.clamp(start + k, max=m - 1)
@@ -243,7 +311,7 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
         dx = pix_x - px
         dy = pix_y - py
         a = ha * dx * dx + hb * dx * dy + hc * dy * dy
-        live = (count > k)[:, None] & (trans > eps)
+        live = (count > k)[:, None] & (t_live > eps)
         on = live & (a < 2.0 * CUTOFF) & (op > 0.0)
         alpha = torch.where(on, torch.clamp(torch.exp(-a) * op, max=0.99), torch.zeros_like(a))
         trans = trans * (1.0 - alpha)
@@ -266,8 +334,10 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
 
 def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
               width: int, height: int, config: RasterConfig) -> torch.Tensor:
-    """The rasterizer: the CUDA kernel for a stream on the card, the plain
-    version for a stream on the CPU; any other device raises."""
+    """The rasterizer: the CUDA kernel for a stream on the card
+    (``rasterize_kernel``, or ``rasterize_tree_kernel`` for
+    composite="tree"), the plain version for a stream on the CPU; any other
+    device raises."""
     dev = words.device
     if dev.type == "cpu":
         return rasterize_torch(words, ranges, background, width=width, height=height,
@@ -275,6 +345,7 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[fl
     if dev.type != "cuda":
         raise ValueError(f"rasterize: unsupported device {dev}")
     check_stream(words, ranges, width, height, config)
+    tree = config.composite == "tree"
     build.require(words, "words", dtype=torch.int32, device=dev)
     build.require(ranges, "ranges", dtype=torch.int32, device=dev)
     tx_tiles, _ = config.tiles_for(width, height)
@@ -285,9 +356,9 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[fl
         words.data_ptr(), words.shape[1], ranges.data_ptr(),
         bg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), width, height,
         config.tile_w, config.tile_h, tx_tiles, warp_layout(config.tile_w, config.tile_h),
-        float(config.transmittance_eps), cq.margin, cq.scale_x, cq.scale_y,
+        float(config.transmittance_eps), cq.margin, cq.scale_x, cq.scale_y, int(tree),
         build.stream_ptr(dev),
     )
-    build.LAUNCHES["rasterize"] += 1
+    build.LAUNCHES["rasterize_tree" if tree else "rasterize"] += 1
     build.check(err, "rasterize kernel")
     return out

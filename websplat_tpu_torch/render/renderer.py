@@ -1,16 +1,18 @@
 """GaussianRenderer -- the whole-frame pipeline on PyTorch tensors.
 
-Counterpart of ``websplat_tpu/render/renderer.py`` for the default
-single-device frame of an uncompressed cloud (``render_frame_impl`` with
-``RasterConfig()``):
+Counterpart of ``websplat_tpu/render/renderer.py`` for the single-device
+frame (``render_frame_impl``) of an uncompressed or compressed cloud:
 
-    frontend (ops/frontend.py)  ->  overflow walk x2 (ops/overflow.py)
+    [compressed cloud: decompress_cloud, or decompress_cloud_culled =
+     frustum_visible -> compaction (ops/compact.py) -> codebook gathers]
+      ->  frontend (ops/frontend.py)  ->  overflow walk x2 (ops/overflow.py)
       ->  dense extreme-tail grid + compaction (ops/compact.py:
           dense_compact)  ->  sort + tile ranges (ops/sort.py)
-      ->  rasterize (ops/rasterize.py; ops/rasterize_mxu.py for
-          composite="mxu" / "hybrid")
+      ->  rasterize (ops/rasterize.py for composite="scan" / "tree";
+          ops/rasterize_mxu.py for "mxu" / "hybrid")
 
-On the card every stage but the sort and the ranges is a hand-written
+On the card every stage but the sort, the ranges and the codebook gathers
+(index gathers, as the JAX package's are XLA gathers) is a hand-written
 CUDA kernel; on the CPU each stage runs its plain PyTorch version.
 ``render_frame(..., plain=True)`` runs the plain versions on the card as
 well (for comparing the two); nothing selects them on its own.
@@ -24,6 +26,7 @@ later performance item: it stalls the host while the device drains).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,11 +34,13 @@ import torch
 
 from websplat_tpu_torch.config import RasterConfig, SplattingArgs, resolve_settings
 from websplat_tpu_torch.io.loader import GaussianCloud
+from websplat_tpu_torch.io.npz import QuantizedStreams
 from websplat_tpu_torch.models.camera import CameraUniforms, PerspectiveCamera
-from websplat_tpu_torch.ops.compact import dense_compact, dense_compact_torch
+from websplat_tpu_torch.ops.compact import (compact_instances, compact_torch, dense_compact,
+                                            dense_compact_torch)
 from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
 from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
-from websplat_tpu_torch.ops.preprocess import DeviceCloud, FrameScalars
+from websplat_tpu_torch.ops.preprocess import CompressedDeviceCloud, DeviceCloud, FrameScalars
 from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
 from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
@@ -73,19 +78,143 @@ def upload_cloud(cloud: GaussianCloud, device) -> DeviceCloud:
     )
 
 
+def upload_compressed_cloud(cloud: GaussianCloud, device) -> CompressedDeviceCloud:
+    """Compressed residency upload (renderer.py:79): the int8 and index
+    streams and the codebooks stay on the device, ~22 B per splat; the
+    frame expands them (decompress_cloud, decompress_cloud_culled)."""
+    dev = resolve_device(device)
+    q = cloud.quantized
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dt))).to(dev)
+    f32 = lambda v: float(np.float32(v))
+    return CompressedDeviceCloud(
+        xyz=t(cloud.xyz.T, np.float32),
+        opacity_q=t(q.opacity_q, np.int8),
+        opacity_scale=f32(q.opacity_scale),
+        opacity_zp=f32(q.opacity_zp),
+        scale_factor_q=None if q.scale_factor_q is None else t(q.scale_factor_q, np.int8),
+        sf_scale=f32(q.sf_scale),
+        sf_zp=f32(q.sf_zp),
+        covars=t(np.asarray(q.covars).T, np.float32),
+        geom_idx=t(q.geom_idx, np.int32),
+        sh_cb=t(_pack_sh_f16(np.asarray(q.sh_codebook)), np.int32),
+        sh_idx=t(q.sh_idx, np.int32),
+    )
+
+
 def cloud_from_host_arrays(xyz, opacity, cov, sh, *, sh_deg: int, kernel_size=None,
-                           mip_splatting=None, background_color=None,
-                           device) -> Tuple[GaussianCloud, DeviceCloud]:
+                           mip_splatting=None, background_color=None, compressed=False,
+                           quantized=None, device):
     """The port's host cloud and device cloud from another package's host
     arrays (numpy xyz (N,3) f32, opacity (N,) f16, cov (N,6) f16, sh
-    (N,16,3) f16 and metadata) -- e.g. a websplat_tpu GaussianCloud's."""
+    (N,16,3) f16 and metadata) -- e.g. a websplat_tpu GaussianCloud's.
+    ``quantized``: the fields of a websplat_tpu QuantizedStreams (numpy
+    arrays and floats; opacity, cov and sh are then None); the device cloud
+    is then a CompressedDeviceCloud."""
     xyz = np.asarray(xyz, np.float32)
+    if quantized is not None:
+        quantized = QuantizedStreams(**{f.name: getattr(quantized, f.name)
+                                        for f in dataclasses.fields(QuantizedStreams)})
+    arr = lambda a: None if a is None else np.asarray(a)
     cloud = GaussianCloud(
-        xyz=xyz, opacity=np.asarray(opacity), cov=np.asarray(cov), sh=np.asarray(sh),
+        xyz=xyz, opacity=arr(opacity), cov=arr(cov), sh=arr(sh),
         sh_deg=int(sh_deg), num_points=int(xyz.shape[0]), kernel_size=kernel_size,
         mip_splatting=mip_splatting, background_color=background_color,
+        compressed=bool(compressed or quantized is not None), quantized=quantized,
     )
-    return cloud, upload_cloud(cloud, device)
+    return cloud, upload(cloud, device)
+
+
+def upload(cloud: GaussianCloud, device):
+    """The device form a host cloud renders from: compressed residency when
+    the cloud keeps its quantized streams (renderer.py:695-699)."""
+    if cloud.quantized is not None:
+        return upload_compressed_cloud(cloud, device)
+    return upload_cloud(cloud, device)
+
+
+def decompress_cloud(cc: CompressedDeviceCloud) -> DeviceCloud:
+    """Per-frame dequantization at full N (renderer.py:102,
+    preprocess_compressed.wgsl:137-171,216-242): opacity and scale factor
+    int8 dequant (+ exp), the covariance codebook row scaled by the squared
+    factor, the SH codebook row.  The gathers are index_select."""
+    opacity = (cc.opacity_q.to(torch.float32) - cc.opacity_zp) * cc.opacity_scale
+    cov = cc.covars.index_select(1, cc.geom_idx)  # (6, N)
+    if cc.scale_factor_q is not None:
+        sf = torch.exp((cc.scale_factor_q.to(torch.float32) - cc.sf_zp) * cc.sf_scale)
+        cov = cov * (sf * sf)[None, :]
+    sh = cc.sh_cb.index_select(1, cc.sh_idx)  # (24, N)
+    return DeviceCloud(xyz=cc.xyz, cov=cov, opacity=opacity, sh=sh)
+
+
+def frustum_visible(xyz: torch.Tensor, fs: FrameScalars) -> torch.Tensor:
+    """(N,) bool: exactly the frontend's centre test -- clipping box, z_ndc
+    in (0, 1), |clip_xy| <= 1.2 clip_w -- on the positions alone
+    (renderer.py:123; the expressions of ops/preprocess.py:core_math).  A
+    superset of the frontend's final visibility, so culling on it before
+    dequantization drops no splat the frontend keeps; a NaN position fails
+    every comparison."""
+    x_w, y_w, z_w = xyz[0], xyz[1], xyz[2]
+    cb_min, cb_max = fs.cb_min, fs.cb_max
+    inside = (
+        (x_w >= cb_min[0]) & (x_w <= cb_max[0])
+        & (y_w >= cb_min[1]) & (y_w <= cb_max[1])
+        & (z_w >= cb_min[2]) & (z_w <= cb_max[2])
+    )
+    v, p = fs.view, fs.proj
+    cam = [v[i][0] * x_w + v[i][1] * y_w + v[i][2] * z_w + v[i][3] for i in range(3)]
+    clip = [p[i][0] * cam[0] + p[i][1] * cam[1] + p[i][2] * cam[2] + p[i][3] for i in range(4)]
+    z_ndc = clip[2] / clip[3]
+    bounds = 1.2 * clip[3]
+    return (inside & (z_ndc > 0.0) & (z_ndc < 1.0) & (clip[0] >= -bounds) & (clip[0] <= bounds)
+            & (clip[1] >= -bounds) & (clip[1] <= bounds))
+
+
+def cull_stream(cc: CompressedDeviceCloud, fs: FrameScalars):
+    """The culled decompression's compaction input (renderer.py:187-198):
+    keys (N,) int32 ``op_u << 8 | sf_u`` of the int8 codes' bytes where the
+    splat passes frustum_visible, else INVALID_KEY; payload (5, N) int32:
+    the position bits, geom_idx, sh_idx."""
+    vis = frustum_visible(cc.xyz, fs)
+    op_u = cc.opacity_q.to(torch.int32) & 0xFF
+    sf_u = (cc.scale_factor_q.to(torch.int32) & 0xFF if cc.scale_factor_q is not None
+            else torch.zeros_like(op_u))
+    keys = torch.where(vis, (op_u << 8) | sf_u, -1)  # -1: INVALID_KEY as int32
+    payload = torch.cat([cc.xyz.view(torch.int32), cc.geom_idx[None], cc.sh_idx[None]])
+    return keys, payload
+
+
+def decompress_cloud_culled(cc: CompressedDeviceCloud, fs: FrameScalars, *, capacity: int,
+                            plain: bool = False) -> Tuple[DeviceCloud, torch.Tensor]:
+    """Cull-before-gather dequantization (renderer.py:161): frustum-cull
+    the resident positions, compact the survivors to ``capacity`` rows
+    (ops/compact.py: the kernel on the card, compact_torch on the CPU or
+    with ``plain``) and run the codebook gathers over those rows only.  The
+    key carries the int8 opacity and scale factor (``op << 8 | sf``), the 5
+    payload words the position bits and the two codebook indices.
+
+    The compaction leaves rows past its count undefined on the card, so
+    liveness is ``arange(capacity) < count`` against the device-side count
+    (no host sync): dead rows get NaN positions, which the frontend's cull
+    rejects, and codebook index 0.  Returns (the cloud of ``capacity``
+    rows, num_culled_dropped: the 0-d count of visible splats past the
+    capacity)."""
+    dev = cc.xyz.device
+    compact = compact_torch if plain else compact_instances
+    keys_c, payload_c, count = compact(*cull_stream(cc, fs), capacity=capacity)
+    live = torch.arange(capacity, device=dev) < count
+    xyz = torch.where(live[None, :], payload_c[:3].view(torch.float32),
+                      torch.full((), float("nan"), device=dev))
+    geom_idx = torch.where(live, payload_c[3], 0)
+    sh_idx = torch.where(live, payload_c[4], 0)
+    to_i8 = lambda u: torch.where(u > 127, u - 256, u).to(torch.float32)
+    opacity = (to_i8((keys_c >> 8) & 0xFF) - cc.opacity_zp) * cc.opacity_scale
+    cov = cc.covars.index_select(1, geom_idx)  # (6, capacity)
+    if cc.scale_factor_q is not None:
+        sf = torch.exp((to_i8(keys_c & 0xFF) - cc.sf_zp) * cc.sf_scale)
+        cov = cov * (sf * sf)[None, :]
+    sh = cc.sh_cb.index_select(1, sh_idx)  # (24, capacity)
+    n_drop = torch.clamp(count - capacity, min=0)
+    return DeviceCloud(xyz=xyz, cov=cov, opacity=opacity, sh=sh), n_drop
 
 
 def camera_block(uniforms, settings) -> FrameScalars:
@@ -120,12 +249,17 @@ class StageTimer:
 
 
 def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
-                          config: RasterConfig, plain: bool = False,
-                          timer: Optional[StageTimer] = None):
+                          config: RasterConfig, compressed: bool = False, plain: bool = False,
+                          timer: Optional[StageTimer] = None,
+                          culled_dropped: Optional[torch.Tensor] = None):
     """Frontend + overflow walks + dense grid and compaction -> the unsorted
     instance stream (keys (M,) int32, words (4, M) int32) and the frame
     diagnostics (renderer.py:331, the walk path).  Capacities and drop
-    accounting are the JAX frame's (renderer.py:365-412, config.py:80-147)."""
+    accounting are the JAX frame's (renderer.py:365-412, config.py:80-147),
+    from the rows of ``cloud`` (after a culled decompression, its
+    capacity).  ``compressed`` selects the compressed eigen clamp;
+    ``culled_dropped`` (0-d, on the device) joins the frame's one host sync
+    as num_culled_dropped (0 when None)."""
     mark = timer.mark if timer is not None else (lambda name: None)
     front = frontend_torch if plain else fused_frontend
     walk = overflow_walk_torch if plain else overflow_walk
@@ -145,8 +279,7 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
              else dense_len)
     geo = dict(width=width, height=height, config=config)
 
-    mark("start")
-    fr = front(cloud, fs, capacity=capacity, capacity_c=cap_c, **geo)
+    fr = front(cloud, fs, capacity=capacity, capacity_c=cap_c, compressed=compressed, **geo)
     mark("frontend")
     # level 1: ranks [tile_slots, overflow_slots) of every clamped splat,
     # forwarding giants; level 2: ranks [overflow_slots, window_slots) of
@@ -164,9 +297,11 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
     mark("dense_compact")
 
     # the frame's one host synchronisation: every prefix length at once
-    (total, num_visible, clamped, w1_tot, g_tot, w2_tot, m_tot, d_tot) = (
-        torch.cat([fr.stats, w1.stats, w2.stats, d_count.reshape(1)]).tolist()
+    extra = [] if culled_dropped is None else [culled_dropped.to(torch.int32).reshape(1)]
+    (total, num_visible, clamped, w1_tot, g_tot, w2_tot, m_tot, d_tot, *culled) = (
+        torch.cat([fr.stats, w1.stats, w2.stats, d_count.reshape(1), *extra]).tolist()
     )
+    num_culled_dropped = culled[0] if culled else 0
     lens = (min(total, capacity), min(w1_tot, walk_cap), min(w2_tot, win_cap),
             min(d_tot, d_cap))
     num_dropped = (max(total - capacity, 0) + max(w1_tot - walk_cap, 0)
@@ -180,17 +315,32 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
     keys = torch.cat([k[:ln] for (k, _), ln in zip(parts, lens)])
     words = torch.cat([w[:, :ln] for (_, w), ln in zip(parts, lens)], dim=1)
     return keys, words, dict(num_visible=num_visible, num_clamped=num_clamped,
-                             num_dropped=num_dropped)
+                             num_dropped=num_dropped, num_culled_dropped=num_culled_dropped)
 
 
-def render_frame(cloud: DeviceCloud, fs: FrameScalars, background: Sequence[float], *,
-                 width: int, height: int, config: RasterConfig, plain: bool = False,
-                 return_diag: bool = False, timer: Optional[StageTimer] = None):
-    """One frame: (H, W, 3) f32 linear image on the cloud's device
-    (+ diagnostics dict)."""
+def render_frame(cloud, fs: FrameScalars, background: Sequence[float], *, width: int,
+                 height: int, config: RasterConfig, compressed: bool = False,
+                 plain: bool = False, return_diag: bool = False,
+                 timer: Optional[StageTimer] = None):
+    """One frame of a DeviceCloud or a CompressedDeviceCloud
+    (renderer.py:262): (H, W, 3) f32 linear image on the cloud's device
+    (+ diagnostics dict).  A compressed cloud is expanded first: culled to
+    max(4096, int(compressed_cull_factor * N)) rows when the factor is > 0,
+    else at full N.  ``compressed`` selects the compressed eigen clamp."""
     mark = timer.mark if timer is not None else (lambda name: None)
+    mark("start")
+    culled_dropped = None
+    if isinstance(cloud, CompressedDeviceCloud):
+        if config.compressed_cull_factor > 0.0:
+            cull_cap = max(4096, int(config.compressed_cull_factor * cloud.opacity_q.shape[0]))
+            cloud, culled_dropped = decompress_cloud_culled(cloud, fs, capacity=cull_cap,
+                                                            plain=plain)
+        else:
+            cloud = decompress_cloud(cloud)
+        mark("decompress")
     keys, words, stats = build_instance_stream(
-        cloud, fs, width=width, height=height, config=config, plain=plain, timer=timer
+        cloud, fs, width=width, height=height, config=config, compressed=compressed,
+        plain=plain, timer=timer, culled_dropped=culled_dropped,
     )
     sorted_keys, sorted_words = sort_instances(keys, words)
     mark("sort")
@@ -198,7 +348,7 @@ def render_frame(cloud: DeviceCloud, fs: FrameScalars, background: Sequence[floa
     _, depth_bits = config.key_bits(width, height)
     ranges = tile_ranges(sorted_keys, tx_tiles * ty_tiles, depth_bits)
     mark("ranges")
-    if config.composite == "scan":
+    if config.composite in ("scan", "tree"):
         raster = rasterize_torch if plain else rasterize
     else:
         raster = rasterize_mxu_torch if plain else rasterize_mxu
@@ -212,18 +362,15 @@ def render_frame(cloud: DeviceCloud, fs: FrameScalars, background: Sequence[floa
 class GaussianRenderer:
     """Device cloud + per-frame render (renderer.py:679).  ``device``
     "cuda" (the default) runs the kernels and raises where CUDA is absent;
-    "cpu" runs the plain versions."""
+    "cpu" runs the plain versions.  A cloud loaded with keep_compressed
+    stays compressed on the device and is expanded per frame."""
 
     def __init__(self, cloud: GaussianCloud, config: Optional[RasterConfig] = None, *,
                  device="cuda"):
-        if cloud.compressed:
-            raise NotImplementedError(
-                "compressed clouds are not ported yet (ROADMAP.md, Queue 1: Compressed path)"
-            )
         self.cloud = cloud
         self.config = config or RasterConfig()
         self.device = resolve_device(device)
-        self.device_cloud = upload_cloud(cloud, self.device)
+        self.device_cloud = upload(cloud, self.device)
         self._last_diag = None
 
     def render(self, camera: PerspectiveCamera, viewport: Tuple[int, int],
@@ -236,7 +383,8 @@ class GaussianRenderer:
         settings = resolve_settings(args, self.cloud)
         img, diag = render_frame(
             self.device_cloud, camera_block(cam, settings), settings.background_color,
-            width=width, height=height, config=self.config, return_diag=True,
+            width=width, height=height, config=self.config, compressed=self.cloud.compressed,
+            return_diag=True,
         )
         if with_diag:
             self._last_diag = diag

@@ -4,7 +4,9 @@ Counterpart of ``tests/synth.py`` (which imports the JAX package and so
 cannot run where JAX is absent): the same draws in the same order, so
 ``make_cloud(np.random.default_rng(s))`` is bit-equal between the two.
 ``make_bench_ply`` writes the benchmark cloud's pre-activation parameters
-as an INRIA-layout PLY, for driving the loader end to end.
+as an INRIA-layout PLY, for driving the loader end to end;
+``make_bench_npz`` writes a c3dgs-like compressed cloud of the same size
+(codebooks and int8 streams) as an npz.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from websplat_tpu_torch.io.loader import GaussianCloud
+from websplat_tpu_torch.io.npz import dumps_npz
 from websplat_tpu_torch.io.ply import dumps_ply
 from websplat_tpu_torch.models.camera import PerspectiveCamera, PerspectiveProjection
 from websplat_tpu_torch.utils.gmath import build_cov, mat_to_quat, sigmoid
@@ -156,6 +159,36 @@ def make_bench_ply(rng, n=BENCH_SPLATS) -> bytes:
     (pre-activation opacity logits and log-scales)."""
     xyz, scale, rot, logits, sh = _draw(rng, **_bench_kwargs(n))
     return dumps_ply(xyz, sh, logits, np.log(scale), rot)
+
+
+def make_bench_npz(rng, n=BENCH_SPLATS, n_geom=4096, n_sh=4096, extent=2.0) -> bytes:
+    """A c3dgs-like compressed cloud as npz bytes, drawn as
+    scripts/bench_10m.py:make_compressed_cloud draws its streams: positions
+    as the bench cloud's, an n_geom-entry geometry codebook (heavy-tailed
+    log-scales around -6.48, random rotations), an n_sh-entry SH codebook
+    (DC in (-0.5, 2), rest N(0, 0.05)), per-splat indices, opacity in
+    (0, 0.7) from an int8 code and a per-splat scale factor exp(0.01 q),
+    q in [-32, 32].  Encoded by dumps_npz with gaussian_indices,
+    feature_indices and scaling_factor_log (the normalize + exp path): the
+    codebook keeps each scale's direction and the factor its norm."""
+    xyz = rng.normal(size=(n, 3)).astype(np.float32) * extent * 0.4
+    log_s = rng.normal(-6.48, 1.1, size=(n_geom, 3)).astype(np.float32)
+    rot = random_quats(rng, n_geom)
+    scale = np.exp(log_s) * extent
+    geom_idx = rng.integers(0, n_geom, size=(n,), dtype=np.int32)
+    sh = np.zeros((n_sh, 16, 3), np.float32)
+    sh[:, 0, :] = rng.uniform(-0.5, 2.0, size=(n_sh, 3))
+    sh[:, 1:, :] = rng.normal(0, 0.05, size=(n_sh, 15, 3))
+    sh_idx = rng.integers(0, n_sh, size=(n,), dtype=np.int32)
+    opacity_q = rng.integers(-127, 128, size=(n,), dtype=np.int8)
+    sf_q = rng.integers(-32, 33, size=(n,), dtype=np.int8)
+    norm = np.linalg.norm(scale, axis=1)
+    return dumps_npz(
+        xyz, scale / norm[:, None], rot,
+        (opacity_q.astype(np.float32) + 127.0) * (0.35 / 127.0), sh, sh_deg=3,
+        gaussian_indices=geom_idx, feature_indices=sh_idx,
+        scaling_factor_log=np.log(norm)[geom_idx] + 0.01 * sf_q.astype(np.float32),
+    )
 
 
 def bench_cameras(n_views=8, viewport=BENCH_VIEWPORT):

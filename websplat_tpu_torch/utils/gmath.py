@@ -24,6 +24,10 @@ def sigmoid(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def sh_num_coefficients(sh_deg: int) -> int:
+    return (sh_deg + 1) * (sh_deg + 1)
+
+
 def sh_deg_from_num_coefs(n: int) -> Optional[int]:
     sqrt = np.sqrt(float(n))
     if sqrt != np.floor(sqrt):

@@ -67,21 +67,28 @@ def bound_by(term: str) -> str:
     return "bytes" if term == "bytes" else "operations"
 
 
-# --- A: scan rasterizer (csrc/rasterize.cu) -------------------------------
+# --- A: scan and tree rasterizer (csrc/rasterize.cu) ----------------------
 
 # one blended (instance, pixel) pair, ops/rasterize.py:84-94: dx, dy (2);
 # a (6 mul + 2 add); -a (1); exp(-a) * op (1); w = alpha * T (1); three
 # colour multiply-adds (6); T * (1 - alpha) (2) = 21
 BLEND_FLOPS = 21
+# the tree composite (composite="tree"): the same 12 up to exp(-a) * op; the
+# pair (alpha * rgb, 1 - alpha) (4); and one over operation of 7 (3 mul + 3
+# add for the colour, 1 mul for t) -- a group of k pairs that blend needs
+# k - 1 over operations and one carry into the pixel (C += T c_g, T *= t_g,
+# also 7), so 7 per pair: 23, two more than the scan
+TREE_BLEND_FLOPS = 23
 
 
 def rasterize_work(n_walked: int, width: int, height: int, n_tiles: int,
-                   pairs_blended: int) -> Work:
+                   pairs_blended: int, tree: bool = False) -> Work:
     """16 B per span position the tiles walk before their last pixel
-    saturates, the f32 RGB image, the tile ranges; 21 f32 operations and
-    one exp per blended pair."""
+    saturates, the f32 RGB image, the tile ranges; 21 f32 operations (23
+    for the tree composite) and one exp per blended pair."""
+    flops = TREE_BLEND_FLOPS if tree else BLEND_FLOPS
     return Work(bytes=16.0 * n_walked + 12.0 * width * height + 4.0 * (n_tiles + 1),
-                f32=BLEND_FLOPS * float(pairs_blended), sfu=float(pairs_blended))
+                f32=flops * float(pairs_blended), sfu=float(pairs_blended))
 
 
 # --- B: slab rasterizer (csrc/rasterize_mxu.cu) ---------------------------
