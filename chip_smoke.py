@@ -11,7 +11,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM
   2 kernels  frontend (also with the compressed eigen clamp, on the
-             compressed bench cloud), overflow walk, the dense stage (grid
+             compressed bench cloud, and with overflow off: the center-out
+             walk at 6 and 64 slots), overflow walk (also level 1 at giant
+             capacity 0, as with the window off), the dense stage (grid
              emitted and compacted in one kernel), the general compaction
              (on the plain dense grid, and on the compressed cloud's culled
              stream: 5 payload words), both rasterizers (the scan one also
@@ -62,12 +64,25 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              timing with the "decompress" stage
   4d tree    the 8 views with RasterConfig(composite="tree") against the
              scan frames; qform="direct" at view 0; frame timing
-  5 result   per kernel: launches per frame (of the path that runs it: the
+  4e refused the 8 views with overflow off (center-out frontend, no walk)
+             and with the window off (walk level 1 alone) against the plain
+             path (PSNR, diagnostics) and the scan frames (printed); frame
+             timing; 4160x2048 (130x64 tiles) against the plain path, camera
+             pulled back (every diagnostic gated) and at the bench camera
+             (past the capture capacity: num_visible and the frontend's
+             stats gated); two 7680x4320 frames timed
+  5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure
+             at 2048x2048 MEASURE_RUNS times (each pass's wall time; one
+             pass's device busy ms), apps.render's PNGs against
+             GaussianRenderer frames, apps.video, apps.viewer on a free
+             local port (/frame.png, a rotate event, /stats)
+  6 result   per kernel: launches per frame (of the path that runs it: the
              main path; the hybrid path for the slab rasterizer, the culled
              compressed path for the compressed frontend and the general
-             compaction, the tree path for the tree rasterizer) and ms
-             above its bound per frame; a JSON line of per-kernel numbers,
-             then the final JSON line
+             compaction, the tree path for the tree rasterizer, the
+             overflow-off path for the center-out frontend) and ms above its
+             bound per frame; a JSON line of per-kernel numbers, then the
+             final JSON line
 
 It imports nothing of JAX.  Without CUDA it exits nonzero and prints no
 result.
@@ -75,7 +90,9 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -115,6 +132,15 @@ REPRO_PSNR = 60.0
 CULLED_PSNR = 60.0  # culled vs full-N compressed frame (tests/test_io.py:309)
 RESIDENT_PSNR = 45.0  # resident vs decoded-at-load compressed frame (tests/test_io.py:245)
 PLAIN_PSNR = 50.0  # plain path vs kernel path, same view
+MEASURE_RUNS = 3  # apps.measure runs in phase 5, each at its default 10 samples
+# phase 4e's wide frames: (width, height, pulled back: view 0's camera moved
+# away by width / W, so that splats keep the bench view's pixel footprint,
+# else bench view 0's camera; check against the plain path: "all" (PSNR and
+# every diagnostic), "order-free" (past the capture capacity the kernel
+# captures clamped splats in block-atomic order, the plain path in splat
+# order: only num_visible and the frontend's stats are gated), None (timed))
+WIDE_FRAMES = ((4160, 2048, True, "all"), (4160, 2048, False, "order-free"),
+               (7680, 4320, True, None), (7680, 4320, False, None))
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA function, threads per CTA)
@@ -123,6 +149,10 @@ KERNELS = {
     # the same kernel with the compressed eigen clamp (its compressed=True
     # branch, websplat_tpu/ops/preprocess.py:261-265)
     "frontend_compressed": ("websplat_tpu_torch/csrc/frontend.cu",
+                            "websplat_tpu/ops/frontend_pallas.py:124", "frontend_kernel", 256),
+    # its overflow-off walk (capacity_c == 0: clamped splats walk center-out,
+    # websplat_tpu/ops/frontend_pallas.py:145,348 -> preprocess.py:453-503)
+    "frontend_center_out": ("websplat_tpu_torch/csrc/frontend.cu",
                             "websplat_tpu/ops/frontend_pallas.py:124", "frontend_kernel", 256),
     "overflow_walk": ("websplat_tpu_torch/csrc/overflow.cu",
                       "websplat_tpu/ops/overflow_pallas.py:66", "overflow_walk_kernel", 256),
@@ -196,6 +226,26 @@ def profile_call(fn):
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     return (host, len(dev), sum(e.time_range.end - e.time_range.start for e in dev) / 1e3,
             sorted({e.name[:48] for e in dev}))
+
+
+def busy_ms(fn):
+    """(device busy ms, device activities, their profiler events) of one
+    profiled call of fn(): busy is the union of the device activity
+    intervals (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy_us / 1e3, len(events), events
 
 
 def counting(module, name: str):
@@ -308,10 +358,12 @@ def build_kernels():
     usage = build.build_report()  # compiles with -Xptxas -v
     build.lib()
     say("build", f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
         for entry, u in usage.items():
-            if pat.search(entry):
+            if pat.search(entry) and entry not in shown:
+                shown.add(entry)
                 say("build", f"{name} ({entry}): {u['registers']} registers, {u['smem']} B "
                              f"static smem, spills {u['spill_stores']}/{u['spill_loads']} B "
                              f"(stores/loads), {threads} threads -> "
@@ -363,14 +415,14 @@ def cull_factor_for(resident) -> float:
     return factor
 
 
-def view_block(cloud, cam):
+def view_block(cloud, cam, viewport=(W, H)):
     from websplat_tpu_torch.config import SplattingArgs, resolve_settings
     from websplat_tpu_torch.models.camera import CameraUniforms
     from websplat_tpu_torch.render.renderer import camera_block
 
     cam.fit_near_far(*cloud.aabb)
     settings = resolve_settings(SplattingArgs(), cloud)
-    return camera_block(CameraUniforms.from_camera(cam, (W, H)), settings), settings
+    return camera_block(CameraUniforms.from_camera(cam, viewport), settings), settings
 
 
 def kernels_vs_plain(cloud, resident, cull_factor, results):
@@ -475,6 +527,45 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         cfs.max_sh_deg, cfs.mip))
     del d, cfk, cfp
 
+    # the frontend's overflow-off walk (C-o): clamped splats walk center-out,
+    # no rows captured; at the default 6 slots and at the spiral's 64
+    co_geo = {}
+    for slots in (6, 64):
+        ocfg = RasterConfig(tile_slots=slots, overflow_capacity=0)
+        co_geo[slots] = dict(width=W, height=H, config=ocfg)
+        ofront = lambda fn, g=co_geo[slots]: fn(dc, fs, capacity=capacity, capacity_c=0, **g)
+        ok_, op_ = ofront(fused_frontend), ofront(frontend_torch)
+        if ok_.stats.tolist() != op_.stats.tolist() or ok_.cid.shape != (6, 0):
+            raise AssertionError(f"frontend (center-out, {slots} slots) stats {ok_.stats.tolist()} "
+                                 f"!= plain {op_.stats.tolist()}, or rows captured")
+        ototal, ovisible, oclamped = ok_.stats.tolist()
+        n_diff, err = compare_rows(stream_rows(ok_.keys, ok_.words, n=ototal),
+                                   stream_rows(op_.keys, op_.words, n=ototal))
+        d = core_math(dc, fs, **co_geo[slots])
+        tests = roofline.center_out_reach_tests(d, slots)
+        del d
+        r = dict(max_abs_err=err, slots=slots,
+                 ms=cuda_ms(lambda: ofront(fused_frontend), 20),
+                 kernel_ms=kernel_only_ms(lambda: ofront(fused_frontend), "frontend_center_out",
+                                          20),
+                 plain_ms=cuda_ms(lambda: ofront(frontend_torch), 3), library_ms=None,
+                 reach_tests=tests)
+        with_bound(r, roofline.frontend_work(n, ovisible, ototal, 0, tests, fs.max_sh_deg,
+                                             fs.mip))
+        say("kernels", f"frontend center-out ({slots} slots): {ototal} rows kernel and plain, "
+                       f"{n_diff} differing (allowed 0); stats [emitted, visible, clamped] = "
+                       f"{ok_.stats.tolist()}; {tests} reach tests; kernel only "
+                       f"{r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                       f"({r['bound_term']}), share {r['share']:.3f}, plain {r['plain_ms']:.3f} ms")
+        if n_diff != 0:
+            raise AssertionError(f"frontend center-out ({slots} slots): kernel disagrees with "
+                                 "its plain version")
+        if slots == 6:
+            results["frontend_center_out"] = r
+        else:
+            results["frontend_center_out"]["slots64"] = r
+        del ok_, op_
+
     # overflow walk, both levels on the kernel frontend's clamped rows
     def walks(fn):
         w1 = fn(fk.cid, fk.stats[2], cap_c, rank_lo=cfg.tile_slots,
@@ -538,13 +629,29 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     if not (ks.stats.tolist() == [tot1, gt1] and left_i == tot1 - cap_s
             and left_g == gt1 - gcap_s):
         raise AssertionError("overflow walk below capacity: stats or kept rows wrong")
+    # level 1 alone with giant_capacity=0 (the window-off path): giants
+    # counted, none written
+    lvl1_0 = lambda fn: fn(fk.cid, fk.stats[2], cap_c, rank_lo=cfg.tile_slots,
+                           rank_hi=cfg.overflow_slots, giant_thresh=cfg.overflow_slots,
+                           capacity=walk_cap, giant_capacity=0, **geo)
+    kz, pz = lvl1_0(overflow_walk), lvl1_0(overflow_walk_torch)
+    tz = kz.stats.tolist()[0]
+    nz_diff, _ = compare_rows(stream_rows(kz.keys, kz.words, n=tz),
+                              stream_rows(pz.keys, pz.words, n=tz))
+    z_ms = kernel_only_ms(lambda: lvl1_0(overflow_walk), "overflow_walk", 20)
+    say("kernels", f"overflow walk level 1 at giant_capacity 0: stats {kz.stats.tolist()} (plain "
+                   f"{pz.stats.tolist()}), giants {tuple(kz.giants.shape)}, {nz_diff} rows "
+                   f"differing (allowed 0), kernel only {z_ms:.4f} ms")
+    if not (kz.stats.tolist() == pz.stats.tolist() == [tot1, gt1] and nz_diff == 0
+            and kz.giants.shape == (6, 0)):
+        raise AssertionError("overflow walk at giant_capacity 0 disagrees with its plain version")
     level_ms = [kernel_only_ms(lambda: walk(overflow_walk), "overflow_walk", 20)
                 for walk in walk_levels]
     say("kernels", f"overflow walk kernel only: level 1 {level_ms[0]:.4f} ms, level 2 "
                    f"{level_ms[1]:.4f} ms")
     results["overflow_walk"] = dict(
         max_abs_err=max(errs), ms=cuda_ms(lambda: walks(overflow_walk), 20),
-        kernel_ms=sum(level_ms), kernel_ms_levels=level_ms,
+        kernel_ms=sum(level_ms), kernel_ms_levels=level_ms, level1_giant_capacity0_ms=z_ms,
         plain_ms=cuda_ms(lambda: walks(overflow_walk_torch), 3), library_ms=None)
     walk_work, walk_counts = [], []
     for rows, n_rows, lo, hi, k, gc in ((fk.cid, fk.stats[2], cfg.tile_slots, cfg.overflow_slots,
@@ -1002,7 +1109,6 @@ def frame_timing(phase, renderer, blocks):
     device busy time of one profiled pass (torch.profiler: the union of the
     device activity intervals, per frame) against the event span."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from websplat_tpu_torch.render.renderer import StageTimer, render_frame
 
@@ -1025,27 +1131,17 @@ def frame_timing(phase, renderer, blocks):
                f"stages ms: {split}; peak device memory "
                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fs, st in blocks:
-            render_frame(renderer.device_cloud, fs, st.background_color, **geo)
-        torch.cuda.synchronize()
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not iv:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for s, e in iv:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-    busy = busy_us / 1e3 / len(blocks)
-    say(phase, f"device busy {busy:.3f} ms per frame in {len(iv) / len(blocks):.0f} device "
+    busy, acts, events = busy_ms(lambda: [render_frame(renderer.device_cloud, fs,
+                                                       st.background_color, **geo)
+                                          for fs, st in blocks])
+    busy /= len(blocks)
+    say(phase, f"device busy {busy:.3f} ms per frame in {acts / len(blocks):.0f} device "
                f"activities (torch.profiler); idle share of the event span "
                f"{1 - busy / med:.3f}")
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in KERNELS if kernel_pattern(k).search(e.name)), e.name[:60])
-            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+    for e in events:
+        name = next((k for k in KERNELS if kernel_pattern(k).search(e.name)), e.name[:60])
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     split = "; ".join(f"{k} {v / 1e3 / len(blocks):.4f}" for k, v in top[:8])
     rest = sum(v for _, v in top[8:]) / 1e3 / len(blocks)
@@ -1190,6 +1286,247 @@ def tree_path(cloud, scan_images, scan_diags, blocks):
     return launches
 
 
+def refused_frames(cloud, scan_images, smi):
+    """Phase 4e: the frames the port used to refuse, through the user's
+    entry point: the 8 views with overflow off (C-o, no walk) and with the
+    window off (level 1 of the walk alone), each against the plain path on
+    the card and (printed, not gated) the scan frames of phase 4; a
+    4160 x 2048 frame (130 x 64 tiles) against the plain path; 7680 x 4320
+    frames timed.  Returns the overflow-off run's launch counts."""
+    from websplat_tpu_torch import RasterConfig, SplattingArgs
+    from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
+    from websplat_tpu_torch.render.renderer import render_frame
+    from websplat_tpu_torch.synth import bench_cameras, make_camera
+    from websplat_tpu_torch.utils.image import psnr
+
+    say("refused", f"card: {smi}")
+    cams = bench_cameras()
+    blocks = [view_block(cloud, cam) for cam in cams]
+    need = {"overflow off": dict(frontend_center_out=N_VIEWS, frontend=0, overflow_walk=0,
+                                 dense_compact=0, rasterize=N_VIEWS),
+            "window off": dict(frontend_center_out=0, frontend=N_VIEWS, overflow_walk=N_VIEWS,
+                               dense_compact=0, rasterize=N_VIEWS)}
+    out = {}
+    for what, cfg in (("overflow off", RasterConfig(overflow_capacity=0)),
+                      ("window off", RasterConfig(overflow_grid_capacity=0))):
+        renderer, images, diags, launches = drive(cloud, cfg)
+        say("refused", f"{what}, {N_VIEWS} views {W}x{H}: launches {launches}")
+        if any(launches[k] != v for k, v in need[what].items()):
+            raise AssertionError(f"{what}: launches {launches}, expected {need[what]}")
+        for i, (img, d) in enumerate(zip(images, diags)):
+            fs_i, st = blocks[i]
+            img_p, d_p = render_frame(renderer.device_cloud, fs_i, st.background_color, width=W,
+                                      height=H, config=cfg, plain=True, return_diag=True)
+            p_plain, p_scan = psnr(img_p.cpu().numpy(), img), psnr(img, scan_images[i])
+            say("refused", f"{what} view {i}: kernel vs plain {p_plain:.2f} dB, vs the scan frame "
+                           f"{p_scan:.2f} dB (not gated); {d}")
+            if not (np.isfinite(img).all() and p_plain >= PLAIN_PSNR and d == d_p
+                    and d["num_dropped"] == 0):
+                raise AssertionError(f"{what} view {i}: kernel vs plain {p_plain:.2f} dB, "
+                                     f"diagnostics {d} vs plain {d_p}")
+        frame_timing(what, renderer, blocks)
+        out[what] = launches
+
+    from websplat_tpu_torch import GaussianRenderer
+    from websplat_tpu_torch.kernels import build
+
+    # viewports past 127 tiles per axis
+    for w, h, pulled, check in WIDE_FRAMES:
+        cam = make_camera(viewport=(w, h), distance=3.0 * (w / W if pulled else 1.0), azimuth=0.0)
+        cfg = RasterConfig()
+        renderer = GaussianRenderer(cloud, cfg)
+        cam.fit_near_far(*cloud.aabb)
+        fsw, st = view_block(cloud, cam, (w, h))
+        build.reset_launches()
+        img = renderer.render(cam, (w, h), SplattingArgs(), with_diag=True)
+        d = dict(renderer._last_diag)
+        launches = dict(build.LAUNCHES)
+        ms = cuda_ms(lambda: render_frame(renderer.device_cloud, fsw, st.background_color,
+                                          width=w, height=h, config=cfg), 5)
+        tx, ty = cfg.tiles_for(w, h)
+        line = (f"{w}x{h} ({tx}x{ty} tiles), camera distance {np.linalg.norm(cam.position):.2f}: "
+                f"{ms:.3f} ms per frame (CUDA events, median of 5); launches {launches}; {d}")
+        if not np.isfinite(img).all() or launches["frontend"] != 1:
+            raise AssertionError(f"{w}x{h}: image not finite, or launches {launches}")
+        if check is None:
+            say("refused", line)
+            continue
+        img_p, d_p = render_frame(renderer.device_cloud, fsw, st.background_color, width=w,
+                                  height=h, config=cfg, plain=True, return_diag=True)
+        p = psnr(img_p.cpu().numpy(), img)
+        n = cloud.num_points
+        geo = dict(capacity=max(4096, int(cfg.instance_capacity_factor * n)),
+                   capacity_c=cfg.overflow_capacity_for(n), width=w, height=h, config=cfg)
+        fk = fused_frontend(renderer.device_cloud, fsw, **geo).stats.tolist()
+        fp = frontend_torch(renderer.device_cloud, fsw, **geo).stats.tolist()
+        gated = "gated" if check == "all" else "not gated"
+        say("refused", line + f"; kernel vs plain {p:.2f} dB ({gated}), plain diagnostics {d_p}; "
+                       f"frontend stats [emitted, visible, clamped] kernel {fk}, plain {fp}; "
+                       f"capture capacity {geo['capacity_c']}")
+        if check == "all":
+            ok = p >= PLAIN_PSNR and d == d_p and d["num_dropped"] == d["num_clamped"] == 0
+        else:
+            ok = d["num_visible"] == d_p["num_visible"] and fk[2] > geo["capacity_c"]
+        if not (ok and fk == fp):
+            raise AssertionError(f"{w}x{h} ({check}): kernel vs plain {p:.2f} dB, diagnostics {d} "
+                                 f"vs plain {d_p}, frontend stats {fk} vs plain {fp}")
+    return out["overflow off"]
+
+
+def apps_phase(cloud, smi):
+    """Phase 5: the command-line apps on the bench PLY (written to a
+    temporary directory, removed at the end) and a cameras.json of the 8
+    bench views (camera 0 is the Test split): measure at 2048 x 2048,
+    render (its PNGs against GaussianRenderer frames of the same views),
+    video for a few frames, and the viewer as a process on a free local
+    port (/frame.png, /stats, one rotate event)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    try:
+        run_apps(cloud, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_apps(cloud, smi, root):
+    import socket
+    import urllib.request
+
+    from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
+    from websplat_tpu_torch.apps import measure, render, video
+    from websplat_tpu_torch.apps.common import render_resolution
+    from websplat_tpu_torch.models.scene import Scene, SceneCamera, Split
+    from websplat_tpu_torch.synth import bench_cameras, make_bench_ply
+    from websplat_tpu_torch.utils.image import psnr, read_png, to_u8
+
+    import torch
+
+    say("apps", f"card: {smi}; before measure {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    ply, cams_json = os.path.join(root, "point_cloud.ply"), os.path.join(root, "cameras.json")
+    with open(ply, "wb") as f:
+        f.write(make_bench_ply(np.random.default_rng(0)))
+    entries = [SceneCamera.from_perspective(cam, f"view{i}", i, (W, H), Split.TRAIN).to_json_dict()
+               for i, cam in enumerate(bench_cameras())]
+    with open(cams_json, "w") as f:
+        json.dump(entries, f)
+
+    # measure as a user runs it (2048 x 2048, its default 10 samples),
+    # MEASURE_RUNS times, each pass's wall time printed
+    fps_runs = []
+    for run in range(MEASURE_RUNS):
+        buf, t0 = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fps_runs.append(measure.main([ply, cams_json]))
+        for ln in buf.getvalue().splitlines():
+            say("apps", f"measure run {run}: {ln}")
+        say("apps", f"measure run {run}: {time.perf_counter() - t0:.1f} s with load and warm-up")
+    say("apps", f"measure: average FPS {', '.join(f'{f:.2f}' for f in fps_runs)} over "
+                f"{MEASURE_RUNS} runs ({smi})")
+    if not all(f > 0 for f in fps_runs):
+        raise AssertionError(f"measure FPS {fps_runs}")
+    # the device's share of one measure pass: busy ms (torch.profiler)
+    # against the pass's wall time
+    one_pass, views = measure.prepare(measure.parse_args([ply, cams_json]))
+    one_pass()
+    t0 = time.perf_counter()
+    one_pass()
+    wall = 1e3 * (time.perf_counter() - t0)
+    busy, acts, _ = busy_ms(one_pass)
+    say("apps", f"measure pass ({views} views): {wall:.3f} ms host wall, device busy "
+                f"{busy:.3f} ms in {acts} device activities (torch.profiler, the next pass); "
+                f"per frame {wall / views:.3f} / {busy / views:.3f} ms")
+    # what a measure frame holds: its first train view through the same
+    # config, warm, with the stage spans and diagnostics
+    from websplat_tpu_torch.render.renderer import StageTimer, render_frame
+
+    sc = Scene.from_json(cams_json).cameras(Split.TRAIN)[0]
+    cam = sc.to_perspective()
+    cam.projection.resize(2048, 2048)
+    fs2, st2 = view_block(cloud, cam, (2048, 2048))
+    cfg2 = RasterConfig.for_viewport(2048, 2048)
+    dc2 = GaussianRenderer(cloud, cfg2).device_cloud
+    for _ in range(2):
+        timer = StageTimer()
+        _, d2 = render_frame(dc2, fs2, st2.background_color, width=2048, height=2048, config=cfg2,
+                             return_diag=True, timer=timer)
+        ms2 = timer.stages_ms()
+    say("apps", f"measure's first train view at 2048x2048 ({cfg2.tile_w}x{cfg2.tile_h} tiles), "
+                f"warm: {sum(ms2.values()):.3f} ms event span; stages ms "
+                + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items()) + f"; {d2}")
+
+    out = os.path.join(root, "renders")
+    render.main([ply, cams_json, "--out", out])
+    r = GaussianRenderer(cloud, RasterConfig())
+    scene = Scene.from_json(cams_json)
+    worst = float("inf")
+    for split in (Split.TEST, Split.TRAIN):
+        for i, sc in enumerate(scene.cameras(split)):
+            w, h = render_resolution(sc.width, sc.height)
+            cam = sc.to_perspective()
+            cam.projection.resize(w, h)
+            ref = to_u8(r.render(cam, (w, h), SplattingArgs(walltime=100.0)))
+            png = read_png(os.path.join(out, split.value, f"{i:05d}.png"))
+            worst = min(worst, psnr(png.astype(np.float32) / 255.0, ref.astype(np.float32) / 255.0))
+    say("apps", f"render: 8 PNGs ({W}x{H}); lowest PSNR against GaussianRenderer frames "
+                f"(u8) {worst:.2f} dB (floor {PLAIN_PSNR})")
+    if not worst >= PLAIN_PSNR:
+        raise AssertionError(f"render app PNGs {worst:.2f} dB from the renderer's frames")
+
+    frames = os.path.join(root, "frames")
+    video.main([ply, cams_json, "--out", frames, "--fps", "2", "--duration", "2", "--width",
+                str(W), "--height", str(H)])
+    names = sorted(os.listdir(frames))
+    shapes = {read_png(os.path.join(frames, n)).shape for n in names}
+    say("apps", f"video: {names}, shapes {shapes}")
+    if names != [f"frame_{i:04d}.png" for i in range(4)] or shapes != {(H, W, 3)}:
+        raise AssertionError("video app frames missing or of the wrong shape")
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log_path = os.path.join(root, "viewer.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "websplat_tpu_torch.apps.viewer", ply, cams_json,
+                             "--port", str(port), "--width", "800", "--height", "600"],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        png, deadline = b"", time.time() + 180
+        while time.time() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(url + "/frame.png", timeout=10) as resp:
+                    png = resp.read()
+                break
+            except OSError:
+                time.sleep(0.5)
+        if png[:4] != b"\x89PNG":
+            log.flush()
+            raise AssertionError(f"viewer served no frame (exit code {proc.poll()}): "
+                                 + open(log_path).read()[-2000:])
+        req = urllib.request.Request(url + "/input", data=b'{"type":"rotate","dx":40,"dy":10}')
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            posted = resp.status
+        time.sleep(1.0)
+        with urllib.request.urlopen(url + "/stats", timeout=10) as resp:
+            stats = json.loads(resp.read())
+        say("apps", f"viewer (port {port}): /frame.png {len(png)} B, rotate -> {posted}, /stats "
+                    f"fps {stats['fps']:.1f} visible {stats['num_visible']} instances "
+                    f"{stats['num_instances']} cameras {len(stats['cameras'])}")
+        if not (posted == 200 and stats["num_visible"] > 0 and len(stats["cameras"]) == N_VIEWS):
+            raise AssertionError(f"viewer stats {stats}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
 def main() -> int:
     name, smi = probe()
     build_kernels()
@@ -1206,12 +1543,16 @@ def main() -> int:
         launches[k] = c_launches[k]
     launches["rasterize_tree"] = tree_path(cloud, scan_images, scan_diags,
                                            blocks)["rasterize_tree"]
+    launches["frontend_center_out"] = refused_frames(cloud, scan_images,
+                                                     smi)["frontend_center_out"]
+    apps_phase(cloud, smi)
     import torch
 
     # launches per frame of the path each kernel is on (the scan path of
     # phase 4; the hybrid path of phase 4b for rasterize_mxu; the culled
     # compressed path of phase 4c for frontend_compressed and compact; the
-    # tree path of phase 4d for rasterize_tree); the packed emission is on
+    # tree path of phase 4d for rasterize_tree; the overflow-off path of
+    # phase 4e for frontend_center_out); the packed emission is on
     # no render path (its launches_phase2 counts phase 2's).  kernel_ms and
     # bound_ms cover one frame's work of phase 2's view: both walk levels
     # for the overflow walk, one launch for the others.

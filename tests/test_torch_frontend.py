@@ -164,7 +164,16 @@ def test_public_frontend_dispatches_cpu_to_plain(frontends):
 
 
 def test_frontend_rejects_wide_viewports(frontends):
-    _, _, (dc, fs, cfg, capacity, cap_c) = frontends
-    with pytest.raises(ValueError, match="127"):
-        frontend_torch(dc, fs, width=128 * 32 + 1, height=H, config=cfg, capacity=capacity,
+    """130 tiles on an axis render (the TPU kernel's 7-bit limit is gone);
+    past 256 with overflow on the rect4 packing raises, as JAX does
+    (preprocess.py:637-641), and with overflow off it renders."""
+    _, t, (dc, fs, cfg, capacity, cap_c) = frontends
+    out = frontend_torch(dc, fs, width=130 * 32, height=H, config=cfg, capacity=capacity,
+                         capacity_c=cap_c)
+    assert out.stats.tolist()[1] > 0
+    with pytest.raises(ValueError, match="256 tiles per axis"):
+        frontend_torch(dc, fs, width=256 * 32 + 1, height=H, config=cfg, capacity=capacity,
                        capacity_c=cap_c)
+    off = frontend_torch(dc, fs, width=256 * 32 + 1, height=H, config=cfg, capacity=capacity,
+                         capacity_c=0)
+    assert off.stats.tolist()[1] > 0

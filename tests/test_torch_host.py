@@ -159,11 +159,38 @@ def test_raster_config_capacities_equal():
     ("composite", "bogus"), ("mxu_precision", "fp8"), ("qform", "bogus"),
     ("compressed_cull_factor", -0.5), ("compressed_cull_factor", float("nan")),
     ("sort_backend", "u64"), ("y_bands", 2), ("raster_backend", "xla"),
-    ("compact", False), ("overflow_capacity", 0), ("overflow_slots", 6),
+    ("compact", False), ("tile_slots", 65),
 ])
 def test_raster_config_rejects_unported_values(field, value):
+    """Values the port does not implement, and tile_slots=65 (overflow off,
+    as overflow_slots=32 <= 65: the center-out walk has 64 offsets, JAX's
+    limit)."""
     with pytest.raises(ValueError):
         tconfig.RasterConfig(**{field: value})
+
+
+@pytest.mark.parametrize("fields", [
+    dict(overflow_capacity=0), dict(overflow_slots=6), dict(overflow_grid_capacity=0),
+    dict(overflow_window_slots=32), dict(tile_slots=24), dict(tile_slots=64, overflow_capacity=0),
+    dict(tile_slots=100, overflow_slots=128),
+])
+def test_raster_config_accepts_what_jax_renders(fields):
+    """Overflow off, window off, and slot budgets past the fused frontend's
+    16 (up to the spiral's 64 with overflow off, any with it on) construct,
+    and agree with JAX's config on which stages run."""
+    t, j = tconfig.RasterConfig(**fields), JaxRasterConfig(**fields)
+    assert t.overflow_enabled == j.overflow_enabled
+    assert t.window_enabled == (j.overflow_grid_capacity > 0
+                                and j.overflow_window_slots > j.overflow_slots)
+
+
+def test_for_viewport_equal_to_jax():
+    """for_viewport picks JAX's tile shape (its switch to the XLA backends
+    aside)."""
+    for w, h in ((2048, 2048), (3840, 2160), (1200, 799), (640, 480), (8000, 100)):
+        t, j = tconfig.RasterConfig.for_viewport(w, h), JaxRasterConfig.for_viewport(w, h)
+        assert (t.tile_w, t.tile_h) == (j.tile_w, j.tile_h)
+    assert tconfig.RasterConfig.for_viewport(2048, 2048, tile_h=16).tile_h == 16
 
 
 @pytest.mark.parametrize("composite,precision", [

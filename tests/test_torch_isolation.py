@@ -17,6 +17,17 @@ MODULES = [
     "websplat_tpu_torch.io.npz",
     "websplat_tpu_torch.io.ply",
     "websplat_tpu_torch.models.camera",
+    "websplat_tpu_torch.models.scene",
+    "websplat_tpu_torch.models.animation",
+    "websplat_tpu_torch.models.controller",
+    "websplat_tpu_torch.utils.stopwatch",
+    "websplat_tpu_torch.utils.roofline",
+    "websplat_tpu_torch.parallel.multiview",
+    "websplat_tpu_torch.apps.common",
+    "websplat_tpu_torch.apps.render",
+    "websplat_tpu_torch.apps.measure",
+    "websplat_tpu_torch.apps.video",
+    "websplat_tpu_torch.apps.viewer",
     "websplat_tpu_torch.utils.gmath",
     "websplat_tpu_torch.utils.image",
     "websplat_tpu_torch.utils.streams",
@@ -35,9 +46,10 @@ MODULES = [
 
 def test_imports_without_jax_and_renders():
     """In a fresh interpreter where importing jax or websplat_tpu fails,
-    every module imports, a small frame renders on the CPU, and so does an
-    npz written by the port's dumps_npz, loaded resident (through the
-    culled decompression) and decoded."""
+    every module imports, a small frame renders on the CPU (also with
+    overflow off), and so does an npz written by the port's dumps_npz,
+    loaded resident (through the culled decompression) and decoded; the
+    render app renders a dataset on the CPU."""
     code = textwrap.dedent(f"""
         import sys
         for blocked in ("jax", "jaxlib", "websplat_tpu"):
@@ -52,6 +64,10 @@ def test_imports_without_jax_and_renders():
         img = r.render(make_camera(viewport=(64, 64)), (64, 64))
         assert img.shape == (64, 64, 3) and np.isfinite(img).all()
         from websplat_tpu_torch import RasterConfig, load_gaussian_cloud
+        r = GaussianRenderer(make_cloud(np.random.default_rng(0), n=50),
+                             RasterConfig(tile_w=8, tile_h=8, overflow_capacity=0), device="cpu")
+        img = r.render(make_camera(viewport=(64, 64)), (64, 64), with_diag=True)
+        assert np.isfinite(img).all() and r.num_visible_points > 0
         from websplat_tpu_torch.synth import make_bench_npz
         blob = make_bench_npz(np.random.default_rng(1), n=200, n_geom=16, n_sh=16)
         for keep in (True, False):
@@ -60,6 +76,24 @@ def test_imports_without_jax_and_renders():
             r = GaussianRenderer(cloud, RasterConfig(compressed_cull_factor=1.0), device="cpu")
             img = r.render(make_camera(viewport=(64, 64)), (64, 64), with_diag=True)
             assert np.isfinite(img).all() and r.num_visible_points > 0
+        import json, os, tempfile
+        from websplat_tpu_torch.apps.render import main
+        from websplat_tpu_torch.io.ply import write_ply
+        from websplat_tpu_torch.models.scene import SceneCamera, Split
+        rng = np.random.default_rng(2)
+        d = tempfile.mkdtemp()
+        q = rng.normal(size=(40, 4)).astype(np.float32)
+        write_ply(os.path.join(d, "pc.ply"), rng.normal(size=(40, 3)).astype(np.float32) * 0.5,
+                  rng.normal(size=(40, 1, 3)).astype(np.float32),
+                  rng.normal(size=40).astype(np.float32),
+                  rng.uniform(-4, -2.5, size=(40, 3)).astype(np.float32),
+                  q / np.linalg.norm(q, axis=1, keepdims=True))
+        cams = [SceneCamera.from_perspective(make_camera(azimuth=i, viewport=(32, 24)), str(i), i,
+                                             (32, 24), Split.TRAIN).to_json_dict() for i in range(2)]
+        with open(os.path.join(d, "cameras.json"), "w") as f:
+            json.dump(cams, f)
+        main([os.path.join(d, "pc.ply"), "--out", os.path.join(d, "out"), "--device", "cpu"])
+        assert sorted(os.listdir(os.path.join(d, "out"))) == ["test", "train"]
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                   or m.startswith("websplat_tpu.") or m == "websplat_tpu"]
         assert all(sys.modules[m] is None for m in loaded), loaded
@@ -102,7 +136,8 @@ def test_renderer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("stage", ["frontend", "overflow_walk", "compact", "dense_compact",
-                                   "rasterize", "frontend_compressed", "rasterize_tree"])
+                                   "rasterize", "frontend_compressed", "rasterize_tree",
+                                   "frontend_center_out"])
 def test_wrappers_reject_other_devices(stage):
     """A stream on a device that is neither CPU nor CUDA raises: no silent
     plain fallback."""
@@ -128,6 +163,10 @@ def test_wrappers_reject_other_devices(stage):
             DeviceCloud(meta(3, 4, dtype=torch.float32), meta(6, 4, dtype=torch.float32),
                         meta(4, dtype=torch.float32), meta(24, 4)),
             None, capacity=8, capacity_c=8, compressed=True, **geo),
+        "frontend_center_out": lambda: frontend.fused_frontend(
+            DeviceCloud(meta(3, 4, dtype=torch.float32), meta(6, 4, dtype=torch.float32),
+                        meta(4, dtype=torch.float32), meta(24, 4)),
+            None, capacity=8, capacity_c=0, **dict(geo, config=RasterConfig(overflow_capacity=0))),
         "rasterize_tree": lambda: rasterize.rasterize(
             meta(4, 8), meta(5), (0, 0, 0), **dict(geo, config=RasterConfig(composite="tree"))),
     }

@@ -221,6 +221,40 @@ def _brute_slab_counts(sw, ranges, stop, cfg):
     return slab_tiles, pairs, live
 
 
+@pytest.mark.parametrize("slots", [6, 16])
+def test_center_out_counts(scene, slots):
+    """C-o's reach tests against a per-splat walk over the JAX spiral
+    tables, and its work: C's bytes with no clamped rows written."""
+    from websplat_tpu.ops.preprocess import _SEQ_SQUARE, _SEQ_TALL, _SEQ_WIDE
+
+    dc, fs, n = scene["dc"], scene["fs"], scene["n"]
+    cfg = RasterConfig(tile_w=16, tile_h=16, tile_slots=slots, overflow_capacity=0)
+    geo = dict(width=W, height=H, config=cfg)
+    d = core_math(dc, fs, **geo)
+    a = {k: d[k].numpy() for k in ("visible", "n_rect", "w_t", "h_t", "ct_x", "ct_y", "tx0",
+                                   "tx1", "ty0", "ty1")}
+    brute = n_big = 0
+    for i in np.nonzero(a["visible"])[0]:
+        if a["n_rect"][i] <= slots:
+            brute += a["n_rect"][i]
+            continue
+        n_big += 1
+        w_t, h_t = a["w_t"][i], a["h_t"][i]
+        seq = _SEQ_WIDE if w_t >= 2 * h_t else (_SEQ_TALL if h_t >= 2 * w_t else _SEQ_SQUARE)
+        for ox, oy in seq[:slots]:
+            tx, ty = a["ct_x"][i] + ox, a["ct_y"][i] + oy
+            brute += a["tx0"][i] <= tx <= a["tx1"][i] and a["ty0"][i] <= ty <= a["ty1"][i]
+    assert n_big > 0
+    tests = roofline.center_out_reach_tests(d, slots)
+    assert tests == brute > 0
+    assert tests < roofline.frontend_reach_tests(d["n_rect"], d["visible"], slots)
+    fr = frontend_torch(dc, fs, capacity=max(4096, 2 * n), capacity_c=0, **geo)
+    total, visible, clamped = fr.stats.tolist()
+    assert clamped == n_big and total <= tests
+    work = roofline.frontend_work(n, visible, total, 0, tests, fs.max_sh_deg, fs.mip)
+    assert work.bytes == 12 * n + 124 * visible + 20 * total
+
+
 def test_slab_and_compact_counts(scene):
     sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
     stop = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)["tile_stop"]

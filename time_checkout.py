@@ -10,7 +10,11 @@ kernels, so two versions are compared within one call on one card (give
 them in turns: A B B A). Per root, on the bench scene (1,244,819 splats,
 1200x799, chip_smoke.py's scene and views):
   - the main path's frame over the 8 views: median CUDA-event span and
-    host wall of 5 warm passes, and the span's quartiles;
+    host wall of 5 warm passes, and the span's quartiles; the device busy
+    ms per frame and device activities per frame of one profiled pass
+    (torch.profiler: the union of the activity intervals);
+  - the frontend's (row-major, main path) kernel-only ms on view 0
+    (torch.profiler, median of 30 launches);
   - the scan and tree rasterizers' kernel-only ms on view 0's sorted
     stream (torch.profiler, median of 30 launches), with each kernel's
     registers and spill bytes (ptxas); "n/a" where the checkout has no
@@ -20,6 +24,7 @@ Needs CUDA; exits nonzero without it.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import statistics
 import subprocess
@@ -31,15 +36,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def time_root(root: str) -> None:
     sys.path.insert(0, root)
-    sys.path.insert(1, HERE)
     import torch
     import websplat_tpu_torch
 
     if not websplat_tpu_torch.__file__.startswith(root + os.sep):
         raise SystemExit(f"imported {websplat_tpu_torch.__file__}, not the package under {root}")
-    import chip_smoke as cs
+    # the measuring helpers are this checkout's for every root (a root's own
+    # chip_smoke.py may predate them); they import the root's package
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     from websplat_tpu_torch import GaussianRenderer, RasterConfig
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops.frontend import fused_frontend
     from websplat_tpu_torch.ops.rasterize import rasterize
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
     from websplat_tpu_torch.render.renderer import StageTimer, build_instance_stream, render_frame
@@ -61,10 +70,19 @@ def time_root(root: str) -> None:
                 span.append(ms)
                 wall.append(1e3 * (time.perf_counter() - t0))
     q = statistics.quantiles(span, n=4)
+    busy, acts, _ = cs.busy_ms(lambda: [render_frame(renderer.device_cloud, fs, st.background_color,
+                                               **geo) for fs, st in blocks])
     out = [f"main span {statistics.median(span):.3f} ms (quartiles {q[0]:.3f}, {q[2]:.3f}), "
-           f"wall {statistics.median(wall):.3f} ms"]
+           f"wall {statistics.median(wall):.3f} ms, busy {busy / len(blocks):.3f} ms in "
+           f"{acts / len(blocks):.0f} device activities per frame"]
 
     fs, st = blocks[0]
+    n = cloud.num_points
+    cap_c = renderer.config.overflow_capacity_for(n)
+    front_ms = cs.kernel_only_ms(lambda: fused_frontend(
+        renderer.device_cloud, fs, capacity=max(4096, 2 * n), capacity_c=cap_c, **geo),
+        "frontend", 30)
+    out.append(f"frontend {front_ms:.4f} ms")
     keys, words, _ = build_instance_stream(renderer.device_cloud, fs, **geo)
     sk, sw = sort_instances(keys, words)
     cfg = renderer.config

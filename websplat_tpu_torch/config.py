@@ -33,6 +33,9 @@ CUTOFF: float = 2.3539888583335364
 COMPOSITES = ("scan", "tree", "mxu", "hybrid")
 QFORMS = ("monomial", "direct")
 MXU_PRECISIONS = ("default", "high", "highest")
+# offsets of the center-out slot walk of clamped splats with overflow off
+# (ops/preprocess.py:SPIRAL)
+MAX_SLOT_SEQ = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +45,19 @@ class RasterConfig:
 
     tile_w: int = 32
     tile_h: int = 32
-    # tile instances each splat emits in the frontend (row-major ranks
-    # [0, tile_slots)); larger rects continue in the overflow walk
+    # tile instances each splat emits in the frontend: row-major ranks
+    # [0, tile_slots) with overflow on, where larger rects continue in the
+    # overflow walk; with overflow off (overflow_capacity 0, or
+    # overflow_slots <= tile_slots) a clamped splat (n_rect > tile_slots)
+    # walks tile_slots center-out candidates instead and loses the rest
     tile_slots: int = 6
-    # clamped-splat capture ceiling, walk rank ceiling, giant/mega capacity
+    # clamped-splat capture ceiling, walk rank ceiling, giant/mega capacity;
+    # overflow_grid_capacity 0 or overflow_window_slots <= overflow_slots
+    # turns the window and dense stages off (window off).  A frame with more
+    # clamped splats than the capture capacity (overflow_capacity_for) differs
+    # from the JAX frame: the CUDA frontend captures them in its block-atomic
+    # order, JAX and the plain version in splat order, so which splats keep
+    # their walk ranks (and num_clamped, num_instances) may differ
     overflow_capacity: int = 1 << 20
     overflow_slots: int = 32
     overflow_grid_capacity: int = 2048
@@ -103,26 +115,40 @@ class RasterConfig:
                     f"RasterConfig.{name}={value!r} is not implemented by the "
                     f"PyTorch port (only {only!r})"
                 )
-        if not self.overflow_enabled:
-            raise ValueError(
-                "the PyTorch port always runs the overflow stage: "
-                "overflow_capacity must be > 0 and overflow_slots > tile_slots"
-            )
-        if not (
-            self.overflow_grid_capacity > 0
-            and self.overflow_window_slots > self.overflow_slots
-        ):
-            raise ValueError(
-                "the PyTorch port always runs the window and dense stages: "
-                "overflow_grid_capacity must be > 0 and "
-                "overflow_window_slots > overflow_slots"
-            )
+        if not self.overflow_enabled and self.tile_slots > MAX_SLOT_SEQ:
+            # the center-out walk of clamped splats has MAX_SLOT_SEQ offsets
+            # (preprocess.py:464-465)
+            raise ValueError(f"tile_slots > {MAX_SLOT_SEQ} not supported")
         if self.tile_slots < 1:
             raise ValueError("tile_slots must be >= 1")
 
     @property
     def overflow_enabled(self) -> bool:
         return self.overflow_capacity > 0 and self.overflow_slots > self.tile_slots
+
+    @property
+    def window_enabled(self) -> bool:
+        """The overflow walk's second level and the dense extreme-tail stage
+        run (with overflow on)."""
+        return self.overflow_grid_capacity > 0 and self.overflow_window_slots > self.overflow_slots
+
+    @classmethod
+    def for_viewport(cls, width: int, height: int, **overrides) -> "RasterConfig":
+        """The config with a tile shape whose grid has at most 127 tiles per
+        axis, doubling the tile edge up to 64 px (config.py:370-389, the
+        JAX package's choice for its fused frontend); explicit tile_w /
+        tile_h overrides are kept as given."""
+        cfg = cls(**overrides)
+        if "tile_w" in overrides or "tile_h" in overrides:
+            return cfg
+        tw, th = cfg.tile_w, cfg.tile_h
+        while -(-height // th) > 127 and th < 64:
+            th *= 2
+        while -(-width // tw) > 127 and tw < 64:
+            tw *= 2
+        if (tw, th) != (cfg.tile_w, cfg.tile_h):
+            cfg = dataclasses.replace(cfg, tile_w=tw, tile_h=th)
+        return cfg
 
     def overflow_capacity_for(self, n: int) -> int:
         """Clamped-splat capture capacity for an n-splat cloud (~n/24, all

@@ -168,6 +168,7 @@ struct Shape {
   float px, py, half_a, conic_b, half_c, opacity, a_max;
   uint32_t depth_q;
   int tx0, ty0, tx1, ty1, w_t, h_t, n_rect;
+  int ct_x, ct_y;  // centre tile of the center-out walk (overflow off)
 };
 
 __device__ __forceinline__ Shape shape_math(float x_w, float y_w, float z_w, const Frustum& f,
@@ -280,6 +281,14 @@ __device__ __forceinline__ Shape shape_math(float x_w, float y_w, float z_w, con
   out.w_t = max(out.tx1 - out.tx0 + 1, 1);
   out.h_t = max(out.ty1 - out.ty0 + 1, 1);
   out.n_rect = out.w_t * out.h_t;
+  // centre tile of the center-out walk (preprocess.py:392-408): the integer
+  // midpoint of the UNCLAMPED rect, from the floats tx0..ty1 come from,
+  // clamped into the visible rect (floor halving: an arithmetic shift)
+  const float lim = 1048576.0f;
+  const int urx0 = (int)pclip(rx0, -lim, lim), urx1 = (int)pclip(rx1, -lim, lim);
+  const int ury0 = (int)pclip(ry0, -lim, lim), ury1 = (int)pclip(ry1, -lim, lim);
+  out.ct_x = min(max(urx0 + ((urx1 - urx0) >> 1), out.tx0), out.tx1);
+  out.ct_y = min(max(ury0 + ((ury1 - ury0) >> 1), out.ty0), out.ty1);
 
   out.px = px;
   out.py = py;

@@ -42,7 +42,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
 LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_tree": 0, "rasterize_mxu": 0,
-                            "frontend": 0, "frontend_compressed": 0, "overflow_walk": 0,
+                            "frontend": 0, "frontend_compressed": 0, "frontend_center_out": 0,
+                            "overflow_walk": 0,
                             "compact": 0, "dense_compact": 0, "emit_compact": 0}
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float

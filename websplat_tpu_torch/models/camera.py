@@ -1,6 +1,7 @@
-"""Camera model with 3DGS-convention matrices: the part of
-``websplat_tpu/models/camera.py`` a frame needs (projection, view, near/far
-fit, the device camera block), copied so the port does not import JAX.
+"""Camera model with 3DGS-convention matrices: ``websplat_tpu/models/
+camera.py`` (projection, view, near/far fit, resize, the eased lerp of
+transitions, the device camera block), copied so the port does not import
+JAX.
 
 All matrices are NumPy row-major (v' = M @ v); the reference stores cgmath
 column-major but the math here reproduces the same linear maps:
@@ -59,6 +60,11 @@ def build_proj(znear: float, zfar: float, fov_x: float, fov_y: float) -> np.ndar
     return p
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    """camera.rs:236-238."""
+    return 2.0 * np.arctan(pixels / (2.0 * focal))
+
+
 def fov2focal(fov: float, pixels: float) -> float:
     """camera.rs:240-242."""
     return pixels / (2.0 * np.tan(fov * 0.5))
@@ -84,11 +90,45 @@ class PerspectiveProjection:
     def projection_matrix(self) -> np.ndarray:
         return build_proj(self.znear, self.zfar, self.fovx, self.fovy)
 
+    def resize(self, width: int, height: int) -> None:
+        """Aspect-preserving fov update (camera.rs:137-144)."""
+        ratio = width / height
+        if width > height:
+            self.fovy = self.fovx / ratio * self.fov2view_ratio
+        else:
+            self.fovx = self.fovy * ratio * self.fov2view_ratio
+
     def focal(self, viewport: Tuple[int, int]) -> Tuple[float, float]:
         return (
             fov2focal(self.fovx, float(viewport[0])),
             fov2focal(self.fovy, float(viewport[1])),
         )
+
+    def lerp(self, other: "PerspectiveProjection", amount: float) -> "PerspectiveProjection":
+        a = 1.0 - amount
+        return PerspectiveProjection(
+            self.fovx * a + other.fovx * amount,
+            self.fovy * a + other.fovy * amount,
+            self.znear * a + other.znear * amount,
+            self.zfar * a + other.zfar * amount,
+            self.fov2view_ratio * a + other.fov2view_ratio * amount,
+        )
+
+
+def slerp(q0: np.ndarray, q1: np.ndarray, t: float) -> np.ndarray:
+    """Quaternion slerp (shortest arc not forced; matches cgmath slerp)."""
+    q0 = np.asarray(q0, np.float64)
+    q1 = np.asarray(q1, np.float64)
+    dot = float(np.dot(q0, q1))
+    if dot > 0.9995:
+        out = q0 + t * (q1 - q0)
+        return (out / np.linalg.norm(out)).astype(np.float32)
+    dot = np.clip(dot, -1.0, 1.0)
+    theta = np.arccos(dot) * t
+    q2 = q1 - q0 * dot
+    q2 = q2 / np.linalg.norm(q2)
+    return (q0 * np.cos(theta) + q2 * np.sin(theta)).astype(np.float32)
+
 
 @dataclasses.dataclass
 class PerspectiveCamera:
@@ -97,6 +137,21 @@ class PerspectiveCamera:
     position: np.ndarray
     rotation: np.ndarray  # quaternion (w, x, y, z); R(q) = camera-from-world
     projection: PerspectiveProjection
+
+    @classmethod
+    def default(cls) -> "PerspectiveCamera":
+        """camera.rs:59-73."""
+        return cls(
+            position=np.array([0.0, 0.0, -1.0], np.float32),
+            rotation=np.array([1.0, 0.0, 0.0, 0.0], np.float32),
+            projection=PerspectiveProjection(
+                fovx=np.deg2rad(45.0),
+                fovy=np.deg2rad(45.0),
+                znear=0.1,
+                zfar=100.0,
+                fov2view_ratio=1.0,
+            ),
+        )
 
     def view_matrix(self) -> np.ndarray:
         return world2view(quat_to_mat(self.rotation), self.position)
@@ -117,6 +172,15 @@ class PerspectiveCamera:
             zfar = znear * 1.001 + 1e-6
         self.projection.zfar = zfar
         self.projection.znear = znear
+
+    def lerp(self, other: "PerspectiveCamera", amount: float) -> "PerspectiveCamera":
+        """camera.rs:45-57 (SPLIT interpolation: lerp pos, slerp rot)."""
+        return PerspectiveCamera(
+            position=self.position * (1 - amount) + other.position * amount,
+            rotation=slerp(self.rotation, other.rotation, amount),
+            projection=self.projection.lerp(other.projection, amount),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraUniforms:

@@ -1,14 +1,22 @@
 """Fused frame frontend: preprocess + slot emission + clamped-splat capture.
 
-Counterpart of ``websplat_tpu/ops/frontend_pallas.py:fused_frontend`` on the
-main path's branch (overflow on, so every splat walks its rect row-major
-over ranks [0, tile_slots)), for uncompressed and, with ``compressed=True``,
-compressed clouds (the compressed shader's eigen clamp).
-``frontend_torch`` is the plain PyTorch version; ``fused_frontend``
-launches the CUDA kernel (``csrc/frontend.cu``) for a cloud on the card and
-runs ``frontend_torch`` for a cloud on the CPU.  The kernel counts its
-launches under "frontend", or "frontend_compressed" for the compressed
-clamp.
+Counterpart of ``websplat_tpu/ops/frontend_pallas.py:fused_frontend``, for
+uncompressed and, with ``compressed=True``, compressed clouds (the
+compressed shader's eigen clamp).  Its two walks are the JAX kernel's:
+``capacity_c > 0`` (overflow on) walks every splat's rect row-major over
+ranks [0, tile_slots) and captures the clamped splats' rows for the
+overflow walk; ``capacity_c == 0`` (overflow off) walks clamped splats
+center-out over the spiral candidates (``preprocess.slot_tiles``) and
+captures nothing.  ``frontend_torch`` is the plain PyTorch version;
+``fused_frontend`` launches the CUDA kernel (``csrc/frontend.cu``) for a
+cloud on the card and runs ``frontend_torch`` for a cloud on the CPU.  The
+kernel counts its launches under "frontend", "frontend_compressed" for the
+compressed clamp, or "frontend_center_out" for the center-out walk.
+
+Its limits are the ones the packing sets, not the TPU kernel's 7-bit tile
+coordinates: with overflow on, rect4's 8 bits per axis (<= 256 tiles per
+axis, as JAX's preprocess.py:637-641 raises); with overflow off, the
+center-out walk's MAX_SLOT_SEQ offsets.
 
 Outputs (``FrontendOut``), all int32 tensors holding u32 bit patterns:
   keys   (capacity,)      ``tile << depth_bits | depth_q`` instance keys
@@ -29,11 +37,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from websplat_tpu_torch.config import RasterConfig
+from websplat_tpu_torch.config import MAX_SLOT_SEQ, RasterConfig
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32
 from websplat_tpu_torch.ops.preprocess import (
+    RECT4_MAX_TILES,
     DeviceCloud,
     FrameScalars,
     core_math,
@@ -42,10 +51,6 @@ from websplat_tpu_torch.ops.preprocess import (
     slot_tiles,
 )
 
-MAX_TILES_PER_AXIS = 127  # the JAX frontend's limit (frontend_pallas.py:513)
-MAX_SLOTS = 16
-
-
 class FrontendOut(NamedTuple):
     keys: torch.Tensor
     words: torch.Tensor
@@ -53,20 +58,22 @@ class FrontendOut(NamedTuple):
     stats: torch.Tensor
 
 
-def _check_limits(width, height, config):
+def _check_limits(width, height, config, capacity_c):
     tx, ty = config.tiles_for(width, height)
-    if tx > MAX_TILES_PER_AXIS or ty > MAX_TILES_PER_AXIS or config.tile_slots > MAX_SLOTS:
+    if capacity_c > 0 and (tx > RECT4_MAX_TILES or ty > RECT4_MAX_TILES):
         raise ValueError(
-            f"fused frontend limits: <= {MAX_TILES_PER_AXIS} tiles per axis, "
-            f"<= {MAX_SLOTS} slots (got {tx}x{ty} tiles, {config.tile_slots} slots)"
+            f"overflow pass supports <={RECT4_MAX_TILES} tiles per axis (rect4 packing);"
+            f" disable overflow_capacity or enlarge tiles (got {tx}x{ty} tiles)"
         )
+    if capacity_c == 0 and config.tile_slots > MAX_SLOT_SEQ:
+        raise ValueError(f"tile_slots > {MAX_SLOT_SEQ} not supported")
 
 
 def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
                    config: RasterConfig, capacity: int, capacity_c: int,
                    compressed: bool = False) -> FrontendOut:
     """Plain PyTorch frontend, on any device (vectorised over splats)."""
-    _check_limits(width, height, config)
+    _check_limits(width, height, config, capacity_c)
     dev = cloud.opacity.device
     tx_tiles, _ = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)
@@ -78,7 +85,7 @@ def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
 
     key_parts, idx_parts = [], []
     for j in range(slots):
-        tx, ty, ok = slot_tiles(d, j, reaches)
+        tx, ty, ok = slot_tiles(d, j, reaches, center_out_slots=0 if capacity_c else slots)
         (idx,) = torch.nonzero(ok, as_tuple=True)
         key_parts.append(((ty[idx] * tx_tiles + tx[idx]) << depth_bits) | d["depth_q"][idx])
         idx_parts.append(idx)
@@ -108,6 +115,14 @@ def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
     return FrontendOut(to_i32(keys), to_i32(out_words), to_i32(cid), stats)
 
 
+def launch_name(compressed: bool, capacity_c: int) -> str:
+    """The launch count a frontend call adds to: the center-out walk's
+    (overflow off) counts apart, then the compressed clamp's."""
+    if capacity_c == 0:
+        return "frontend_center_out"
+    return "frontend_compressed" if compressed else "frontend"
+
+
 def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
                    config: RasterConfig, capacity: int, capacity_c: int,
                    compressed: bool = False) -> FrontendOut:
@@ -119,14 +134,14 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
                               capacity=capacity, capacity_c=capacity_c, compressed=compressed)
     if dev.type != "cuda":
         raise ValueError(f"fused_frontend: unsupported device {dev}")
-    _check_limits(width, height, config)
+    _check_limits(width, height, config, capacity_c)
     n = int(cloud.opacity.shape[0])
     build.require(cloud.xyz, "xyz", dtype=torch.float32, shape=(3, n), device=dev)
     build.require(cloud.cov, "cov", dtype=torch.float32, shape=(6, n), device=dev)
     build.require(cloud.opacity, "opacity", dtype=torch.float32, shape=(n,), device=dev)
     build.require(cloud.sh, "sh", dtype=torch.int32, shape=(24, n), device=dev)
-    if capacity < 1 or capacity_c < 1:
-        raise ValueError("capacities must be >= 1")
+    if capacity < 1 or capacity_c < 0:
+        raise ValueError("capacity must be >= 1 and capacity_c >= 0")
 
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)
@@ -134,7 +149,8 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
     cq = packing.CenterQuant.for_viewport(width, height)
     scal = np.ascontiguousarray(fs.block(), np.float32)
     cfg = np.asarray([width, height, config.tile_w, config.tile_h, tx_tiles, ty_tiles,
-                      depth_bits, config.tile_slots, int(compressed)], np.int32)
+                      depth_bits, config.tile_slots, int(compressed), int(capacity_c == 0)],
+                     np.int32)
     fcfg = np.asarray([thr, 1.0 / thr if thr > 0.0 else 0.0,
                        cq.margin, cq.scale_x, cq.scale_y], np.float32)
 
@@ -151,6 +167,6 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
         stats.data_ptr(), build.stream_ptr(dev),
     )
     if n > 0:  # the C entry launches nothing for an empty cloud
-        build.LAUNCHES["frontend_compressed" if compressed else "frontend"] += 1
+        build.LAUNCHES[launch_name(compressed, capacity_c)] += 1
     build.check(err, "frontend kernel")
     return FrontendOut(keys, words, cid, stats)

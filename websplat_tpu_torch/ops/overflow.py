@@ -14,7 +14,8 @@ card), so the walk needs no host synchronisation.  Outputs
 (``WalkOut``): keys (capacity,), words (4, capacity), giants
 (6, giant_capacity) int32, and stats (2,) = [instances emitted, giant rows],
 both true counts that may exceed the capacities.  Only the prefixes are
-defined.
+defined.  ``giant_capacity=0`` (the window-off frame) counts the giants and
+writes none.
 """
 
 from __future__ import annotations
@@ -29,9 +30,7 @@ from websplat_tpu_torch.config import RasterConfig
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
-from websplat_tpu_torch.ops.preprocess import decoded_reaches, unpack_rect4
-
-MAX_TILES_PER_AXIS = 256  # rect4 packs 8 bits per field (overflow_pallas.py:448)
+from websplat_tpu_torch.ops.preprocess import RECT4_MAX_TILES, decoded_reaches, unpack_rect4
 
 
 class WalkOut(NamedTuple):
@@ -43,8 +42,8 @@ class WalkOut(NamedTuple):
 
 def _check_limits(width, height, config):
     tx, ty = config.tiles_for(width, height)
-    if tx > MAX_TILES_PER_AXIS or ty > MAX_TILES_PER_AXIS:
-        raise ValueError(f"overflow walk supports <= {MAX_TILES_PER_AXIS} tiles per axis")
+    if tx > RECT4_MAX_TILES or ty > RECT4_MAX_TILES:
+        raise ValueError(f"overflow walk supports <= {RECT4_MAX_TILES} tiles per axis")
 
 
 def overflow_walk_torch(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: int, *,

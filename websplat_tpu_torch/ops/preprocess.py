@@ -13,9 +13,10 @@ square roots are correctly rounded (``packing.sqrt``) and logarithms are
 taken in f64 and rounded to f32 (``log32``), so the CPU, the plain CUDA
 path and the kernels compute the same values.
 
-Also here: the row-major slot walk (``slot_tiles``) of the frontend and of
-the packed emission (``preprocess_packed``, the per-splat input of
-``ops/emit_compact.py``), the reach test rebuilt from decoded records
+Also here: the slot walk (``slot_tiles``: row-major, or center-out over
+the ``SPIRAL`` offsets for clamped splats with overflow off) of the
+frontend and the packed emission (``preprocess_packed``, the per-splat
+input of ``ops/emit_compact.py``), the reach test rebuilt from decoded records
 (``make_reaches``, used by the overflow walk), the rect4 codec and the dense
 extreme-tail grid (``dense_grid_emit``, plain tensor code in both packages).
 """
@@ -28,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from websplat_tpu_torch.config import CUTOFF, RasterConfig, ResolvedSettings
+from websplat_tpu_torch.config import CUTOFF, MAX_SLOT_SEQ, RasterConfig, ResolvedSettings
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import div, sqrt, u32
 from websplat_tpu_torch.ops.sh import eval_sh
@@ -287,6 +288,15 @@ def core_math(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
     ty1 = torch.clamp(ry1, 0, ty_tiles - 1).to(torch.int64)
     w_t = torch.clamp(tx1 - tx0 + 1, min=1)
     h_t = torch.clamp(ty1 - ty0 + 1, min=1)
+    # the center-out walk's centre tile (preprocess.py:392-408): the integer
+    # midpoint of the UNCLAMPED rect (from the floats tx0..ty1 come from),
+    # clamped into the visible rect
+    lim = float(1 << 20)
+    urx0, urx1, ury0, ury1 = (torch.clamp(r, -lim, lim).to(torch.int64)
+                              for r in (rx0, rx1, ry0, ry1))
+    mid = lambda a, b: a + torch.div(b - a, 2, rounding_mode="floor")
+    ct_x = torch.minimum(torch.maximum(mid(urx0, urx1), tx0), tx1)
+    ct_y = torch.minimum(torch.maximum(mid(ury0, ury1), ty0), ty1)
 
     half_a = 0.5 * conic_a
     half_c = 0.5 * conic_c
@@ -295,20 +305,49 @@ def core_math(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
         visible=visible,
         depth_q=depth_q,
         words=words,
-        tx0=tx0, ty0=ty0, tx1=tx1, ty1=ty1,
+        tx0=tx0, ty0=ty0, tx1=tx1, ty1=ty1, ct_x=ct_x, ct_y=ct_y,
         w_t=w_t, h_t=h_t, n_rect=w_t * h_t,
         reach=(px, py, half_a, conic_b, half_c, a_max),
     )
 
 
-def slot_tiles(d, j: int, reaches):
-    """Rank j of every splat's row-major rect walk (core_math output ``d``):
-    its tile (tx, ty) and whether the splat emits it (visible, inside the
-    rect, reached)."""
+def _spiral(x_weight: float, n: int = MAX_SLOT_SEQ):
+    """The first n tile offsets (dx, dy) in |dx|, |dy| <= 7 by weighted
+    distance from the centre (preprocess.py:438-444, the same sort)."""
+    offs = [(dx, dy) for dx in range(-7, 8) for dy in range(-7, 8)]
+    offs.sort(key=lambda o: (o[0] * o[0] * x_weight + o[1] * o[1] / x_weight,
+                             abs(o[0]) + abs(o[1]), o[1], o[0]))
+    return offs[:n]
+
+
+# center-out candidate offsets of clamped splats, by rect shape: square,
+# wide (w_t >= 2 h_t: x offsets first), tall (h_t >= 2 w_t); (3, 64, 2)
+_WIDE = _spiral(0.25)
+SPIRAL = np.asarray([_spiral(1.0), _WIDE, [(y, x) for (x, y) in _WIDE]], np.int64)
+
+
+def slot_tiles(d, j: int, reaches, center_out_slots: int = 0):
+    """Rank j of every splat's slot walk (core_math output ``d``): its tile
+    (tx, ty) and whether the splat emits it (visible, a candidate, reached).
+    The walk is row-major over the rect; with ``center_out_slots`` > 0 a
+    clamped splat (n_rect > center_out_slots) takes candidate j of the
+    center-out walk instead (preprocess.py:475-503): offset SPIRAL[shape,
+    j] from (ct_x, ct_y), a candidate where it lies in the rect."""
     dy = j // d["w_t"]
     tx = d["tx0"] + (j - dy * d["w_t"])
     ty = d["ty0"] + dy
-    return tx, ty, d["visible"] & (j < d["n_rect"]) & reaches(tx, ty)
+    ok = j < d["n_rect"]
+    if center_out_slots:
+        w_t, h_t = d["w_t"], d["h_t"]
+        shape = torch.where(w_t >= 2 * h_t, 1, torch.where(h_t >= 2 * w_t, 2, 0))
+        off = torch.from_numpy(SPIRAL[:, j]).to(w_t.device)[shape]  # (N, 2)
+        co_tx, co_ty = d["ct_x"] + off[:, 0], d["ct_y"] + off[:, 1]
+        co_ok = ((co_tx >= d["tx0"]) & (co_tx <= d["tx1"])
+                 & (co_ty >= d["ty0"]) & (co_ty <= d["ty1"]))
+        big = d["n_rect"] > center_out_slots
+        tx, ty = torch.where(big, co_tx, tx), torch.where(big, co_ty, ty)
+        ok = torch.where(big, co_ok, ok)
+    return tx, ty, d["visible"] & ok & reaches(tx, ty)
 
 
 # rect word of the packed emission (emit_compact_pallas.py:61-66): tx0 in 7
@@ -399,6 +438,10 @@ def decoded_reaches(words, *, width: int, height: int, config: RasterConfig):
     px, py, ha, hb, hc, op, _, _, _ = packing.unpack_record(*words, cq)
     a_max = alpha_bound(op, float(config.alpha_threshold))
     return make_reaches(px, py, ha, hb, hc, a_max, config.tile_w, config.tile_h)
+
+
+# rect4 packs 8 bits per field: the overflow stages' limit on the grid
+RECT4_MAX_TILES = 256
 
 
 def pack_rect4(tx0, ty0, tx1, ty1):

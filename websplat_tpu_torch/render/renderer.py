@@ -11,6 +11,10 @@ frame (``render_frame_impl``) of an uncompressed or compressed cloud:
       ->  rasterize (ops/rasterize.py for composite="scan" / "tree";
           ops/rasterize_mxu.py for "mxu" / "hybrid")
 
+With overflow off the frame runs the frontend alone (its center-out walk);
+with the window off, the frontend and the walk's first level
+(build_instance_stream).
+
 On the card every stage but the sort, the ranges and the codebook gathers
 (index gathers, as the JAX package's are XLA gathers) is a hand-written
 CUDA kernel; on the CPU each stage runs its plain PyTorch version.
@@ -254,12 +258,22 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
                           culled_dropped: Optional[torch.Tensor] = None):
     """Frontend + overflow walks + dense grid and compaction -> the unsorted
     instance stream (keys (M,) int32, words (4, M) int32) and the frame
-    diagnostics (renderer.py:331, the walk path).  Capacities and drop
-    accounting are the JAX frame's (renderer.py:365-412, config.py:80-147),
-    from the rows of ``cloud`` (after a culled decompression, its
-    capacity).  ``compressed`` selects the compressed eigen clamp;
-    ``culled_dropped`` (0-d, on the device) joins the frame's one host sync
-    as num_culled_dropped (0 when None)."""
+    diagnostics (renderer.py:331).  Capacities and drop accounting are the
+    JAX frame's (renderer.py:365-412, config.py:80-147), from the rows of
+    ``cloud`` (after a culled decompression, its capacity).  Three paths:
+
+    - default: the frontend's row-major walk, both walk levels and the
+      dense stage (renderer.py:479-551);
+    - window off (``not config.window_enabled``): the frontend and level 1
+      alone; num_clamped counts the captured splats past the level-1
+      ranks, as the XLA path does (preprocess.py:846-852);
+    - overflow off (``not config.overflow_enabled``): the frontend alone,
+      whose clamped splats walk center-out; num_clamped is its count of
+      them (renderer.py:457-463).
+
+    ``compressed`` selects the compressed eigen clamp; ``culled_dropped``
+    (0-d, on the device) joins the frame's one host sync as
+    num_culled_dropped (0 when None)."""
     mark = timer.mark if timer is not None else (lambda name: None)
     front = frontend_torch if plain else fused_frontend
     walk = overflow_walk_torch if plain else overflow_walk
@@ -267,10 +281,11 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
     n = int(cloud.opacity.shape[0])
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     capacity = max(4096, int(config.instance_capacity_factor * n))
-    cap_c = config.overflow_capacity_for(n)
-    walk_cap = config.overflow_walk_capacity_for(cap_c)
-    g_cap = config.overflow_grid_capacity_for(cap_c)
-    m_cap = config.overflow_dense_capacity_for(cap_c)
+    overflow, window = config.overflow_enabled, config.overflow_enabled and config.window_enabled
+    cap_c = config.overflow_capacity_for(n) if overflow else 0
+    walk_cap = config.overflow_walk_capacity_for(cap_c) if overflow else 0
+    g_cap = config.overflow_grid_capacity_for(cap_c) if window else 0
+    m_cap = config.overflow_dense_capacity_for(cap_c) if window else 0
     win_cap = config.overflow_window_capacity_for(g_cap)
     # the JAX frame compacts the dense grid only when it is large
     # (renderer.py:401); otherwise the whole grid fits
@@ -281,37 +296,61 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
 
     fr = front(cloud, fs, capacity=capacity, capacity_c=cap_c, compressed=compressed, **geo)
     mark("frontend")
-    # level 1: ranks [tile_slots, overflow_slots) of every clamped splat,
-    # forwarding giants; level 2: ranks [overflow_slots, window_slots) of
-    # the giants, forwarding megas (renderer.py:479-509)
-    w1 = walk(fr.cid, fr.stats[2], cap_c, rank_lo=config.tile_slots,
-              rank_hi=config.overflow_slots, giant_thresh=config.overflow_slots,
-              capacity=walk_cap, giant_capacity=g_cap, **geo)
-    w2 = walk(w1.giants, w1.stats[1], g_cap, rank_lo=config.overflow_slots,
-              rank_hi=config.overflow_window_slots,
-              giant_thresh=config.overflow_window_slots, capacity=win_cap,
-              giant_capacity=m_cap, **geo)
-    mark("overflow")
-    # ranks >= window_slots of the first min(megas, m_cap) level-2 giants
-    dkeys, dwords, d_count = dense(w2.giants, w2.stats[1], capacity=d_cap, **geo)
-    mark("dense_compact")
+    parts, stats, caps = [(fr.keys, fr.words)], [fr.stats], [capacity]
+    if overflow:
+        # level 1: ranks [tile_slots, overflow_slots) of every clamped
+        # splat, forwarding giants (renderer.py:479); with the window off
+        # the giants are only counted: those past the level-1 ranks, or
+        # past overflow_window_slots where that is lower (the XLA path's
+        # residual, preprocess.py:846-852)
+        g_thresh = (config.overflow_slots if window
+                    else min(config.overflow_slots, config.overflow_window_slots))
+        w1 = walk(fr.cid, fr.stats[2], cap_c, rank_lo=config.tile_slots,
+                  rank_hi=config.overflow_slots, giant_thresh=g_thresh,
+                  capacity=walk_cap, giant_capacity=g_cap, **geo)
+        parts.append((w1.keys, w1.words))
+        stats.append(w1.stats)
+        caps.append(walk_cap)
+    if window:
+        # level 2: ranks [overflow_slots, window_slots) of the giants,
+        # forwarding megas (renderer.py:495-509)
+        w2 = walk(w1.giants, w1.stats[1], g_cap, rank_lo=config.overflow_slots,
+                  rank_hi=config.overflow_window_slots,
+                  giant_thresh=config.overflow_window_slots, capacity=win_cap,
+                  giant_capacity=m_cap, **geo)
+        mark("overflow")
+        # ranks >= window_slots of the first min(megas, m_cap) level-2 giants
+        dkeys, dwords, d_count = dense(w2.giants, w2.stats[1], capacity=d_cap, **geo)
+        mark("dense_compact")
+        parts += [(w2.keys, w2.words), (dkeys, dwords)]
+        stats += [w2.stats, d_count.reshape(1)]
+        caps += [win_cap, d_cap]
+    elif overflow:
+        mark("overflow")
 
     # the frame's one host synchronisation: every prefix length at once
-    extra = [] if culled_dropped is None else [culled_dropped.to(torch.int32).reshape(1)]
-    (total, num_visible, clamped, w1_tot, g_tot, w2_tot, m_tot, d_tot, *culled) = (
-        torch.cat([fr.stats, w1.stats, w2.stats, d_count.reshape(1), *extra]).tolist()
-    )
-    num_culled_dropped = culled[0] if culled else 0
-    lens = (min(total, capacity), min(w1_tot, walk_cap), min(w2_tot, win_cap),
-            min(d_tot, d_cap))
-    num_dropped = (max(total - capacity, 0) + max(w1_tot - walk_cap, 0)
-                   + max(w2_tot - win_cap, 0) + max(d_tot - d_cap, 0))
-    # splats that lost coverage: giants beyond the window capacity, megas
-    # beyond the dense capacity, clamped splats beyond the capture capacity
-    num_clamped = (max(g_tot - g_cap, 0) + max(m_tot - m_cap, 0)
-                   + max(clamped - cap_c, 0))
-    parts = ((fr.keys, fr.words), (w1.keys, w1.words), (w2.keys, w2.words),
-             (dkeys, dwords))
+    if culled_dropped is not None:
+        stats.append(culled_dropped.to(torch.int32).reshape(1))
+    flat = torch.cat(stats).tolist()
+    per_stage = []  # each stage's stats: [emitted, ...]
+    for st in stats:
+        per_stage.append(flat[:st.numel()])
+        flat = flat[st.numel():]
+    num_culled_dropped = per_stage.pop()[0] if culled_dropped is not None else 0
+    emitted = [st[0] for st in per_stage]
+    lens = [min(e, c) for e, c in zip(emitted, caps)]
+    num_dropped = sum(max(e - c, 0) for e, c in zip(emitted, caps))
+    _, num_visible, clamped = per_stage[0]
+    # splats that lost coverage: clamped splats beyond the capture capacity;
+    # giants beyond the window capacity and megas beyond the dense capacity
+    # (window on), or every giant level 1 counted (window off); with
+    # overflow off, every clamped splat
+    if overflow:
+        giants = per_stage[1][1] - g_cap
+        megas = per_stage[2][1] - m_cap if window else 0
+        num_clamped = max(giants, 0) + max(megas, 0) + max(clamped - cap_c, 0)
+    else:
+        num_clamped = clamped
     keys = torch.cat([k[:ln] for (k, _), ln in zip(parts, lens)])
     words = torch.cat([w[:, :ln] for (_, w), ln in zip(parts, lens)], dim=1)
     return keys, words, dict(num_visible=num_visible, num_clamped=num_clamped,

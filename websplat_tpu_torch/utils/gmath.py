@@ -169,3 +169,16 @@ def plane_from_points(points: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarr
     if not np.all(np.isfinite(normal)):
         return centroid, None
     return centroid, normal
+
+
+def max_pairwise_distance(points: np.ndarray) -> float:
+    """Maximum distance between any two points.
+
+    The reference uses a naive O(n^2) loop (web-splat scene.rs:192-201);
+    here it is a vectorized O(n^2) matrix (n = #cameras, small).
+    """
+    points = np.asarray(points, dtype=np.float32)
+    if len(points) < 2:
+        return 0.0
+    d2 = ((points[:, None, :] - points[None, :, :]) ** 2).sum(-1)
+    return float(np.sqrt(d2.max()))

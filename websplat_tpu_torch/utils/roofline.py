@@ -181,6 +181,27 @@ def frontend_reach_tests(n_rect: torch.Tensor, visible: torch.Tensor, slots: int
     return int(torch.clamp(n_rect, max=slots)[visible].sum())
 
 
+def center_out_reach_tests(d: dict, slots: int) -> int:
+    """Slot reach tests of the center-out walk (C-o, overflow off) over
+    core_math's output ``d``: min(n_rect, slots) per visible splat that fits
+    the budget, and per clamped one (n_rect > slots) the candidates among
+    its first ``slots`` spiral offsets that lie in its rect (no other is
+    tested).  Its bytes are C's with no clamped rows written:
+    ``frontend_work(..., clamped=0, ...)``."""
+    from websplat_tpu_torch.ops.preprocess import SPIRAL
+
+    vis, n_rect = d["visible"], d["n_rect"]
+    small = int(torch.clamp(n_rect, max=slots)[vis & (n_rect <= slots)].sum())
+    big = vis & (n_rect > slots)
+    w_t, h_t = d["w_t"][big], d["h_t"][big]
+    shape = torch.where(w_t >= 2 * h_t, 1, torch.where(h_t >= 2 * w_t, 2, 0))
+    off = torch.from_numpy(SPIRAL[:, :slots]).to(w_t.device)[shape]  # (B, slots, 2)
+    tx, ty = d["ct_x"][big, None] + off[..., 0], d["ct_y"][big, None] + off[..., 1]
+    inside = ((tx >= d["tx0"][big, None]) & (tx <= d["tx1"][big, None])
+              & (ty >= d["ty0"][big, None]) & (ty <= d["ty1"][big, None]))
+    return small + int(inside.sum())
+
+
 # --- D: overflow walk (csrc/overflow.cu) ----------------------------------
 
 def overflow_walk_work(rows: int, emitted: int, giants: int, reach_tests: int) -> Work:
