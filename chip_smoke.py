@@ -25,7 +25,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              below its totals; the dense stage also at a quarter of its
              count and with its row count at 0; the packed emission also at
              half its row count and on its first 100,003 splats (also with
-             every slot set); the wrappers refuse bad arguments.  Per
+             every slot set); the wrappers refuse bad arguments.  The
+             frontend's clamped rows, both walk levels' instances and giants
+             and the culled-stream compaction are held equal to plain
+             element for element (the kernels append in tile order).  Per
              kernel: the wrapper's CUDA-event span, the kernel-only time
              (torch.profiler, by kernel name), its roofline bound from this
              run's work counts (utils/roofline.py) with the bounding term and
@@ -44,8 +47,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer (on
              the card by default) over the 8 orbit views of bench.py; launch
              counts (the dense grid itself only on the plain path),
-             diagnostics, plain-path PSNR, view 0 rendered twice more (PSNR
-             and max abs between the two: run-to-run reproducibility),
+             diagnostics, plain-path PSNR, view 0 rendered twice more (max
+             abs 0 between the two: run-to-run reproducibility; also on the
+             hybrid, culled compressed, tree and overflow-off paths),
              ms/frame, per-stage ms, device busy ms, idle share and device
              ms by kernel (torch.profiler)
   4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
@@ -68,15 +72,24 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              and with the window off (walk level 1 alone) against the plain
              path (PSNR, diagnostics) and the scan frames (printed); frame
              timing; 4160x2048 (130x64 tiles) against the plain path, camera
-             pulled back (every diagnostic gated) and at the bench camera
-             (past the capture capacity: num_visible and the frontend's
-             stats gated); two 7680x4320 frames timed
+             pulled back and at the bench camera (past the capture capacity:
+             the kernel captures the same splats as plain), every
+             diagnostic gated; two 7680x4320 frames timed
   5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure
              at 2048x2048 MEASURE_RUNS times (each pass's wall time; one
              pass's device busy ms), apps.render's PNGs against
              GaussianRenderer frames, apps.video, apps.viewer on a free
              local port (/frame.png, a rotate event, /stats)
-  6 result   per kernel: launches per frame (of the path that runs it: the
+  6 parallel the 8 views through make_view_parallel_renderer on an NCCL
+             group of one (bit-equal to phase 4's frames, total_visible the
+             sum); view 0 splat-sharded over NCCL at D = 1 (>= 60 dB, no
+             exchange drops, CUDA-event ms beside the single frame's: the
+             exchange overhead); the loopback exchange at D = 2 and 4 at
+             32x8 tiles (>= 60 dB from the single frame, summed stats equal,
+             no drops at 1.15 x n_inst / D, drops at a small capacity);
+             dryrun_multidevice(1, "cuda"); the native PLY decoder on the
+             bench PLY against the NumPy path, both timed
+  7 result   per kernel: launches per frame (of the path that runs it: the
              main path; the hybrid path for the slab rasterizer, the culled
              compressed path for the compressed frontend and the general
              compaction, the tree path for the tree rasterizer, the
@@ -125,22 +138,43 @@ MXU_TOL = {"highest": 1e-4, "high": 1e-4, "hybrid": 1e-4, "default": 2e-3}
 MXU_SLACK = 1e-5
 MXU_FLIP_TOL = 2e-2
 SLAB_PSNR = 50.0  # slab composites vs the scan frame of the same view
-# the same view rendered twice: records with equal keys keep the frontend's
-# (and the culled compaction's) block-atomic append order, which varies
-# between runs, so the blend order of equal-key splats may too
-REPRO_PSNR = 60.0
+# the same view rendered twice is bit-identical: every stream kernel
+# appends in tile order (csrc/stream.cuh) and the sort is stable
 CULLED_PSNR = 60.0  # culled vs full-N compressed frame (tests/test_io.py:309)
 RESIDENT_PSNR = 45.0  # resident vs decoded-at-load compressed frame (tests/test_io.py:245)
 PLAIN_PSNR = 50.0  # plain path vs kernel path, same view
 MEASURE_RUNS = 3  # apps.measure runs in phase 5, each at its default 10 samples
 # phase 4e's wide frames: (width, height, pulled back: view 0's camera moved
 # away by width / W, so that splats keep the bench view's pixel footprint,
-# else bench view 0's camera; check against the plain path: "all" (PSNR and
-# every diagnostic), "order-free" (past the capture capacity the kernel
-# captures clamped splats in block-atomic order, the plain path in splat
-# order: only num_visible and the frontend's stats are gated), None (timed))
-WIDE_FRAMES = ((4160, 2048, True, "all"), (4160, 2048, False, "order-free"),
-               (7680, 4320, True, None), (7680, 4320, False, None))
+# else bench view 0's camera (past the capture capacity, which both versions
+# fill in splat order); checked against the plain path (PSNR and every
+# diagnostic), or only timed)
+WIDE_FRAMES = ((4160, 2048, True, True), (4160, 2048, False, True),
+               (7680, 4320, True, False), (7680, 4320, False, False))
+SHARDED_PSNR = 60.0  # splat-sharded vs single frame (tests/test_sharded.py:61)
+# ... where a region re-quantizes no splat centre out of its range: each
+# region packs its centres with CenterQuant.for_viewport(width, region_h)
+# (websplat_tpu/parallel/sharded.py:197-210), which clamps a centre lying
+# more than its margin (214 px at width 1200) above or below the region, so
+# a large splat centred far away moves.  A frame with such splats (phase 6
+# prints their count) is held to CLAMPED_SHARDED_PSNR
+CLAMPED_SHARDED_PSNR = 45.0
+# phase 6's loopback config: 32 x 8 tiles give 100 tile rows (D = 2, 4).
+# Rects are 4x taller in tiles than at 32 x 32, so the defaults clamp ~100k
+# splats of bench view 0 and drop ~49k instances, and a shard's capacities
+# (sized by its own N) would clamp other splats than the single frame's;
+# these leave every stage of view 0 room, in the single frame (checked:
+# nothing clamped or dropped) and in each shard at D = 2 and 4 (checked:
+# summed stats equal to the single frame's)
+SHARD_CONFIG = dict(tile_w=32, tile_h=8, tile_slots=16, overflow_slots=128,
+                    overflow_window_slots=480, overflow_grid_capacity=4096,
+                    overflow_walk_factor=64, overflow_dense_compact=1 << 17,
+                    instance_capacity_factor=4.0)
+# the native PLY decoder against the NumPy path: opacity may differ by one
+# f16 step where the C library's expf and NumPy's exp round the sigmoid to
+# f32 values on either side of an f16 rounding boundary; at most this
+# fraction of the splats may
+NATIVE_OPACITY_SLACK = 1e-4
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, CUDA function, threads per CTA)
@@ -483,6 +517,11 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         check_rows("frontend clamped rows", stream_rows(fk.cid, n=min(clamped, cap_c)),
                    stream_rows(fp.cid, n=min(clamped, cap_c))),
     )
+    # the clamped rows in splat order, as plain (and JAX) capture them
+    same_cid = torch.equal(fk.cid[:, :min(clamped, cap_c)], fp.cid[:, :min(clamped, cap_c)])
+    say("kernels", f"frontend clamped rows equal to plain element for element: {same_cid}")
+    if not same_cid:
+        raise AssertionError("frontend clamped rows differ from plain in order or value")
     results["frontend"] = dict(
         max_abs_err=err_f, ms=cuda_ms(lambda: front(fused_frontend), 20),
         kernel_ms=kernel_only_ms(lambda: front(fused_frontend), "frontend", 20),
@@ -597,6 +636,14 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         errs.append(check_rows(f"overflow walk level {lvl} giant rows",
                                stream_rows(k.giants, n=min(gt, gc)),
                                stream_rows(p.giants, n=min(gt, gc))))
+        # row order, ranks ascending, on both sides
+        ti = min(tot, walk_cap if lvl == 1 else win_cap)
+        same = (torch.equal(k.keys[:ti], p.keys[:ti]) and torch.equal(k.words[:, :ti], p.words[:, :ti])
+                and torch.equal(k.giants[:, :min(gt, gc)], p.giants[:, :min(gt, gc)]))
+        say("kernels", f"overflow walk level {lvl}: instances and giants equal to plain element "
+                       f"for element: {same}")
+        if not same:
+            raise AssertionError(f"overflow walk level {lvl}: rows differ from plain in order")
     # level 1 with the alpha bound off (reach against 2*CUTOFF alone)
     geo_off = dict(geo, config=RasterConfig(alpha_threshold=0.0))
     k0, p0 = (fn(fk.cid, fk.stats[2], cap_c, rank_lo=cfg.tile_slots, rank_hi=cfg.overflow_slots,
@@ -742,7 +789,11 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     say("kernels", f"compact (culled stream: {cn} splats, 5 payload words, capacity {cull_cap}): "
                    f"count {n_cull} kernel, {int(ckp[2])} plain, {n_diff} rows differing "
                    f"(allowed 0)")
-    if n_cull != int(ckp[2]) or n_diff != 0 or n_cull > cull_cap:
+    nc = min(n_cull, cull_cap)
+    same_cull = torch.equal(ckk[0][:nc], ckp[0][:nc]) and torch.equal(ckk[1][:, :nc], ckp[1][:, :nc])
+    say("kernels", f"compact (culled stream): rows equal to plain element for element (splat "
+                   f"order): {same_cull}")
+    if n_cull != int(ckp[2]) or n_diff != 0 or n_cull > cull_cap or not same_cull:
         raise AssertionError("compact on the culled stream: kernel disagrees with its plain version "
                              "or the count passes the capacity")
 
@@ -1072,17 +1123,14 @@ def main_path(cloud):
 
 
 def reproducibility(phase, renderer, cam):
-    """Renders one view twice: PSNR and max abs between the two images,
-    gated at REPRO_PSNR."""
+    """Renders one view twice: the two images must be bit-identical."""
     from websplat_tpu_torch import SplattingArgs
-    from websplat_tpu_torch.utils.image import psnr
 
     a, b = (renderer.render(cam, (W, H), SplattingArgs()) for _ in range(2))
-    p, err = psnr(a, b), float(np.abs(a - b).max())
-    say(phase, f"view 0 rendered twice: PSNR {p:.2f} dB, max abs {err:.3g} (floor "
-               f"{REPRO_PSNR} dB)")
-    if not p >= REPRO_PSNR:
-        raise AssertionError(f"{phase}: view 0 moved by {p:.2f} dB between two renders")
+    err = float(np.abs(a - b).max())
+    say(phase, f"view 0 rendered twice: max abs {err:.3g} (must be 0)")
+    if not (err == 0.0 and np.array_equal(a, b)):
+        raise AssertionError(f"{phase}: view 0 moved by max abs {err:.3g} between two renders")
 
 
 def drive(cloud, config):
@@ -1189,6 +1237,7 @@ def slab_path(cloud, scan_images, blocks):
         if not np.isfinite(img).all() or (gate and not p >= SLAB_PSNR):
             raise AssertionError(f"mxu/{v} view 0: PSNR {p:.2f} dB or not finite")
 
+    reproducibility("slab", renderer, cams[0])
     frame_timing("slab", renderer, blocks)
     return launches
 
@@ -1263,6 +1312,7 @@ def tree_path(cloud, scan_images, scan_diags, blocks):
     """Phase 4d: the 8 views with the tree composite against phase 4's
     scan frames, and view 0 with qform="direct"."""
     from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
     renderer, images, diags, launches = drive(cloud, RasterConfig(composite="tree"))
@@ -1276,12 +1326,12 @@ def tree_path(cloud, scan_images, scan_diags, blocks):
     if launches["rasterize_tree"] != N_VIEWS or launches["rasterize"] != 0:
         raise AssertionError(f"tree path launches {launches}")
     direct = drive(cloud, RasterConfig(qform="direct"))[1][0]
-    p = psnr(direct, scan_images[0])
-    say("tree", f"qform='direct', view 0: PSNR vs the scan frame {p:.2f} dB, bit-equal "
-                f"{np.array_equal(direct, scan_images[0])} (the same evaluation; equal-key "
-                f"order may move between renders, floor {REPRO_PSNR} dB)")
-    if not p >= REPRO_PSNR:
-        raise AssertionError(f"qform='direct' view 0: {p:.2f} dB from the scan frame")
+    same = np.array_equal(direct, scan_images[0])
+    say("tree", f"qform='direct', view 0: bit-equal to the scan frame {same} (the same "
+                f"evaluation, the same stream)")
+    if not same:
+        raise AssertionError("qform='direct' view 0 differs from the scan frame")
+    reproducibility("tree", renderer, bench_cameras()[0])
     frame_timing("tree", renderer, blocks)
     return launches
 
@@ -1324,6 +1374,8 @@ def refused_frames(cloud, scan_images, smi):
                     and d["num_dropped"] == 0):
                 raise AssertionError(f"{what} view {i}: kernel vs plain {p_plain:.2f} dB, "
                                      f"diagnostics {d} vs plain {d_p}")
+        if what == "overflow off":
+            reproducibility(what, renderer, cams[0])
         frame_timing(what, renderer, blocks)
         out[what] = launches
 
@@ -1348,7 +1400,7 @@ def refused_frames(cloud, scan_images, smi):
                 f"{ms:.3f} ms per frame (CUDA events, median of 5); launches {launches}; {d}")
         if not np.isfinite(img).all() or launches["frontend"] != 1:
             raise AssertionError(f"{w}x{h}: image not finite, or launches {launches}")
-        if check is None:
+        if not check:
             say("refused", line)
             continue
         img_p, d_p = render_frame(renderer.device_cloud, fsw, st.background_color, width=w,
@@ -1359,18 +1411,200 @@ def refused_frames(cloud, scan_images, smi):
                    capacity_c=cfg.overflow_capacity_for(n), width=w, height=h, config=cfg)
         fk = fused_frontend(renderer.device_cloud, fsw, **geo).stats.tolist()
         fp = frontend_torch(renderer.device_cloud, fsw, **geo).stats.tolist()
-        gated = "gated" if check == "all" else "not gated"
-        say("refused", line + f"; kernel vs plain {p:.2f} dB ({gated}), plain diagnostics {d_p}; "
+        say("refused", line + f"; kernel vs plain {p:.2f} dB, plain diagnostics {d_p}; "
                        f"frontend stats [emitted, visible, clamped] kernel {fk}, plain {fp}; "
                        f"capture capacity {geo['capacity_c']}")
-        if check == "all":
-            ok = p >= PLAIN_PSNR and d == d_p and d["num_dropped"] == d["num_clamped"] == 0
+        # pulled back nothing is clamped or dropped; at the bench camera the
+        # capture overflows and both versions keep the same splats
+        ok = p >= PLAIN_PSNR and d == d_p and d["num_dropped"] == 0
+        if pulled:
+            ok = ok and d["num_clamped"] == 0
         else:
-            ok = d["num_visible"] == d_p["num_visible"] and fk[2] > geo["capacity_c"]
+            ok = ok and fk[2] > geo["capacity_c"]
         if not (ok and fk == fp):
-            raise AssertionError(f"{w}x{h} ({check}): kernel vs plain {p:.2f} dB, diagnostics {d} "
+            raise AssertionError(f"{w}x{h}: kernel vs plain {p:.2f} dB, diagnostics {d} "
                                  f"vs plain {d_p}, frontend stats {fk} vs plain {fp}")
     return out["overflow off"]
+
+
+def parallel_phase(cloud, scan_images, scan_diags, smi):
+    """Phase 6: the multi-device paths on the one card.  View-parallel over
+    an NCCL group of one (the 8 views, bit-equal to phase 4's frames);
+    splat-sharded at D = 1 over NCCL on view 0 (region capacity n_inst: no
+    drop possible), timed beside the single frame; the loopback exchange
+    (the D ranks' bodies in turn on the card) at D = 2 and 4 with 32 x 8
+    tiles against the single frame of that config, and once at a capacity
+    that drops; the spawned dry run; the native PLY decoder."""
+    import torch.distributed as dist
+
+    from websplat_tpu_torch.io.ply import read_ply
+    from websplat_tpu_torch.parallel.dryrun import dryrun_multidevice
+    from websplat_tpu_torch.synth import make_bench_ply
+
+    say("parallel", f"card: {smi}")
+    t0 = time.perf_counter()
+    try:
+        parallel_in_process(cloud, scan_images, scan_diags, smi)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    say("parallel", f"in-process parts in {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multidevice(1, "cuda")
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        say("parallel", ln)
+    if not (any("view-parallel ok" in ln for ln in lines)
+            and any("splat-sharded ok" in ln for ln in lines)):
+        raise AssertionError(f"dryrun_multidevice(1, 'cuda') printed {lines}")
+    say("parallel", f"dryrun_multidevice(1, 'cuda') in {time.perf_counter() - t1:.1f} s")
+
+    blob = make_bench_ply(np.random.default_rng(0))
+    t2 = time.perf_counter()
+    nat = read_ply(io.BytesIO(blob), native=True)
+    t3 = time.perf_counter()
+    ref = read_ply(io.BytesIO(blob), native=False)
+    t4 = time.perf_counter()
+    same = {k: bool(np.array_equal(nat[k].view(np.uint8), ref[k].view(np.uint8)))
+            for k in ("xyz", "sh")}
+    steps = np.abs(nat["opacity"].view(np.uint16).astype(np.int32)
+                   - ref["opacity"].view(np.uint16).astype(np.int32))
+    n_op = int((steps != 0).sum())
+    cov_ok = np.allclose(nat["cov"].astype(np.float32), ref["cov"].astype(np.float32),
+                         rtol=2e-3, atol=1e-6)
+    say("parallel", f"native PLY decoder, bench PLY ({nat['num_points']} splats): "
+                    f"{1e3 * (t3 - t2):.1f} ms native, {1e3 * (t4 - t3):.1f} ms NumPy (host wall); "
+                    f"bit-equal {same}; opacity differing {n_op} (max {int(steps.max())} f16 "
+                    f"step); cov within rtol 2e-3 {cov_ok}")
+    if not (all(same.values()) and cov_ok and int(steps.max()) <= 1
+            and n_op <= NATIVE_OPACITY_SLACK * nat["num_points"]):
+        raise AssertionError("native PLY decoder disagrees with the NumPy path")
+
+
+def clamped_centres(keys, words, plan) -> int:
+    """(region, splat) pairs of a frame's instance stream whose centre the
+    region re-quantizes out of range (websplat_tpu/parallel/sharded.py:
+    197-210): distinct records among each region's instances whose centre
+    lies more than the region CenterQuant's margin above or below it."""
+    import torch
+
+    from websplat_tpu_torch.ops import packing
+
+    k = packing.u32(keys)
+    region = (k >> plan.depth_bits) // plan.tiles_per_region
+    _, py = packing.unpack_center(packing.u32(words[0]),
+                                  packing.CenterQuant.for_viewport(plan.width, plan.height))
+    margin = packing.CenterQuant.for_viewport(plan.width, plan.region_h).margin
+    rel = py - (region * plan.region_h).to(py.dtype)
+    far = (rel < -margin) | (rel > plan.region_h + margin)
+    rows = torch.stack([region[far], packing.u32(words[0][far]), packing.u32(words[1][far])])
+    return int(torch.unique(rows, dim=1).shape[1])
+
+
+def parallel_in_process(cloud, scan_images, scan_diags, smi):
+    """Phase 6's parts on an in-process NCCL group of one (see
+    parallel_phase)."""
+    import torch
+    import torch.distributed as dist
+
+    from websplat_tpu_torch import RasterConfig, SplattingArgs
+    from websplat_tpu_torch.config import resolve_settings
+    from websplat_tpu_torch.models.camera import CameraUniforms
+    from websplat_tpu_torch.parallel.group import splat_group, view_group
+    from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer, stack_cameras
+    from websplat_tpu_torch.parallel.sharded import (cut_regions, make_splat_sharded_renderer,
+                                                     region_frame, region_plan,
+                                                     render_splat_sharded_loopback, shard_cloud,
+                                                     split_cloud)
+    from websplat_tpu_torch.render.renderer import (build_instance_stream, camera_block,
+                                                    render_frame, upload_cloud)
+    from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils.image import psnr
+
+    cams = bench_cameras()
+    for cam in cams:
+        cam.fit_near_far(*cloud.aabb)
+    unis = [CameraUniforms.from_camera(cam, (W, H)) for cam in cams]
+    settings = resolve_settings(SplattingArgs(), cloud)
+    bg = settings.background_color
+    group = view_group(device="cuda")
+    dc = upload_cloud(cloud, group.device)
+    step = make_view_parallel_renderer(group, width=W, height=H, config=RasterConfig())
+    imgs, total_visible = step(dc, stack_cameras(unis), settings, bg)
+    imgs = imgs.cpu().numpy()
+    equal = [bool(np.array_equal(imgs[i], scan_images[i])) for i in range(N_VIEWS)]
+    want = sum(d["num_visible"] for d in scan_diags)
+    say("parallel", f"view-parallel, NCCL group of {group.size} on {group.device}, {N_VIEWS} "
+                    f"views: bit-equal to phase 4's frames {equal}; total_visible "
+                    f"{total_visible} (phase 4's sum {want})")
+    if not (all(equal) and total_visible == want):
+        raise AssertionError("view-parallel frames or total_visible differ from phase 4's")
+
+    # splat-sharded at D = 1 over NCCL: the exchange is an all_to_all with
+    # itself; its cost beside the single frame's is the exchange overhead
+    # (scripts/bench_sharded.py:133, sharded_exchange_overhead_ms)
+    sgroup = splat_group(device="cuda")
+    n_inst = scan_diags[0]["num_instances"]
+    sstep = make_splat_sharded_renderer(sgroup, width=W, height=H, config=RasterConfig(),
+                                        region_capacity=n_inst)
+    shard = shard_cloud(dc, sgroup)
+    img1, st1 = sstep(shard, unis[0], settings, bg)
+    p1 = psnr(img1.cpu().numpy(), scan_images[0])
+    fs0 = camera_block(unis[0], settings)
+    sharded_ms = cuda_ms(lambda: sstep(shard, unis[0], settings, bg), 10)
+    single_ms = cuda_ms(lambda: render_frame(dc, fs0, bg, width=W, height=H,
+                                             config=RasterConfig()), 10)
+    # its parts: the cut (the stream, the stable sort, the region buffers),
+    # the exchange, the region's frame (merge, re-sort, rebase, raster)
+    plan = region_plan(1, width=W, height=H, config=RasterConfig(), region_capacity=n_inst)
+    outgoing, _ = cut_regions(shard, fs0, plan, config=RasterConfig())
+    incoming = torch.empty_like(outgoing)
+    cut_ms = cuda_ms(lambda: cut_regions(shard, fs0, plan, config=RasterConfig()), 10)
+    x_ms = cuda_ms(lambda: dist.all_to_all_single(incoming, outgoing, group=sgroup.group), 10)
+    region_ms = cuda_ms(lambda: region_frame(incoming, 0, bg, plan, config=RasterConfig()), 10)
+    say("parallel", f"splat-sharded D = 1 parts (CUDA events, median of 10): cut {cut_ms:.3f} "
+                    f"ms, all_to_all_single of {tuple(outgoing.shape)} int32 {x_ms:.3f} ms, "
+                    f"region frame {region_ms:.3f} ms")
+    say("parallel", f"splat-sharded D = 1 (NCCL), view 0, region capacity {n_inst}: PSNR vs the "
+                    f"phase-4 frame {p1:.2f} dB, stats {st1}; {sharded_ms:.3f} ms vs the single "
+                    f"frame's {single_ms:.3f} ms (CUDA events, median of 10): exchange overhead "
+                    f"{sharded_ms - single_ms:.3f} ms ({smi})")
+    if not (p1 >= SHARDED_PSNR and st1["num_dropped_exchange"] == 0
+            and st1["num_visible"] == scan_diags[0]["num_visible"]):
+        raise AssertionError(f"splat-sharded D = 1: {p1:.2f} dB, stats {st1}")
+
+    # the loopback exchange at D = 2 and 4: 32 x 8 tiles give 100 tile rows
+    cfg8 = RasterConfig(**SHARD_CONFIG)
+    ref, dref = render_frame(dc, fs0, bg, width=W, height=H, config=cfg8, return_diag=True)
+    ref = ref.cpu().numpy()
+    if not dref["num_clamped"] == dref["num_dropped"] == 0:
+        raise AssertionError(f"the single frame at SHARD_CONFIG clamps or drops: {dref}")
+    geo = dict(width=W, height=H, config=cfg8)
+    keys, words, _ = build_instance_stream(dc, fs0, **geo)
+    for d in (2, 4):
+        shards = split_cloud(dc, d)
+        cap = -(-115 * dref["num_instances"] // (100 * d))
+        img, st = render_splat_sharded_loopback(shards, unis[0], settings, bg,
+                                                region_capacity=cap, **geo)
+        pd = psnr(img.cpu().numpy(), ref)
+        same = all(st[k] == dref[k] for k in ("num_visible", "num_clamped", "num_dropped"))
+        n_far = clamped_centres(keys, words, region_plan(d, region_capacity=cap, **geo))
+        floor = SHARDED_PSNR if n_far == 0 else CLAMPED_SHARDED_PSNR
+        say("parallel", f"loopback D = {d} at 32x8 tiles, region capacity {cap}: PSNR vs the "
+                        f"single frame {pd:.2f} dB (floor {floor}: {n_far} splat centres lie "
+                        f"outside their region's quantization range), stats {st} (single {dref})")
+        if not (pd >= floor and same and st["num_dropped_exchange"] == 0):
+            raise AssertionError(f"loopback D = {d}: {pd:.2f} dB, stats {st} vs {dref}")
+    small = dref["num_instances"] // 64
+    img, st = render_splat_sharded_loopback(split_cloud(dc, 4), unis[0], settings, bg,
+                                            region_capacity=small, **geo)
+    say("parallel", f"loopback D = 4 at region capacity {small}: num_dropped_exchange "
+                    f"{st['num_dropped_exchange']}, finite {bool(torch.isfinite(img).all())}")
+    if not (st["num_dropped_exchange"] > 0 and torch.isfinite(img).all()):
+        raise AssertionError(f"loopback at a small capacity: stats {st}")
 
 
 def apps_phase(cloud, smi):
@@ -1546,6 +1780,7 @@ def main() -> int:
     launches["frontend_center_out"] = refused_frames(cloud, scan_images,
                                                      smi)["frontend_center_out"]
     apps_phase(cloud, smi)
+    parallel_phase(cloud, scan_images, scan_diags, smi)
     import torch
 
     # launches per frame of the path each kernel is on (the scan path of

@@ -7,6 +7,7 @@ import json
 import time
 
 import numpy as np
+import torch
 import pytest
 
 from websplat_tpu.models import animation as janim
@@ -229,6 +230,15 @@ def test_stage_stopwatch_cpu():
     m = sw.take_measurements()
     assert m["a"] >= 0.01 and "b" in m
     assert sw.take_measurements() == {}
+
+
+def test_stage_stopwatch_defaults_to_the_card():
+    """With no device named the stopwatch times on the card: without CUDA
+    it raises instead of timing on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal is for CPU-only hosts")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StageStopwatch()
 
 
 def test_frame_clock_ema():

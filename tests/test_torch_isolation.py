@@ -23,6 +23,10 @@ MODULES = [
     "websplat_tpu_torch.utils.stopwatch",
     "websplat_tpu_torch.utils.roofline",
     "websplat_tpu_torch.parallel.multiview",
+    "websplat_tpu_torch.parallel.group",
+    "websplat_tpu_torch.parallel.sharded",
+    "websplat_tpu_torch.parallel.dryrun",
+    "websplat_tpu_torch.native",
     "websplat_tpu_torch.apps.common",
     "websplat_tpu_torch.apps.render",
     "websplat_tpu_torch.apps.measure",
@@ -49,7 +53,8 @@ def test_imports_without_jax_and_renders():
     every module imports, a small frame renders on the CPU (also with
     overflow off), and so does an npz written by the port's dumps_npz,
     loaded resident (through the culled decompression) and decoded; the
-    render app renders a dataset on the CPU."""
+    render app renders a dataset on the CPU; a PLY decodes natively; a
+    splat-sharded frame renders through the loopback exchange at D = 2."""
     code = textwrap.dedent(f"""
         import sys
         for blocked in ("jax", "jaxlib", "websplat_tpu"):
@@ -63,7 +68,7 @@ def test_imports_without_jax_and_renders():
         r = GaussianRenderer(make_cloud(np.random.default_rng(0), n=50), device="cpu")
         img = r.render(make_camera(viewport=(64, 64)), (64, 64))
         assert img.shape == (64, 64, 3) and np.isfinite(img).all()
-        from websplat_tpu_torch import RasterConfig, load_gaussian_cloud
+        from websplat_tpu_torch import RasterConfig, SplattingArgs, load_gaussian_cloud
         r = GaussianRenderer(make_cloud(np.random.default_rng(0), n=50),
                              RasterConfig(tile_w=8, tile_h=8, overflow_capacity=0), device="cpu")
         img = r.render(make_camera(viewport=(64, 64)), (64, 64), with_diag=True)
@@ -94,6 +99,28 @@ def test_imports_without_jax_and_renders():
             json.dump(cams, f)
         main([os.path.join(d, "pc.ply"), "--out", os.path.join(d, "out"), "--device", "cpu"])
         assert sorted(os.listdir(os.path.join(d, "out"))) == ["test", "train"]
+        import io
+        from websplat_tpu_torch.io.ply import dumps_ply, read_ply
+        q = rng.normal(size=(30, 4)).astype(np.float32)
+        blob = dumps_ply(rng.normal(size=(30, 3)).astype(np.float32),
+                         rng.normal(size=(30, 4, 3)).astype(np.float32),
+                         rng.normal(size=30).astype(np.float32),
+                         rng.uniform(-4, -2, size=(30, 3)).astype(np.float32), q)
+        a, b = read_ply(io.BytesIO(blob), native=True), read_ply(io.BytesIO(blob), native=False)
+        assert np.array_equal(a["xyz"], b["xyz"]) and a["sh_deg"] == 1
+        from websplat_tpu_torch.config import resolve_settings
+        from websplat_tpu_torch.models.camera import CameraUniforms
+        from websplat_tpu_torch.parallel.sharded import render_splat_sharded_loopback, split_cloud
+        from websplat_tpu_torch.render.renderer import upload_cloud
+        c = make_cloud(np.random.default_rng(0), n=101)
+        cam = make_camera(viewport=(64, 64))
+        cam.fit_near_far(*c.aabb)
+        st = resolve_settings(SplattingArgs(), c)
+        img, stats = render_splat_sharded_loopback(
+            split_cloud(upload_cloud(c, "cpu"), 2), CameraUniforms.from_camera(cam, (64, 64)), st,
+            st.background_color, width=64, height=64,
+            config=RasterConfig(tile_w=16, tile_h=8), region_capacity=1024)
+        assert img.shape == (64, 64, 3) and np.isfinite(img).all() and stats["num_visible"] > 0
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                   or m.startswith("websplat_tpu.") or m == "websplat_tpu"]
         assert all(sys.modules[m] is None for m in loaded), loaded

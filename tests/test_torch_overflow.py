@@ -12,7 +12,8 @@ At the production rank windows (6, 32, 160) the port's plain level 1,
 level 2 and dense grid together are held against the JAX package's XLA
 ``ops/preprocess.py:overflow_emit`` (which divides as the port does): the
 same instance multiset.  That is the spec the kernel is held to on the
-card by chip_smoke.py, at the widths it runs.
+card by chip_smoke.py, at the widths it runs.  The plain walk's order is
+the kernel's: row by row, ranks ascending (test_walk_emits_in_row_order).
 """
 
 from collections import Counter
@@ -143,6 +144,35 @@ def test_walk_capacity_and_giant_capacity_counted():
                                  rank_hi=6, giant_thresh=6, capacity=4096, giant_capacity=128,
                                  width=W, height=H, config=RasterConfig(**c["cfg"]))
     assert capped.stats.tolist() == full.stats.tolist()
+
+
+def test_walk_emits_in_row_order():
+    """The plain walk emits row by row, a row's ranks ascending, and
+    forwards giants in row order: the kernel's order (csrc/overflow.cu),
+    which chip_smoke.py holds equal to it element for element.  Checked
+    against a per-row loop over the same reach test, and the kept prefix
+    past a capacity is the full run's prefix."""
+    c = CASES["reach"]
+    cfg = RasterConfig(**c["cfg"])
+    rows = _rows(c["seed"], 300, cfg, c["sigma"])
+    t = torch.from_numpy(rows.view(np.int32))
+    kw = dict(rank_lo=2, rank_hi=6, giant_thresh=6, giant_capacity=256, width=W, height=H,
+              config=cfg)
+    full = overflow_walk_torch(t, 300, 300, capacity=4096, **kw)
+    total, g_total = full.stats.tolist()
+    u = lambda x: x.numpy().view(np.uint32)
+    keys = u(full.keys)[:total]
+    expect, giants = [], []
+    for i in range(300):  # one row at a time, in order
+        one = overflow_walk_torch(t[:, i:i + 1].contiguous(), 1, 1, capacity=64, **kw)
+        n_i, g_i = one.stats.tolist()
+        expect.extend(u(one.keys)[:n_i].tolist())
+        giants.extend([i] * g_i)
+    assert total > 100 and keys.tolist() == expect
+    np.testing.assert_array_equal(u(full.giants)[:, :g_total], rows[:, giants])
+    head = overflow_walk_torch(t, 300, 300, capacity=total // 3, **kw)
+    np.testing.assert_array_equal(u(head.keys)[:total // 3], keys[:total // 3])
+    np.testing.assert_array_equal(u(head.words)[:, :total // 3], u(full.words)[:, :total // 3])
 
 
 PW, PH = 640, 480  # 20 x 15 tiles

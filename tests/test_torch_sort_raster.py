@@ -1,8 +1,9 @@
 """Sort, tile ranges and the rasterizer: the port against the JAX package.
 
 tile_ranges must be equal on the same sorted keys; the port's sort must
-give the JAX sort's keys and, per key, the same rows (both sorts are
-unstable, so the order of equal keys is not compared).  The plain
+give the JAX sort's keys and, per key, the same rows (the JAX sort is
+unstable, so the order of equal keys is not compared against it).  The
+port's sort is stable: equal keys keep their input order.  The plain
 rasterizer, fed the JAX frame's own sorted stream, must match
 rasterize_pallas (interpret mode) within max abs 5e-3 and mean abs 1e-4:
 the port stops each pixel after the splat that takes its transmittance
@@ -140,3 +141,16 @@ def test_plain_raster_eps_zero_blends_every_splat(jax_stream):
                           torch.from_numpy(jax_stream["ranges"]), BG, width=W, height=H,
                           config=RasterConfig(transmittance_eps=0.0))
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=2e-5)
+
+
+def test_sort_is_stable():
+    """Records with equal keys keep their input (emission) order: many
+    ties, keys >= 2^31 and the 0xFFFFFFFF sentinel among them."""
+    rng = np.random.default_rng(4)
+    m = 5000
+    keys = rng.choice(np.array([0, 7, 1 << 31, 0xFFFFFFF0, 0xFFFFFFFF], np.uint32), m)
+    words = np.stack([np.arange(m, dtype=np.int32)] * 4)
+    sk, sw = sort_instances(torch.from_numpy(keys.view(np.int32)), torch.from_numpy(words))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(sk.numpy(), keys[order].astype(np.int64))
+    np.testing.assert_array_equal(sw.numpy(), words[:, order])

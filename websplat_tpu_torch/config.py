@@ -53,11 +53,9 @@ class RasterConfig:
     tile_slots: int = 6
     # clamped-splat capture ceiling, walk rank ceiling, giant/mega capacity;
     # overflow_grid_capacity 0 or overflow_window_slots <= overflow_slots
-    # turns the window and dense stages off (window off).  A frame with more
-    # clamped splats than the capture capacity (overflow_capacity_for) differs
-    # from the JAX frame: the CUDA frontend captures them in its block-atomic
-    # order, JAX and the plain version in splat order, so which splats keep
-    # their walk ranks (and num_clamped, num_instances) may differ
+    # turns the window and dense stages off (window off).  Past the capture
+    # capacity (overflow_capacity_for) the first clamped splats in splat
+    # order keep their walk ranks, on the card as in JAX
     overflow_capacity: int = 1 << 20
     overflow_slots: int = 32
     overflow_grid_capacity: int = 2048

@@ -10,10 +10,11 @@
 // card: pure memory traffic -- it reads 4 + 4 * n_payload bytes per row and
 // writes the same per kept row -- and, at the sizes it sees, launch latency.
 // Its design: one thread per row, a block scan of the keep flags and one
-// atomicAdd per block (stream.cuh) -- the TPU version's bit-serial monotone
-// shuffle, ALIGN-rounded block offsets and chained DMAs existed only because
-// the TPU has no scatter and no atomics.  The output is an exact prefix (the
-// TPU left up to 127 sentinels per 4096-row block).
+// ordered reservation per block (stream.cuh: tile order by decoupled
+// look-back) -- the TPU version's bit-serial monotone shuffle, ALIGN-rounded
+// block offsets and chained DMAs existed only because the TPU has no scatter
+// and no atomics.  The output is an exact prefix (the TPU left up to 127
+// sentinels per 4096-row block) in input order, as the plain version's.
 //
 // dense_compact_kernel is the main path's form of the same stage: the JAX
 // frame builds the dense (n_tiles x mega capacity) candidate grid in XLA
@@ -26,13 +27,14 @@
 // keeps.  What bounds it: 24 bytes per row read, 20 per kept instance
 // written and one reach test per rank -- under a microsecond at the bench
 // scene, far below one launch, so its time is latency.  Few rows (~52 at
-// the bench views) with many ranks (up to 790 each), so the grid is (row,
-// rank block): a CTA of 256 threads takes 256 ranks of one row, every
-// thread decodes the row from broadcast loads, each warp ballots its kept
-// ranks and the block makes one reservation.  Blocks of rows at or past the
-// device-side row count exit at once, so the count is never read on the
-// host.  The reach test is packing.cuh's, as in the overflow walk, so the
-// kernel stays bit-equal to decoded_reaches.
+// the bench views) with many ranks (up to 790 each), so the tiles are (row,
+// rank block), row-major: a CTA of 256 threads takes 256 ranks of one row,
+// every thread decodes the row from broadcast loads and the block makes one
+// ordered reservation, so the output runs row by row, ranks ascending
+// within a row.  Tiles of rows at or past the device-side row count publish
+// an empty run and exit, so the count is never read on the host.  The reach
+// test is packing.cuh's, as in the overflow walk, so the kernel stays
+// bit-equal to decoded_reaches.
 #include <cstdint>
 
 #include "packing.cuh"
@@ -46,13 +48,12 @@ constexpr int DENSE_BLOCK = 256;
 __global__ void __launch_bounds__(COMPACT_BLOCK)
     compact_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ payload,
                    int n_payload, int64_t m, uint32_t* __restrict__ out_keys,
-                   uint32_t* __restrict__ out_payload, int64_t capacity,
-                   int* __restrict__ counter) {
+                   uint32_t* __restrict__ out_payload, int64_t capacity, OrderedScratch s) {
   __shared__ BlockAppend<COMPACT_BLOCK> append;
-  const int64_t i = (int64_t)blockIdx.x * COMPACT_BLOCK + threadIdx.x;
+  const int64_t i = (int64_t)append.take(s) * COMPACT_BLOCK + threadIdx.x;
   const uint32_t key = i < m ? keys[i] : INVALID_KEY;
   const bool keep = key != INVALID_KEY;
-  const int pos = append.reserve(keep ? 1 : 0, counter);
+  const int pos = append.reserve(keep ? 1 : 0, s);
   if (keep && pos < capacity) {
     out_keys[pos] = key;
     for (int k = 0; k < n_payload; ++k) out_payload[k * capacity + pos] = payload[k * m + i];
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(COMPACT_BLOCK)
 }
 
 struct DenseParams {
-  int rank_lo, tx_tiles, ty_tiles, ts_x, ts_y, depth_bits;
+  int rank_lo, tx_tiles, ty_tiles, ts_x, ts_y, depth_bits, rank_blocks;
   float inv_thr;
   CenterQuant cq;
 };
@@ -69,10 +70,15 @@ struct DenseParams {
 __global__ void __launch_bounds__(DENSE_BLOCK)
     dense_compact_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ n_ptr,
                          int m_cap, DenseParams p, uint32_t* __restrict__ keys,
-                         uint32_t* __restrict__ words, int capacity, int* __restrict__ counter) {
+                         uint32_t* __restrict__ words, int capacity, OrderedScratch s) {
   __shared__ BlockAppend<DENSE_BLOCK> append;
-  const int i = blockIdx.x;
-  if (i >= min(*n_ptr, m_cap)) return;  // block-uniform: no barrier is skipped by part of it
+  const int tile = append.take(s);
+  const int i = tile / p.rank_blocks;
+  const int j0 = p.rank_lo + (tile - i * p.rank_blocks) * DENSE_BLOCK;
+  if (i >= min(*n_ptr, m_cap)) {  // block-uniform: no barrier is skipped by part of it
+    skip_tile(s, tile, 1);
+    return;
+  }
   uint32_t w[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) w[k] = rows[(int64_t)k * m_cap + i];
@@ -81,35 +87,48 @@ __global__ void __launch_bounds__(DENSE_BLOCK)
   const int w_t = (int)((w[0] >> 16) & 0xFFu) - tx0 + 1;
   const int h_t = (int)(w[0] >> 24) - ty0 + 1;
   const int n_rect = (w_t > 0 && h_t > 0) ? w_t * h_t : 0;
-  int j0 = p.rank_lo + (int)blockIdx.y * DENSE_BLOCK;
-  if (j0 >= n_rect) return;  // block-uniform
+  if (j0 >= n_rect) {  // block-uniform
+    skip_tile(s, tile, 1);
+    return;
+  }
 
   const Record r = unpack_record(w[1], w[2], w[3], w[4], p.cq);
   const Reach reach{r.px, r.py, r.ha, r.hb, r.hc, alpha_bound(r.op, p.inv_thr)};
-  const int lane = threadIdx.x & 31;
-  const unsigned lt = (1u << lane) - 1u;
   // the launch covers ranks below n_tiles; only a rect that extends past
-  // the tile grid has more, and the loop keeps those exact
-  for (; j0 < n_rect; j0 += (int)gridDim.y * DENSE_BLOCK) {
-    const int j = j0 + (int)threadIdx.x;
-    bool ok = false;
-    uint32_t key = 0u;
-    if (j < n_rect) {
-      const int dy = j / w_t;
-      const int tx = tx0 + (j - dy * w_t), ty = ty0 + dy;
-      if (tx < p.tx_tiles && ty < p.ty_tiles) {
-        ok = reach.reaches(tx, ty, p.ts_x, p.ts_y);
-        key = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | w[5];
-      }
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, ok);
-    const int warp_pos = append.reserve(lane == 0 ? __popc(mask) : 0, counter);
-    const int pos = __shfl_sync(0xffffffffu, warp_pos, 0) + __popc(mask & lt);
-    if (ok && pos < capacity) {
+  // the tile grid has more, at a stride of the launch's rank blocks: such
+  // a tile counts its ranks first and tests them again when it writes
+  const int stride = p.rank_blocks * DENSE_BLOCK;
+  const bool one_pass = j0 + stride >= n_rect;  // block-uniform
+  auto test = [&](int j, uint32_t& key) {
+    key = 0u;
+    if (j >= n_rect) return false;
+    const int dy = j / w_t;
+    const int tx = tx0 + (j - dy * w_t), ty = ty0 + dy;
+    if (tx >= p.tx_tiles || ty >= p.ty_tiles) return false;
+    key = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | w[5];
+    return reach.reaches(tx, ty, p.ts_x, p.ts_y);
+  };
+  uint32_t key0;
+  const bool ok0 = test(j0 + (int)threadIdx.x, key0);
+  int count = ok0 ? 1 : 0;
+  if (!one_pass) {
+    uint32_t key;
+    for (int j = j0 + stride + (int)threadIdx.x; j < n_rect; j += stride) count += test(j, key);
+  }
+  int pos = append.reserve(count, s);
+  auto put = [&](uint32_t key) {
+    if (pos < capacity) {
       keys[pos] = key;
 #pragma unroll
       for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[1 + k];
     }
+    ++pos;
+  };
+  if (ok0) put(key0);
+  if (!one_pass) {
+    uint32_t key;
+    for (int j = j0 + stride + (int)threadIdx.x; j < n_rect; j += stride)
+      if (test(j, key)) put(key);
   }
 }
 
@@ -118,14 +137,18 @@ __global__ void __launch_bounds__(DENSE_BLOCK)
 extern "C" {
 
 // payload: (n_payload, m) rows; out_payload: (n_payload, capacity) rows;
-// counter: one int, zeroed by the caller, ends at the number of kept rows
+// scratch: scratch_words u64 (stream.cuh), zeroed here; its first int ends
+// at the number of kept rows
 int ws_compact(const uint32_t* keys, const uint32_t* payload, int n_payload, int64_t m,
-               uint32_t* out_keys, uint32_t* out_payload, int64_t capacity, int* counter,
-               void* stream) {
+               uint32_t* out_keys, uint32_t* out_payload, int64_t capacity, void* scratch,
+               int64_t scratch_words, void* stream) {
+  const int64_t tiles = (m + ws::COMPACT_BLOCK - 1) / ws::COMPACT_BLOCK;
+  const int err = ws::clear_scratch(scratch, scratch_words, 1, tiles, (cudaStream_t)stream);
+  if (err != 0) return err;
   if (m > 0) {
-    const int64_t grid = (m + ws::COMPACT_BLOCK - 1) / ws::COMPACT_BLOCK;
-    ws::compact_kernel<<<(unsigned)grid, ws::COMPACT_BLOCK, 0, (cudaStream_t)stream>>>(
-        keys, payload, n_payload, m, out_keys, out_payload, capacity, counter);
+    ws::compact_kernel<<<(unsigned)tiles, ws::COMPACT_BLOCK, 0, (cudaStream_t)stream>>>(
+        keys, payload, n_payload, m, out_keys, out_payload, capacity,
+        ws::ordered_scratch(scratch, tiles));
   }
   return (int)cudaGetLastError();
 }
@@ -133,19 +156,22 @@ int ws_compact(const uint32_t* keys, const uint32_t* payload, int n_payload, int
 // rows: (6, m_cap) mega rows, the first min(*n_ptr, m_cap) valid;
 // icfg: rank_lo, tx_tiles, ty_tiles, tile_w, tile_h, depth_bits;
 // fcfg: f32(1/alpha_threshold) (0 when off), margin, scale_x, scale_y;
-// keys: capacity u32, words: (4, capacity) u32; counter: one int, zeroed
-// by the caller
+// keys: capacity u32, words: (4, capacity) u32; scratch: scratch_words u64
+// (stream.cuh; m_cap * max(ceil((tx_tiles * ty_tiles - rank_lo) / 256), 1)
+// tiles), zeroed here; its first int ends at the number of kept instances
 int ws_dense_compact(const uint32_t* rows, const int* n_ptr, int m_cap,
                      const int* icfg, const float* fcfg, uint32_t* keys, uint32_t* words,
-                     int capacity, int* counter, void* stream) {
-  ws::DenseParams p{icfg[0], icfg[1], icfg[2], icfg[3], icfg[4], icfg[5],
+                     int capacity, void* scratch, int64_t scratch_words, void* stream) {
+  const int span = icfg[1] * icfg[2] - icfg[0];
+  const int rank_blocks = span > 0 ? (span + ws::DENSE_BLOCK - 1) / ws::DENSE_BLOCK : 1;
+  ws::DenseParams p{icfg[0], icfg[1], icfg[2], icfg[3], icfg[4], icfg[5], rank_blocks,
                     fcfg[0], ws::CenterQuant{fcfg[1], fcfg[2], fcfg[3]}};
+  const int64_t tiles = (int64_t)m_cap * rank_blocks;
+  const int err = ws::clear_scratch(scratch, scratch_words, 1, tiles, (cudaStream_t)stream);
+  if (err != 0) return err;
   if (m_cap > 0) {
-    const int span = p.tx_tiles * p.ty_tiles - p.rank_lo;
-    const int rank_blocks = span > 0 ? (span + ws::DENSE_BLOCK - 1) / ws::DENSE_BLOCK : 1;
-    const dim3 grid((unsigned)m_cap, (unsigned)rank_blocks);
-    ws::dense_compact_kernel<<<grid, ws::DENSE_BLOCK, 0, (cudaStream_t)stream>>>(
-        rows, n_ptr, m_cap, p, keys, words, capacity, counter);
+    ws::dense_compact_kernel<<<(unsigned)tiles, ws::DENSE_BLOCK, 0, (cudaStream_t)stream>>>(
+        rows, n_ptr, m_cap, p, keys, words, capacity, ws::ordered_scratch(scratch, tiles));
   }
   return (int)cudaGetLastError();
 }

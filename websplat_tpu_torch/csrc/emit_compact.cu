@@ -18,7 +18,10 @@
 //   CTAs per SM then overlap one another's load -> reserve -> store chains;
 // - the depth and record words are loaded before the reservation,
 //   predicated on a non-zero mask, so their latency overlaps the scan;
-// - one block scan and one atomicAdd reserve the block's rows (stream.cuh);
+// - one block scan and one ordered reservation (stream.cuh: tile order by
+//   decoupled look-back) place the block's rows, so the stream's order is
+//   the same on every run: tile by tile, within a tile thread t's splats
+//   t, t + 256 in turn, each splat's set slots ascending;
 // - each thread writes its instances into shared memory at their place in
 //   the block's run, and after one barrier the block writes the run with
 //   consecutive threads on consecutive rows, one plane at a time.  Rows of
@@ -27,7 +30,7 @@
 // The output is an exact prefix; the TPU kernel's per-(step, slot) unit
 // offsets, rounded up to 1024 for its DMAs, and its ordered-overlap output
 // protocol existed because the TPU has no scatter and no atomics.  The
-// cursor ends at the true count even past the capacity; rows past it are
+// counter ends at the true count even past the capacity; rows past it are
 // not written.
 #include <cstdint>
 
@@ -47,10 +50,10 @@ __global__ void __launch_bounds__(EMIT_BLOCK)
                         const uint32_t* __restrict__ words, int64_t n, int slots, int tx_tiles,
                         int depth_bits, uint32_t* __restrict__ keys,
                         uint32_t* __restrict__ out_words, int64_t capacity,
-                        int* __restrict__ counter) {
+                        OrderedScratch s) {
   __shared__ BlockAppend<EMIT_BLOCK> append;
   __shared__ uint32_t stage[5][EMIT_STAGE];
-  const int64_t i0 = (int64_t)blockIdx.x * EMIT_SPLATS + threadIdx.x;
+  const int64_t i0 = (int64_t)append.take(s) * EMIT_SPLATS + threadIdx.x;
   const uint32_t slot_mask = (1u << slots) - 1u;
   uint32_t r[EMIT_PER_THREAD], dq[EMIT_PER_THREAD], w[EMIT_PER_THREAD][4];
 #pragma unroll
@@ -74,7 +77,7 @@ __global__ void __launch_bounds__(EMIT_BLOCK)
     }
   }
 
-  int local = append.reserve(count, counter) - append.base;
+  int local = append.reserve(count, s) - append.base;
   const int64_t base = append.base;
   const int total = append.total;
 #pragma unroll
@@ -120,17 +123,21 @@ __global__ void __launch_bounds__(EMIT_BLOCK)
 extern "C" {
 
 // depth_q, rect: n u32; words: (4, n) u32; keys: capacity u32 and
-// out_words: (4, capacity) u32, pre-filled by the caller; counter: one int,
-// zeroed by the caller, ends at the number of valid instances
+// out_words: (4, capacity) u32, pre-filled by the caller; scratch:
+// scratch_words u64 (stream.cuh; ceil(n / 512) tiles), zeroed here; its
+// first int ends at the number of valid instances
 int ws_emit_compact(const uint32_t* depth_q, const uint32_t* rect, const uint32_t* words,
                     int64_t n, int slots, int tx_tiles, int depth_bits, uint32_t* keys,
-                    uint32_t* out_words, int64_t capacity, int* counter, void* stream) {
+                    uint32_t* out_words, int64_t capacity, void* scratch, int64_t scratch_words,
+                    void* stream) {
   if (slots < 1 || slots > 8) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (n + ws::EMIT_SPLATS - 1) / ws::EMIT_SPLATS;
+  const int err = ws::clear_scratch(scratch, scratch_words, 1, tiles, (cudaStream_t)stream);
+  if (err != 0) return err;
   if (n > 0) {
-    const int64_t grid = (n + ws::EMIT_SPLATS - 1) / ws::EMIT_SPLATS;
-    ws::emit_compact_kernel<<<(unsigned)grid, ws::EMIT_BLOCK, 0, (cudaStream_t)stream>>>(
+    ws::emit_compact_kernel<<<(unsigned)tiles, ws::EMIT_BLOCK, 0, (cudaStream_t)stream>>>(
         depth_q, rect, words, n, slots, tx_tiles, depth_bits, keys, out_words, capacity,
-        counter);
+        ws::ordered_scratch(scratch, tiles));
   }
   return (int)cudaGetLastError();
 }

@@ -33,9 +33,14 @@
 //    while the SH copies fly, and only a splat that writes a row evaluates
 //    SH and packs its record (core_math.cuh:pack_splat), from shared memory;
 //  - ONE block scan over each thread's packed (instances, clamped, visible)
-//    counts and at most three atomics per block reserve the block's runs of
-//    the exact-prefix outputs (the TPU's sequential SMEM cursor and
-//    ordered-overlap DMA protocol have no counterpart here).
+//    counts; the block's runs of the two exact-prefix outputs are reserved
+//    in tile order (stream.cuh: a ticket and a decoupled look-back, one warp
+//    per stream over a u64 status word per stream and tile, since the
+//    packed scan word has only 13 to 32 bits per field).  So the clamped
+//    rows come out in splat order, as in the TPU kernel's sequential cursor
+//    and the plain version, and a capture past its capacity keeps the same
+//    splats; the instances come out tile by tile, a splat's slots in walk
+//    order.  The visible count needs no order: one atomicAdd.
 // The walk keeps each splat's reached slots as a bit mask: 32 bits and a
 // 32-bit scan word up to 16 slots (Walk<false>); 64 bits and a 64-bit scan
 // word above (Walk<true>), where ranks >= 64 of the row-major walk (overflow
@@ -46,6 +51,7 @@
 
 #include "core_math.cuh"
 #include "cp_async.cuh"
+#include "stream.cuh"
 
 namespace ws {
 
@@ -109,15 +115,16 @@ __device__ __forceinline__ bool slot_tile(const Shape& s, int j, int slots, int&
   return j < s.n_rect;
 }
 
-// stats: [0] instances emitted (may exceed capacity), [1] visible splats,
-// [2] clamped splats (visible, n_rect > slots; may exceed capacity_c)
+// scratch.counters: [0] instances emitted (may exceed capacity), [1] visible
+// splats, [2] clamped splats (visible, n_rect > slots; may exceed
+// capacity_c); status streams: 0 instances, 1 clamped rows
 template <bool WIDE, bool CENTER_OUT>
 __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
     frontend_kernel(const float* __restrict__ xyz, const float* __restrict__ cov,
                     const float* __restrict__ opacity, const uint32_t* __restrict__ sh, int n,
                     FrameParams p, uint32_t* __restrict__ keys, uint32_t* __restrict__ words,
                     int capacity, uint32_t* __restrict__ cid, int capacity_c,
-                    int* __restrict__ stats) {
+                    OrderedScratch scratch) {
   using W = Walk<WIDE>;
   using Mask = typename W::Mask;
   using Count = typename W::Count;
@@ -126,8 +133,9 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
   constexpr Count FIELD_MASK = ((Count)1 << (W::VIS_SHIFT - W::CLAMP_SHIFT)) - 1;
   __shared__ uint32_t s_sh[SH_WORDS][FRONT_BLOCK];  // word k of thread t at [k][t]
   __shared__ typename Scan::TempStorage scan;
-  __shared__ int s_base[2];
-  const int i = blockIdx.x * FRONT_BLOCK + threadIdx.x;
+  __shared__ int s_base[2], s_tile;
+  const int tile = take_tile(scratch.ticket, &s_tile);
+  const int i = tile * FRONT_BLOCK + threadIdx.x;
 
   float x_w = 0.0f, y_w = 0.0f, z_w = 0.0f;
   Shape s;
@@ -174,13 +182,20 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
                       ((Count)(s.visible ? 1 : 0) << W::VIS_SHIFT);
   Count excl, total;
   Scan(scan).ExclusiveSum(count, excl, total);
-  if (threadIdx.x == 0) {
-    const int b_inst = (int)(total & INST_MASK);
-    const int b_clamped = (int)((total >> W::CLAMP_SHIFT) & FIELD_MASK);
-    const int b_visible = (int)(total >> W::VIS_SHIFT);
-    s_base[0] = b_inst > 0 ? atomicAdd(&stats[0], b_inst) : 0;
-    s_base[1] = b_clamped > 0 ? atomicAdd(&stats[2], b_clamped) : 0;
-    if (b_visible > 0) atomicAdd(&stats[1], b_visible);
+  const int b_inst = (int)(total & INST_MASK);
+  const int b_clamped = (int)((total >> W::CLAMP_SHIFT) & FIELD_MASK);
+  if (threadIdx.x < 32) {  // warp 0: the instances
+    const long long b = lookback(scratch.stream(0), tile, (unsigned long long)b_inst);
+    if (threadIdx.x == 0) {
+      s_base[0] = (int)b;
+      const int b_visible = (int)(total >> W::VIS_SHIFT);
+      if (b_inst > 0) atomicAdd(&scratch.counters[0], b_inst);
+      if (b_visible > 0) atomicAdd(&scratch.counters[1], b_visible);
+      if (b_clamped > 0) atomicAdd(&scratch.counters[2], b_clamped);
+    }
+  } else if (!CENTER_OUT && threadIdx.x < 64) {  // warp 1: the clamped rows
+    const long long b = lookback(scratch.stream(1), tile, (unsigned long long)b_clamped);
+    if (threadIdx.x == 32) s_base[1] = (int)b;
   }
   __syncthreads();
   cp_async_wait_all();  // this thread's SH words (it reads no other thread's)
@@ -232,9 +247,9 @@ template <bool WIDE, bool CENTER_OUT>
 void launch_frontend(int grid, cudaStream_t stream, const float* xyz, const float* cov,
                      const float* opacity, const uint32_t* sh, int n, const FrameParams& p,
                      uint32_t* keys, uint32_t* words, int capacity, uint32_t* cid,
-                     int capacity_c, int* stats) {
+                     int capacity_c, const OrderedScratch& scratch) {
   frontend_kernel<WIDE, CENTER_OUT><<<grid, FRONT_BLOCK, 0, stream>>>(
-      xyz, cov, opacity, sh, n, p, keys, words, capacity, cid, capacity_c, stats);
+      xyz, cov, opacity, sh, n, p, keys, words, capacity, cid, capacity_c, scratch);
 }
 
 }  // namespace ws
@@ -247,10 +262,13 @@ const char* ws_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 //      compressed (0 / 1), center_out (0 / 1: overflow off, slots <= 64)
 // fcfg: alpha_threshold, f32(1/alpha_threshold) (0 when off), margin,
 //       scale_x, scale_y
+// scratch: scratch_words u64 (stream.cuh: 2 streams, ceil(n / 256) tiles),
+// zeroed here; its first three ints end at the stats [instances emitted,
+// visible, clamped]
 int ws_frontend(const float* xyz, const float* cov, const float* opacity, const uint32_t* sh,
                 int n, const float* scal_host, const int* cfg, const float* fcfg,
                 uint32_t* keys, uint32_t* words, int capacity, uint32_t* cid,
-                int capacity_c, int* stats, void* stream) {
+                int capacity_c, void* scratch, int64_t scratch_words, void* stream) {
   ws::FrameParams p;
   ws::frame_params_from_block(scal_host, p);
   p.width = cfg[0];
@@ -267,14 +285,16 @@ int ws_frontend(const float* xyz, const float* cov, const float* opacity, const 
   p.cq = ws::CenterQuant{fcfg[2], fcfg[3], fcfg[4]};
   const bool wide = p.slots > ws::NARROW_SLOTS, center_out = cfg[9] != 0;
   if (center_out && p.slots > ws::MAX_SLOT_SEQ) return (int)cudaErrorInvalidValue;
+  const int grid = (n + ws::FRONT_BLOCK - 1) / ws::FRONT_BLOCK;
+  const int err = ws::clear_scratch(scratch, scratch_words, 2, grid, (cudaStream_t)stream);
+  if (err != 0) return err;
   if (n > 0) {
-    const int grid = (n + ws::FRONT_BLOCK - 1) / ws::FRONT_BLOCK;
     auto launch = wide ? (center_out ? ws::launch_frontend<true, true>
                                      : ws::launch_frontend<true, false>)
                        : (center_out ? ws::launch_frontend<false, true>
                                      : ws::launch_frontend<false, false>);
     launch(grid, (cudaStream_t)stream, xyz, cov, opacity, sh, n, p, keys, words, capacity, cid,
-           capacity_c, stats);
+           capacity_c, ws::ordered_scratch(scratch, grid));
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,10 @@
 """Binary PLY loader for INRIA 3DGS ``point_cloud.ply`` files.
 
-Counterpart of ``websplat_tpu/io/ply.py`` on its NumPy decode path (the
-JAX package's optional C++ decoder is not carried over).  Vectorized NumPy
+Counterpart of ``websplat_tpu/io/ply.py``.  The standard INRIA layout
+(binary, every property a 4-byte float, the fields the decoder needs in
+their usual runs) goes through the native C++ decoder (``native/``, built
+at first use); any other layout takes the NumPy path, as in the JAX
+package: a format rule, not a fallback.  The NumPy path is a vectorized
 re-implementation of the reference's per-point parse loop
 (web-splat src/io/ply.rs:50-100): positions f32, normals skipped, SH DC
 then channel-first rest coefficients transposed to coefficient-major, opacity
@@ -87,6 +90,39 @@ def parse_header(f: BinaryIO) -> PlyHeader:
             return h
 
 
+def native_layout(props: List[Tuple[str, str]], num_sh_coefs: int, big_endian: bool):
+    """The native decoder's Layout for a binary vertex element, or None
+    where the decoder cannot read it: a property that is not a 4-byte
+    float, or a field it needs missing or out of its run (x y z, f_dc_0..2,
+    scale_0..2, rot_0..3, f_rest_0.. when there are rest coefficients) --
+    the JAX package's rule (websplat_tpu/io/ply.py:88-105), with the runs
+    checked."""
+    from websplat_tpu_torch.native import Layout
+
+    if any(t not in ("float", "float32") for _, t in props):
+        return None
+    names = [name for name, _ in props]
+    rest = num_sh_coefs - 1
+    runs = {"x": ("x", "y", "z"), "f_dc_0": tuple(f"f_dc_{j}" for j in range(3)),
+            "opacity": ("opacity",), "scale_0": tuple(f"scale_{j}" for j in range(3)),
+            "rot_0": tuple(f"rot_{j}" for j in range(4))}
+    if rest > 0:
+        runs["f_rest_0"] = tuple(f"f_rest_{j}" for j in range(3 * rest))
+    off = {}
+    for first, run in runs.items():
+        if first not in names:
+            return None
+        off[first] = names.index(first)
+        if tuple(names[off[first]:off[first] + len(run)]) != run:
+            return None
+    return Layout(
+        stride_f32=len(names), off_pos=off["x"], off_dc=off["f_dc_0"],
+        off_rest=off.get("f_rest_0", off["f_dc_0"] + 3),  # unused without rest
+        off_opacity=off["opacity"], off_scale=off["scale_0"], off_rot=off["rot_0"],
+        n_coefs=num_sh_coefs, big_endian=int(big_endian),
+    )
+
+
 def _comment_value(comments: List[str], key: str) -> Optional[str]:
     # Reference matches by substring containment and splits on the last '='
     # (web-splat src/io/ply.rs:123-138).
@@ -96,9 +132,37 @@ def _comment_value(comments: List[str], key: str) -> Optional[str]:
     return None
 
 
-def read_ply(f: BinaryIO) -> Dict:
+def read_ply(f: BinaryIO, native: Optional[bool] = None) -> Dict:
+    """Decode a PLY Gaussian cloud into the loader's fields.  ``native``:
+    None (the default) decodes the standard INRIA layout natively and any
+    other layout with NumPy; False always with NumPy; True natively, raising
+    where the layout cannot use the decoder.  The native decoder's build
+    or load failing raises."""
     header = parse_header(f)
     num_points, props = header.vertex
+    num_sh_coefs = sum(1 for name, _ in props if name.startswith("f_")) // 3
+    sh_deg = sh_deg_from_num_coefs(num_sh_coefs)
+    if sh_deg is None:
+        raise ValueError(f"invalid number of sh coefficients: {num_sh_coefs * 3}")
+    mip = _comment_value(header.comments, "mip")
+    kernel = _comment_value(header.comments, "kernel_size")
+    bg = _comment_value(header.comments, "background_color")
+    meta = dict(
+        sh_deg=int(sh_deg),
+        num_points=int(num_points),
+        mip_splatting=(mip.strip().lower() == "true") if mip is not None else None,
+        kernel_size=float(kernel) if kernel is not None else None,
+        background_color=(
+            tuple(float(v) for v in bg.split(",")[:3]) if bg is not None else None
+        ),
+        compressed=False,
+    )
+    layout = None
+    if header.encoding != "ascii" and native is not False:
+        layout = native_layout(props, num_sh_coefs, header.encoding != "binary_little_endian")
+    if native and layout is None:
+        raise ValueError(f"native=True: the native PLY decoder cannot read this layout "
+                         f"({header.encoding}, properties {[t for _, t in props]})")
     if header.encoding == "ascii":
         # The reference todo!()s ASCII (web-splat src/io/ply.rs:169);
         # supported here as a superset: whitespace-separated rows in header
@@ -116,12 +180,12 @@ def read_ply(f: BinaryIO) -> Dict:
         raw = f.read(dtype.itemsize * num_points)
         if len(raw) < dtype.itemsize * num_points:
             raise ValueError("ply file truncated")
-        data = np.frombuffer(raw, dtype=dtype, count=num_points)
+        if layout is not None:
+            from websplat_tpu_torch.native import decode_ply
 
-    num_sh_coefs = sum(1 for name, _ in props if name.startswith("f_")) // 3
-    sh_deg = sh_deg_from_num_coefs(num_sh_coefs)
-    if sh_deg is None:
-        raise ValueError(f"invalid number of sh coefficients: {num_sh_coefs * 3}")
+            xyz, opacity16, cov16, sh16 = decode_ply(raw, layout, num_points)
+            return dict(xyz=xyz, opacity=opacity16, cov=cov16, sh=sh16, **meta)
+        data = np.frombuffer(raw, dtype=dtype, count=num_points)
 
     xyz = np.stack([data["x"], data["y"], data["z"]], axis=1).astype(np.float32)
 
@@ -142,24 +206,12 @@ def read_ply(f: BinaryIO) -> Dict:
     rot = np.stack([data[f"rot_{i}"] for i in range(4)], axis=1).astype(np.float32)
     rot = rot / np.linalg.norm(rot, axis=1, keepdims=True)
     cov = build_cov(rot, scale)
-
-    mip = _comment_value(header.comments, "mip")
-    kernel = _comment_value(header.comments, "kernel_size")
-    bg = _comment_value(header.comments, "background_color")
-
     return dict(
         xyz=xyz,
         opacity=opacity.astype(np.float16),
         cov=cov.astype(np.float16),
         sh=sh.astype(np.float16),
-        sh_deg=int(sh_deg),
-        num_points=int(num_points),
-        mip_splatting=(mip.strip().lower() == "true") if mip is not None else None,
-        kernel_size=float(kernel) if kernel is not None else None,
-        background_color=(
-            tuple(float(v) for v in bg.split(",")[:3]) if bg is not None else None
-        ),
-        compressed=False,
+        **meta,
     )
 
 

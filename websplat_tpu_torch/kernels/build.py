@@ -17,6 +17,12 @@ performance decision.
 Each wrapper counts its launches in ``LAUNCHES`` (one per launch of its
 kernel, nowhere else), so a caller can show which kernels a run went
 through.
+
+The stream kernels append in tile order (``csrc/stream.cuh``): each takes a
+scratch buffer from its wrapper (``ordered_scratch``) that holds its
+counters, a ticket and one status word per stream and tile; the C entry
+point zeroes it on the launch's stream, and the wrapper returns the
+counters as views of it.
 """
 
 from __future__ import annotations
@@ -51,11 +57,12 @@ _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_floa
 _SIGNATURES = {
     "ws_rasterize": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
     "ws_rasterize_mxu": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
-    "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _vp],
-    "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _vp],
-    "ws_dense_compact": [_vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp],
-    "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp],
-    "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _vp],
+    "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _i64, _vp],
+    "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _i64, _vp],
+    "ws_dense_compact": [_vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i64, _vp],
+    "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _i64,
+                    _vp],
+    "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _i64, _vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -173,6 +180,29 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = lib().ws_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# u64 words before the status words: 4 int32 counters, the ticket
+# (csrc/stream.cuh:SCRATCH_HEAD_WORDS)
+SCRATCH_HEAD_WORDS = 3
+
+
+def ordered_scratch(streams: int, tiles: int, device):
+    """An uninitialised scratch buffer (int64 words) for a kernel that
+    appends ``streams`` ordered streams over ``tiles`` tiles; the C entry
+    point zeroes it.  ``scratch_counters(buf, k)`` views its first k int32
+    counters."""
+    import torch
+
+    return torch.empty((SCRATCH_HEAD_WORDS + streams * max(tiles, 0),), dtype=torch.int64,
+                       device=device)
+
+
+def scratch_counters(buf, k: int):
+    """The first k int32 counters of an ordered scratch buffer (a view)."""
+    import torch
+
+    return buf[:2].view(torch.int32)[:k]
 
 
 def stream_ptr(device) -> int:

@@ -4,9 +4,9 @@ Counterpart of ``websplat_tpu/ops/compact_pallas.py:compact_instances``.
 ``compact_torch`` is the plain version (boolean-mask compaction);
 ``compact_instances`` launches ``csrc/compact.cu:compact_kernel`` for
 streams on the card.  Unlike the TPU kernel, which leaves up to 127
-sentinels per 4096-row block, both return an EXACT prefix: rows
-``[0, min(count, capacity))`` are the valid rows, the rest undefined (the
-plain version fills sentinels/zeros).
+sentinels per 4096-row block, both return an EXACT prefix in input order:
+rows ``[0, min(count, capacity))`` are the valid rows, the rest undefined
+(the plain version fills sentinels/zeros).
 
 ``dense_compact`` is the main path's extreme-tail stage: exactly
 ``compact_instances(*dense_grid_emit(mega_words, n_mega), capacity=...)``,
@@ -14,7 +14,9 @@ the JAX frame's composition (renderer.py:510-522), in one kernel
 (``csrc/compact.cu:dense_compact_kernel``) that appends only the instances
 it keeps, so the dense grid never exists on the card.
 ``dense_compact_torch`` is its plain version: the grid, then
-``compact_torch``.
+``compact_torch``.  The kernel's rows run mega row by mega row (ranks
+ascending), the plain version's tile by tile: equal as multisets, and each
+the same on every run.
 
 Each returns (keys (capacity,), payload (P, capacity), count): int32
 tensors, ``count`` a 0-d int32 tensor on the stream's device holding the
@@ -36,6 +38,8 @@ from websplat_tpu_torch.ops.packing import INVALID_KEY, u32
 from websplat_tpu_torch.ops.preprocess import dense_grid_emit
 
 MAX_PAYLOAD = 5  # the JAX compactor's limit (compact_pallas.py:181)
+COMPACT_BLOCK = 256  # rows per tile (csrc/compact.cu)
+DENSE_BLOCK = 256  # ranks per tile of a mega row (csrc/compact.cu)
 
 
 def _check(keys, payload):
@@ -78,15 +82,16 @@ def compact_instances(keys: torch.Tensor, payload: torch.Tensor, *, capacity: in
         raise ValueError("capacity must be >= 1")
     out_keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
     out_payload = torch.empty((payload.shape[0], capacity), dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
+    scratch = build.ordered_scratch(1, -(-m // COMPACT_BLOCK), dev)
     err = build.lib().ws_compact(
         keys.data_ptr(), payload.data_ptr(), payload.shape[0], m, out_keys.data_ptr(),
-        out_payload.data_ptr(), capacity, count.data_ptr(), build.stream_ptr(dev),
+        out_payload.data_ptr(), capacity, scratch.data_ptr(), scratch.numel(),
+        build.stream_ptr(dev),
     )
     if m > 0:  # the C entry launches nothing for an empty stream
         build.LAUNCHES["compact"] += 1
     build.check(err, "compact kernel")
-    return out_keys, out_payload, count
+    return out_keys, out_payload, build.scratch_counters(scratch, 1)[0]
 
 
 def dense_compact_torch(mega_words: torch.Tensor, n_mega: Union[int, torch.Tensor], *,
@@ -128,13 +133,15 @@ def dense_compact(mega_words: torch.Tensor, n_mega: Union[int, torch.Tensor], *,
                       np.float32)
     keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
     words = torch.empty((4, capacity), dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
+    span = tx_tiles * ty_tiles - config.overflow_window_slots
+    rank_blocks = -(-span // DENSE_BLOCK) if span > 0 else 1
+    scratch = build.ordered_scratch(1, g2 * rank_blocks, dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     err = build.lib().ws_dense_compact(
         mega_words.data_ptr(), n_mega.data_ptr(), g2, p(icfg), p(fcfg), keys.data_ptr(),
-        words.data_ptr(), capacity, count.data_ptr(), build.stream_ptr(dev),
+        words.data_ptr(), capacity, scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
     )
     if g2 > 0:  # the C entry launches nothing for no rows
         build.LAUNCHES["dense_compact"] += 1
     build.check(err, "dense_compact kernel")
-    return keys, words, count
+    return keys, words, build.scratch_counters(scratch, 1)[0]

@@ -14,8 +14,9 @@ mask (rect == 0, for one) emit nothing.
 Returns ``(keys (capacity,), words (4, capacity), num_valid, num_dropped)``:
 int32 tensors, the counts 0-d on the input's device.  Rows
 ``[0, min(num_valid, capacity))`` are the valid instances (an exact prefix;
-their order is unspecified), the keys after them are 0xFFFFFFFF and the
-words 0.  ``num_dropped = max(0, num_valid - capacity)`` counts real
+the kernel's order is its own, the same on every run, and differs from the
+plain version's slot-major order), the keys after them are 0xFFFFFFFF and
+the words 0.  ``num_dropped = max(0, num_valid - capacity)`` counts real
 instances; the JAX kernel's counts stream positions, its 1024-alignment
 pads included (emit_compact_pallas.py:247-270).
 """
@@ -33,6 +34,8 @@ from websplat_tpu_torch.ops.preprocess import (
     TY0_BITS,
     WT_BITS,
 )
+
+EMIT_SPLATS = 512  # splats per tile (csrc/emit_compact.cu)
 
 
 def _check(depth_q, rect, words, slots, capacity):
@@ -96,12 +99,13 @@ def emit_compact(depth_q: torch.Tensor, rect: torch.Tensor, words: torch.Tensor,
     build.require(words, "words", dtype=torch.int32, device=dev)
     keys = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
     out_words = torch.zeros((4, capacity), dtype=torch.int32, device=dev)
-    num_valid = torch.zeros((), dtype=torch.int32, device=dev)
+    scratch = build.ordered_scratch(1, -(-n // EMIT_SPLATS), dev)
     err = build.lib().ws_emit_compact(
         depth_q.data_ptr(), rect.data_ptr(), words.data_ptr(), n, slots, tx_tiles, depth_bits,
-        keys.data_ptr(), out_words.data_ptr(), capacity, num_valid.data_ptr(),
+        keys.data_ptr(), out_words.data_ptr(), capacity, scratch.data_ptr(), scratch.numel(),
         build.stream_ptr(dev),
     )
+    num_valid = build.scratch_counters(scratch, 1)[0]
     if n > 0:  # the C entry launches nothing for no splats
         build.LAUNCHES["emit_compact"] += 1
     build.check(err, "emit_compact kernel")

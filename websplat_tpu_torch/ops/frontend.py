@@ -27,6 +27,10 @@ Only the prefixes ``[0, min(stats[0], capacity))`` and
 ``[0, min(stats[2], capacity_c))`` are defined: the kernel leaves the rest
 unwritten (the plain version fills it with sentinels and zeros).  Counts
 past a capacity are real counts; the caller reports the excess as dropped.
+The clamped rows run in splat order on both sides (JAX's order), so a
+capture past its capacity keeps the same splats; the instances run in each
+version's own order (the kernel's splat by splat, the plain version's slot
+by slot), the same on every run.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ from websplat_tpu_torch.ops.preprocess import (
     pack_rect4,
     slot_tiles,
 )
+
+FRONT_BLOCK = 256  # splats per tile (csrc/frontend.cu)
+
 
 class FrontendOut(NamedTuple):
     keys: torch.Tensor
@@ -157,15 +164,16 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
     keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
     words = torch.empty((4, capacity), dtype=torch.int32, device=dev)
     cid = torch.empty((6, capacity_c), dtype=torch.int32, device=dev)
-    stats = torch.zeros((3,), dtype=torch.int32, device=dev)
+    scratch = build.ordered_scratch(2, -(-n // FRONT_BLOCK), dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     lib = build.lib()
     err = lib.ws_frontend(
         cloud.xyz.data_ptr(), cloud.cov.data_ptr(), cloud.opacity.data_ptr(),
         cloud.sh.data_ptr(), n, p(scal), p(cfg), p(fcfg),
         keys.data_ptr(), words.data_ptr(), capacity, cid.data_ptr(), capacity_c,
-        stats.data_ptr(), build.stream_ptr(dev),
+        scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
     )
+    stats = build.scratch_counters(scratch, 3)
     if n > 0:  # the C entry launches nothing for an empty cloud
         build.LAUNCHES[launch_name(compressed, capacity_c)] += 1
     build.check(err, "frontend kernel")

@@ -15,7 +15,9 @@ card), so the walk needs no host synchronisation.  Outputs
 (6, giant_capacity) int32, and stats (2,) = [instances emitted, giant rows],
 both true counts that may exceed the capacities.  Only the prefixes are
 defined.  ``giant_capacity=0`` (the window-off frame) counts the giants and
-writes none.
+writes none.  Both versions emit in row order, a row's ranks ascending, and
+forward giants in row order: the kernel's outputs equal the plain
+version's element for element.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
 from websplat_tpu_torch.ops.preprocess import RECT4_MAX_TILES, decoded_reaches, unpack_rect4
+
+WALK_WARPS = 8  # rows per tile (csrc/overflow.cu)
 
 
 class WalkOut(NamedTuple):
@@ -68,7 +72,7 @@ def overflow_walk_torch(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_
     tx = tx0 + (j - dy * w_t)
     ty = ty0 + dy
     ok = (j < n_rect) & reaches(tx, ty)  # (R, n)
-    jj, ii = torch.nonzero(ok, as_tuple=True)
+    ii, jj = torch.nonzero(ok.T, as_tuple=True)  # row order, ranks ascending
     keys_all = ((ty[jj, ii] * tx_tiles + tx[jj, ii]) << depth_bits) | r[5][ii]
     total = keys_all.shape[0]
     k = min(total, capacity)
@@ -123,13 +127,14 @@ def overflow_walk(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: i
     keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
     words = torch.empty((4, capacity), dtype=torch.int32, device=dev)
     giants = torch.empty((6, giant_capacity), dtype=torch.int32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    scratch = build.ordered_scratch(2, -(-n_cap // WALK_WARPS), dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     err = build.lib().ws_overflow_walk(
         rows.data_ptr(), rows.shape[1], n_rows.data_ptr(), n_cap, p(icfg), p(fcfg),
         keys.data_ptr(), words.data_ptr(), capacity, giants.data_ptr(), giant_capacity,
-        stats.data_ptr(), build.stream_ptr(dev),
+        scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
     )
+    stats = build.scratch_counters(scratch, 2)
     if n_cap > 0:  # the C entry launches nothing for no rows
         build.LAUNCHES["overflow_walk"] += 1
     build.check(err, "overflow walk kernel")

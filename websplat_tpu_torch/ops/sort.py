@@ -8,8 +8,10 @@ the whole given stream is sorted.  The u32 key is widened to int64 so that
 keys >= 2^31 (tile ids use bit 31 at the bench viewport) and the
 0xFFFFFFFF sentinel order correctly; the four record words are gathered by
 the permutation (a gather is cheap on the GPU, unlike on the TPU where the
-record had to ride through the sort).  Like the JAX sort it is unstable:
-the order of equal keys is unspecified.
+record had to ride through the sort).  The sort is stable: records with
+equal keys keep their emission order, which every stage makes the same on
+every run (csrc/stream.cuh), so a frame is the same bits on every run, as
+the JAX frame is (its sort is unstable but deterministic).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from websplat_tpu_torch.ops.packing import u32
 def sort_instances(keys: torch.Tensor, words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """keys (M,) int32 u32 patterns, words (4, M) int32 -> (sorted keys as
     int64 u32 values (M,), words (4, M) int32 in key order)."""
-    sorted_keys, perm = torch.sort(u32(keys))
+    sorted_keys, perm = torch.sort(u32(keys), stable=True)
     return sorted_keys, torch.index_select(words, 1, perm)
 
 

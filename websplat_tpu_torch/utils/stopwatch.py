@@ -76,10 +76,14 @@ class StageStopwatch:
 
     On a CUDA device each stage records a start and an end event on the
     current stream and nothing waits until ``take_measurements``
-    synchronises once; on the CPU the stage is timed by the host clock."""
+    synchronises once; on the CPU the stage is timed by the host clock.
+    The device defaults to the card, as every entry point of the package
+    does; "cuda" raises where CUDA is absent."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self._open: Dict[str, object] = {}
         self._done: Dict[str, object] = {}
 

@@ -1,8 +1,11 @@
-"""Comparing instance streams whose row order is unspecified.
+"""Comparing instance streams whose row orders differ between versions.
 
-The stream stages append rows in an order that depends on the device (the
-CUDA kernels' atomics, the plain versions' mask order), so a kernel is held
-against its plain version by comparing row MULTISETS.
+Each stream stage appends rows in its own fixed order: the CUDA kernels in
+tile order (csrc/stream.cuh), the plain versions in their mask order (the
+frontend's instances slot by slot, the packed emission's too), so a
+kernel's instance stream is held against its plain version by comparing
+row MULTISETS.  Where the orders agree (the clamped rows, the overflow
+walk, the general compaction) callers also compare element for element.
 """
 
 from __future__ import annotations
