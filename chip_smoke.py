@@ -11,7 +11,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM
   2 kernels  frontend (also with the compressed eigen clamp, on the
-             compressed bench cloud, and with overflow off: the center-out
+             compressed bench cloud, at 24 slots (its 64-bit-mask
+             row-major walk), and with overflow off: the center-out
              walk at 6 and 64 slots), overflow walk (also level 1 at giant
              capacity 0, as with the window off), the dense stage (grid
              emitted and compacted in one kernel), the general compaction
@@ -26,7 +27,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              count and with its row count at 0; the packed emission also at
              half its row count and on its first 100,003 splats (also with
              every slot set); the wrappers refuse bad arguments.  The
-             frontend's clamped rows, both walk levels' instances and giants
+             frontend's instances and clamped rows (C, C-o at 6 and 64
+             slots, C at 24 slots), both walk levels' instances and giants
              and the culled-stream compaction are held equal to plain
              element for element (the kernels append in tile order).  Per
              kernel: the wrapper's CUDA-event span, the kernel-only time
@@ -37,9 +39,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              function (library_ms); the host ops and device activities of one
              call of the plain dense stage; for the scan rasterizer its span
              distribution and pair counts (ops/rasterize.py:
-             rasterize_work_torch), for the slab one its slab, alpha > 0 pair
-             and live chunk counts (ops/rasterize_mxu.py:
-             rasterize_mxu_work_torch), for the walk each level's time
+             rasterize_work_torch), for the tree one its (group,
+             sub-block) folds and the records present in them, for the
+             slab one its slab, alpha > 0 pair and live chunk counts
+             (ops/rasterize_mxu.py: rasterize_mxu_work_torch), for the
+             frontend past 16 slots its walk in lane steps (one thread per
+             splat against long walks by warp, utils/roofline.py:
+             frontend_walk_lanes), for the walk each level's time
   3 golden   the 500-splat golden scene through the kernels vs
              tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
              rasterizer at two other tile shapes (its other pixel maps) and
@@ -386,12 +392,17 @@ def probe():
 
 def build_kernels():
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops.frontend import LONG_QUEUE, SHORT_WALK
     from websplat_tpu_torch.utils import roofline
 
     t0 = time.perf_counter()
     usage = build.build_report()  # compiles with -Xptxas -v
-    build.lib()
+    lib = build.lib()
     say("build", f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    walk_split = (lib.ws_frontend_short_walk(), lib.ws_frontend_long_queue())
+    if walk_split != (SHORT_WALK, LONG_QUEUE):
+        raise AssertionError(f"csrc/frontend.cu's SHORT_WALK, LONG_QUEUE {walk_split} differ from "
+                             f"ops/frontend.py's {(SHORT_WALK, LONG_QUEUE)}")
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
@@ -494,6 +505,14 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     walk_cap = cfg.overflow_walk_capacity_for(cap_c)
     win_cap = cfg.overflow_window_capacity_for(g_cap)
 
+    def same_stream(k, p_, capacity_):
+        """The kernel's instance stream equals the plain one element for
+        element (both run splat by splat, each splat's slots in walk
+        order), and so do the stats."""
+        m = min(int(k.stats[0]), capacity_)
+        return (k.stats.tolist() == p_.stats.tolist() and torch.equal(k.keys[:m], p_.keys[:m])
+                and torch.equal(k.words[:, :m], p_.words[:, :m]))
+
     def check_rows(name, k_rows, p_rows, extra=""):
         n_diff, err = compare_rows(k_rows, p_rows)
         allowed = int(STREAM_TOL * max(len(p_rows), 1))
@@ -517,11 +536,15 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         check_rows("frontend clamped rows", stream_rows(fk.cid, n=min(clamped, cap_c)),
                    stream_rows(fp.cid, n=min(clamped, cap_c))),
     )
-    # the clamped rows in splat order, as plain (and JAX) capture them
+    # the clamped rows in splat order, as plain (and JAX) capture them, and
+    # the instances splat by splat
     same_cid = torch.equal(fk.cid[:, :min(clamped, cap_c)], fp.cid[:, :min(clamped, cap_c)])
-    say("kernels", f"frontend clamped rows equal to plain element for element: {same_cid}")
-    if not same_cid:
-        raise AssertionError("frontend clamped rows differ from plain in order or value")
+    same_inst = same_stream(fk, fp, capacity)
+    say("kernels", f"frontend clamped rows equal to plain element for element: {same_cid}; "
+                   f"instances: {same_inst}")
+    if not (same_cid and same_inst):
+        raise AssertionError("frontend clamped rows or instances differ from plain in order or "
+                             "value")
     results["frontend"] = dict(
         max_abs_err=err_f, ms=cuda_ms(lambda: front(fused_frontend), 20),
         kernel_ms=kernel_only_ms(lambda: front(fused_frontend), "frontend", 20),
@@ -566,6 +589,38 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         cfs.max_sh_deg, cfs.mip))
     del d, cfk, cfp
 
+    # the 64-bit-mask instantiation's row-major walk (tile_slots > 16,
+    # overflow on): instances, clamped rows and stats element for element
+    wcfg = RasterConfig(tile_slots=24)
+    wgeo = dict(width=W, height=H, config=wcfg)
+    wcap_c = wcfg.overflow_capacity_for(n)
+    wfront = lambda fn: fn(dc, fs, capacity=capacity, capacity_c=wcap_c, **wgeo)
+    wk, wp = wfront(fused_frontend), wfront(frontend_torch)
+    wtotal, wvisible, wclamped = wk.stats.tolist()
+    same_w = same_stream(wk, wp, capacity) and torch.equal(
+        wk.cid[:, :min(wclamped, wcap_c)], wp.cid[:, :min(wclamped, wcap_c)])
+    d = core_math(dc, fs, **wgeo)
+    wtests = roofline.frontend_reach_tests(d["n_rect"], d["visible"], wcfg.tile_slots)
+    lanes = roofline.frontend_walk_lanes(d, wcfg.tile_slots, center_out=False)
+    del d
+    r = dict(max_abs_err=0.0 if same_w else float("inf"), slots=wcfg.tile_slots,
+             ms=cuda_ms(lambda: wfront(fused_frontend), 20),
+             kernel_ms=kernel_only_ms(lambda: wfront(fused_frontend), "frontend", 20),
+             plain_ms=cuda_ms(lambda: wfront(frontend_torch), 3), library_ms=None,
+             reach_tests=wtests, walk_lanes=lanes)
+    with_bound(r, roofline.frontend_work(n, wvisible, wtotal, min(wclamped, wcap_c), wtests,
+                                         fs.max_sh_deg, fs.mip))
+    say("kernels", f"frontend row-major, {wcfg.tile_slots} slots: stats [emitted, visible, "
+                   f"clamped] = {wk.stats.tolist()}, instances and clamped rows equal to plain "
+                   f"element for element: {same_w}; walk in lane steps {lanes}; kernel only "
+                   f"{r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_term']}), "
+                   f"share {r['share']:.3f}, plain {r['plain_ms']:.3f} ms")
+    if not same_w:
+        raise AssertionError(f"frontend ({wcfg.tile_slots} slots): kernel disagrees with its "
+                             "plain version")
+    results["frontend"]["slots24"] = r
+    del wk, wp
+
     # the frontend's overflow-off walk (C-o): clamped splats walk center-out,
     # no rows captured; at the default 6 slots and at the spiral's 64
     co_geo = {}
@@ -580,10 +635,13 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         ototal, ovisible, oclamped = ok_.stats.tolist()
         n_diff, err = compare_rows(stream_rows(ok_.keys, ok_.words, n=ototal),
                                    stream_rows(op_.keys, op_.words, n=ototal))
+        same_o = same_stream(ok_, op_, capacity)
         d = core_math(dc, fs, **co_geo[slots])
         tests = roofline.center_out_reach_tests(d, slots)
+        # past 16 slots the kernel hands its long walks to warps
+        lanes = roofline.frontend_walk_lanes(d, slots, center_out=True) if slots > 16 else None
         del d
-        r = dict(max_abs_err=err, slots=slots,
+        r = dict(max_abs_err=err, slots=slots, walk_lanes=lanes,
                  ms=cuda_ms(lambda: ofront(fused_frontend), 20),
                  kernel_ms=kernel_only_ms(lambda: ofront(fused_frontend), "frontend_center_out",
                                           20),
@@ -592,11 +650,13 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         with_bound(r, roofline.frontend_work(n, ovisible, ototal, 0, tests, fs.max_sh_deg,
                                              fs.mip))
         say("kernels", f"frontend center-out ({slots} slots): {ototal} rows kernel and plain, "
-                       f"{n_diff} differing (allowed 0); stats [emitted, visible, clamped] = "
-                       f"{ok_.stats.tolist()}; {tests} reach tests; kernel only "
+                       f"{n_diff} differing (allowed 0), equal element for element: {same_o}; "
+                       f"stats [emitted, visible, clamped] = {ok_.stats.tolist()}; {tests} reach "
+                       f"tests; walk in lane steps {lanes or 'n/a (one thread per splat)'}; "
+                       f"kernel only "
                        f"{r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                        f"({r['bound_term']}), share {r['share']:.3f}, plain {r['plain_ms']:.3f} ms")
-        if n_diff != 0:
+        if n_diff != 0 or not same_o:
             raise AssertionError(f"frontend center-out ({slots} slots): kernel disagrees with "
                                  "its plain version")
         if slots == 6:
@@ -854,18 +914,27 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     direct_equal = bool(torch.equal(rasterize(sw, ranges, bg, **dict(
         geo, config=RasterConfig(qform="direct"))), rk))
     twork = rasterize_work_torch(sw, ranges, **tgeo)
-    say("kernels", f"rasterize tree: max |kernel - plain| = {err_t:.3g} (allowed {RASTER_TOL}), "
+    tree_equal = bool(torch.equal(tk, tp))
+    say("kernels", f"rasterize tree: max |kernel - plain| = {err_t:.3g} (bit-equal required: "
+                   f"{tree_equal}), "
                    f"mean |tree - scan| {float((tk - rk).abs().mean()):.3g}; pairs_blended "
                    f"{twork['pairs_blended']} (scan {work['pairs_blended']}); qform='direct' "
-                   f"bit-equal to the scan kernel's image: {direct_equal}")
-    if not (torch.isfinite(tk).all() and err_t <= RASTER_TOL and direct_equal):
-        raise AssertionError("rasterize tree disagrees with its plain version, or qform='direct' "
-                             "changed the scan image")
+                   f"bit-equal to the scan kernel's image: {direct_equal}; (group, sub-block) "
+                   f"folds {twork['tree_folds']} holding {twork['sub_evals']} records "
+                   f"({twork['sub_evals'] / max(twork['tree_folds'], 1):.3f} per fold, of 8 "
+                   f"positions): {twork['sub_evals'] - twork['tree_folds']} overs folding only "
+                   f"the present records, against {7 * twork['tree_folds']} over all 8")
+    # the present-only fold keeps the plain fold's association, so the bits
+    # are equal; a reassociated tree would differ by ~1e-5, inside RASTER_TOL
+    if not (torch.isfinite(tk).all() and tree_equal and direct_equal):
+        raise AssertionError("rasterize tree is not bit-equal to its plain version, or "
+                             "qform='direct' changed the scan image")
     results["rasterize_tree"] = dict(
         max_abs_err=err_t, ms=cuda_ms(lambda: rasterize(sw, ranges, bg, **tgeo), 20),
         kernel_ms=kernel_only_ms(lambda: rasterize(sw, ranges, bg, **tgeo), "rasterize_tree", 20),
         plain_ms=tplain_ms, library_ms=None, mean_abs_vs_scan=float((tk - rk).abs().mean()),
-        pairs_blended=twork["pairs_blended"])
+        pairs_blended=twork["pairs_blended"], tree_folds=twork["tree_folds"],
+        tree_fold_records=twork["sub_evals"])
     with_bound(results["rasterize_tree"], roofline.rasterize_work(
         int(twork["tile_stop"].sum()), W, H, tx * ty, twork["pairs_blended"], tree=True))
     del tk, tp

@@ -70,9 +70,12 @@ def _exp32(x: np.ndarray) -> np.ndarray:
 
 
 def _brute_raster_counts(sw, ranges, cfg, tree=False):
-    """(pairs_live, pairs_blended, pairs_in_box, tile_stop) by walking each
-    in-image pixel's span in numpy.  ``tree``: a pixel stays live through
-    the group of 8 absolute stream positions in which it saturates."""
+    """(pairs_live, pairs_blended, pairs_in_box, tile_stop, folds, fold
+    records) by walking each in-image pixel's span in numpy.  ``tree``: a
+    pixel stays live through the group of 8 absolute stream positions in
+    which it saturates, and each (group, sub-block) with a live pixel that
+    some record of the group meets (its box against the sub-block's
+    rectangle) is a fold of the records that meet it."""
     cq = packing.CenterQuant.for_viewport(W, H)
     rec = [v.numpy() for v in packing.unpack_record(*packing.u32(sw), cq)]
     box = [v.numpy() for v in splat_pixel_bounds(*packing.unpack_record(
@@ -81,8 +84,14 @@ def _brute_raster_counts(sw, ranges, cfg, tree=False):
     tw, th = cfg.tile_w, cfg.tile_h
     tx_tiles, _ = cfg.tiles_for(W, H)
     r = ranges.numpy().astype(np.int64)
-    live_n = blended_n = in_box_n = 0
+    live_n = blended_n = in_box_n = folds = fold_records = 0
     stop = np.zeros(len(r) - 1, np.int64)
+    sub_of = subblock_of_pixel(tw, th).numpy().reshape(th, tw)
+    n_sub = int(sub_of.max()) + 1
+    sub_rect = []  # tile-local (x0, x1, y0, y1) of each sub-block
+    for j in range(n_sub):
+        ys_, xs_ = np.nonzero(sub_of == j)
+        sub_rect.append((xs_.min(), xs_.max(), ys_.min(), ys_.max()))
     for t in range(len(r) - 1):
         s0, s1 = r[t], r[t + 1]
         if s1 == s0:
@@ -108,13 +117,25 @@ def _brute_raster_counts(sw, ranges, cfg, tree=False):
         blended_n += int((live & on).sum())
         in_box_n += int((live & inside).sum())
         stop[t] = int(live.sum(axis=1).max())
-    return live_n, blended_n, in_box_n, stop
+        if tree:
+            sub = sub_of[ys.ravel() - y0, xs.ravel() - x0]  # (P,) in-image pixels' sub-blocks
+            group = (s0 + np.arange(s1 - s0)) // 8
+            for j in range(n_sub):
+                if not (sub == j).any():
+                    continue
+                sx0, sx1, sy0, sy1 = sub_rect[j]
+                meets = ((x_hi >= x0 + sx0) & (x_lo <= x0 + sx1) & (y_hi >= y0 + sy0)
+                         & (y_lo <= y0 + sy1))[0]
+                present = live[sub == j].any(axis=0) & meets
+                fold_records += int(present.sum())
+                folds += len(np.unique(group[present]))
+    return live_n, blended_n, in_box_n, stop, folds, fold_records
 
 
 def test_raster_work_matches_per_pixel_walk(scene):
     sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
     work = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
-    live, blended, in_box, stop = _brute_raster_counts(sw, ranges, cfg)
+    live, blended, in_box, stop, _, _ = _brute_raster_counts(sw, ranges, cfg)
     assert work["pairs_live"] == live
     assert work["pairs_blended"] == blended > 50_000
     assert work["pairs_in_box"] == in_box
@@ -134,9 +155,15 @@ def test_tree_raster_work_matches_per_pixel_walk(scene):
     sw, ranges = scene["sw"], scene["ranges"]
     tree_cfg = RasterConfig(composite="tree")
     work = rasterize_work_torch(sw, ranges, width=W, height=H, config=tree_cfg)
-    live, blended, in_box, stop = _brute_raster_counts(sw, ranges, tree_cfg, tree=True)
+    live, blended, in_box, stop, folds, fold_records = _brute_raster_counts(
+        sw, ranges, tree_cfg, tree=True)
     assert (work["pairs_live"], work["pairs_blended"], work["pairs_in_box"]) == (
         live, blended, in_box)
+    # the tree kernel's folds and the records present in them
+    assert (work["tree_folds"], work["sub_evals"]) == (folds, fold_records)
+    assert work["sub_evals"] > work["tree_folds"] > 0
+    assert "tree_folds" not in rasterize_work_torch(sw, ranges, width=W, height=H,
+                                                    config=scene["cfg"])
     assert (work["tile_stop"].numpy() == stop).all()
     scan = rasterize_work_torch(sw, ranges, width=W, height=H, config=scene["cfg"])
     assert scan["pairs_blended"] < blended and (scan["tile_stop"] <= work["tile_stop"]).all()
@@ -253,6 +280,31 @@ def test_center_out_counts(scene, slots):
     assert clamped == n_big and total <= tests
     work = roofline.frontend_work(n, visible, total, 0, tests, fs.max_sh_deg, fs.mip)
     assert work.bytes == 12 * n + 124 * visible + 20 * total
+
+
+@pytest.mark.parametrize("slots,center_out", [(24, False), (64, True)])
+def test_frontend_walk_lanes(scene, slots, center_out):
+    """The wide frontend's walk in lane steps against a splat-by-splat
+    count: one thread per splat against long walks by warp."""
+    from websplat_tpu_torch.ops.frontend import FRONT_BLOCK, LONG_QUEUE, SHORT_WALK
+
+    cfg = RasterConfig(tile_w=16, tile_h=16, tile_slots=slots)
+    d = core_math(scene["dc"], scene["fs"], width=W, height=H, config=cfg)
+    vis, n_rect = d["visible"].numpy(), d["n_rect"].numpy()
+    walk = [0 if not vis[i] else slots if center_out and n_rect[i] > slots
+            else min(int(n_rect[i]), slots) for i in range(len(vis))]
+    walk += [0] * (-len(walk) % FRONT_BLOCK)
+    warps = [walk[k:k + 32] for k in range(0, len(walk), 32)]
+    want = dict(
+        walks=sum(walk), per_thread=sum(32 * max(w) for w in warps),
+        queued=sum(w > SHORT_WALK for w in walk),
+        split=sum(32 * max(v if v <= SHORT_WALK else 0 for v in w) for w in warps)
+        + sum(32 * -(-v // 32) for v in walk if v > SHORT_WALK),
+        over_queue=sum(sum(v > SHORT_WALK for v in walk[k:k + FRONT_BLOCK]) > LONG_QUEUE
+                       for k in range(0, len(walk), FRONT_BLOCK)))
+    got = roofline.frontend_walk_lanes(d, slots, center_out)
+    assert got == want
+    assert got["queued"] > 0 and got["walks"] <= min(got["split"], got["per_thread"])
 
 
 def test_slab_and_compact_counts(scene):

@@ -13,13 +13,23 @@ them in turns: A B B A). Per root, on the bench scene (1,244,819 splats,
     host wall of 5 warm passes, and the span's quartiles; the device busy
     ms per frame and device activities per frame of one profiled pass
     (torch.profiler: the union of the activity intervals);
-  - the frontend's (row-major, main path) kernel-only ms on view 0
-    (torch.profiler, median of 30 launches);
+  - the frontend's kernel-only ms on view 0 (torch.profiler, median of 30
+    launches): row-major (the main path), row-major at 24 slots (its
+    64-bit-mask instantiation) and center-out (overflow off) at 6 and 64
+    slots;
   - the scan and tree rasterizers' kernel-only ms on view 0's sorted
     stream (torch.profiler, median of 30 launches), with each kernel's
     registers and spill bytes (ptxas); "n/a" where the checkout has no
     tree composite.
 Needs CUDA; exits nonzero without it.
+
+    python3 time_checkout.py --sass ROOT_A ROOT_B [SOURCE.cu ...]
+
+compiles each named csrc source (default: all) of both roots with the
+kernel build's flags and -Xptxas -v, prints each kernel's registers,
+spills and static shared memory, and says for each kernel whether its SASS
+(cuobjdump, addresses and label numbers stripped) is the same in both.
+Needs nvcc and cuobjdump, not a card.
 """
 
 from __future__ import annotations
@@ -79,10 +89,16 @@ def time_root(root: str) -> None:
     fs, st = blocks[0]
     n = cloud.num_points
     cap_c = renderer.config.overflow_capacity_for(n)
-    front_ms = cs.kernel_only_ms(lambda: fused_frontend(
-        renderer.device_cloud, fs, capacity=max(4096, 2 * n), capacity_c=cap_c, **geo),
-        "frontend", 30)
-    out.append(f"frontend {front_ms:.4f} ms")
+    fronts = [("frontend", RasterConfig(), cap_c),
+              ("frontend 24 slots", RasterConfig(tile_slots=24),
+               RasterConfig(tile_slots=24).overflow_capacity_for(n)),
+              ("center-out 6 slots", RasterConfig(overflow_capacity=0), 0),
+              ("center-out 64 slots", RasterConfig(tile_slots=64, overflow_capacity=0), 0)]
+    for what, fcfg, fcap_c in fronts:
+        front_ms = cs.kernel_only_ms(lambda: fused_frontend(
+            renderer.device_cloud, fs, capacity=max(4096, 2 * n), capacity_c=fcap_c,
+            **dict(geo, config=fcfg)), "frontend", 30)
+        out.append(f"{what} {front_ms:.4f} ms")
     keys, words, _ = build_instance_stream(renderer.device_cloud, fs, **geo)
     sk, sw = sort_instances(keys, words)
     cfg = renderer.config
@@ -104,7 +120,58 @@ def time_root(root: str) -> None:
     print(f"[time] {root}: " + "; ".join(out), flush=True)
 
 
+def sass_of(root: str, src: str, out_dir: str) -> dict:
+    """{kernel: [SASS instructions]} of csrc/src under root, compiled as
+    kernels/build.py compiles it; prints the ptxas resource lines."""
+    import re
+
+    from websplat_tpu_torch.kernels import build
+
+    csrc = os.path.join(root, "websplat_tpu_torch", "csrc")
+    cubin = os.path.join(out_dir, f"{abs(hash(root))}_{src}.cubin")
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    nvcc = build.nvcc_path()
+    p = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-I", csrc, "-o", cubin,
+                        os.path.join(csrc, src)], capture_output=True, text=True)
+    if p.returncode:
+        raise SystemExit(f"nvcc failed on {root}/{src}:\n{p.stderr}")
+    for line in p.stderr.splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            print(f"[sass] {root} {src}: {line.split(':', 1)[-1].strip()}", flush=True)
+    dump = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        ins = re.sub(r"/\*[0-9a-f]+\*/", "", line).split("/*")[0].strip()  # address, encoding
+        if cur is not None and ins:
+            cur.append(re.sub(r"\.L_x_\d+", ".L", ins))
+    return funcs
+
+
+def compare_sass(a: str, b: str, sources) -> None:
+    import tempfile
+
+    from websplat_tpu_torch.kernels import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sources or build.SOURCES:
+            fa, fb = sass_of(a, src, tmp), sass_of(b, src, tmp)
+            for f in sorted(set(fa) | set(fb)):
+                if f in fa and f in fb:
+                    print(f"[sass] {src} {f}: {len(fa[f])} / {len(fb[f])} instructions, "
+                          f"identical: {fa[f] == fb[f]}", flush=True)
+                else:
+                    print(f"[sass] {src} {f}: only in {a if f in fa else b}", flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) >= 4 and sys.argv[1] == "--sass":
+        compare_sass(os.path.abspath(sys.argv[2]), os.path.abspath(sys.argv[3]), sys.argv[4:])
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--in-process":
         time_root(os.path.abspath(sys.argv[2]))
         return 0

@@ -44,7 +44,10 @@
 // The walk keeps each splat's reached slots as a bit mask: 32 bits and a
 // 32-bit scan word up to 16 slots (Walk<false>); 64 bits and a 64-bit scan
 // word above (Walk<true>), where ranks >= 64 of the row-major walk (overflow
-// on with more than 64 slots) are tested again in the write loop.
+// on with more than 64 slots) are tested again in the write loop.  Above
+// 16 slots a splat whose walk is longer than SHORT_WALK is walked and
+// written by a warp (walk_long, write_long: lanes over candidates); the
+// narrow instantiations walk one thread per splat.
 #include <cstdint>
 
 #include <cub/block/block_scan.cuh>
@@ -97,6 +100,11 @@ struct Walk<true> {  // any slot count: instances in bits 0-31
   __device__ static int popc(Mask m) { return __popcll(m); }
 };
 
+// the spiral class of a clamped splat's rect: square 0, wide 1, tall 2
+__device__ __forceinline__ int spiral_class(const Shape& s) {
+  return s.w_t >= 2 * s.h_t ? 1 : (s.h_t >= 2 * s.w_t ? 2 : 0);
+}
+
 // Candidate j of a splat's slot walk: its tile (tx, ty), and whether it is
 // a candidate (before the reach test).  Row-major: rank j of the rect;
 // center-out, for a clamped splat: SPIRAL offset j from the centre tile,
@@ -104,7 +112,7 @@ struct Walk<true> {  // any slot count: instances in bits 0-31
 template <bool CENTER_OUT>
 __device__ __forceinline__ bool slot_tile(const Shape& s, int j, int slots, int& tx, int& ty) {
   if (CENTER_OUT && s.n_rect > slots) {
-    const int shape = s.w_t >= 2 * s.h_t ? 1 : (s.h_t >= 2 * s.w_t ? 2 : 0);
+    const int shape = spiral_class(s);
     tx = s.ct_x + SPIRAL_DX[shape][j];
     ty = s.ct_y + SPIRAL_DY[shape][j];
     return tx >= s.tx0 && tx <= s.tx1 && ty >= s.ty0 && ty <= s.ty1;
@@ -113,6 +121,162 @@ __device__ __forceinline__ bool slot_tile(const Shape& s, int j, int slots, int&
   tx = s.tx0 + (j - dy * s.w_t);
   ty = s.ty0 + dy;
   return j < s.n_rect;
+}
+
+// --- WIDE only: long walks by warp -----------------------------------------
+// Past NARROW_SLOTS a walk is up to 64 candidates (more, row-major, with
+// more slots), while most splats have 1-4: one thread per splat would hold
+// its warp for the longest lane's walk and write its run alone, scattered.
+// So a splat whose walk is longer than SHORT_WALK is queued in shared
+// memory with what its walk needs; each warp takes queued splats in turn,
+// lane l testing candidate l + 32 r, and the round ballots are its mask
+// (ranks >= 64 are counted, and tested again when written).  After the
+// block's reservation the owner packs the record once and the warp writes
+// the splat's run, lane l at pos + (the reached candidates below l + 32 r):
+// consecutive positions in ascending j, the per-thread order, coalesced.
+// The spiral tables are copied to shared memory, where the lanes of one
+// walk read 32 offsets at once (the constant cache would serialize them).
+// A block queues at most LONG_QUEUE splats; the rest walk per thread.
+// SHORT_WALK 4 ran faster than 8 and 16 on the H100 (PERF.md §6).
+constexpr int SHORT_WALK = 4;
+constexpr int LONG_QUEUE = 128;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+
+struct LongWalks {
+  float reach[6][LONG_QUEUE];           // Reach: px, py, ha, hb, hc, a_max
+  int rect[5][LONG_QUEUE];              // tx0, ty0, tx1, ty1, w_t
+  int centre[2][LONG_QUEUE];            // ct_x, ct_y
+  int shape[LONG_QUEUE];                // spiral class; -1: row-major
+  int j_end[LONG_QUEUE];                // candidates walked
+  uint32_t depth_q[LONG_QUEUE];
+  unsigned long long mask[LONG_QUEUE];  // candidates < 64 reached
+  int more[LONG_QUEUE];                 // ranks >= 64 reached; then the first position
+  uint32_t w[4][LONG_QUEUE];            // the packed record
+  signed char sdx[3 * MAX_SLOT_SEQ], sdy[3 * MAX_SLOT_SEQ];  // SPIRAL_DX / DY
+  int n;                                // splats that asked for a slot
+};
+
+// queued splat e as every lane of a warp reads it (broadcast loads)
+struct Queued {
+  Reach reach;
+  int tx0, ty0, tx1, ty1, w_t, ct_x, ct_y, shape, j_end;
+
+  __device__ __forceinline__ Queued(const LongWalks& q, int e)
+      : reach{q.reach[0][e], q.reach[1][e], q.reach[2][e],
+              q.reach[3][e], q.reach[4][e], q.reach[5][e]},
+        tx0(q.rect[0][e]), ty0(q.rect[1][e]), tx1(q.rect[2][e]), ty1(q.rect[3][e]),
+        w_t(q.rect[4][e]), ct_x(q.centre[0][e]), ct_y(q.centre[1][e]), shape(q.shape[e]),
+        j_end(q.j_end[e]) {}
+
+  // candidate j < j_end: its tile, and whether it is a candidate (slot_tile)
+  __device__ __forceinline__ bool tile(const LongWalks& q, int j, int& tx, int& ty) const {
+    if (shape >= 0) {
+      tx = ct_x + q.sdx[shape * MAX_SLOT_SEQ + j];
+      ty = ct_y + q.sdy[shape * MAX_SLOT_SEQ + j];
+      return tx >= tx0 && tx <= tx1 && ty >= ty0 && ty <= ty1;
+    }
+    const int dy = j / w_t;
+    tx = tx0 + (j - dy * w_t);
+    ty = ty0 + dy;
+    return true;
+  }
+};
+
+// The block's long walks: queues this thread's splat if its walk is long
+// (collective), and returns its queue slot, or -1: it walks itself.
+// *n_q: the number queued.  The warps then walk the queue.
+__device__ __forceinline__ int walk_long(LongWalks& q, const Shape& s, bool spiral,
+                                         const FrameParams& p, int* n_q) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j_end = spiral ? p.slots : min(p.slots, s.n_rect);
+  const bool is_long = s.visible && j_end > SHORT_WALK;
+  const unsigned ask = __ballot_sync(FULL_MASK, is_long);
+  int e = -1;
+  if (ask != 0u) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(&q.n, __popc(ask));
+    base = __shfl_sync(FULL_MASK, base, 0) + __popc(ask & ((1u << lane) - 1u));
+    if (is_long && base < LONG_QUEUE) {
+      e = base;
+      const Reach r = reach_of(s);
+      q.reach[0][e] = r.px;
+      q.reach[1][e] = r.py;
+      q.reach[2][e] = r.ha;
+      q.reach[3][e] = r.hb;
+      q.reach[4][e] = r.hc;
+      q.reach[5][e] = r.a_max;
+      q.rect[0][e] = s.tx0;
+      q.rect[1][e] = s.ty0;
+      q.rect[2][e] = s.tx1;
+      q.rect[3][e] = s.ty1;
+      q.rect[4][e] = s.w_t;
+      q.centre[0][e] = s.ct_x;
+      q.centre[1][e] = s.ct_y;
+      q.shape[e] = spiral ? spiral_class(s) : -1;
+      q.j_end[e] = j_end;
+      q.depth_q[e] = s.depth_q;
+    }
+  }
+  *n_q = __syncthreads_count(e >= 0);  // the queue is filled
+  for (int k = warp; k < *n_q; k += FRONT_BLOCK / 32) {
+    const Queued w(q, k);
+    unsigned long long m = 0ull;
+    int more = 0;
+    for (int j0 = 0; j0 < w.j_end; j0 += 32) {  // warp-uniform rounds
+      const int j = j0 + lane;
+      bool ok = false;
+      if (j < w.j_end) {
+        int tx, ty;
+        ok = w.tile(q, j, tx, ty) && w.reach.reaches(tx, ty, p.ts_x, p.ts_y);
+      }
+      const unsigned b = __ballot_sync(FULL_MASK, ok);
+      if (j0 < MAX_SLOT_SEQ) m |= (unsigned long long)b << j0; else more += __popc(b);
+    }
+    if (lane == 0) {
+      q.mask[k] = m;
+      q.more[k] = more;
+    }
+  }
+  if (*n_q > 0) __syncthreads();  // block-uniform: the masks are back
+  return e;
+}
+
+// The warps write the queued splats' runs (q.more: the first position).
+__device__ __forceinline__ void write_long(const LongWalks& q, int n_q, const FrameParams& p,
+                                           uint32_t* __restrict__ keys,
+                                           uint32_t* __restrict__ words, int capacity) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int k = warp; k < n_q; k += FRONT_BLOCK / 32) {
+    const Queued w(q, k);
+    const unsigned long long m = q.mask[k];
+    const uint32_t dq = q.depth_q[k];
+    int pos = q.more[k];
+    for (int j0 = 0; j0 < w.j_end; j0 += 32) {
+      const int j = j0 + lane;
+      int tx = 0, ty = 0;
+      bool ok = false;
+      unsigned b;
+      if (j0 < MAX_SLOT_SEQ) {
+        b = (unsigned)(m >> j0);
+        ok = (b >> lane) & 1u;
+        if (ok) w.tile(q, j, tx, ty);
+      } else {  // row-major ranks >= 64: tested again
+        if (j < w.j_end) {
+          w.tile(q, j, tx, ty);
+          ok = w.reach.reaches(tx, ty, p.ts_x, p.ts_y);
+        }
+        b = __ballot_sync(FULL_MASK, ok);
+      }
+      const int at = pos + __popc(b & lt);
+      if (ok && at < capacity) {
+        keys[at] = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | dq;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) words[(int64_t)c * capacity + at] = q.w[c][k];
+      }
+      pos += __popc(b);
+    }
+  }
 }
 
 // scratch.counters: [0] instances emitted (may exceed capacity), [1] visible
@@ -134,7 +298,19 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
   __shared__ uint32_t s_sh[SH_WORDS][FRONT_BLOCK];  // word k of thread t at [k][t]
   __shared__ typename Scan::TempStorage scan;
   __shared__ int s_base[2], s_tile;
-  const int tile = take_tile(scratch.ticket, &s_tile);
+  LongWalks* lw = nullptr;
+  if constexpr (WIDE) {
+    __shared__ LongWalks s_long;
+    lw = &s_long;
+    if (threadIdx.x == 0) lw->n = 0;
+    if (CENTER_OUT) {
+      for (int k = threadIdx.x; k < 3 * MAX_SLOT_SEQ; k += FRONT_BLOCK) {
+        lw->sdx[k] = SPIRAL_DX[k / MAX_SLOT_SEQ][k % MAX_SLOT_SEQ];
+        lw->sdy[k] = SPIRAL_DY[k / MAX_SLOT_SEQ][k % MAX_SLOT_SEQ];
+      }
+    }
+  }
+  const int tile = take_tile(scratch.ticket, &s_tile);  // its barrier publishes *lw
   const int i = tile * FRONT_BLOCK + threadIdx.x;
 
   float x_w = 0.0f, y_w = 0.0f, z_w = 0.0f;
@@ -157,14 +333,22 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
 
   // the slot walk: the reached candidates among j < min(slots, MASK_BITS)
   // as mask bits; ranks past MASK_BITS (row-major only) are counted here
-  // and tested again when written
+  // and tested again when written.  WIDE first hands its long walks to the
+  // warps (walk_long): a queued splat (q >= 0) takes their mask and count.
   const bool clamped = s.visible && s.n_rect > p.slots;
   const bool spiral = CENTER_OUT && clamped;
   Mask mask = 0;
-  int n_inst = 0;
+  int n_inst = 0, q = -1, n_q = 0;
+  if constexpr (WIDE) {
+    q = walk_long(*lw, s, spiral, p, &n_q);
+    if (q >= 0) {
+      mask = lw->mask[q];
+      n_inst = lw->more[q];
+    }
+  }
   if (s.visible) {
     const Reach reach = reach_of(s);
-    const int j_end = spiral ? p.slots : min(p.slots, s.n_rect);
+    const int j_end = q >= 0 ? 0 : (spiral ? p.slots : min(p.slots, s.n_rect));
     for (int j = 0; j < j_end; ++j) {
       int tx, ty;
       const bool cand = slot_tile<CENTER_OUT>(s, j, p.slots, tx, ty);
@@ -199,11 +383,23 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
   }
   __syncthreads();
   cp_async_wait_all();  // this thread's SH words (it reads no other thread's)
-  if (n_inst == 0 && !(clamped && !CENTER_OUT)) return;
+  // n_q is block-uniform (0 in the narrow kernel): no thread leaves before a barrier
+  if (n_inst == 0 && !(clamped && !CENTER_OUT) && n_q == 0) return;
 
   uint32_t w[4];
-  pack_splat(s, x_w, y_w, z_w, &s_sh[0][threadIdx.x], FRONT_BLOCK, p, w);
+  const bool writes = n_inst != 0 || (clamped && !CENTER_OUT);
+  if (!WIDE || writes) pack_splat(s, x_w, y_w, z_w, &s_sh[0][threadIdx.x], FRONT_BLOCK, p, w);
   int pos = s_base[0] + (int)(excl & INST_MASK);
+  if constexpr (WIDE) {
+    if (q >= 0) {  // its warp writes the run
+      if (writes) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) lw->w[k][q] = w[k];
+      }
+      lw->more[q] = pos;
+      mask = 0;
+    }
+  }
   for (int j = 0; mask != 0; ++j) {
     if (!(mask & ((Mask)1 << j))) continue;
     mask &= ~((Mask)1 << j);
@@ -216,7 +412,7 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
     }
     ++pos;
   }
-  if (WIDE && !spiral) {
+  if (WIDE && !spiral && q < 0 && writes) {
     const Reach reach = reach_of(s);
     for (int j = W::MASK_BITS; j < min(p.slots, s.n_rect); ++j) {
       int tx, ty;
@@ -228,6 +424,12 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
         for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[k];
       }
       ++pos;
+    }
+  }
+  if constexpr (WIDE) {
+    if (n_q > 0) {
+      __syncthreads();  // the queued records and positions
+      write_long(*lw, n_q, p, keys, words, capacity);
     }
   }
 
@@ -257,6 +459,11 @@ void launch_frontend(int grid, cudaStream_t stream, const float* xyz, const floa
 extern "C" {
 
 const char* ws_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// the walk split past 16 slots, for the Python copies in ops/frontend.py
+// (chip_smoke.py phase 1 holds them equal)
+int ws_frontend_short_walk() { return ws::SHORT_WALK; }
+int ws_frontend_long_queue() { return ws::LONG_QUEUE; }
 
 // cfg: width, height, tile_w, tile_h, tx_tiles, ty_tiles, depth_bits, slots,
 //      compressed (0 / 1), center_out (0 / 1: overflow off, slots <= 64)

@@ -43,8 +43,9 @@
 // ((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7)), and the pixel takes C += T*c_g,
 // T *= t_g.  A skipped pair, and a position outside the tile's span, is one
 // whose alpha is 0 there: the identity (0, 1), which composites exactly, so
-// the tree walks the same records as the scan and keeps per pixel only the
-// pair, quad and half partials of the group in hand.
+// the tree walks the same records as the scan, a pixel evaluates only the
+// positions of a group whose record meets its sub-block, and a group with
+// one or two of them folds only those (fold_group).
 #include <cstdint>
 
 #include "cp_async.cuh"
@@ -56,8 +57,8 @@ constexpr int RASTER_THREADS = 256;
 // scan: 4 CTAs per SM: 64 registers and at most 12 / 16 bytes of spill
 // stores / loads per thread (ptxas); uncapped, the kernel fits 2 CTAs per SM
 // and ran slower on the H100.  tree: 3 CTAs per SM (80 registers, no
-// spill, room for the group's partials); it ran 14% faster than at 2 (84
-// registers) on the H100
+// spill); at 4 (64 registers, 56 / 72 bytes of spill) it ran 1% slower on
+// the H100 (PERF.md §6)
 constexpr int RASTER_MIN_BLOCKS = 4;
 constexpr int TREE_MIN_BLOCKS = 3;
 constexpr int GROUP = 8;  // the tree composite's group (rasterize_pallas.py GROUP)
@@ -156,50 +157,79 @@ __device__ __forceinline__ float4 over(const float4 x, const float4 y) {
   return make_float4(x.x + x.w * y.x, x.y + x.w * y.y, x.z + x.w * y.z, x.w * y.w);
 }
 
+// The (alpha * rgb, 1 - alpha) pair of record s at pixel (cx, cy): the
+// identity (0, 1) where the pixel is past the cutoff or op <= 0.  The
+// cutoff is a select, not a branch, so a leaf is one straight run.
+__device__ __forceinline__ float4 tree_leaf(int s, float cx, float cy, const float4* s_ra,
+                                            const float4* s_rb, const float* s_rc) {
+  const float4 ra = s_ra[s], rb = s_rb[s];  // (px, py, ha, hb), (hc, op, r, g)
+  const float dx = cx - ra.x;
+  const float dy = cy - ra.y;
+  const float a = ra.z * dx * dx + ra.w * dx * dy + rb.x * dy * dy;
+  const float alpha = fminf(0.99f, expf(-a) * rb.y);
+  return a < CUTOFF2 && rb.y > 0.0f
+             ? make_float4(alpha * rb.z, alpha * rb.w, alpha * s_rc[s], 1.0f - alpha)
+             : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+}
+
+// One group's tree composite at one pixel (cx, cy) over the positions in
+// `occ` (bit j: record s0 + j meets the pixel's sub-block; warp-uniform),
+// the others being the identity (0, 1) there (alpha is 0 outside the
+// record's box).  The fixed tree ((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7))
+// with the absent positions left out is bit-equal to the tree over all 8,
+// since x o (0, 1) = x and (0, 1) o y = y exactly for the pairs a record
+// gives; op for op ops/rasterize.py:fold_present:
+//  - one present position (10% of the bench view's folds) is its leaf,
+//  - two (21%) are one over, whatever their positions,
+//  - three or more fold all 8 positions, the absent ones as the identity:
+//    7 overs.  Every form measured that folds only the present ones there
+//    (an __ffs walk merged by position bits, closed forms for 3 or 4,
+//    per-quad folds, pixel state in shared memory) ran slower on the H100
+//    than the 8-position fold, 0.38-0.80 ms against 0.34 (PERF.md §6).
+__device__ __forceinline__ float4 fold_group(uint32_t occ, int s0, float cx, float cy,
+                                             const float4* s_ra, const float4* s_rb,
+                                             const float* s_rc) {
+  const uint32_t rest = occ & (occ - 1u);
+  if ((rest & (rest - 1u)) == 0u) {  // one or two present: warp-uniform
+    const float4 e = tree_leaf(s0 + __ffs(occ) - 1, cx, cy, s_ra, s_rb, s_rc);
+    return rest == 0u ? e : over(e, tree_leaf(s0 + __ffs(rest) - 1, cx, cy, s_ra, s_rb, s_rc));
+  }
+  float4 pr, qd, hf;
+#pragma unroll
+  for (int j = 0; j < GROUP; ++j) {
+    float4 e = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+    if ((occ >> j) & 1u) e = tree_leaf(s0 + j, cx, cy, s_ra, s_rb, s_rc);
+    if (j % 2 == 0) pr = e; else pr = over(pr, e);
+    if (j % 4 == 1) qd = pr; else if (j % 4 == 3) qd = over(qd, pr);
+    if (j == 3) hf = qd; else if (j == 7) hf = over(hf, qd);
+  }
+  return hf;
+}
+
 // The tree composite over the four 8-record groups of a 32-record ballot
 // (records c0 .. c0 + 31 of the batch, group-aligned): `mine` is lane l's
-// mask of this warp's live sub-blocks that record c0 + l meets.  Each pixel
-// still live at a group's start folds the group's records that meet its
-// sub-block in order -- the others are the identity -- into pair, quad and
-// half partials, then takes the group.  Returns whether some pixel of the
-// warp is still live.
+// mask of this warp's live sub-blocks that record c0 + l meets.  One
+// ballot per sub-block k gives the records that meet k (warp-uniform);
+// each pixel still live at a group's start folds the group (fold_group),
+// then takes it.  Returns whether some pixel of the warp is still live.
 __device__ __forceinline__ bool tree_groups(int c0, uint32_t mine, const float* cx,
                                             const float* cy, float* T, float* cr, float* cg,
                                             float* cb, const float4* s_ra, const float4* s_rb,
                                             const float* s_rc, float eps) {
-  const uint32_t bits = __ballot_sync(FULL_MASK, mine != 0u);
-  bool live = true;
-  for (int g = 0; g < 32 / GROUP; ++g) {
-    if (((bits >> (GROUP * g)) & 0xFFu) == 0u) continue;  // warp-uniform
-    uint32_t sub[GROUP], any = 0u;
+  uint32_t occ[MAX_PIX_PER_THREAD], any = 0u;
 #pragma unroll
-    for (int j = 0; j < GROUP; ++j) {
-      sub[j] = __shfl_sync(FULL_MASK, mine, GROUP * g + j);
-      any |= sub[j];
-    }
-    live = false;
+  for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
+    occ[k] = __ballot_sync(FULL_MASK, (mine >> k) & 1u);
+    any |= occ[k];
+  }
+  for (int g = 0; g < 32 / GROUP; ++g) {
+    if (((any >> (GROUP * g)) & 0xFFu) == 0u) continue;  // warp-uniform
+    bool live = false;
 #pragma unroll
     for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
-      if (((any >> k) & 1u) && T[k] > eps) {
-        float4 pr, qd, hf;
-#pragma unroll
-        for (int j = 0; j < GROUP; ++j) {
-          float4 e = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
-          if ((sub[j] >> k) & 1u) {
-            const int s = c0 + GROUP * g + j;
-            const float4 ra = s_ra[s], rb = s_rb[s];  // (px, py, ha, hb), (hc, op, r, g)
-            const float dx = cx[k] - ra.x;
-            const float dy = cy[k] - ra.y;
-            const float a = ra.z * dx * dx + ra.w * dx * dy + rb.x * dy * dy;
-            if (a < CUTOFF2 && rb.y > 0.0f) {
-              const float alpha = fminf(0.99f, expf(-a) * rb.y);
-              e = make_float4(alpha * rb.z, alpha * rb.w, alpha * s_rc[s], 1.0f - alpha);
-            }
-          }
-          if (j % 2 == 0) pr = e; else pr = over(pr, e);
-          if (j % 4 == 1) qd = pr; else if (j % 4 == 3) qd = over(qd, pr);
-          if (j == 3) hf = qd; else if (j == 7) hf = over(hf, qd);
-        }
+      const uint32_t o = (occ[k] >> (GROUP * g)) & 0xFFu;
+      if (o != 0u && T[k] > eps) {
+        const float4 hf = fold_group(o, c0 + GROUP * g, cx[k], cy[k], s_ra, s_rb, s_rc);
         cr[k] = cr[k] + T[k] * hf.x;
         cg[k] = cg[k] + T[k] * hf.y;
         cb[k] = cb[k] + T[k] * hf.z;

@@ -63,6 +63,8 @@ _SIGNATURES = {
     "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _i64,
                     _vp],
     "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _i64, _vp],
+    "ws_frontend_short_walk": [],
+    "ws_frontend_long_queue": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

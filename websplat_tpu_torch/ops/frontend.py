@@ -28,9 +28,9 @@ Only the prefixes ``[0, min(stats[0], capacity))`` and
 unwritten (the plain version fills it with sentinels and zeros).  Counts
 past a capacity are real counts; the caller reports the excess as dropped.
 The clamped rows run in splat order on both sides (JAX's order), so a
-capture past its capacity keeps the same splats; the instances run in each
-version's own order (the kernel's splat by splat, the plain version's slot
-by slot), the same on every run.
+capture past its capacity keeps the same splats; the instances run splat
+by splat, each splat's slots in walk order, on both sides: the kernel's
+stream equals the plain version's element for element.
 """
 
 from __future__ import annotations
@@ -56,6 +56,13 @@ from websplat_tpu_torch.ops.preprocess import (
 )
 
 FRONT_BLOCK = 256  # splats per tile (csrc/frontend.cu)
+# csrc/frontend.cu, past 16 slots: walks longer than SHORT_WALK candidates go
+# to a warp, at most LONG_QUEUE per block (utils/roofline.py counts with
+# them).  Copies of the kernel's constants, which the library exports
+# (ws_frontend_short_walk, ws_frontend_long_queue); chip_smoke.py phase 1
+# holds the two equal.
+SHORT_WALK = 4
+LONG_QUEUE = 128
 
 
 class FrontendOut(NamedTuple):
@@ -96,8 +103,10 @@ def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
         (idx,) = torch.nonzero(ok, as_tuple=True)
         key_parts.append(((ty[idx] * tx_tiles + tx[idx]) << depth_bits) | d["depth_q"][idx])
         idx_parts.append(idx)
-    keys_all = torch.cat(key_parts)
-    idx_all = torch.cat(idx_parts)
+    # splat by splat, each splat's slots in walk order: the kernel's order
+    order = torch.sort(torch.cat(idx_parts), stable=True)
+    keys_all = torch.cat(key_parts)[order.indices]
+    idx_all = order.values
     total = keys_all.shape[0]
     k = min(total, capacity)
     keys = torch.full((capacity,), INVALID_KEY, dtype=torch.int64, device=dev)

@@ -89,6 +89,48 @@ def _over(x, y):
     return (x[0] + x[3] * y[0], x[1] + x[3] * y[1], x[2] + x[3] * y[2], x[3] * y[3])
 
 
+def fold_group(leaves):
+    """One group's fixed tree ((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7)) over
+    its 8 (r, g, b, t) leaves, every position folded (the identity (0, 0,
+    0, 1) where a position blends nothing)."""
+    pair = quad = half = None
+    for j, e in enumerate(leaves):
+        pair = e if j % 2 == 0 else _over(pair, e)
+        if j % 4 == 1:
+            quad = pair
+        elif j % 4 == 3:
+            quad = _over(quad, pair)
+        if j == 3:
+            half = quad
+        elif j == 7:
+            half = _over(half, quad)
+    return half
+
+
+IDENTITY_PAIR = (0.0, 0.0, 0.0, 1.0)
+
+
+def fold_present(leaves, occ: int):
+    """The tree kernel's fold of a group at a pixel, op for op
+    (csrc/rasterize.cu:fold_group): ``occ`` (< 256) has bit j set where
+    record j of the group meets the pixel's sub-block; the other positions
+    are the identity there and are left out (None for occ == 0: the kernel
+    skips a group none of whose records meets the sub-block).  One present
+    position is its leaf, two are one over, whatever their positions; three
+    or more fold all 8 positions through ``fold_group``, the absent ones as
+    the identity.  Bit-equal to ``fold_group`` with the identity at the
+    absent positions, since x o (0, 1) = x and (0, 1) o y = y exactly for
+    finite non-negative pairs.  Only the tests use it."""
+    present = [j for j in range(8) if (occ >> j) & 1]
+    if not present:
+        return None
+    if len(present) == 1:
+        return leaves[present[0]]
+    if len(present) == 2:
+        return _over(leaves[present[0]], leaves[present[1]])
+    return fold_group([leaves[j] if (occ >> j) & 1 else IDENTITY_PAIR for j in range(8)])
+
+
 def _blend_tree(rec, start, count, pix_x, pix_y, trans, acc, eps):
     """The tree composite over every tile's groups (module docstring):
     updates acc in place and returns the final transmittance."""
@@ -101,6 +143,7 @@ def _blend_tree(rec, start, count, pix_x, pix_y, trans, acc, eps):
             if not bool(((trans > eps) & (n_groups > q)[:, None]).any()):
                 break
         live = (n_groups > q)[:, None] & (trans > eps)
+        leaves = []
         for j in range(8):
             pos = (g0 + q) * 8 + j
             valid = ((pos >= start) & (pos < end))[:, None]
@@ -111,16 +154,8 @@ def _blend_tree(rec, start, count, pix_x, pix_y, trans, acc, eps):
             on = valid & live & (a < 2.0 * CUTOFF) & (op > 0.0)
             alpha = torch.where(on, torch.clamp(torch.exp(-a) * op, max=0.99),
                                 torch.zeros_like(a))
-            e = (alpha * r, alpha * g, alpha * b, 1.0 - alpha)
-            pair = e if j % 2 == 0 else _over(pair, e)
-            if j % 4 == 1:
-                quad = pair
-            elif j % 4 == 3:
-                quad = _over(quad, pair)
-            if j == 3:
-                half = quad
-            elif j == 7:
-                half = _over(half, quad)
+            leaves.append((alpha * r, alpha * g, alpha * b, 1.0 - alpha))
+        half = fold_group(leaves)
         for c in range(3):  # a pixel that is not live takes the identity
             acc[c] = acc[c] + trans * half[c]
         trans = trans * half[3]
@@ -259,7 +294,9 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     With composite="tree" a pixel is live through the group (8 absolute
     positions) in which it saturates; the sequential product of (1 - alpha)
     stands in for the group's composited transmittance (they differ by
-    rounding)."""
+    rounding); and ``tree_folds`` counts the tree kernel's folds: the
+    (tile, group, sub-block) triples it folds (a live sub-block that some
+    record of the group meets), which hold ``sub_evals`` records."""
     check_stream(words, ranges, width, height, config)
     dev = words.device
     tw, th = config.tile_w, config.tile_h
@@ -296,9 +333,13 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     stop = torch.zeros_like(count)
     out = dict(pairs_live=0, pairs_blended=0, pairs_visited=0, pairs_in_box=0, sub_evals=0,
                pairs_sub_box=0)
+    tree = config.composite == "tree"
+    if tree:
+        out.update(tree_folds=0)
+        folded = torch.zeros((n_tiles, n_sub), dtype=torch.bool, device=dev)  # in this group
     max_count = int(count.max()) if m else 0
     for k in range(max_count):
-        if config.composite != "tree":
+        if not tree:
             t_live = trans
         elif k:
             t_live = torch.where(((start + k) % 8 == 0)[:, None], trans, t_live)
@@ -326,7 +367,12 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
         out["pairs_in_box"] += int((live_img & inside).sum())
         live_per_sub = live_img.to(torch.float32) @ onehot  # (T, n_sub) live pixel counts
         out["pairs_sub_box"] += int((live_per_sub * meets).sum())
-        out["sub_evals"] += int(((live_per_sub > 0) & meets).sum())
+        present = (live_per_sub > 0) & meets
+        out["sub_evals"] += int(present.sum())
+        if tree:  # a group starts at each absolute position 8g
+            folded = folded & ((start + k) % 8 != 0)[:, None]
+            out["tree_folds"] += int((present & ~folded).sum())
+            folded = folded | present
         stop = torch.where(live_img.any(dim=1), torch.full_like(stop, k + 1), stop)
     out["tile_stop"] = stop
     return out

@@ -202,6 +202,33 @@ def center_out_reach_tests(d: dict, slots: int) -> int:
     return small + int(inside.sum())
 
 
+def frontend_walk_lanes(d: dict, slots: int, center_out: bool) -> dict:
+    """The frontend's slot walk in lane steps, from core_math's output
+    ``d``: a visible splat walks min(n_rect, slots) candidates, or
+    ``slots`` when it walks center-out (``center_out`` and n_rect > slots).
+    Returns ints ``walks`` (their sum: the work), ``per_thread`` (over the
+    warps of 32 consecutive splats, 32 x the longest walk: one thread per
+    splat, as the narrow kernel walks), ``queued`` (walks longer than
+    ops/frontend.py:SHORT_WALK, which the kernel past 16 slots hands to a
+    warp), ``split`` (that kernel's lane steps: 32 x the longest short walk
+    per warp, plus 32 per round of 32 candidates of each queued walk) and
+    ``over_queue`` (blocks with more than LONG_QUEUE long walks, whose
+    excess walk per thread; ``split`` counts them as queued)."""
+    from websplat_tpu_torch.ops.frontend import FRONT_BLOCK, LONG_QUEUE, SHORT_WALK
+
+    vis, n_rect = d["visible"], d["n_rect"]
+    spiral = vis & (n_rect > slots) if center_out else torch.zeros_like(vis)
+    walk = torch.where(vis, torch.where(spiral, slots, torch.clamp(n_rect, max=slots)), 0)
+    walk = torch.nn.functional.pad(walk.to(torch.int64), (0, (-walk.numel()) % FRONT_BLOCK))
+    long = walk > SHORT_WALK
+    warps = walk.view(-1, 32)
+    short = torch.where(long, 0, walk).view(-1, 32)
+    return dict(walks=int(walk.sum()), per_thread=32 * int(warps.max(1).values.sum()),
+                queued=int(long.sum()),
+                split=32 * int(short.max(1).values.sum()) + 32 * int(((walk[long] + 31) // 32).sum()),
+                over_queue=int((long.view(-1, FRONT_BLOCK).sum(1) > LONG_QUEUE).sum()))
+
+
 # --- D: overflow walk (csrc/overflow.cu) ----------------------------------
 
 def overflow_walk_work(rows: int, emitted: int, giants: int, reach_tests: int) -> Work:

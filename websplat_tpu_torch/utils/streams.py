@@ -2,10 +2,10 @@
 
 Each stream stage appends rows in its own fixed order: the CUDA kernels in
 tile order (csrc/stream.cuh), the plain versions in their mask order (the
-frontend's instances slot by slot, the packed emission's too), so a
-kernel's instance stream is held against its plain version by comparing
-row MULTISETS.  Where the orders agree (the clamped rows, the overflow
-walk, the general compaction) callers also compare element for element.
+packed emission's slot by slot), so a kernel's instance stream is held
+against its plain version by comparing row MULTISETS.  Where the orders
+agree (the frontend's instances and clamped rows, the overflow walk, the
+general compaction) callers also compare element for element.
 """
 
 from __future__ import annotations
