@@ -51,7 +51,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              rasterizer at two other tile shapes (its other pixel maps) and
              the slab one (hybrid, highest) at two (its other block maps)
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer (on
-             the card by default) over the 8 orbit views of bench.py; launch
+             the card by default) and its device cloud through the
+             uncompiled render_frame (whose launches the wrappers count;
+             4f replays the captured frame) over the 8 orbit views of bench.py; launch
              counts (the dense grid itself only on the plain path),
              diagnostics, plain-path PSNR, view 0 rendered twice more (max
              abs 0 between the two: run-to-run reproducibility; also on the
@@ -81,9 +83,24 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              pulled back and at the bench camera (past the capture capacity:
              the kernel captures the same splats as plain), every
              diagnostic gated; two 7680x4320 frames timed
+  4f graph   each path's frame as a captured program (render/graph.py):
+             main, overflow off, window off, tree, hybrid, full-N and
+             culled compressed.  Per path the 8 views through the
+             uncompiled render_frame under
+             torch.cuda.set_sync_debug_mode("error"), then captured once
+             and replayed back to back with no host read, each image
+             bit-identical to its eager frame with equal diagnostics; the
+             replayed pass's kernels by name (torch.profiler); span alone
+             and back to back, busy ms, activities and idle share, eager
+             and replayed.  GaussianRenderer (capture on) over the 8 views:
+             one capture, frames bit-equal to phase 4's; the whole-buffer
+             sort (int32 keys) against the exact-prefix one (int64)
   5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure
-             at 2048x2048 MEASURE_RUNS times (each pass's wall time; one
-             pass's device busy ms), apps.render's PNGs against
+             at 2048x2048 MEASURE_RUNS times (each pass's wall time); the
+             median host clock of MEASURE_PASSES passes split into building
+             the frame blocks, enqueueing the replays and waiting; one
+             pass's device busy ms, wall / busy, and its kernels by name
+             (it must replay one captured frame per view); apps.render's PNGs against
              GaussianRenderer frames, apps.video, apps.viewer on a free
              local port (/frame.png, a rotate event, /stats)
   6 parallel the 8 views through make_view_parallel_renderer on an NCCL
@@ -150,6 +167,7 @@ CULLED_PSNR = 60.0  # culled vs full-N compressed frame (tests/test_io.py:309)
 RESIDENT_PSNR = 45.0  # resident vs decoded-at-load compressed frame (tests/test_io.py:245)
 PLAIN_PSNR = 50.0  # plain path vs kernel path, same view
 MEASURE_RUNS = 3  # apps.measure runs in phase 5, each at its default 10 samples
+MEASURE_PASSES = 10  # measure passes whose host clock phase 5 splits
 # phase 4e's wide frames: (width, height, pulled back: view 0's camera moved
 # away by width / W, so that splats keep the bench view's pixel footprint,
 # else bench view 0's camera (past the capture capacity, which both versions
@@ -452,8 +470,8 @@ def cull_factor_for(resident) -> float:
     from websplat_tpu_torch.synth import bench_cameras
 
     cc = upload(resident, "cuda")
-    fracs = [int(frustum_visible(cc.xyz, view_block(resident, cam)[0]).sum()) / resident.num_points
-             for cam in bench_cameras()]
+    fracs = [int(frustum_visible(cc.xyz, device_block(*view_block(resident, cam))).sum())
+             / resident.num_points for cam in bench_cameras()]
     factor = min(1.0, 1.15 * max(fracs))
     say("scene", f"frustum-visible fraction per view {[round(f, 4) for f in fracs]}; "
                  f"compressed_cull_factor {factor:.4f}")
@@ -461,6 +479,8 @@ def cull_factor_for(resident) -> float:
 
 
 def view_block(cloud, cam, viewport=(W, H)):
+    """(FrameScalars, ResolvedSettings) of a camera at the default
+    SplattingArgs, near and far fitted to the cloud."""
     from websplat_tpu_torch.config import SplattingArgs, resolve_settings
     from websplat_tpu_torch.models.camera import CameraUniforms
     from websplat_tpu_torch.render.renderer import camera_block
@@ -468,6 +488,14 @@ def view_block(cloud, cam, viewport=(W, H)):
     cam.fit_near_far(*cloud.aabb)
     settings = resolve_settings(SplattingArgs(), cloud)
     return camera_block(CameraUniforms.from_camera(cam, viewport), settings), settings
+
+
+def device_block(fs, settings):
+    """The frame block on the card (render/renderer.py:frame_block) of a
+    view_block: what the frame and its kernels read."""
+    from websplat_tpu_torch.render.renderer import frame_block
+
+    return frame_block(fs, settings.background_color, "cuda")
 
 
 def kernels_vs_plain(cloud, resident, cull_factor, results):
@@ -483,7 +511,8 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.emit_compact import emit_compact, emit_compact_torch
-    from websplat_tpu_torch.ops.preprocess import core_math, dense_grid_emit, preprocess_packed
+    from websplat_tpu_torch.ops.preprocess import (N_SCALARS, core_math, dense_grid_emit,
+                                                   preprocess_packed)
     from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, rasterize_work_torch
     from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
                                                       rasterize_mxu_work_torch)
@@ -497,6 +526,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     cfg = RasterConfig()
     dc = upload_cloud(cloud, "cuda")
     fs, settings = view_block(cloud, bench_cameras()[0])
+    block = device_block(fs, settings)
     n = cloud.num_points
     geo = dict(width=W, height=H, config=cfg)
     capacity, cap_c = max(4096, 2 * n), cfg.overflow_capacity_for(n)
@@ -524,7 +554,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         return err
 
     # frontend
-    front = lambda fn: fn(dc, fs, capacity=capacity, capacity_c=cap_c, **geo)
+    front = lambda fn: fn(dc, block, capacity=capacity, capacity_c=cap_c, **geo)
     fk, fp = front(fused_frontend), front(frontend_torch)
     if fk.stats.tolist() != fp.stats.tolist():
         raise AssertionError(f"frontend stats {fk.stats.tolist()} != plain {fp.stats.tolist()}")
@@ -559,11 +589,12 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     # the frontend with the compressed eigen clamp, on the compressed bench
     # cloud expanded at full N (what the full-N compressed path feeds it)
     cc = upload(resident, "cuda")
-    cfs, _ = view_block(resident, bench_cameras()[0])
+    cfs, csettings = view_block(resident, bench_cameras()[0])
+    cblock = device_block(cfs, csettings)
     cdc = decompress_cloud(cc)
     cn = resident.num_points
     ccap, ccap_c = max(4096, 2 * cn), cfg.overflow_capacity_for(cn)
-    cfront = lambda fn: fn(cdc, cfs, capacity=ccap, capacity_c=ccap_c, compressed=True, **geo)
+    cfront = lambda fn: fn(cdc, cblock, capacity=ccap, capacity_c=ccap_c, compressed=True, **geo)
     cfk, cfp = cfront(fused_frontend), cfront(frontend_torch)
     if cfk.stats.tolist() != cfp.stats.tolist():
         raise AssertionError(f"frontend (compressed) stats {cfk.stats.tolist()} != plain "
@@ -594,7 +625,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     wcfg = RasterConfig(tile_slots=24)
     wgeo = dict(width=W, height=H, config=wcfg)
     wcap_c = wcfg.overflow_capacity_for(n)
-    wfront = lambda fn: fn(dc, fs, capacity=capacity, capacity_c=wcap_c, **wgeo)
+    wfront = lambda fn: fn(dc, block, capacity=capacity, capacity_c=wcap_c, **wgeo)
     wk, wp = wfront(fused_frontend), wfront(frontend_torch)
     wtotal, wvisible, wclamped = wk.stats.tolist()
     same_w = same_stream(wk, wp, capacity) and torch.equal(
@@ -627,7 +658,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     for slots in (6, 64):
         ocfg = RasterConfig(tile_slots=slots, overflow_capacity=0)
         co_geo[slots] = dict(width=W, height=H, config=ocfg)
-        ofront = lambda fn, g=co_geo[slots]: fn(dc, fs, capacity=capacity, capacity_c=0, **g)
+        ofront = lambda fn, g=co_geo[slots]: fn(dc, block, capacity=capacity, capacity_c=0, **g)
         ok_, op_ = ofront(fused_frontend), ofront(frontend_torch)
         if ok_.stats.tolist() != op_.stats.tolist() or ok_.cid.shape != (6, 0):
             raise AssertionError(f"frontend (center-out, {slots} slots) stats {ok_.stats.tolist()} "
@@ -839,7 +870,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     # ... and as the culled compressed path runs it: view 0's cull keys
     # (int8 codes) and 5 payload words (position bits, codebook indices)
     # over every splat, at the culled capacity of phase 4c
-    ckeys, cpayload = cull_stream(cc, cfs)
+    ckeys, cpayload = cull_stream(cc, cblock)
     cull_cap = max(4096, int(cull_factor * cn))
     ccomp = lambda: compact_instances(ckeys, cpayload, capacity=cull_cap)
     ckk, ckp = ccomp(), compact_torch(ckeys, cpayload, capacity=cull_cap)
@@ -872,11 +903,11 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     del ckk, ckp, cdc
 
     # rasterizer on the kernel path's sorted stream
-    keys, words, _ = build_instance_stream(dc, fs, **geo)
+    keys, words, _ = build_instance_stream(dc, block, **geo)
     sk, sw = sort_instances(keys, words)
     tx, ty = cfg.tiles_for(W, H)
     ranges = tile_ranges(sk, tx * ty, cfg.key_bits(W, H)[1])
-    bg = settings.background_color
+    bg = block[N_SCALARS:]
     rk = rasterize(sw, ranges, bg, **geo)
     rp = rasterize_torch(sw, ranges, bg, **geo)
     err_r = float((rk - rp).abs().max())
@@ -1094,6 +1125,7 @@ def golden():
 
     from websplat_tpu_torch.config import resolve_settings
     from websplat_tpu_torch.models.camera import CameraUniforms
+    from websplat_tpu_torch.ops.preprocess import N_SCALARS
     from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, warp_layout
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
     from websplat_tpu_torch.render.renderer import build_instance_stream, camera_block
@@ -1102,16 +1134,18 @@ def golden():
     cam = make_camera(viewport=(w, h))
     cam.fit_near_far(*cloud.aabb)
     args = SplattingArgs(background_color=(0.05, 0.08, 0.12))
-    fs = camera_block(CameraUniforms.from_camera(cam, (w, h)), resolve_settings(args, cloud))
+    settings = resolve_settings(args, cloud)
+    block = device_block(camera_block(CameraUniforms.from_camera(cam, (w, h)), settings), settings)
+    bg = block[N_SCALARS:]
     for tw, th in ((256, 4), (33, 31)):
         cfg = RasterConfig(tile_w=tw, tile_h=th)
         geo = dict(width=w, height=h, config=cfg)
-        keys, words, _ = build_instance_stream(r.device_cloud, fs, **geo)
+        keys, words, _ = build_instance_stream(r.device_cloud, block, **geo)
         sk, sw = sort_instances(keys, words)
         tx, ty = cfg.tiles_for(w, h)
         ranges = tile_ranges(sk, tx * ty, cfg.key_bits(w, h)[1])
-        err = float((rasterize(sw, ranges, args.background_color, **geo)
-                     - rasterize_torch(sw, ranges, args.background_color, **geo)).abs().max())
+        err = float((rasterize(sw, ranges, bg, **geo)
+                     - rasterize_torch(sw, ranges, bg, **geo)).abs().max())
         say("golden", f"rasterize at {tw}x{th} tiles (warp rectangle width "
                       f"{warp_layout(tw, th)}): max |kernel - plain| = {err:.3g}")
         if not err <= RASTER_TOL:
@@ -1127,11 +1161,10 @@ def golden():
         for v in ("hybrid", "highest"):
             cfg = mxu_config(v, tile_w=tw, tile_h=th)
             geo = dict(width=w, height=h, config=cfg)
-            keys, words, _ = build_instance_stream(r.device_cloud, fs, **geo)
+            keys, words, _ = build_instance_stream(r.device_cloud, block, **geo)
             sk, sw = sort_instances(keys, words)
             tx, ty = cfg.tiles_for(w, h)
             ranges = tile_ranges(sk, tx * ty, cfg.key_bits(w, h)[1])
-            bg = args.background_color
             gate = mxu_gate(rasterize_mxu(sw, ranges, bg, **geo),
                             rasterize_mxu_torch(sw, ranges, bg, **geo), v)
             say("golden", f"rasterize_mxu {v} at {tw}x{th} tiles: max |kernel - plain| = "
@@ -1176,15 +1209,16 @@ def main_path(cloud):
     blocks = [view_block(cloud, cam) for cam in cams]
     fs0, settings = blocks[0]
     kw = dict(width=W, height=H, config=renderer.config, return_diag=True)
-    img_p, diag_p = render_frame(renderer.device_cloud, fs0, settings.background_color,
-                                 plain=True, **kw)
+    img_p, diag_p = render_frame(renderer.device_cloud, device_block(fs0, settings), plain=True,
+                                 **kw)
     restore()
     p = psnr(img_p.cpu().numpy(), images[0])
     say("main", f"view 0 plain path: PSNR vs kernel frame {p:.2f} dB, diag {diag_p}, dense "
                 f"grids built {grids[0] - grids_kernel}")
-    if not (p >= 50.0 and grids[0] - grids_kernel == 1):
-        raise AssertionError(f"plain-path PSNR {p:.2f} dB < 50 or the plain path built "
-                             f"{grids[0] - grids_kernel} dense grids")
+    if not (p >= 50.0 and grids[0] - grids_kernel == 1 and dict(diag_p) == diags[0]):
+        raise AssertionError(f"plain-path PSNR {p:.2f} dB < 50, diagnostics {dict(diag_p)} vs "
+                             f"{diags[0]}, or the plain path built {grids[0] - grids_kernel} "
+                             f"dense grids")
 
     reproducibility("main", renderer, cams[0])
     frame_timing("main", renderer, blocks)
@@ -1203,19 +1237,26 @@ def reproducibility(phase, renderer, cam):
 
 
 def drive(cloud, config):
-    """A renderer on the card (the default device) over the 8 bench views,
-    with the launch counts of that run alone: (renderer, images, diags,
-    launches)."""
-    from websplat_tpu_torch import GaussianRenderer, SplattingArgs
+    """A renderer on the card (the default device) and its cloud's 8 bench
+    views through the uncompiled render_frame, with the launch counts of
+    that run alone: (renderer, images, diags, launches).  The wrappers
+    count a captured frame's launches once, at its capture, so the counts
+    come from the uncompiled frame; phase 4f holds the renderer's replayed
+    frames bit-equal to these."""
+    from websplat_tpu_torch import GaussianRenderer
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras
 
     renderer = GaussianRenderer(cloud, config)
+    blocks = [view_block(cloud, cam) for cam in bench_cameras()]
     build.reset_launches()
     images, diags = [], []
-    for cam in bench_cameras():
-        images.append(renderer.render(cam, (W, H), SplattingArgs(), with_diag=True))
-        diags.append(dict(renderer._last_diag))
+    for fs, st in blocks:
+        img, d = render_frame(renderer.device_cloud, device_block(fs, st), width=W, height=H,
+                              config=config, compressed=cloud.compressed, return_diag=True)
+        images.append(img.cpu().numpy())
+        diags.append(dict(d))
     return renderer, images, diags, dict(build.LAUNCHES)
 
 
@@ -1235,7 +1276,7 @@ def frame_timing(phase, renderer, blocks):
         for fs, st in blocks:
             timer = StageTimer()
             t0 = time.perf_counter()
-            render_frame(renderer.device_cloud, fs, st.background_color, timer=timer, **geo)
+            render_frame(renderer.device_cloud, device_block(fs, st), timer=timer, **geo)
             ms = timer.stages_ms()
             wall_ms.append(1e3 * (time.perf_counter() - t0))
             frame_ms.append(sum(ms.values()))
@@ -1248,8 +1289,8 @@ def frame_timing(phase, renderer, blocks):
                f"stages ms: {split}; peak device memory "
                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    busy, acts, events = busy_ms(lambda: [render_frame(renderer.device_cloud, fs,
-                                                       st.background_color, **geo)
+    busy, acts, events = busy_ms(lambda: [render_frame(renderer.device_cloud,
+                                                       device_block(fs, st), **geo)
                                           for fs, st in blocks])
     busy /= len(blocks)
     say(phase, f"device busy {busy:.3f} ms per frame in {acts / len(blocks):.0f} device "
@@ -1350,8 +1391,9 @@ def compressed_path(resident, decoded, cull_factor):
     renderer = culled[0]
     blocks = [view_block(resident, cam) for cam in bench_cameras()]
     fs0, settings = blocks[0]
-    img_p, diag_p = render_frame(renderer.device_cloud, fs0, settings.background_color, width=W,
-                                 height=H, config=renderer.config, compressed=True, plain=True,
+    block0 = device_block(fs0, settings)
+    img_p, diag_p = render_frame(renderer.device_cloud, block0, width=W, height=H,
+                                 config=renderer.config, compressed=True, plain=True,
                                  return_diag=True)
     p = psnr(img_p.cpu().numpy(), culled[1][0])
     say("compressed", f"view 0 plain path (culled): PSNR vs kernel frame {p:.2f} dB, diag {diag_p}")
@@ -1367,7 +1409,7 @@ def compressed_path(resident, decoded, cull_factor):
                       lambda: gathers(cull_cap)),
                      ("decompress_cloud (full N)", lambda: decompress_cloud(cc)),
                      ("decompress_cloud_culled", lambda: decompress_cloud_culled(
-                         cc, fs0, capacity=cull_cap))):
+                         cc, block0, capacity=cull_cap))):
         _, acts, ms, names = profile_call(fn)
         say("compressed", f"{what}: {ms:.4f} device ms in {acts} device activities "
                           f"(torch.profiler; kernels {names})")
@@ -1412,7 +1454,7 @@ def refused_frames(cloud, scan_images, smi):
     the card and (printed, not gated) the scan frames of phase 4; a
     4160 x 2048 frame (130 x 64 tiles) against the plain path; 7680 x 4320
     frames timed.  Returns the overflow-off run's launch counts."""
-    from websplat_tpu_torch import RasterConfig, SplattingArgs
+    from websplat_tpu_torch import RasterConfig
     from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
     from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras, make_camera
@@ -1434,7 +1476,7 @@ def refused_frames(cloud, scan_images, smi):
             raise AssertionError(f"{what}: launches {launches}, expected {need[what]}")
         for i, (img, d) in enumerate(zip(images, diags)):
             fs_i, st = blocks[i]
-            img_p, d_p = render_frame(renderer.device_cloud, fs_i, st.background_color, width=W,
+            img_p, d_p = render_frame(renderer.device_cloud, device_block(fs_i, st), width=W,
                                       height=H, config=cfg, plain=True, return_diag=True)
             p_plain, p_scan = psnr(img_p.cpu().numpy(), img), psnr(img, scan_images[i])
             say("refused", f"{what} view {i}: kernel vs plain {p_plain:.2f} dB, vs the scan frame "
@@ -1456,14 +1498,14 @@ def refused_frames(cloud, scan_images, smi):
         cam = make_camera(viewport=(w, h), distance=3.0 * (w / W if pulled else 1.0), azimuth=0.0)
         cfg = RasterConfig()
         renderer = GaussianRenderer(cloud, cfg)
-        cam.fit_near_far(*cloud.aabb)
-        fsw, st = view_block(cloud, cam, (w, h))
+        blockw = device_block(*view_block(cloud, cam, (w, h)))
         build.reset_launches()
-        img = renderer.render(cam, (w, h), SplattingArgs(), with_diag=True)
-        d = dict(renderer._last_diag)
+        img, d = render_frame(renderer.device_cloud, blockw, width=w, height=h, config=cfg,
+                              return_diag=True)
+        img, d = img.cpu().numpy(), dict(d)
         launches = dict(build.LAUNCHES)
-        ms = cuda_ms(lambda: render_frame(renderer.device_cloud, fsw, st.background_color,
-                                          width=w, height=h, config=cfg), 5)
+        ms = cuda_ms(lambda: render_frame(renderer.device_cloud, blockw, width=w, height=h,
+                                          config=cfg), 5)
         tx, ty = cfg.tiles_for(w, h)
         line = (f"{w}x{h} ({tx}x{ty} tiles), camera distance {np.linalg.norm(cam.position):.2f}: "
                 f"{ms:.3f} ms per frame (CUDA events, median of 5); launches {launches}; {d}")
@@ -1472,14 +1514,14 @@ def refused_frames(cloud, scan_images, smi):
         if not check:
             say("refused", line)
             continue
-        img_p, d_p = render_frame(renderer.device_cloud, fsw, st.background_color, width=w,
-                                  height=h, config=cfg, plain=True, return_diag=True)
+        img_p, d_p = render_frame(renderer.device_cloud, blockw, width=w, height=h, config=cfg,
+                                  plain=True, return_diag=True)
         p = psnr(img_p.cpu().numpy(), img)
         n = cloud.num_points
         geo = dict(capacity=max(4096, int(cfg.instance_capacity_factor * n)),
                    capacity_c=cfg.overflow_capacity_for(n), width=w, height=h, config=cfg)
-        fk = fused_frontend(renderer.device_cloud, fsw, **geo).stats.tolist()
-        fp = frontend_torch(renderer.device_cloud, fsw, **geo).stats.tolist()
+        fk = fused_frontend(renderer.device_cloud, blockw, **geo).stats.tolist()
+        fp = frontend_torch(renderer.device_cloud, blockw, **geo).stats.tolist()
         say("refused", line + f"; kernel vs plain {p:.2f} dB, plain diagnostics {d_p}; "
                        f"frontend stats [emitted, visible, clamped] kernel {fk}, plain {fp}; "
                        f"capture capacity {geo['capacity_c']}")
@@ -1494,6 +1536,195 @@ def refused_frames(cloud, scan_images, smi):
             raise AssertionError(f"{w}x{h}: kernel vs plain {p:.2f} dB, diagnostics {d} "
                                  f"vs plain {d_p}, frontend stats {fk} vs plain {fp}")
     return out["overflow off"]
+
+
+# phase 4f's paths: (the cloud, "bench" or "npz" (the compressed bench cloud
+# kept resident), RasterConfig fields; None: the culled factor of phase 4c)
+GRAPH_PATHS = {
+    "main": ("bench", {}),
+    "overflow off": ("bench", dict(overflow_capacity=0)),
+    "window off": ("bench", dict(overflow_grid_capacity=0)),
+    "tree": ("bench", dict(composite="tree")),
+    "hybrid": ("bench", dict(composite="hybrid")),
+    "full-N compressed": ("npz", {}),
+    "culled compressed": ("npz", None),
+}
+# the phase 4f path whose eager run gives each kernel's launches in the
+# kernels line (main(): phases 4, 4b, 4c, 4d and 4e); emit_compact is on
+# no render path
+LINE_PATHS = {"frontend": "main", "overflow_walk": "main", "dense_compact": "main",
+              "rasterize": "main", "rasterize_mxu": "hybrid",
+              "frontend_compressed": "culled compressed", "compact": "culled compressed",
+              "rasterize_tree": "tree", "frontend_center_out": "overflow off"}
+FUNCTIONS = sorted({spec[2] for spec in KERNELS.values()})
+
+
+def by_function(launches) -> dict:
+    """Launch counts by wrapper (build.LAUNCHES) -> by CUDA function (the
+    name torch.profiler shows), zero counts left out."""
+    out = {}
+    for name, k in launches.items():
+        if k:
+            out[KERNELS[name][2]] = out.get(KERNELS[name][2], 0) + k
+    return out
+
+
+def kernels_by_function(fn, want, passes: int = 5):
+    """{CUDA function of KERNELS: launches} in a profiled call of fn()
+    (torch.profiler).  The profiler has been seen to drop a record from a
+    pass (kernel_only_ms), so a pass that shows fewer than ``want`` asks is
+    repeated, up to ``passes`` calls, and each function's count is its
+    largest over them."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = {f: re.compile(rf"(?<![A-Za-z_]){f}") for f in FUNCTIONS}
+    best = {f: 0 for f in FUNCTIONS}
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)  # a first record, should one be lost
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        counts = {f: 0 for f in FUNCTIONS}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                f = next((f for f, pat in pats.items() if pat.search(e.name)), None)
+                if f is not None:
+                    counts[f] += 1
+        best = {f: max(best[f], counts[f]) for f in FUNCTIONS}
+        if all(best[f] >= k for f, k in want.items()):
+            break
+    return {f: k for f, k in best.items() if k}
+
+
+def graph_timing(what, frame, smi):
+    """``frame(i)`` renders view i.  The median CUDA-event span of a frame
+    run alone (synchronised before and after; TIMED_PASSES passes), the
+    span per frame of the 8 views back to back (one synchronise), and the
+    device busy ms and activities per frame of one profiled pass
+    (torch.profiler: the union of the device activity intervals), with the
+    lone frame's idle share."""
+    import torch
+
+    alone = []
+    for _ in range(TIMED_PASSES):
+        for i in range(N_VIEWS):
+            torch.cuda.synchronize()
+            alone.append(event_ms(lambda: frame(i))[1])
+    torch.cuda.synchronize()
+    pass_ms = event_ms(lambda: [frame(i) for i in range(N_VIEWS)])[1] / N_VIEWS
+    busy, acts, _ = busy_ms(lambda: [frame(i) for i in range(N_VIEWS)])
+    r = dict(span_ms=statistics.median(alone), pass_ms=pass_ms, busy_ms=busy / N_VIEWS,
+             activities=acts / N_VIEWS)
+    r["idle_share"] = 1 - r["busy_ms"] / r["span_ms"]
+    say("graph", f"{what}: span {r['span_ms']:.4f} ms alone (median of {len(alone)}), "
+                 f"{pass_ms:.4f} ms per frame back to back, busy {r['busy_ms']:.4f} ms in "
+                 f"{r['activities']:.1f} device activities per frame (torch.profiler), idle "
+                 f"share {r['idle_share']:.3f} ({smi})")
+    return r
+
+
+def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
+    """Phase 4f: each path's frame as a captured program.  Per path: the
+    8 views through the uncompiled render_frame under
+    torch.cuda.set_sync_debug_mode("error") (no host synchronisation
+    between the frame block and the image), counting their launches; the
+    frame captured once (render/graph.py) and the 8 views replayed back to
+    back with no host read, each image bit-identical to its eager frame
+    and the diagnostics equal; the replayed pass's kernels by name
+    (torch.profiler), equal to the eager frames' launches, which equal
+    the kernels line's ``launches`` (LINE_PATHS); span, busy, activities
+    and idle share of eager and replayed frames.  Then
+    GaussianRenderer (capture on, the default) over the 8 views: one
+    capture for the viewport, frames bit-equal to phase 4's; and the
+    sort of the whole stream buffer (int32 keys) against the exact-prefix
+    sort (int64 keys) it replaced."""
+    import torch
+
+    from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops.sort import sort_instances, sort_stream
+    from websplat_tpu_torch.render.graph import GraphCache, render_blocks
+    from websplat_tpu_torch.render.renderer import (build_instance_stream, frame_stream,
+                                                    render_frame, upload)
+    from websplat_tpu_torch.synth import bench_cameras
+
+    say("graph", f"card: {smi}")
+    cams = bench_cameras()
+    clouds = {"bench": cloud, "npz": resident}
+    device_clouds = {k: upload(c, "cuda") for k, c in clouds.items()}
+    timing = {}
+    for what, (kind, fields) in GRAPH_PATHS.items():
+        host, dc = clouds[kind], device_clouds[kind]
+        cfg = RasterConfig(**(fields if fields is not None
+                              else dict(compressed_cull_factor=cull_factor)))
+        geo = dict(width=W, height=H, config=cfg, compressed=host.compressed)
+        blocks = torch.stack([device_block(*view_block(host, cam)) for cam in cams])
+        render_frame(dc, blocks[0], **geo)  # warm: allocator, kernels
+        torch.cuda.synchronize()
+        build.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = [render_frame(dc, blocks[i], return_diag=True, **geo) for i in range(N_VIEWS)]
+            eager_diag = torch.stack([d.tensor for _, d in eager])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = by_function(build.LAUNCHES)
+        line = {k: (launches[k], want.get(KERNELS[k][2], 0)) for k, p in LINE_PATHS.items()
+                if p == what}
+        graphs = GraphCache()
+        images, diags = render_blocks(dc, blocks, graphs, **geo)  # capture + 8 replays
+        graph = next(iter(graphs))
+        torch.cuda.synchronize()
+        errs = [float((images[i] - eager[i][0]).abs().max()) for i in range(N_VIEWS)]
+        same = [bool(torch.equal(images[i], eager[i][0])) for i in range(N_VIEWS)]
+        diag_same = bool(torch.equal(diags, eager_diag))
+        launched = kernels_by_function(lambda: render_blocks(dc, blocks, graphs, **geo), want)
+        say("graph", f"{what}: eager frames under set_sync_debug_mode('error') ok; captured "
+                     f"{graph.captures} time(s); {N_VIEWS} views replayed back to back: max abs "
+                     f"vs eager {max(errs):.3g} (bit-identical {same}), diagnostics equal "
+                     f"{diag_same} ({diags[0].tolist()} at view 0); replayed kernels by name "
+                     f"{launched}, eager launches {want}; the kernels line's launches from "
+                     f"this path (line, eager here) {line}")
+        if not (all(same) and diag_same and graph.captures == 1 and launched == want
+                and all(a == b for a, b in line.values())):
+            raise AssertionError(f"{what}: replayed frames differ from eager ({errs}), "
+                                 f"diagnostics equal {diag_same}, captures {graph.captures}, "
+                                 f"kernels {launched} vs eager {want}, kernels line {line}")
+        timing[what] = {mode: graph_timing(f"{what}, {mode}", fn, smi) for mode, fn in (
+            ("eager", lambda i: render_frame(dc, blocks[i], **geo)),
+            ("replay", lambda i: graph.replay(blocks[i])))}
+        del graphs, graph, images, eager
+
+    # the user's entry point on the card replays its graph: one capture for
+    # the viewport whatever the camera, the frames bit-equal to phase 4's
+    r = GaussianRenderer(cloud, RasterConfig())
+    imgs = [r.render(cam, (W, H), SplattingArgs()) for cam in cams]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(imgs, scan_images)]
+    caps = [g.captures for g in r.graphs]
+    say("graph", f"GaussianRenderer (capture on), {N_VIEWS} views: graphs {len(r.graphs)}, "
+                 f"captures {caps}; bit-equal to phase 4's eager frames {same}")
+    if not (caps == [1] and all(same)):
+        raise AssertionError(f"GaussianRenderer: captures {caps}, frames equal {same}")
+
+    # the sort: the whole buffer (int32 keys) against the exact prefix
+    # (int64 keys) of the same view 0 stream
+    dc = device_clouds["bench"]
+    block0 = device_block(*view_block(cloud, cams[0]))
+    geo = dict(width=W, height=H, config=RasterConfig())
+    st = frame_stream(dc, block0, **geo)
+    keys, words, _ = build_instance_stream(dc, block0, **geo)
+    whole = cuda_ms(lambda: sort_stream(st.keys, st.words), 10)
+    prefix = cuda_ms(lambda: sort_instances(keys, words), 10)
+    say("graph", f"sort, view 0: whole buffer {st.keys.shape[0]} rows, int32 keys {whole:.4f} ms; "
+                 f"exact prefix {keys.shape[0]} rows, int64 keys {prefix:.4f} ms (CUDA events, "
+                 f"median of 10; {smi})")
+    timing["sort"] = dict(whole_ms=whole, whole_rows=st.keys.shape[0], prefix_ms=prefix,
+                          prefix_rows=keys.shape[0])
+    return timing
 
 
 def parallel_phase(cloud, scan_images, scan_diags, smi):
@@ -1582,6 +1813,7 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
     from websplat_tpu_torch import RasterConfig, SplattingArgs
     from websplat_tpu_torch.config import resolve_settings
     from websplat_tpu_torch.models.camera import CameraUniforms
+    from websplat_tpu_torch.ops.preprocess import N_SCALARS
     from websplat_tpu_torch.parallel.group import splat_group, view_group
     from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer, stack_cameras
     from websplat_tpu_torch.parallel.sharded import (cut_regions, make_splat_sharded_renderer,
@@ -1622,18 +1854,19 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
     shard = shard_cloud(dc, sgroup)
     img1, st1 = sstep(shard, unis[0], settings, bg)
     p1 = psnr(img1.cpu().numpy(), scan_images[0])
-    fs0 = camera_block(unis[0], settings)
+    block0 = device_block(camera_block(unis[0], settings), settings)
     sharded_ms = cuda_ms(lambda: sstep(shard, unis[0], settings, bg), 10)
-    single_ms = cuda_ms(lambda: render_frame(dc, fs0, bg, width=W, height=H,
+    single_ms = cuda_ms(lambda: render_frame(dc, block0, width=W, height=H,
                                              config=RasterConfig()), 10)
     # its parts: the cut (the stream, the stable sort, the region buffers),
     # the exchange, the region's frame (merge, re-sort, rebase, raster)
     plan = region_plan(1, width=W, height=H, config=RasterConfig(), region_capacity=n_inst)
-    outgoing, _ = cut_regions(shard, fs0, plan, config=RasterConfig())
+    outgoing, _ = cut_regions(shard, block0, plan, config=RasterConfig())
     incoming = torch.empty_like(outgoing)
-    cut_ms = cuda_ms(lambda: cut_regions(shard, fs0, plan, config=RasterConfig()), 10)
+    cut_ms = cuda_ms(lambda: cut_regions(shard, block0, plan, config=RasterConfig()), 10)
     x_ms = cuda_ms(lambda: dist.all_to_all_single(incoming, outgoing, group=sgroup.group), 10)
-    region_ms = cuda_ms(lambda: region_frame(incoming, 0, bg, plan, config=RasterConfig()), 10)
+    region_ms = cuda_ms(lambda: region_frame(incoming, 0, block0[N_SCALARS:], plan,
+                                             config=RasterConfig()), 10)
     say("parallel", f"splat-sharded D = 1 parts (CUDA events, median of 10): cut {cut_ms:.3f} "
                     f"ms, all_to_all_single of {tuple(outgoing.shape)} int32 {x_ms:.3f} ms, "
                     f"region frame {region_ms:.3f} ms")
@@ -1647,12 +1880,12 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
 
     # the loopback exchange at D = 2 and 4: 32 x 8 tiles give 100 tile rows
     cfg8 = RasterConfig(**SHARD_CONFIG)
-    ref, dref = render_frame(dc, fs0, bg, width=W, height=H, config=cfg8, return_diag=True)
+    ref, dref = render_frame(dc, block0, width=W, height=H, config=cfg8, return_diag=True)
     ref = ref.cpu().numpy()
     if not dref["num_clamped"] == dref["num_dropped"] == 0:
         raise AssertionError(f"the single frame at SHARD_CONFIG clamps or drops: {dref}")
     geo = dict(width=W, height=H, config=cfg8)
-    keys, words, _ = build_instance_stream(dc, fs0, **geo)
+    keys, words, _ = build_instance_stream(dc, block0, **geo)
     for d in (2, 4):
         shards = split_cloud(dc, d)
         cap = -(-115 * dref["num_instances"] // (100 * d))
@@ -1732,30 +1965,73 @@ def run_apps(cloud, smi, root):
         raise AssertionError(f"measure FPS {fps_runs}")
     # the device's share of one measure pass: busy ms (torch.profiler)
     # against the pass's wall time
+    from websplat_tpu_torch.parallel import multiview
+
     one_pass, views = measure.prepare(measure.parse_args([ply, cams_json]))
     one_pass()
-    t0 = time.perf_counter()
-    one_pass()
-    wall = 1e3 * (time.perf_counter() - t0)
+    # the pass's host clock: building and uploading the views' frame blocks,
+    # enqueueing the replays, then waiting in its synchronize
+    marks = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            marks[name + "_start"] = time.perf_counter()
+            out = fn(*args, **kw)
+            marks[name + "_end"] = time.perf_counter()
+            return out
+        return run
+
+    orig = multiview.view_blocks, multiview.render_blocks
+    multiview.view_blocks = timed("blocks", orig[0])
+    multiview.render_blocks = timed("replays", orig[1])
+    parts = {k: [] for k in ("wall", "before", "blocks", "replays", "wait")}
+    try:
+        for _ in range(MEASURE_PASSES):
+            t0 = time.perf_counter()
+            one_pass()
+            t1 = time.perf_counter()
+            parts["wall"].append(1e3 * (t1 - t0))
+            parts["before"].append(1e3 * (marks["blocks_start"] - t0))
+            for k in ("blocks", "replays"):
+                parts[k].append(1e3 * (marks[k + "_end"] - marks[k + "_start"]))
+            parts["wait"].append(1e3 * (t1 - marks["replays_end"]))
+    finally:
+        multiview.view_blocks, multiview.render_blocks = orig
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    wall = split["wall"]
     busy, acts, _ = busy_ms(one_pass)
-    say("apps", f"measure pass ({views} views): {wall:.3f} ms host wall, device busy "
-                f"{busy:.3f} ms in {acts} device activities (torch.profiler, the next pass); "
-                f"per frame {wall / views:.3f} / {busy / views:.3f} ms")
+    say("apps", f"measure pass host clock (ms, median of {MEASURE_PASSES} passes): " + ", ".join(
+        f"{k} {split[k]:.3f}" for k in ("wall", "before", "blocks", "replays", "wait")))
+
     # what a measure frame holds: its first train view through the same
-    # config, warm, with the stage spans and diagnostics
+    # config, warm, with the stage spans, diagnostics and launches
+    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.renderer import StageTimer, render_frame
 
     sc = Scene.from_json(cams_json).cameras(Split.TRAIN)[0]
     cam = sc.to_perspective()
     cam.projection.resize(2048, 2048)
-    fs2, st2 = view_block(cloud, cam, (2048, 2048))
+    block2 = device_block(*view_block(cloud, cam, (2048, 2048)))
     cfg2 = RasterConfig.for_viewport(2048, 2048)
     dc2 = GaussianRenderer(cloud, cfg2).device_cloud
     for _ in range(2):
         timer = StageTimer()
-        _, d2 = render_frame(dc2, fs2, st2.background_color, width=2048, height=2048, config=cfg2,
+        build.reset_launches()
+        _, d2 = render_frame(dc2, block2, width=2048, height=2048, config=cfg2,
                              return_diag=True, timer=timer)
         ms2 = timer.stages_ms()
+    want = {f: k * views for f, k in by_function(build.LAUNCHES).items()}
+
+    measured = [g.captures for g in one_pass.graphs]
+    launched = kernels_by_function(one_pass, want)
+    say("apps", f"measure pass ({views} views): {wall:.3f} ms host wall (median), device busy "
+                f"{busy:.3f} ms in {acts} device activities (torch.profiler, the next pass); "
+                f"per frame {wall / views:.3f} / {busy / views:.3f} ms, wall / busy "
+                f"{wall / busy:.3f}; replayed graphs' captures {measured}, kernels by name "
+                f"{launched} (the eager frame's launches x {views}: {want}) ({smi})")
+    if not (measured == [1] and launched == want):
+        raise AssertionError(f"measure did not replay one captured frame per view: captures "
+                             f"{measured}, kernels {launched} vs {want}")
     say("apps", f"measure's first train view at 2048x2048 ({cfg2.tile_w}x{cfg2.tile_h} tiles), "
                 f"warm: {sum(ms2.values()):.3f} ms event span; stages ms "
                 + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items()) + f"; {d2}")
@@ -1848,6 +2124,7 @@ def main() -> int:
                                            blocks)["rasterize_tree"]
     launches["frontend_center_out"] = refused_frames(cloud, scan_images,
                                                      smi)["frontend_center_out"]
+    graph_phase(cloud, resident, cull_factor, scan_images, launches, smi)
     apps_phase(cloud, smi)
     parallel_phase(cloud, scan_images, scan_diags, smi)
     import torch

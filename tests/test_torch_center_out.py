@@ -32,7 +32,7 @@ from tests.test_torch_frontend import _tol, _unmatched
 from websplat_tpu_torch.config import RasterConfig
 from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
 from websplat_tpu_torch.ops.preprocess import SPIRAL, core_math
-from websplat_tpu_torch.render.renderer import camera_block, cloud_from_host_arrays
+from websplat_tpu_torch.render.renderer import camera_block, cloud_from_host_arrays, frame_block
 
 # the module (websplat_tpu.ops exports a function of the same name)
 jpre = importlib.import_module("websplat_tpu.ops.preprocess")
@@ -84,8 +84,8 @@ def streams(request, scene):
         live = keys != 0xFFFFFFFF
         jrows = np.stack([keys[live]] + [u32(w)[live] for w in pre.payload], 1)
         num_visible, num_clamped = pre.num_visible, pre.num_clamped
-    out = frontend_torch(dc, fs, width=W, height=H, config=tcfg, capacity=CAPACITY,
-                         capacity_c=0)
+    out = frontend_torch(dc, frame_block(fs, (0, 0, 0), "cpu"), width=W, height=H, config=tcfg,
+                         capacity=CAPACITY, capacity_c=0)
     total, visible, clamped = out.stats.tolist()
     u = lambda t: t.numpy().view(np.uint32)
     trows = np.concatenate([u(out.keys)[:total, None], u(out.words)[:, :total].T], 1)
@@ -158,7 +158,8 @@ def test_center_out_limits(scene):
         jpre.preprocess(*scene[0], width=W, height=H,
                         config=JaxRasterConfig(tile_slots=65, overflow_capacity=0))
     cfg = RasterConfig(tile_w=16, tile_h=16, overflow_capacity=0)
-    a = fused_frontend(dc, fs, width=W, height=H, config=cfg, capacity=CAPACITY, capacity_c=0)
-    b = frontend_torch(dc, fs, width=W, height=H, config=cfg, capacity=CAPACITY, capacity_c=0)
+    block = frame_block(fs, (0, 0, 0), "cpu")
+    a = fused_frontend(dc, block, width=W, height=H, config=cfg, capacity=CAPACITY, capacity_c=0)
+    b = frontend_torch(dc, block, width=W, height=H, config=cfg, capacity=CAPACITY, capacity_c=0)
     assert a.stats.tolist() == b.stats.tolist()
     assert torch.equal(a.keys, b.keys) and torch.equal(a.words, b.words)

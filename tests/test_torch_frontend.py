@@ -33,7 +33,7 @@ from websplat_tpu.render.renderer import camera_to_device, settings_to_device, u
 from tests.synth import make_camera, make_cloud
 from websplat_tpu_torch.config import RasterConfig
 from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
-from websplat_tpu_torch.render.renderer import camera_block, cloud_from_host_arrays
+from websplat_tpu_torch.render.renderer import camera_block, cloud_from_host_arrays, frame_block
 
 torch.set_num_threads(2)
 
@@ -107,8 +107,9 @@ def frontends():
     )
     _, dc = cloud_from_host_arrays(cloud.xyz, cloud.opacity, cloud.cov, cloud.sh,
                                    sh_deg=cloud.sh_deg, device="cpu")
-    out = frontend_torch(dc, camera_block(uni, settings), width=W, height=H, config=tcfg,
-                         capacity=capacity, capacity_c=cap_c)
+    block = frame_block(camera_block(uni, settings), (0, 0, 0), "cpu")
+    out = frontend_torch(dc, block, width=W, height=H, config=tcfg, capacity=capacity,
+                         capacity_c=cap_c)
     total, visible, clamped = out.stats.tolist()
     k, kc = min(total, capacity), min(clamped, cap_c)
     u = lambda t: t.numpy().view(np.uint32)
@@ -118,7 +119,7 @@ def frontends():
         num_visible=visible, num_clamped=clamped, num_valid=total,
     )
     torch_out["depth_bits"] = tcfg.key_bits(W, H)[1]
-    return jax_out, torch_out, (dc, camera_block(uni, settings), tcfg, capacity, cap_c)
+    return jax_out, torch_out, (dc, block, tcfg, capacity, cap_c)
 
 
 def test_frontend_counts_equal(frontends):
@@ -147,8 +148,8 @@ def test_frontend_clamped_rows_multiset(frontends):
 def test_frontend_capacity_counts_drops(frontends):
     """Past capacity the true totals are still reported, and the prefix
     holds exactly `capacity` rows of the full stream."""
-    _, t, (dc, fs, cfg, capacity, cap_c) = frontends
-    small = frontend_torch(dc, fs, width=W, height=H, config=cfg, capacity=1000, capacity_c=8)
+    _, t, (dc, block, cfg, capacity, cap_c) = frontends
+    small = frontend_torch(dc, block, width=W, height=H, config=cfg, capacity=1000, capacity_c=8)
     assert small.stats.tolist() == [t["num_valid"], t["num_visible"], t["num_clamped"]]
     full = Counter(map(tuple, t["rows"].tolist()))
     u = lambda x: x.numpy().view(np.uint32)
@@ -157,8 +158,8 @@ def test_frontend_capacity_counts_drops(frontends):
 
 
 def test_public_frontend_dispatches_cpu_to_plain(frontends):
-    _, t, (dc, fs, cfg, capacity, cap_c) = frontends
-    out = fused_frontend(dc, fs, width=W, height=H, config=cfg, capacity=capacity,
+    _, t, (dc, block, cfg, capacity, cap_c) = frontends
+    out = fused_frontend(dc, block, width=W, height=H, config=cfg, capacity=capacity,
                          capacity_c=cap_c)
     assert out.stats.tolist() == [t["num_valid"], t["num_visible"], t["num_clamped"]]
 
@@ -167,13 +168,13 @@ def test_frontend_rejects_wide_viewports(frontends):
     """130 tiles on an axis render (the TPU kernel's 7-bit limit is gone);
     past 256 with overflow on the rect4 packing raises, as JAX does
     (preprocess.py:637-641), and with overflow off it renders."""
-    _, t, (dc, fs, cfg, capacity, cap_c) = frontends
-    out = frontend_torch(dc, fs, width=130 * 32, height=H, config=cfg, capacity=capacity,
+    _, t, (dc, block, cfg, capacity, cap_c) = frontends
+    out = frontend_torch(dc, block, width=130 * 32, height=H, config=cfg, capacity=capacity,
                          capacity_c=cap_c)
     assert out.stats.tolist()[1] > 0
     with pytest.raises(ValueError, match="256 tiles per axis"):
-        frontend_torch(dc, fs, width=256 * 32 + 1, height=H, config=cfg, capacity=capacity,
+        frontend_torch(dc, block, width=256 * 32 + 1, height=H, config=cfg, capacity=capacity,
                        capacity_c=cap_c)
-    off = frontend_torch(dc, fs, width=256 * 32 + 1, height=H, config=cfg, capacity=capacity,
+    off = frontend_torch(dc, block, width=256 * 32 + 1, height=H, config=cfg, capacity=capacity,
                          capacity_c=0)
     assert off.stats.tolist()[1] > 0

@@ -42,6 +42,7 @@ from websplat_tpu_torch.render.renderer import (
     cloud_from_host_arrays,
     decompress_cloud,
     decompress_cloud_culled,
+    frame_block,
     frustum_visible,
 )
 
@@ -170,7 +171,8 @@ def resident():
     js = jax_resolve(JaxArgs(), jc)
     return dict(jc=jc, jdc=jr.upload_compressed_cloud(jc), tc=tc, tdc=tdc,
                 jcam=jr.camera_to_device(uni), jset=jr.settings_to_device(js),
-                fs=camera_block(uni, resolve_settings(SplattingArgs(), tc)))
+                block=frame_block(camera_block(uni, resolve_settings(SplattingArgs(), tc)),
+                                  (0, 0, 0), "cpu"))
 
 
 def test_decompress_cloud_matches_jax(resident):
@@ -186,14 +188,14 @@ def test_decompress_cloud_matches_jax(resident):
 
 def test_frustum_cull_and_culled_decompression_match_jax(resident):
     vis_j = np.asarray(jr.frustum_visible(resident["jdc"].xyz, resident["jcam"], resident["jset"]))
-    vis_t = frustum_visible(resident["tdc"].xyz, resident["fs"]).numpy()
+    vis_t = frustum_visible(resident["tdc"].xyz, resident["block"]).numpy()
     np.testing.assert_array_equal(vis_t, vis_j)
     n_vis = int(vis_t.sum())
     assert 100 < n_vis < 600  # some splats leave the frustum
     for cap in (4096, n_vis - 7):
         jcl, jdrop = jr.decompress_cloud_culled(resident["jdc"], resident["jcam"],
                                                 resident["jset"], capacity=cap)
-        tcl, tdrop = decompress_cloud_culled(resident["tdc"], resident["fs"], capacity=cap)
+        tcl, tdrop = decompress_cloud_culled(resident["tdc"], resident["block"], capacity=cap)
         assert tcl.opacity.shape == (cap,) and int(tdrop) == max(0, n_vis - cap)
         kept = min(n_vis, cap)
         jxyz = np.asarray(jcl.xyz)
@@ -249,8 +251,9 @@ def compressed_frontends():
     u = lambda t: t.numpy().view(np.uint32)
     outs = {}
     for comp in (True, False):
-        out = frontend_torch(dc, camera_block(uni, settings), width=W, height=H, config=tcfg,
-                             capacity=capacity, capacity_c=cap_c, compressed=comp)
+        out = frontend_torch(dc, frame_block(camera_block(uni, settings), (0, 0, 0), "cpu"),
+                             width=W, height=H, config=tcfg, capacity=capacity,
+                             capacity_c=cap_c, compressed=comp)
         total, _, clamped = out.stats.tolist()
         k, kc = min(total, capacity), min(clamped, cap_c)
         outs[comp] = dict(rows=np.concatenate([u(out.keys)[:k, None], u(out.words)[:, :k].T], 1),

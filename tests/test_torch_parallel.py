@@ -36,7 +36,8 @@ from websplat_tpu_torch.config import resolve_settings
 from websplat_tpu_torch.models.camera import CameraUniforms
 from websplat_tpu_torch.parallel import sharded
 from websplat_tpu_torch.parallel.group import DeviceGroup
-from websplat_tpu_torch.render.renderer import camera_block, cloud_from_host_arrays, render_frame
+from websplat_tpu_torch.render.renderer import (camera_block, cloud_from_host_arrays, frame_block,
+                                                render_frame)
 from websplat_tpu_torch.synth import make_camera
 
 torch.set_num_threads(2)
@@ -86,8 +87,9 @@ def test_splat_sharded_matches_jax_and_single():
     args = SplattingArgs(background_color=BG)
     img, stats = _port_sharded(tc, dc, cam, args, 8, 2048)
     settings = resolve_settings(args, tc)
-    single = render_frame(dc, camera_block(CameraUniforms.from_camera(cam, (W, H)), settings),
-                          settings.background_color, width=W, height=H, config=CFG).numpy()
+    block = frame_block(camera_block(CameraUniforms.from_camera(cam, (W, H)), settings),
+                        settings.background_color, "cpu")
+    single = render_frame(dc, block, width=W, height=H, config=CFG).numpy()
     assert img.shape == (H, W, 3) and np.isfinite(img).all()
     assert stats == jstats, (stats, jstats)
     assert stats["num_dropped_exchange"] == 0 and stats["num_visible"] > 0

@@ -36,7 +36,8 @@ from websplat_tpu_torch.ops.preprocess import FrameScalars
 from websplat_tpu_torch.parallel import dryrun, sharded
 from websplat_tpu_torch.parallel.group import DeviceGroup
 from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer, stack_cameras
-from websplat_tpu_torch.render.renderer import cloud_from_host_arrays, render_frame, upload_cloud
+from websplat_tpu_torch.render.renderer import (cloud_from_host_arrays, frame_block, render_frame,
+                                                upload_cloud)
 from websplat_tpu_torch.synth import make_camera
 
 torch.set_num_threads(2)
@@ -100,8 +101,9 @@ def test_gloo_two_ranks_bit_equal_to_loopback():
         k = r["rank"]  # one view per rank
         fs = FrameScalars.from_uniforms(cams.view[k], cams.view_inv[k], cams.proj[k],
                                         cams.focal[k], settings)
-        ref, diag = render_frame(dc, fs, settings.background_color, width=dryrun.WIDTH,
-                                 height=dryrun.HEIGHT, config=cfg, return_diag=True)
+        ref, diag = render_frame(dc, frame_block(fs, settings.background_color, "cpu"),
+                                 width=dryrun.WIDTH, height=dryrun.HEIGHT, config=cfg,
+                                 return_diag=True)
         np.testing.assert_array_equal(r["view_images"][0], ref.numpy())
         total += diag["num_visible"]
     assert all(r["total_visible"] == total for r in results)

@@ -31,6 +31,7 @@ from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
 from websplat_tpu_torch.render.renderer import (
     build_instance_stream,
     camera_block,
+    frame_block,
     cloud_from_host_arrays,
 )
 
@@ -125,7 +126,8 @@ def scene_stream():
     cfg = RasterConfig()
     fs = camera_block(CameraUniforms.from_camera(cam, (W, H)), resolve_settings(SplattingArgs(),
                                                                                 cloud))
-    keys, words, _ = build_instance_stream(dc, fs, width=W, height=H, config=cfg)
+    keys, words, _ = build_instance_stream(dc, frame_block(fs, (0, 0, 0), "cpu"), width=W,
+                                           height=H, config=cfg)
     sk, sw = sort_instances(keys, words)
     tx, ty = cfg.tiles_for(W, H)
     return sw, tile_ranges(sk, tx * ty, cfg.key_bits(W, H)[1]), cfg

@@ -49,6 +49,7 @@ torch.set_num_threads(2)
 
 W, H = 256, 192
 BG = (0.1, 0.2, 0.3)
+BG_T = torch.tensor(BG)  # the rasterizers' (3,) f32 background
 TOL = {"highest": 5e-5, "hybrid": 5e-5, "high": 1e-3}
 
 
@@ -72,13 +73,13 @@ def test_plain_mxu_matches_pallas(jax_stream, variant):
                                       jnp.asarray(BG, jnp.float32), width=W, height=H,
                                       config=jcfg, interpret=True))
     words, ranges = _inputs(jax_stream)
-    img = rasterize_mxu_torch(words, ranges, BG, width=W, height=H, config=_config(variant))
+    img = rasterize_mxu_torch(words, ranges, BG_T, width=W, height=H, config=_config(variant))
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
     diff = np.abs(img.numpy() - ref)
     assert diff.max() <= TOL[variant]
     assert diff.mean() <= 1e-5
     # the public rasterizer takes the plain path for CPU tensors
-    assert torch.equal(rasterize_mxu(words, ranges, BG, width=W, height=H,
+    assert torch.equal(rasterize_mxu(words, ranges, BG_T, width=W, height=H,
                                      config=_config(variant)), img)
 
 
@@ -90,7 +91,7 @@ def test_plain_mxu_default_is_one_bf16_pass(jax_stream, monkeypatch):
     round: the image moves away from "highest" (observed max 0.31 here, the
     quadratic form's terms reach ~1e3 and bf16 keeps 8 bits)."""
     words, ranges = _inputs(jax_stream)
-    run = lambda v: rasterize_mxu_torch(words, ranges, BG, width=W, height=H,
+    run = lambda v: rasterize_mxu_torch(words, ranges, BG_T, width=W, height=H,
                                         config=_config(v)).numpy()
     default, highest = run("default"), run("highest")
     assert np.isfinite(default).all()
@@ -130,7 +131,7 @@ def test_mxu_eps_zero_never_stops(jax_stream):
                                    jnp.asarray(BG, jnp.float32), width=W, height=H,
                                    config=JaxRasterConfig(transmittance_eps=0.0)))
     words, ranges = _inputs(jax_stream)
-    img = rasterize_mxu_torch(words, ranges, BG, width=W, height=H,
+    img = rasterize_mxu_torch(words, ranges, BG_T, width=W, height=H,
                               config=_config("hybrid", transmittance_eps=0.0))
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=5e-5)
 
@@ -138,11 +139,11 @@ def test_mxu_eps_zero_never_stops(jax_stream):
 def test_mxu_wrapper_refuses_other_composites(jax_stream):
     words, ranges = _inputs(jax_stream)
     with pytest.raises(ValueError, match="slab rasterizer"):
-        rasterize_mxu(words, ranges, BG, width=W, height=H, config=RasterConfig())
+        rasterize_mxu(words, ranges, BG_T, width=W, height=H, config=RasterConfig())
     bad = _config("highest")
     object.__setattr__(bad, "mxu_precision", "fp8")  # past the config's own check
     with pytest.raises(ValueError, match="fp8"):
-        rasterize_mxu(words, ranges, BG, width=W, height=H, config=bad)
+        rasterize_mxu(words, ranges, BG_T, width=W, height=H, config=bad)
 
 
 GW, GH = 128, 96

@@ -54,6 +54,7 @@ torch.set_num_threads(2)
 
 W, H = 128, 96
 BG = (0.1, 0.2, 0.3)
+BG_T = torch.tensor(BG)  # the rasterizers' (3,) f32 background
 
 
 @pytest.fixture(scope="module")
@@ -84,17 +85,17 @@ def test_plain_raster_matches_pallas_variant(stream, composite, qform):
         sp, ranges, jnp.asarray(BG, jnp.float32), width=W, height=H,
         config=JaxRasterConfig(composite=composite, qform=qform), interpret=True))
     cfg = RasterConfig(composite=composite, qform=qform)
-    img = rasterize_torch(stream["words"], stream["ranges"], BG, width=W, height=H, config=cfg)
+    img = rasterize_torch(stream["words"], stream["ranges"], BG_T, width=W, height=H, config=cfg)
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
     assert np.abs(img.numpy() - ref).max() < 1e-3
     # the public rasterizer takes the plain path for CPU tensors
-    assert torch.equal(rasterize(stream["words"], stream["ranges"], BG, width=W, height=H,
+    assert torch.equal(rasterize(stream["words"], stream["ranges"], BG_T, width=W, height=H,
                                  config=cfg), img)
 
 
 def test_direct_qform_is_the_scan_evaluation(stream):
     """qform="direct" runs exactly the evaluation of "monomial" in the port."""
-    run = lambda **kw: rasterize_torch(stream["words"], stream["ranges"], BG, width=W, height=H,
+    run = lambda **kw: rasterize_torch(stream["words"], stream["ranges"], BG_T, width=W, height=H,
                                        config=RasterConfig(**kw))
     assert torch.equal(run(qform="direct"), run())
     assert torch.equal(run(composite="tree", qform="direct"), run(composite="tree"))
@@ -106,7 +107,7 @@ def test_tree_is_a_reassociated_scan(stream, eps):
     f32 reassociation.  With eps > 0 a tree pixel blends on to the end of
     the group in which it saturates: at most 7 more splats, whose total
     weight is below eps."""
-    run = lambda comp: rasterize_torch(stream["words"], stream["ranges"], BG, width=W,
+    run = lambda comp: rasterize_torch(stream["words"], stream["ranges"], BG_T, width=W,
                                        height=H, config=RasterConfig(composite=comp,
                                                                      transmittance_eps=eps))
     diff = (run("tree") - run("scan")).abs().max()
@@ -138,7 +139,7 @@ def test_tree_groups_are_absolute_positions():
         pad = torch.zeros((4, lead), dtype=torch.int32)
         w = torch.cat([pad, words, pad], dim=1)
         ranges = torch.tensor([lead, lead + m], dtype=torch.int32)
-        imgs.append(rasterize_torch(w, ranges, BG, width=32, height=32, config=cfg))
+        imgs.append(rasterize_torch(w, ranges, BG_T, width=32, height=32, config=cfg))
     assert torch.equal(imgs[0], imgs[2])  # both spans start on a group boundary
     assert 0.0 < float((imgs[0] - imgs[1]).abs().max()) < 1e-5
 
@@ -208,7 +209,7 @@ def test_present_folds_through_a_tile(lead):
     start, end = lead, lead + m
     cfg = RasterConfig(composite="tree")
     eps = float(cfg.transmittance_eps)
-    ref = rasterize_torch(words, torch.tensor([start, end], dtype=torch.int32), BG, width=32,
+    ref = rasterize_torch(words, torch.tensor([start, end], dtype=torch.int32), BG_T, width=32,
                           height=32, config=cfg)
 
     rec = packing.unpack_record(*packing.u32(words), packing.CenterQuant.for_viewport(32, 32))

@@ -34,6 +34,7 @@ from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
 from websplat_tpu_torch.render.renderer import (
     build_instance_stream,
     camera_block,
+    frame_block,
     cloud_from_host_arrays,
 )
 from websplat_tpu_torch.utils import roofline
@@ -42,6 +43,7 @@ torch.set_num_threads(2)
 
 W, H = 256, 200  # 25 rows past the last full tile row: edge pixels exist
 BG = (0.1, 0.2, 0.3)
+BG_T = torch.tensor(BG)  # the rasterizers' (3,) f32 background
 
 
 @pytest.fixture(scope="module")
@@ -54,11 +56,12 @@ def scene():
     cfg = RasterConfig()
     fs = camera_block(CameraUniforms.from_camera(cam, (W, H)), resolve_settings(SplattingArgs(),
                                                                                 cloud))
-    keys, words, _ = build_instance_stream(dc, fs, width=W, height=H, config=cfg)
+    block = frame_block(fs, BG, "cpu")
+    keys, words, _ = build_instance_stream(dc, block, width=W, height=H, config=cfg)
     sk, sw = sort_instances(keys, words)
     tx, ty = cfg.tiles_for(W, H)
     ranges = tile_ranges(sk, tx * ty, cfg.key_bits(W, H)[1])
-    return dict(dc=dc, fs=fs, cfg=cfg, sw=sw, ranges=ranges, n=cloud.num_points)
+    return dict(dc=dc, fs=fs, block=block, cfg=cfg, sw=sw, ranges=ranges, n=cloud.num_points)
 
 
 def _exp32(x: np.ndarray) -> np.ndarray:
@@ -174,9 +177,9 @@ def test_tree_raster_work_matches_per_pixel_walk(scene):
 
 def test_raster_work_leaves_the_image_alone(scene):
     sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
-    before = rasterize_torch(sw, ranges, BG, width=W, height=H, config=cfg)
+    before = rasterize_torch(sw, ranges, BG_T, width=W, height=H, config=cfg)
     rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
-    after = rasterize_torch(sw, ranges, BG, width=W, height=H, config=cfg)
+    after = rasterize_torch(sw, ranges, BG_T, width=W, height=H, config=cfg)
     assert torch.equal(before, after)
 
 
@@ -189,7 +192,7 @@ def test_frontend_and_walk_counts(scene):
     assert roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots) == brute > 0
 
     cap_c = cfg.overflow_capacity_for(n)
-    fr = frontend_torch(dc, fs, capacity=max(4096, 2 * n), capacity_c=cap_c, **geo)
+    fr = frontend_torch(dc, scene["block"], capacity=max(4096, 2 * n), capacity_c=cap_c, **geo)
     total, visible, clamped = fr.stats.tolist()
     assert visible == int(vis.sum()) and clamped > 0
     work = roofline.frontend_work(n, visible, total, clamped, brute, fs.max_sh_deg, fs.mip)
@@ -275,7 +278,7 @@ def test_center_out_counts(scene, slots):
     tests = roofline.center_out_reach_tests(d, slots)
     assert tests == brute > 0
     assert tests < roofline.frontend_reach_tests(d["n_rect"], d["visible"], slots)
-    fr = frontend_torch(dc, fs, capacity=max(4096, 2 * n), capacity_c=0, **geo)
+    fr = frontend_torch(dc, scene["block"], capacity=max(4096, 2 * n), capacity_c=0, **geo)
     total, visible, clamped = fr.stats.tolist()
     assert clamped == n_big and total <= tests
     work = roofline.frontend_work(n, visible, total, 0, tests, fs.max_sh_deg, fs.mip)

@@ -37,6 +37,7 @@ torch.set_num_threads(2)
 
 W, H = 256, 192
 BG = (0.1, 0.2, 0.3)
+BG_T = torch.tensor(BG)  # the rasterizers' (3,) f32 background
 
 
 @pytest.fixture(scope="module")
@@ -118,13 +119,13 @@ def test_plain_raster_matches_pallas(jax_stream):
                                       config=JaxRasterConfig(), interpret=True))
     words = _i32(np.stack(jax_stream["sorted_payload"]))
     ranges = torch.from_numpy(jax_stream["ranges"])
-    img = rasterize_torch(words, ranges, BG, width=W, height=H, config=RasterConfig())
+    img = rasterize_torch(words, ranges, BG_T, width=W, height=H, config=RasterConfig())
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
     diff = np.abs(img.numpy() - ref)
     assert diff.max() <= 5e-3
     assert diff.mean() <= 1e-4
     # the public rasterizer takes the plain path for CPU tensors
-    assert torch.equal(rasterize(words, ranges, BG, width=W, height=H, config=RasterConfig()),
+    assert torch.equal(rasterize(words, ranges, BG_T, width=W, height=H, config=RasterConfig()),
                        img)
 
 
@@ -138,7 +139,7 @@ def test_plain_raster_eps_zero_blends_every_splat(jax_stream):
                                    jnp.asarray(BG, jnp.float32), width=W, height=H,
                                    config=JaxRasterConfig(transmittance_eps=0.0)))
     img = rasterize_torch(_i32(np.stack(jax_stream["sorted_payload"])),
-                          torch.from_numpy(jax_stream["ranges"]), BG, width=W, height=H,
+                          torch.from_numpy(jax_stream["ranges"]), BG_T, width=W, height=H,
                           config=RasterConfig(transmittance_eps=0.0))
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=2e-5)
 

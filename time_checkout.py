@@ -12,15 +12,24 @@ them in turns: A B B A). Per root, on the bench scene (1,244,819 splats,
   - the main path's frame over the 8 views: median CUDA-event span and
     host wall of 5 warm passes, and the span's quartiles; the device busy
     ms per frame and device activities per frame of one profiled pass
-    (torch.profiler: the union of the activity intervals);
-  - the frontend's kernel-only ms on view 0 (torch.profiler, median of 30
-    launches): row-major (the main path), row-major at 24 slots (its
+    (torch.profiler: the union of the activity intervals); where the root
+    captures its frame (render/graph.py), the replayed frame's span alone
+    and back to back, busy ms and activities (chip_smoke.graph_timing);
+  - the splat-sharded step at D = 1 (parallel/sharded.py:
+    render_splat_sharded_loopback: the cut, the exchange as a transpose,
+    the region frame) on view 0: median CUDA-event ms of 10;
+  - the frontend's kernel-only ms on view 0 (torch.profiler, median of
+    KERNEL_REPS launches): row-major (the main path), with the compressed
+    eigen clamp (on the bench cloud), row-major at 24 slots (its
     64-bit-mask instantiation) and center-out (overflow off) at 6 and 64
     slots;
-  - the scan and tree rasterizers' kernel-only ms on view 0's sorted
-    stream (torch.profiler, median of 30 launches), with each kernel's
-    registers and spill bytes (ptxas); "n/a" where the checkout has no
-    tree composite.
+  - the scan, tree and slab ("hybrid") rasterizers' kernel-only ms on
+    view 0's sorted stream (torch.profiler, median of KERNEL_REPS
+    launches), with each kernel's registers and spill bytes (ptxas); "n/a"
+    where the checkout has no tree composite.
+A root from before the frame block (render/renderer.py:frame_block) is
+given the camera and background as host values, as its wrappers take
+them.
 Needs CUDA; exits nonzero without it.
 
     python3 time_checkout.py --sass ROOT_A ROOT_B [SOURCE.cu ...]
@@ -42,6 +51,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+KERNEL_REPS = 60  # launches per kernel-only median
 
 
 def time_root(root: str) -> None:
@@ -58,61 +68,107 @@ def time_root(root: str) -> None:
     spec.loader.exec_module(cs)
     from websplat_tpu_torch import GaussianRenderer, RasterConfig
     from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.models.camera import CameraUniforms
     from websplat_tpu_torch.ops.frontend import fused_frontend
     from websplat_tpu_torch.ops.rasterize import rasterize
+    from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+    from websplat_tpu_torch.parallel.sharded import render_splat_sharded_loopback, split_cloud
     from websplat_tpu_torch.render.renderer import StageTimer, build_instance_stream, render_frame
     from websplat_tpu_torch.synth import bench_cameras
+
+    try:
+        from websplat_tpu_torch.render.renderer import frame_block
+    except ImportError:  # a root from before the frame block
+        frame_block = None
+
+    def camera_args(fs, st):
+        """render_frame's camera arguments in the root's form; the frontend
+        and build_instance_stream take the first, the rasterizers the
+        second."""
+        if frame_block is None:
+            return fs, st.background_color
+        block = frame_block(fs, st.background_color, "cuda")
+        return block, block[-3:]
 
     usage = build.build_report()
     cloud = cs.bench_cloud()
     renderer = GaussianRenderer(cloud, RasterConfig())
-    blocks = [cs.view_block(cloud, cam) for cam in bench_cameras()]
+    cams = bench_cameras()
+    blocks = [cs.view_block(cloud, cam) for cam in cams]
+    args = [camera_args(fs, st) for fs, st in blocks]
+    frame = ((lambda a, **kw: render_frame(renderer.device_cloud, a[0], **kw))
+             if frame_block is not None else
+             (lambda a, **kw: render_frame(renderer.device_cloud, *a, **kw)))
     geo = dict(width=cs.W, height=cs.H, config=renderer.config)
     span, wall = [], []
     for p in range(6):  # the first pass warms up
-        for fs, st in blocks:
+        for a in args:
             timer = StageTimer()
             t0 = time.perf_counter()
-            render_frame(renderer.device_cloud, fs, st.background_color, timer=timer, **geo)
+            frame(a, timer=timer, **geo)
             ms = sum(timer.stages_ms().values())
             if p:
                 span.append(ms)
                 wall.append(1e3 * (time.perf_counter() - t0))
     q = statistics.quantiles(span, n=4)
-    busy, acts, _ = cs.busy_ms(lambda: [render_frame(renderer.device_cloud, fs, st.background_color,
-                                               **geo) for fs, st in blocks])
+    busy, acts, _ = cs.busy_ms(lambda: [frame(a, **geo) for a in args])
     out = [f"main span {statistics.median(span):.3f} ms (quartiles {q[0]:.3f}, {q[2]:.3f}), "
            f"wall {statistics.median(wall):.3f} ms, busy {busy / len(blocks):.3f} ms in "
            f"{acts / len(blocks):.0f} device activities per frame"]
+    try:  # the captured frame, where the root has one
+        from websplat_tpu_torch.render.graph import GraphCache, render_blocks
+    except ImportError:
+        out.append("replay n/a")
+    else:
+        blk = torch.stack([a[0] for a in args])
+        graphs = GraphCache()
+        render_blocks(renderer.device_cloud, blk, graphs, **geo)
+        graph = next(iter(graphs))
+        r = cs.graph_timing("replay", lambda i: graph.replay(blk[i]), root)
+        out.append(f"replay span {r['span_ms']:.3f} ms alone, {r['pass_ms']:.3f} ms back to "
+                   f"back, busy {r['busy_ms']:.3f} ms in {r['activities']:.0f} device "
+                   f"activities per frame")
+        del graphs, graph
 
-    fs, st = blocks[0]
+    # the splat-sharded step at D = 1, eager in every root
+    cam0, (fs0, st0) = cams[0], blocks[0]
+    n_inst = dict(frame(args[0], return_diag=True, **geo)[1])["num_instances"]
+    shards = split_cloud(renderer.device_cloud, 1)
+    uni0 = CameraUniforms.from_camera(cam0, (cs.W, cs.H))
+    sharded_ms = cs.cuda_ms(lambda: render_splat_sharded_loopback(
+        shards, uni0, st0, st0.background_color, region_capacity=n_inst, **geo), 10)
+    out.append(f"sharded D=1 {sharded_ms:.3f} ms")
+
+    cam, bg = args[0]
     n = cloud.num_points
     cap_c = renderer.config.overflow_capacity_for(n)
-    fronts = [("frontend", RasterConfig(), cap_c),
+    fronts = [("frontend", RasterConfig(), cap_c, False),
+              ("frontend compressed", RasterConfig(), cap_c, True),
               ("frontend 24 slots", RasterConfig(tile_slots=24),
-               RasterConfig(tile_slots=24).overflow_capacity_for(n)),
-              ("center-out 6 slots", RasterConfig(overflow_capacity=0), 0),
-              ("center-out 64 slots", RasterConfig(tile_slots=64, overflow_capacity=0), 0)]
-    for what, fcfg, fcap_c in fronts:
+               RasterConfig(tile_slots=24).overflow_capacity_for(n), False),
+              ("center-out 6 slots", RasterConfig(overflow_capacity=0), 0, False),
+              ("center-out 64 slots", RasterConfig(tile_slots=64, overflow_capacity=0), 0, False)]
+    for what, fcfg, fcap_c, comp in fronts:
         front_ms = cs.kernel_only_ms(lambda: fused_frontend(
-            renderer.device_cloud, fs, capacity=max(4096, 2 * n), capacity_c=fcap_c,
-            **dict(geo, config=fcfg)), "frontend", 30)
+            renderer.device_cloud, cam, capacity=max(4096, 2 * n), capacity_c=fcap_c,
+            compressed=comp, **dict(geo, config=fcfg)), "frontend", KERNEL_REPS)
         out.append(f"{what} {front_ms:.4f} ms")
-    keys, words, _ = build_instance_stream(renderer.device_cloud, fs, **geo)
+    keys, words, _ = build_instance_stream(renderer.device_cloud, cam, **geo)
     sk, sw = sort_instances(keys, words)
     cfg = renderer.config
     tx, ty = cfg.tiles_for(cs.W, cs.H)
     ranges = tile_ranges(sk, tx * ty, cfg.key_bits(cs.W, cs.H)[1])
-    for name, composite in (("rasterize", "scan"), ("rasterize_tree", "tree")):
+    for name, composite in (("rasterize", "scan"), ("rasterize_tree", "tree"),
+                            ("rasterize_mxu", "hybrid")):
         try:
             rcfg = RasterConfig(composite=composite)
         except ValueError:
             out.append(f"{name} n/a")
             continue
         rgeo = dict(geo, config=rcfg)
-        kernel_ms = cs.kernel_only_ms(lambda: rasterize(sw, ranges, st.background_color, **rgeo),
-                                      name, 30)
+        raster = rasterize_mxu if composite == "hybrid" else rasterize
+        kernel_ms = cs.kernel_only_ms(lambda: raster(sw, ranges, bg, **rgeo), name, KERNEL_REPS)
         regs = [f"{u['registers']} registers, {u['spill_stores']} B spills"
                 for entry, u in usage.items() if cs.kernel_pattern(name).search(entry)]
         out.append(f"{name} {kernel_ms:.4f} ms ({'; '.join(regs)})")

@@ -248,7 +248,6 @@ def histogram_source(src: str) -> str:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -258,6 +257,7 @@ def main() -> int:
     from websplat_tpu_torch import GaussianRenderer, RasterConfig
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops import packing
+    from websplat_tpu_torch.ops.preprocess import N_SCALARS
     from websplat_tpu_torch.ops.rasterize import rasterize_torch, warp_layout
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
     from websplat_tpu_torch.render.renderer import build_instance_stream
@@ -284,14 +284,14 @@ def main() -> int:
 
     cloud = cs.bench_cloud()
     renderer = GaussianRenderer(cloud, RasterConfig())
-    fs, st = cs.view_block(cloud, bench_cameras()[0])
+    block = cs.device_block(*cs.view_block(cloud, bench_cameras()[0]))
     cfg = renderer.config
     geo = dict(width=cs.W, height=cs.H, config=cfg)
-    keys, words, _ = build_instance_stream(renderer.device_cloud, fs, **geo)
+    keys, words, _ = build_instance_stream(renderer.device_cloud, block, **geo)
     sk, sw = sort_instances(keys, words)
     tx, ty = cfg.tiles_for(cs.W, cs.H)
     ranges = tile_ranges(sk, tx * ty, cfg.key_bits(cs.W, cs.H)[1])
-    bg = st.background_color
+    bg = block[N_SCALARS:]
     plain = rasterize_torch(sw, ranges, bg, **dict(geo, config=RasterConfig(composite="tree")))
 
     libs = {}
@@ -321,12 +321,11 @@ def main() -> int:
         libs[n] = lib
 
     cq = packing.CenterQuant.for_viewport(cs.W, cs.H)
-    bgn = np.asarray([float(c) for c in bg], np.float32)
     out = torch.empty((cs.H, cs.W, 3), dtype=torch.float32, device="cuda")
 
     def run(lib) -> None:
         err = lib.ws_rasterize(sw.data_ptr(), sw.shape[1], ranges.data_ptr(),
-                               bgn.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), cs.W, cs.H,
+                               bg.data_ptr(), out.data_ptr(), cs.W, cs.H,
                                cfg.tile_w, cfg.tile_h, tx, warp_layout(cfg.tile_w, cfg.tile_h),
                                float(cfg.transmittance_eps), cq.margin, cq.scale_x, cq.scale_y,
                                1, build.stream_ptr(sw.device))

@@ -70,7 +70,8 @@ struct DenseParams {
 __global__ void __launch_bounds__(DENSE_BLOCK)
     dense_compact_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ n_ptr,
                          int m_cap, DenseParams p, uint32_t* __restrict__ keys,
-                         uint32_t* __restrict__ words, int capacity, OrderedScratch s) {
+                         uint32_t* __restrict__ words, int64_t words_ld, int capacity,
+                         OrderedScratch s) {
   __shared__ BlockAppend<DENSE_BLOCK> append;
   const int tile = append.take(s);
   const int i = tile / p.rank_blocks;
@@ -120,7 +121,7 @@ __global__ void __launch_bounds__(DENSE_BLOCK)
     if (pos < capacity) {
       keys[pos] = key;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[1 + k];
+      for (int k = 0; k < 4; ++k) words[k * words_ld + pos] = w[1 + k];
     }
     ++pos;
   };
@@ -156,12 +157,14 @@ int ws_compact(const uint32_t* keys, const uint32_t* payload, int n_payload, int
 // rows: (6, m_cap) mega rows, the first min(*n_ptr, m_cap) valid;
 // icfg: rank_lo, tx_tiles, ty_tiles, tile_w, tile_h, depth_bits;
 // fcfg: f32(1/alpha_threshold) (0 when off), margin, scale_x, scale_y;
-// keys: capacity u32, words: (4, capacity) u32; scratch: scratch_words u64
+// keys: capacity u32, words: 4 rows of words_ld u32 (capacity of them
+// written at most); scratch: scratch_words u64
 // (stream.cuh; m_cap * max(ceil((tx_tiles * ty_tiles - rank_lo) / 256), 1)
 // tiles), zeroed here; its first int ends at the number of kept instances
 int ws_dense_compact(const uint32_t* rows, const int* n_ptr, int m_cap,
                      const int* icfg, const float* fcfg, uint32_t* keys, uint32_t* words,
-                     int capacity, void* scratch, int64_t scratch_words, void* stream) {
+                     int64_t words_ld, int capacity, void* scratch, int64_t scratch_words,
+                     void* stream) {
   const int span = icfg[1] * icfg[2] - icfg[0];
   const int rank_blocks = span > 0 ? (span + ws::DENSE_BLOCK - 1) / ws::DENSE_BLOCK : 1;
   ws::DenseParams p{icfg[0], icfg[1], icfg[2], icfg[3], icfg[4], icfg[5], rank_blocks,
@@ -171,7 +174,8 @@ int ws_dense_compact(const uint32_t* rows, const int* n_ptr, int m_cap,
   if (err != 0) return err;
   if (m_cap > 0) {
     ws::dense_compact_kernel<<<(unsigned)tiles, ws::DENSE_BLOCK, 0, (cudaStream_t)stream>>>(
-        rows, n_ptr, m_cap, p, keys, words, capacity, ws::ordered_scratch(scratch, tiles));
+        rows, n_ptr, m_cap, p, keys, words, words_ld, capacity,
+        ws::ordered_scratch(scratch, tiles));
   }
   return (int)cudaGetLastError();
 }

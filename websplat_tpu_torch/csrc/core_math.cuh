@@ -23,35 +23,43 @@ namespace ws {
 
 constexpr int N_SCALARS = 52;  // preprocess.py FrameScalars.block()
 
+// A run of the frame block in device memory, read through the read-only
+// data path where the math uses it: every thread of a launch reads the
+// same words (a broadcast, an L1 hit past the first).  Loading the 52
+// words into shared memory at the top of the kernel instead cost C ~7%
+// more time on the H100 (PERF.md §6).
+struct BlockFloats {
+  const float* at;
+  __device__ __forceinline__ float operator[](int i) const { return __ldg(at + i); }
+};
+
 struct FrameParams {
-  float view[16], proj[16], cam_pos[3], focal[2];
-  float cb_min[3], cb_max[3], center[3];
-  float scaling, kernel, walltime, extend;
-  int mip, max_sh_deg;
+  // the camera and settings: runs of the frame block (FrameScalars.block()
+  // order; a scalar is a run of one, read as [0]); frame_params_at fills
+  // them, the launch's configuration follows
+  BlockFloats view, proj, cam_pos, focal, cb_min, cb_max, center;
+  BlockFloats scaling, kernel, walltime, extend, mip, max_sh_deg;
   int width, height, ts_x, ts_y, tx_tiles, ty_tiles, depth_bits, slots;
   int compressed;  // 1: the compressed eigen clamp
   float thr, inv_thr;  // alpha_threshold and f32(1/alpha_threshold); 0 = off
   CenterQuant cq;
 };
 
-// fills the camera/settings part from the (52,) f32 block
-inline void frame_params_from_block(const float* s, FrameParams& p) {
-  for (int i = 0; i < 16; ++i) p.view[i] = s[i];
-  for (int i = 0; i < 16; ++i) p.proj[i] = s[16 + i];
-  for (int i = 0; i < 3; ++i) p.cam_pos[i] = s[32 + i];
-  p.focal[0] = s[35];
-  p.focal[1] = s[36];
-  for (int i = 0; i < 3; ++i) {
-    p.cb_min[i] = s[37 + i];
-    p.cb_max[i] = s[40 + i];
-    p.center[i] = s[43 + i];
-  }
-  p.scaling = s[46];
-  p.kernel = s[47];
-  p.walltime = s[48];
-  p.extend = s[49];
-  p.mip = s[50] > 0.5f;
-  p.max_sh_deg = (int)s[51];
+// points the camera and settings at the (N_SCALARS,) f32 block on the device
+inline void frame_params_at(const float* block, FrameParams& p) {
+  p.view = {block};
+  p.proj = {block + 16};
+  p.cam_pos = {block + 32};
+  p.focal = {block + 35};
+  p.cb_min = {block + 37};
+  p.cb_max = {block + 40};
+  p.center = {block + 43};
+  p.scaling = {block + 46};
+  p.kernel = {block + 47};
+  p.walltime = {block + 48};
+  p.extend = {block + 49};
+  p.mip = {block + 50};
+  p.max_sh_deg = {block + 51};
 }
 
 constexpr float SH_C0 = (float)0.28209479177387814;
@@ -144,8 +152,8 @@ struct Frustum {
 __device__ __forceinline__ Frustum frustum_cull(float x_w, float y_w, float z_w,
                                                 const FrameParams& p) {
   Frustum f;
-  const float* v = p.view;
-  const float* m = p.proj;
+  const BlockFloats v = p.view;
+  const BlockFloats m = p.proj;
   const bool inside = (x_w >= p.cb_min[0]) && (x_w <= p.cb_max[0]) && (y_w >= p.cb_min[1]) &&
                       (y_w <= p.cb_max[1]) && (z_w >= p.cb_min[2]) && (z_w <= p.cb_max[2]);
   f.cam_x = v[0] * x_w + v[1] * y_w + v[2] * z_w + v[3];
@@ -175,16 +183,16 @@ __device__ __forceinline__ Shape shape_math(float x_w, float y_w, float z_w, con
                                             const float cov6[6], float opacity,
                                             const FrameParams& p) {
   Shape out;
-  const float* v = p.view;
+  const BlockFloats v = p.view;
   const float cam_x = f.cam_x, cam_y = f.cam_y, cam_z = f.cam_z;
   const float clip_x = f.clip_x, clip_y = f.clip_y, clip_z = f.clip_z, clip_w = f.clip_w;
   bool visible = f.visible;
 
   // walltime grow-in (preprocess.wgsl:196-203)
   const float dcx = x_w - p.center[0], dcy = y_w - p.center[1], dcz = z_w - p.center[2];
-  const float dd = 5.0f * sqrtf(dcx * dcx + dcy * dcy + dcz * dcz) / p.extend;
-  const float scale_mod = p.walltime > dd ? smoothstep01(p.walltime - dd) : 0.0f;
-  const float scaling = p.scaling * scale_mod;
+  const float dd = 5.0f * sqrtf(dcx * dcx + dcy * dcy + dcz * dcz) / p.extend[0];
+  const float scale_mod = p.walltime[0] > dd ? smoothstep01(p.walltime[0] - dd) : 0.0f;
+  const float scaling = p.scaling[0] * scale_mod;
 
   // EWA projection (preprocess.wgsl:204-223)
   const float sc2 = scaling * scaling;
@@ -211,8 +219,8 @@ __device__ __forceinline__ Shape shape_math(float x_w, float y_w, float z_w, con
   const float cyy = b0 * sb0 + b1 * sb1 + b2 * sb2;
 
   // mip-splatting opacity correction (preprocess.wgsl:226-236)
-  const float kernel = p.kernel;
-  if (p.mip) {
+  const float kernel = p.kernel[0];
+  if (p.mip[0] > 0.5f) {
     const float det0 = pmax(cxx * cyy - cxy * cxy, 1e-6f);
     const float det1 = pmax((cxx + kernel) * (cyy + kernel) - cxy * cxy, 1e-6f);
     float coef = sqrtf(det0 / (det1 + 1e-6f) + 1e-6f);
@@ -314,7 +322,7 @@ __device__ __forceinline__ void pack_splat(const Shape& s, float x_w, float y_w,
   const float dvx = x_w - p.cam_pos[0], dvy = y_w - p.cam_pos[1], dvz = z_w - p.cam_pos[2];
   const float inv_dn = 1.0f / pmax(sqrtf(dvx * dvx + dvy * dvy + dvz * dvz), 1e-12f);
   float rgb[3];
-  eval_sh(sh, sh_stride, dvx * inv_dn, dvy * inv_dn, dvz * inv_dn, p.max_sh_deg, rgb);
+  eval_sh(sh, sh_stride, dvx * inv_dn, dvy * inv_dn, dvz * inv_dn, (int)p.max_sh_deg[0], rgb);
   for (int c = 0; c < 3; ++c) rgb[c] = pmax(rgb[c], 0.0f);
   pack_record(s.px, s.py, s.half_a, s.conic_b, s.half_c, s.opacity, rgb[0], rgb[1], rgb[2], p.cq,
               w);

@@ -12,7 +12,11 @@
 // p.compressed selects the compressed eigen clamp (core_math.cuh:
 // shape_math).  Both fields are uniform over a launch; the walk and the
 // slot count pick one of four instantiations of frontend_kernel, so the
-// main path's code is the row-major, narrow one alone.
+// main path's code is the row-major, narrow one alone.  The camera and
+// settings are not launch parameters: the kernel reads them from the frame
+// block in device memory (FrameParams' BlockFloats, through the read-only
+// data path), so a launch captured in a CUDA graph renders whatever camera
+// the block holds at replay.
 //
 // What bounds it on the card: memory traffic.  The function needs 12 bytes
 // of position per splat, the other 124 bytes of attributes (covariance,
@@ -244,7 +248,8 @@ __device__ __forceinline__ int walk_long(LongWalks& q, const Shape& s, bool spir
 // The warps write the queued splats' runs (q.more: the first position).
 __device__ __forceinline__ void write_long(const LongWalks& q, int n_q, const FrameParams& p,
                                            uint32_t* __restrict__ keys,
-                                           uint32_t* __restrict__ words, int capacity) {
+                                           uint32_t* __restrict__ words, int64_t words_ld,
+                                           int capacity) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned lt = (1u << lane) - 1u;
   for (int k = warp; k < n_q; k += FRONT_BLOCK / 32) {
@@ -272,7 +277,7 @@ __device__ __forceinline__ void write_long(const LongWalks& q, int n_q, const Fr
       if (ok && at < capacity) {
         keys[at] = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | dq;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) words[(int64_t)c * capacity + at] = q.w[c][k];
+        for (int c = 0; c < 4; ++c) words[c * words_ld + at] = q.w[c][k];
       }
       pos += __popc(b);
     }
@@ -287,7 +292,7 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
     frontend_kernel(const float* __restrict__ xyz, const float* __restrict__ cov,
                     const float* __restrict__ opacity, const uint32_t* __restrict__ sh, int n,
                     FrameParams p, uint32_t* __restrict__ keys, uint32_t* __restrict__ words,
-                    int capacity, uint32_t* __restrict__ cid, int capacity_c,
+                    int64_t words_ld, int capacity, uint32_t* __restrict__ cid, int capacity_c,
                     OrderedScratch scratch) {
   using W = Walk<WIDE>;
   using Mask = typename W::Mask;
@@ -408,7 +413,7 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
       slot_tile<CENTER_OUT>(s, j, p.slots, tx, ty);
       keys[pos] = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | s.depth_q;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[k];
+      for (int k = 0; k < 4; ++k) words[k * words_ld + pos] = w[k];
     }
     ++pos;
   }
@@ -421,7 +426,7 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
       if (pos < capacity) {
         keys[pos] = ((uint32_t)(ty * p.tx_tiles + tx) << p.depth_bits) | s.depth_q;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + pos] = w[k];
+        for (int k = 0; k < 4; ++k) words[k * words_ld + pos] = w[k];
       }
       ++pos;
     }
@@ -429,7 +434,7 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
   if constexpr (WIDE) {
     if (n_q > 0) {
       __syncthreads();  // the queued records and positions
-      write_long(*lw, n_q, p, keys, words, capacity);
+      write_long(*lw, n_q, p, keys, words, words_ld, capacity);
     }
   }
 
@@ -448,10 +453,10 @@ __global__ void __launch_bounds__(FRONT_BLOCK, Walk<WIDE>::MIN_BLOCKS)
 template <bool WIDE, bool CENTER_OUT>
 void launch_frontend(int grid, cudaStream_t stream, const float* xyz, const float* cov,
                      const float* opacity, const uint32_t* sh, int n, const FrameParams& p,
-                     uint32_t* keys, uint32_t* words, int capacity, uint32_t* cid,
-                     int capacity_c, const OrderedScratch& scratch) {
+                     uint32_t* keys, uint32_t* words, int64_t words_ld, int capacity,
+                     uint32_t* cid, int capacity_c, const OrderedScratch& scratch) {
   frontend_kernel<WIDE, CENTER_OUT><<<grid, FRONT_BLOCK, 0, stream>>>(
-      xyz, cov, opacity, sh, n, p, keys, words, capacity, cid, capacity_c, scratch);
+      xyz, cov, opacity, sh, n, p, keys, words, words_ld, capacity, cid, capacity_c, scratch);
 }
 
 }  // namespace ws
@@ -465,19 +470,23 @@ const char* ws_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 int ws_frontend_short_walk() { return ws::SHORT_WALK; }
 int ws_frontend_long_queue() { return ws::LONG_QUEUE; }
 
+// block: the frame block on the device, whose first N_SCALARS f32 are the
+// camera and settings (preprocess.py FrameScalars.block(); the kernel reads
+// them, so a captured launch follows the block's contents)
 // cfg: width, height, tile_w, tile_h, tx_tiles, ty_tiles, depth_bits, slots,
 //      compressed (0 / 1), center_out (0 / 1: overflow off, slots <= 64)
 // fcfg: alpha_threshold, f32(1/alpha_threshold) (0 when off), margin,
 //       scale_x, scale_y
+// words: 4 rows of words_ld u32 (capacity of them written at most)
 // scratch: scratch_words u64 (stream.cuh: 2 streams, ceil(n / 256) tiles),
 // zeroed here; its first three ints end at the stats [instances emitted,
 // visible, clamped]
 int ws_frontend(const float* xyz, const float* cov, const float* opacity, const uint32_t* sh,
-                int n, const float* scal_host, const int* cfg, const float* fcfg,
-                uint32_t* keys, uint32_t* words, int capacity, uint32_t* cid,
+                int n, const float* block, const int* cfg, const float* fcfg,
+                uint32_t* keys, uint32_t* words, int64_t words_ld, int capacity, uint32_t* cid,
                 int capacity_c, void* scratch, int64_t scratch_words, void* stream) {
-  ws::FrameParams p;
-  ws::frame_params_from_block(scal_host, p);
+  ws::FrameParams p{};
+  ws::frame_params_at(block, p);
   p.width = cfg[0];
   p.height = cfg[1];
   p.ts_x = cfg[2];
@@ -500,8 +509,8 @@ int ws_frontend(const float* xyz, const float* cov, const float* opacity, const 
                                      : ws::launch_frontend<true, false>)
                        : (center_out ? ws::launch_frontend<false, true>
                                      : ws::launch_frontend<false, false>);
-    launch(grid, (cudaStream_t)stream, xyz, cov, opacity, sh, n, p, keys, words, capacity, cid,
-           capacity_c, ws::ordered_scratch(scratch, grid));
+    launch(grid, (cudaStream_t)stream, xyz, cov, opacity, sh, n, p, keys, words, words_ld,
+           capacity, cid, capacity_c, ws::ordered_scratch(scratch, grid));
   }
   return (int)cudaGetLastError();
 }

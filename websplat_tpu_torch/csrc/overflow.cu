@@ -61,8 +61,8 @@ __global__ void __launch_bounds__(WALK_BLOCK)
     overflow_walk_kernel(const uint32_t* __restrict__ rows, int row_stride,
                          const int* __restrict__ n_ptr, int n_cap, WalkParams p,
                          uint32_t* __restrict__ keys, uint32_t* __restrict__ words,
-                         int capacity, uint32_t* __restrict__ giants, int giant_capacity,
-                         OrderedScratch s) {
+                         int64_t words_ld, int capacity, uint32_t* __restrict__ giants,
+                         int giant_capacity, OrderedScratch s) {
   __shared__ int warp_n[WALK_WARPS], warp_g[WALK_WARPS];
   __shared__ int sum_n, sum_g, base_n, base_g, s_tile;
   const int tile = take_tile(s.ticket, &s_tile);
@@ -166,7 +166,7 @@ __global__ void __launch_bounds__(WALK_BLOCK)
         if (q < capacity) {
           keys[q] = key[r];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) words[(int64_t)k * capacity + q] = w[1 + k];
+          for (int k = 0; k < 4; ++k) words[k * words_ld + q] = w[1 + k];
         }
       }
       pos += __popc(mask[r]);
@@ -185,13 +185,14 @@ extern "C" {
 
 // icfg: rank_lo, rank_hi, giant_thresh, tx_tiles, tile_w, tile_h, depth_bits
 // fcfg: f32(1/alpha_threshold) (0 when off), margin, scale_x, scale_y
+// words: 4 rows of words_ld u32 (capacity of them written at most)
 // scratch: scratch_words u64 (stream.cuh: 2 streams, ceil(n_cap / 8)
 // tiles), zeroed here; its first two ints end at the stats [instances
 // emitted, giant rows]
 int ws_overflow_walk(const uint32_t* rows, int row_stride, const int* n_ptr, int n_cap,
                      const int* icfg, const float* fcfg, uint32_t* keys, uint32_t* words,
-                     int capacity, uint32_t* giants, int giant_capacity, void* scratch,
-                     int64_t scratch_words, void* stream) {
+                     int64_t words_ld, int capacity, uint32_t* giants, int giant_capacity,
+                     void* scratch, int64_t scratch_words, void* stream) {
   ws::WalkParams p{icfg[0], icfg[1], icfg[2], icfg[3], icfg[4], icfg[5], icfg[6],
                    fcfg[0], ws::CenterQuant{fcfg[1], fcfg[2], fcfg[3]}};
   const int tiles = (n_cap + ws::WALK_WARPS - 1) / ws::WALK_WARPS;
@@ -199,8 +200,8 @@ int ws_overflow_walk(const uint32_t* rows, int row_stride, const int* n_ptr, int
   if (err != 0) return err;
   if (n_cap > 0) {
     ws::overflow_walk_kernel<<<tiles, ws::WALK_BLOCK, 0, (cudaStream_t)stream>>>(
-        rows, row_stride, n_ptr, n_cap, p, keys, words, capacity, giants, giant_capacity,
-        ws::ordered_scratch(scratch, tiles));
+        rows, row_stride, n_ptr, n_cap, p, keys, words, words_ld, capacity, giants,
+        giant_capacity, ws::ordered_scratch(scratch, tiles));
   }
   return (int)cudaGetLastError();
 }

@@ -80,7 +80,7 @@ struct RasterParams {
   int width, height, tile_w, tile_h, tx_tiles;
   int warp_w;  // width of each warp's pixel rectangle; 0: row-major runs of 128
   float eps;
-  float bg[3];
+  const float* bg;  // 3 floats in device memory
   CenterQuant cq;
 };
 
@@ -371,14 +371,15 @@ __device__ __forceinline__ void raster_tile(const uint32_t* __restrict__ words, 
   }
   cp_async_wait_all();  // no copy may outlive the CTA
 
+  const float bg0 = p.bg[0], bg1 = p.bg[1], bg2 = p.bg[2];
 #pragma unroll
   for (int k = 0; k < MAX_PIX_PER_THREAD; ++k) {
     const int x = (int)cx[k], y = (int)cy[k];
     if (x - tile_x < p.tile_w && y - tile_y < p.tile_h && x < p.width && y < p.height) {
       float* o = out + ((int64_t)y * p.width + x) * 3;
-      o[0] = cr[k] + T[k] * p.bg[0];
-      o[1] = cg[k] + T[k] * p.bg[1];
-      o[2] = cb[k] + T[k] * p.bg[2];
+      o[0] = cr[k] + T[k] * bg0;
+      o[1] = cg[k] + T[k] * bg1;
+      o[2] = cb[k] + T[k] * bg2;
     }
   }
 }
@@ -401,9 +402,9 @@ __global__ void __launch_bounds__(RASTER_THREADS, TREE_MIN_BLOCKS)
 extern "C" {
 
 // words: 4 rows of `stride` u32 (sorted records); ranges: num_tiles + 1
-// ints; bg_host: 3 floats on the host; out: (height, width, 3) f32;
+// ints; bg: 3 floats in device memory; out: (height, width, 3) f32;
 // warp_w: ops/rasterize.py:warp_layout; tree: 1 for the tree composite
-int ws_rasterize(const uint32_t* words, int64_t stride, const int* ranges, const float* bg_host,
+int ws_rasterize(const uint32_t* words, int64_t stride, const int* ranges, const float* bg,
                  float* out, int width, int height, int tile_w, int tile_h, int tx_tiles,
                  int warp_w, float eps, float margin, float scale_x, float scale_y, int tree,
                  void* stream) {
@@ -412,7 +413,7 @@ int ws_rasterize(const uint32_t* words, int64_t stride, const int* ranges, const
   if (warp_w < 0 || warp_w > ws::WARP_PIXELS || (warp_w > 0 && ws::WARP_PIXELS % warp_w != 0))
     return (int)cudaErrorInvalidValue;
   ws::RasterParams p{width, height, tile_w, tile_h, tx_tiles, warp_w, eps,
-                     {bg_host[0], bg_host[1], bg_host[2]}, ws::CenterQuant{margin, scale_x, scale_y}};
+                     bg, ws::CenterQuant{margin, scale_x, scale_y}};
   const int ty_tiles = (height + tile_h - 1) / tile_h;
   const int num_tiles = tx_tiles * ty_tiles;
   if (num_tiles > 0) {

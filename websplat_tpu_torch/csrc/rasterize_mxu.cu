@@ -97,7 +97,7 @@ struct MxuParams {
   int width, height, tile_w, tile_h, tx_tiles;
   int square;  // 1: 4x4 pixel blocks, 0: 16-pixel row strips
   float log_eps;
-  float bg[3];
+  const float* bg;  // 3 floats in device memory
   CenterQuant cq;
 };
 
@@ -484,14 +484,15 @@ __global__ void __launch_bounds__(MXU_THREADS, 3)
   }
   __syncthreads();
 
+  const float bg0 = p.bg[0], bg1 = p.bg[1], bg2 = p.bg[2];
   for (int i = threadIdx.x; i < n_pix; i += MXU_THREADS) {
     const int x = tile_x + i % p.tile_w, y = tile_y + i / p.tile_w;
     if (x < p.width && y < p.height) {
       const float trans = expf(sm.clog[i]);
       float* o = out + ((int64_t)y * p.width + x) * 3;
-      o[0] = sm.acc[i][0] + trans * p.bg[0];
-      o[1] = sm.acc[i][1] + trans * p.bg[1];
-      o[2] = sm.acc[i][2] + trans * p.bg[2];
+      o[0] = sm.acc[i][0] + trans * bg0;
+      o[1] = sm.acc[i][1] + trans * bg1;
+      o[2] = sm.acc[i][2] + trans * bg2;
     }
   }
 }
@@ -501,18 +502,18 @@ __global__ void __launch_bounds__(MXU_THREADS, 3)
 extern "C" {
 
 // words: 4 rows of `stride` u32 (sorted records); ranges: num_tiles + 1
-// ints; bg_host: 3 floats on the host; out: (height, width, 3) f32;
+// ints; bg: 3 floats in device memory; out: (height, width, 3) f32;
 // log_eps: f32(log(transmittance_eps)); mode: 0 "default", 1 "high",
 // 2 "highest" (composite="mxu"), 3 composite="hybrid"
 int ws_rasterize_mxu(const uint32_t* words, int64_t stride, const int* ranges,
-                     const float* bg_host, float* out, int width, int height, int tile_w,
+                     const float* bg, float* out, int width, int height, int tile_w,
                      int tile_h, int tx_tiles, float log_eps, float margin, float scale_x,
                      float scale_y, int mode, void* stream) {
   const int n_pix = tile_w * tile_h;
   if (n_pix % 128 != 0 || n_pix > ws::MXU_MAX_PIX) return (int)cudaErrorInvalidValue;
   const int square = (tile_w % 4 == 0 && tile_h % 4 == 0) ? 1 : 0;
   ws::MxuParams p{width, height, tile_w, tile_h, tx_tiles, square, log_eps,
-                  {bg_host[0], bg_host[1], bg_host[2]}, ws::CenterQuant{margin, scale_x, scale_y}};
+                  bg, ws::CenterQuant{margin, scale_x, scale_y}};
   const int ty_tiles = (height + tile_h - 1) / tile_h;
   const int num_tiles = tx_tiles * ty_tiles;
   if (num_tiles == 0) return (int)cudaGetLastError();

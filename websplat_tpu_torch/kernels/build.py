@@ -59,10 +59,11 @@ _SIGNATURES = {
     "ws_rasterize_mxu": [_vp, _i64, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i, _vp],
     "ws_emit_compact": [_vp, _vp, _vp, _i64, _i, _i, _i, _vp, _vp, _i64, _vp, _i64, _vp],
     "ws_compact": [_vp, _vp, _i, _i64, _vp, _vp, _i64, _vp, _i64, _vp],
-    "ws_dense_compact": [_vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i64, _vp],
-    "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _i64,
-                    _vp],
-    "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _i, _vp, _i64, _vp],
+    "ws_dense_compact": [_vp, _vp, _i, _vp, _vp, _vp, _vp, _i64, _i, _vp, _i64, _vp],
+    "ws_frontend": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _i64, _i, _vp, _i, _vp,
+                    _i64, _vp],
+    "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i64, _i, _vp, _i, _vp, _i64,
+                         _vp],
     "ws_frontend_short_walk": [],
     "ws_frontend_long_queue": [],
 }
@@ -205,6 +206,53 @@ def scratch_counters(buf, k: int):
     import torch
 
     return buf[:2].view(torch.int32)[:k]
+
+
+def device_floats(values, device):
+    """``values`` as f32 (their shape kept) on ``device`` for a kernel to
+    read: on a CUDA device one non-blocking copy out of pinned memory (the
+    caching host allocator keeps the pinned block until the copy has run);
+    on the CPU a copy of the values."""
+    import numpy as np
+    import torch
+
+    host = torch.from_numpy(np.array(values, np.float32))
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def stream_out(out, capacity: int, device):
+    """(keys, words, words_ld) that a stream kernel writes ``capacity`` rows
+    of: fresh tensors, or the ``out`` pair of views (keys (capacity,) and
+    words (4, capacity) int32, rows contiguous; the words may be columns of
+    a wider buffer, whose row stride is words_ld)."""
+    import torch
+
+    if out is None:
+        keys = torch.empty((capacity,), dtype=torch.int32, device=device)
+        words = torch.empty((4, capacity), dtype=torch.int32, device=device)
+        return keys, words, capacity
+    keys, words = out
+    require(keys, "out keys", dtype=torch.int32, shape=(capacity,), device=device)
+    if not (isinstance(words, torch.Tensor) and words.device == device
+            and words.dtype == torch.int32 and tuple(words.shape) == (4, capacity)
+            and words.stride(1) == 1):
+        raise ValueError(f"out words must be (4, {capacity}) int32 on {device} with contiguous "
+                         f"rows")
+    return keys, words, words.stride(0)
+
+
+def plain_into(result, out):
+    """A plain version's result (a tuple that opens with keys and words)
+    with its keys and words copied into the kernel wrapper's ``out`` views,
+    when given, and returned as those views."""
+    if out is None:
+        return result
+    out[0].copy_(result[0])
+    out[1].copy_(result[1])
+    fields = (out[0], out[1], *result[2:])
+    return type(result)(*fields) if hasattr(result, "_fields") else fields
 
 
 def stream_ptr(device) -> int:

@@ -102,17 +102,18 @@ def dense_compact_torch(mega_words: torch.Tensor, n_mega: Union[int, torch.Tenso
 
 
 def dense_compact(mega_words: torch.Tensor, n_mega: Union[int, torch.Tensor], *,
-                  capacity: int, width: int, height: int, config: RasterConfig):
+                  capacity: int, width: int, height: int, config: RasterConfig, out=None):
     """Every rect tile of row-major rank >= overflow_window_slots that the
     decoded record reaches, for each of the first min(n_mega, G2) rows of
     the (6, G2) int32 mega stream, compacted to ``capacity`` rows: the CUDA
     kernel for rows on the card, the plain version for rows on the CPU; any
     other device raises.  On the card ``n_mega`` must be a 0-d int32 tensor
-    on the same device (the kernel clamps it to G2 itself)."""
+    on the same device (the kernel clamps it to G2 itself).
+    ``out=(keys, words)``: views for the kernel to write into."""
     geo = dict(capacity=capacity, width=width, height=height, config=config)
     dev = mega_words.device
     if dev.type == "cpu":
-        return dense_compact_torch(mega_words, n_mega, **geo)
+        return build.plain_into(dense_compact_torch(mega_words, n_mega, **geo), out)
     if dev.type != "cuda":
         raise ValueError(f"dense_compact: unsupported device {dev}")
     if mega_words.dim() != 2 or mega_words.shape[0] != 6:
@@ -131,15 +132,15 @@ def dense_compact(mega_words: torch.Tensor, n_mega: Union[int, torch.Tensor], *,
                        config.tile_h, depth_bits], np.int32)
     fcfg = np.asarray([1.0 / thr if thr > 0.0 else 0.0, cq.margin, cq.scale_x, cq.scale_y],
                       np.float32)
-    keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    words = torch.empty((4, capacity), dtype=torch.int32, device=dev)
+    keys, words, words_ld = build.stream_out(out, capacity, dev)
     span = tx_tiles * ty_tiles - config.overflow_window_slots
     rank_blocks = -(-span // DENSE_BLOCK) if span > 0 else 1
     scratch = build.ordered_scratch(1, g2 * rank_blocks, dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     err = build.lib().ws_dense_compact(
         mega_words.data_ptr(), n_mega.data_ptr(), g2, p(icfg), p(fcfg), keys.data_ptr(),
-        words.data_ptr(), capacity, scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
+        words.data_ptr(), words_ld, capacity, scratch.data_ptr(), scratch.numel(),
+        build.stream_ptr(dev),
     )
     if g2 > 0:  # the C entry launches nothing for no rows
         build.LAUNCHES["dense_compact"] += 1

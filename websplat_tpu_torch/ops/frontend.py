@@ -18,6 +18,13 @@ coordinates: with overflow on, rect4's 8 bits per axis (<= 256 tiles per
 axis, as JAX's preprocess.py:637-641 raises); with overflow off, the
 center-out walk's MAX_SLOT_SEQ offsets.
 
+The camera and settings are the frame block (the (FRAME_BLOCK_LEN,) f32
+tensor of render/renderer.py:frame_block).  The kernel reads them from
+device memory, so a captured launch follows the block's contents; the
+plain version reads them to the host (FrameScalars.from_block).
+``out=(keys, words)`` gives the kernel views to write the instances into
+(the frame's one stream buffer), in place of fresh tensors.
+
 Outputs (``FrontendOut``), all int32 tensors holding u32 bit patterns:
   keys   (capacity,)      ``tile << depth_bits | depth_q`` instance keys
   words  (4, capacity)    the packed record of each instance
@@ -47,6 +54,7 @@ from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32
 from websplat_tpu_torch.ops.preprocess import (
     RECT4_MAX_TILES,
+    N_SCALARS,
     DeviceCloud,
     FrameScalars,
     core_math,
@@ -83,11 +91,12 @@ def _check_limits(width, height, config, capacity_c):
         raise ValueError(f"tile_slots > {MAX_SLOT_SEQ} not supported")
 
 
-def frontend_torch(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
+def frontend_torch(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
                    config: RasterConfig, capacity: int, capacity_c: int,
                    compressed: bool = False) -> FrontendOut:
     """Plain PyTorch frontend, on any device (vectorised over splats)."""
     _check_limits(width, height, config, capacity_c)
+    fs = FrameScalars.from_block(block)
     dev = cloud.opacity.device
     tx_tiles, _ = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)
@@ -139,15 +148,16 @@ def launch_name(compressed: bool, capacity_c: int) -> str:
     return "frontend_compressed" if compressed else "frontend"
 
 
-def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
+def fused_frontend(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
                    config: RasterConfig, capacity: int, capacity_c: int,
-                   compressed: bool = False) -> FrontendOut:
+                   compressed: bool = False, out=None) -> FrontendOut:
     """The frontend: the CUDA kernel for a cloud on the card, the plain
     version for a cloud on the CPU; any other device raises."""
     dev = cloud.opacity.device
     if dev.type == "cpu":
-        return frontend_torch(cloud, fs, width=width, height=height, config=config,
-                              capacity=capacity, capacity_c=capacity_c, compressed=compressed)
+        return build.plain_into(frontend_torch(
+            cloud, block, width=width, height=height, config=config, capacity=capacity,
+            capacity_c=capacity_c, compressed=compressed), out)
     if dev.type != "cuda":
         raise ValueError(f"fused_frontend: unsupported device {dev}")
     _check_limits(width, height, config, capacity_c)
@@ -163,23 +173,24 @@ def fused_frontend(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: 
     _, depth_bits = config.key_bits(width, height)
     thr = float(config.alpha_threshold)
     cq = packing.CenterQuant.for_viewport(width, height)
-    scal = np.ascontiguousarray(fs.block(), np.float32)
+    if block.dim() != 1 or block.shape[0] < N_SCALARS:
+        raise ValueError(f"the frame block must hold >= {N_SCALARS} floats")
+    build.require(block, "frame block", dtype=torch.float32, device=dev)
     cfg = np.asarray([width, height, config.tile_w, config.tile_h, tx_tiles, ty_tiles,
                       depth_bits, config.tile_slots, int(compressed), int(capacity_c == 0)],
                      np.int32)
     fcfg = np.asarray([thr, 1.0 / thr if thr > 0.0 else 0.0,
                        cq.margin, cq.scale_x, cq.scale_y], np.float32)
 
-    keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    words = torch.empty((4, capacity), dtype=torch.int32, device=dev)
+    keys, words, words_ld = build.stream_out(out, capacity, dev)
     cid = torch.empty((6, capacity_c), dtype=torch.int32, device=dev)
     scratch = build.ordered_scratch(2, -(-n // FRONT_BLOCK), dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     lib = build.lib()
     err = lib.ws_frontend(
         cloud.xyz.data_ptr(), cloud.cov.data_ptr(), cloud.opacity.data_ptr(),
-        cloud.sh.data_ptr(), n, p(scal), p(cfg), p(fcfg),
-        keys.data_ptr(), words.data_ptr(), capacity, cid.data_ptr(), capacity_c,
+        cloud.sh.data_ptr(), n, block.data_ptr(), p(cfg), p(fcfg),
+        keys.data_ptr(), words.data_ptr(), words_ld, capacity, cid.data_ptr(), capacity_c,
         scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
     )
     stats = build.scratch_counters(scratch, 3)

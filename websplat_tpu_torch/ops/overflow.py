@@ -13,7 +13,8 @@ forwards rows with ``n_rect > giant_thresh`` as a second 6-word stream.
 card), so the walk needs no host synchronisation.  Outputs
 (``WalkOut``): keys (capacity,), words (4, capacity), giants
 (6, giant_capacity) int32, and stats (2,) = [instances emitted, giant rows],
-both true counts that may exceed the capacities.  Only the prefixes are
+both true counts that may exceed the capacities; ``out=(keys, words)``
+gives the kernel views to write the instances into.  Only the prefixes are
 defined.  ``giant_capacity=0`` (the window-off frame) counts the giants and
 writes none.  Both versions emit in row order, a row's ranks ascending, and
 forward giants in row order: the kernel's outputs equal the plain
@@ -93,7 +94,7 @@ def overflow_walk_torch(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_
 def overflow_walk(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: int, *,
                   rank_lo: int, rank_hi: int, giant_thresh: int, capacity: int,
                   giant_capacity: int, width: int, height: int,
-                  config: RasterConfig) -> WalkOut:
+                  config: RasterConfig, out=None) -> WalkOut:
     """The walk: the CUDA kernel for rows on the card, the plain version for
     rows on the CPU; any other device raises.  On the card ``n_rows`` must
     be a 0-d int32 tensor on the same device."""
@@ -102,7 +103,7 @@ def overflow_walk(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: i
               height=height, config=config)
     dev = rows.device
     if dev.type == "cpu":
-        return overflow_walk_torch(rows, n_rows, n_cap, **kw)
+        return build.plain_into(overflow_walk_torch(rows, n_rows, n_cap, **kw), out)
     if dev.type != "cuda":
         raise ValueError(f"overflow_walk: unsupported device {dev}")
     _check_limits(width, height, config)
@@ -124,15 +125,14 @@ def overflow_walk(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: i
     fcfg = np.asarray([1.0 / thr if thr > 0.0 else 0.0, cq.margin, cq.scale_x, cq.scale_y],
                       np.float32)
 
-    keys = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    words = torch.empty((4, capacity), dtype=torch.int32, device=dev)
+    keys, words, words_ld = build.stream_out(out, capacity, dev)
     giants = torch.empty((6, giant_capacity), dtype=torch.int32, device=dev)
     scratch = build.ordered_scratch(2, -(-n_cap // WALK_WARPS), dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     err = build.lib().ws_overflow_walk(
         rows.data_ptr(), rows.shape[1], n_rows.data_ptr(), n_cap, p(icfg), p(fcfg),
-        keys.data_ptr(), words.data_ptr(), capacity, giants.data_ptr(), giant_capacity,
-        scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
+        keys.data_ptr(), words.data_ptr(), words_ld, capacity, giants.data_ptr(),
+        giant_capacity, scratch.data_ptr(), scratch.numel(), build.stream_ptr(dev),
     )
     stats = build.scratch_counters(scratch, 2)
     if n_cap > 0:  # the C entry launches nothing for no rows

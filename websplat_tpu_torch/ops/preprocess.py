@@ -35,6 +35,9 @@ from websplat_tpu_torch.ops.packing import div, sqrt, u32
 from websplat_tpu_torch.ops.sh import eval_sh
 
 N_SCALARS = 52  # length of FrameScalars.block()
+# the frame block: FrameScalars.block() then the 3 background floats
+# (render/renderer.py:frame_block), one f32 device tensor per frame
+FRAME_BLOCK_LEN = N_SCALARS + 3
 
 
 class DeviceCloud(NamedTuple):
@@ -125,6 +128,19 @@ class FrameScalars:
         out = np.asarray(vals, np.float32)
         assert out.shape == (N_SCALARS,)
         return out
+
+    @classmethod
+    def from_block(cls, block) -> "FrameScalars":
+        """The inverse of block(): from its N_SCALARS values (a frame
+        block's first ones; a tensor is read to the host)."""
+        if isinstance(block, torch.Tensor):
+            block = block[:N_SCALARS].tolist()
+        v = [_f32(x) for x in block[:N_SCALARS]]
+        m = lambda o: tuple(tuple(v[o + 4 * i + j] for j in range(4)) for i in range(4))
+        return cls(view=m(0), proj=m(16), cam_pos=tuple(v[32:35]), focal=tuple(v[35:37]),
+                   cb_min=tuple(v[37:40]), cb_max=tuple(v[40:43]), center=tuple(v[43:46]),
+                   gaussian_scaling=v[46], kernel=v[47], walltime=v[48], extend=v[49],
+                   mip=v[50] > 0.5, max_sh_deg=int(v[51]))
 
 
 def log32(x: torch.Tensor) -> torch.Tensor:

@@ -34,9 +34,6 @@ span past its tile's range (unlike rasterize_xla, it has no per-tile cap).
 
 from __future__ import annotations
 
-import ctypes
-from typing import Sequence
-
 import numpy as np
 import torch
 
@@ -162,10 +159,10 @@ def _blend_tree(rec, start, count, pix_x, pix_y, trans, acc, eps):
     return trans
 
 
-def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
+def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: torch.Tensor, *,
                     width: int, height: int, config: RasterConfig) -> torch.Tensor:
     """Plain PyTorch rasterizer (scan or tree composite), on any device ->
-    (H, W, 3) f32."""
+    (H, W, 3) f32; ``background`` (3,) f32 (read to the host)."""
     check_stream(words, ranges, width, height, config)
     dev = words.device
     tw, th = config.tile_w, config.tile_h
@@ -187,7 +184,8 @@ def rasterize_torch(words: torch.Tensor, ranges: torch.Tensor, background: Seque
         blend = _blend_tree if config.composite == "tree" else _blend_scan
         trans = blend(rec, ranges[:-1], ranges[1:] - ranges[:-1], pix_x, pix_y, trans, acc, eps)
 
-    img = torch.stack([acc[c] + trans * float(background[c]) for c in range(3)], dim=-1)
+    bg = background.tolist()
+    img = torch.stack([acc[c] + trans * bg[c] for c in range(3)], dim=-1)
     img = img.reshape(ty_tiles, tx_tiles, th, tw, 3).permute(0, 2, 1, 3, 4)
     return img.reshape(ty_tiles * th, tx_tiles * tw, 3)[:height, :width].contiguous()
 
@@ -378,12 +376,14 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     return out
 
 
-def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
+def rasterize(words: torch.Tensor, ranges: torch.Tensor,
+              background: torch.Tensor, *,
               width: int, height: int, config: RasterConfig) -> torch.Tensor:
     """The rasterizer: the CUDA kernel for a stream on the card
     (``rasterize_kernel``, or ``rasterize_tree_kernel`` for
     composite="tree"), the plain version for a stream on the CPU; any other
-    device raises."""
+    device raises.  ``background``: (3,) f32 on the stream's device (the
+    frame block's last 3 floats), which the kernel reads there."""
     dev = words.device
     if dev.type == "cpu":
         return rasterize_torch(words, ranges, background, width=width, height=height,
@@ -396,11 +396,11 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[fl
     build.require(ranges, "ranges", dtype=torch.int32, device=dev)
     tx_tiles, _ = config.tiles_for(width, height)
     cq = packing.CenterQuant.for_viewport(width, height)
-    bg = np.asarray([float(c) for c in background], np.float32)
+    build.require(background, "background", dtype=torch.float32, shape=(3,), device=dev)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     err = build.lib().ws_rasterize(
         words.data_ptr(), words.shape[1], ranges.data_ptr(),
-        bg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), width, height,
+        background.data_ptr(), out.data_ptr(), width, height,
         config.tile_w, config.tile_h, tx_tiles, warp_layout(config.tile_w, config.tile_h),
         float(config.transmittance_eps), cq.margin, cq.scale_x, cq.scale_y, int(tree),
         build.stream_ptr(dev),

@@ -55,9 +55,6 @@ still run at that index (in groups of ``_TILE_GROUP`` to bound memory).
 
 from __future__ import annotations
 
-import ctypes
-from typing import Sequence
-
 import numpy as np
 import torch
 
@@ -144,9 +141,10 @@ def _check(words, ranges, width, height, config):
 
 
 def rasterize_mxu_torch(words: torch.Tensor, ranges: torch.Tensor,
-                        background: Sequence[float], *, width: int, height: int,
+                        background: torch.Tensor, *, width: int, height: int,
                         config: RasterConfig) -> torch.Tensor:
-    """Plain PyTorch slab rasterizer, on any device -> (H, W, 3) f32."""
+    """Plain PyTorch slab rasterizer, on any device -> (H, W, 3) f32;
+    ``background`` (3,) f32 (read to the host)."""
     _check(words, ranges, width, height, config)
     nq, nl, nc = SPLITS[mode_of(config)]
     dev = words.device
@@ -220,7 +218,8 @@ def rasterize_mxu_torch(words: torch.Tensor, ranges: torch.Tensor,
             clog[grp] = clog[grp] + loga.sum(dim=2)
 
     trans = torch.exp(clog)
-    img = torch.stack([acc[..., c] + trans * float(background[c]) for c in range(3)], dim=-1)
+    bg = background.tolist()
+    img = torch.stack([acc[..., c] + trans * bg[c] for c in range(3)], dim=-1)
     img = img.reshape(ty_tiles, tx_tiles, th, tw, 3).permute(0, 2, 1, 3, 4)
     return img.reshape(ty_tiles * th, tx_tiles * tw, 3)[:height, :width].contiguous()
 
@@ -285,10 +284,12 @@ def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_sto
     return out
 
 
-def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor, background: Sequence[float], *,
+def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor,
+                  background: torch.Tensor, *,
                   width: int, height: int, config: RasterConfig) -> torch.Tensor:
     """The slab rasterizer: the CUDA kernel for a stream on the card, the
-    plain version for a stream on the CPU; any other device raises."""
+    plain version for a stream on the CPU; any other device raises.
+    ``background``: (3,) f32 on the stream's device."""
     dev = words.device
     if dev.type == "cpu":
         return rasterize_mxu_torch(words, ranges, background, width=width, height=height,
@@ -301,11 +302,11 @@ def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor, background: Sequenc
     build.require(ranges, "ranges", dtype=torch.int32, device=dev)
     tx_tiles, _ = config.tiles_for(width, height)
     cq = packing.CenterQuant.for_viewport(width, height)
-    bg = np.asarray([float(c) for c in background], np.float32)
+    build.require(background, "background", dtype=torch.float32, shape=(3,), device=dev)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     err = build.lib().ws_rasterize_mxu(
         words.data_ptr(), words.shape[1], ranges.data_ptr(),
-        bg.ctypes.data_as(ctypes.c_void_p), out.data_ptr(), width, height,
+        background.data_ptr(), out.data_ptr(), width, height,
         config.tile_w, config.tile_h, tx_tiles, log_eps(float(config.transmittance_eps)),
         cq.margin, cq.scale_x, cq.scale_y, MODE_IDS[mode], build.stream_ptr(dev),
     )

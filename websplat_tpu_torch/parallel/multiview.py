@@ -3,15 +3,15 @@ over a group of devices.
 
 Counterpart of ``websplat_tpu/parallel/multiview.py``.  ``render_views``
 renders V views in sequence on one device: the reference measure binary's
-inner loop (web-splat measure.rs:98-146).  The images stay on the device,
-stacked; nothing is read back to the host between views beyond the frame's
-own one synchronisation on its stream lengths
-(render/renderer.py:build_instance_stream).
-``make_view_parallel_renderer`` splits the views over a ``DeviceGroup``
-(parallel/group.py; JAX: a ``shard_map`` over the view mesh): each rank
-holds a replica of the cloud and renders its contiguous block of views, and
-the visible-splat counts are summed over the group (``all_reduce``, JAX's
-``psum``); the images never leave their device.
+inner loop (web-splat measure.rs:98-146).  The V frame blocks go to the
+device in one upload; on the card each view replays the captured frame of
+render/graph.py, from the caller's GraphCache, so nothing is read back to
+the host between views (the JAX package's lax.map program over views);
+the images stay on the device, stacked.  ``make_view_parallel_renderer`` splits the views over a
+``DeviceGroup`` (parallel/group.py; JAX: a ``shard_map`` over the view
+mesh): each rank holds a replica of the cloud and renders its contiguous
+block of views, and the visible-splat counts are summed over the group
+(``all_reduce``, JAX's ``psum``); the images never leave their device.
 """
 
 from __future__ import annotations
@@ -24,10 +24,12 @@ import torch
 import torch.distributed as dist
 
 from websplat_tpu_torch.config import RasterConfig, ResolvedSettings
+from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.models.camera import CameraUniforms
 from websplat_tpu_torch.ops.preprocess import FrameScalars
 from websplat_tpu_torch.parallel.group import DeviceGroup
-from websplat_tpu_torch.render.renderer import render_frame
+from websplat_tpu_torch.render.graph import GraphCache, render_blocks
+from websplat_tpu_torch.render.renderer import cloud_device
 
 
 class CameraBatch(NamedTuple):
@@ -47,19 +49,36 @@ def stack_cameras(uniforms: List[CameraUniforms]) -> CameraBatch:
     return CameraBatch(*(st(f) for f in CameraBatch._fields))
 
 
+def view_blocks(cameras: CameraBatch, views: range, settings: ResolvedSettings,
+                background: Sequence[float], device) -> torch.Tensor:
+    """The frame blocks of ``views`` of ``cameras`` (render/renderer.py:
+    frame_block), (len(views), FRAME_BLOCK_LEN) f32 on ``device`` in one
+    upload: each view has its own row, so no block is overwritten before
+    its frame has read it.  The camera columns are the CameraBatch's f32
+    arrays as FrameScalars.block() lays them out, the settings and
+    background columns view 0's (the same for every view)."""
+    v = np.asarray(views)
+    tail = np.concatenate([FrameScalars.from_uniforms(
+        cameras.view[v[0]], cameras.view_inv[v[0]], cameras.proj[v[0]], cameras.focal[v[0]],
+        settings).block()[37:], np.asarray(background, np.float32).reshape(3)])
+    rows = np.concatenate([cameras.view[v].reshape(-1, 16), cameras.proj[v].reshape(-1, 16),
+                           cameras.view_inv[v][:, :3, 3], cameras.focal[v][:, :2],
+                           np.broadcast_to(tail, (len(v), tail.shape[0]))], axis=1)
+    return build.device_floats(rows, device)
+
+
 def render_views(cloud, cameras: CameraBatch, settings: ResolvedSettings,
-                 background: Sequence[float], *, width: int, height: int,
+                 background: Sequence[float], *, graphs: GraphCache, width: int, height: int,
                  config: RasterConfig, compressed: bool = False) -> torch.Tensor:
     """Render the V views of ``cameras`` one after another on the cloud's
-    device -> (V, H, W, 3) f32 on that device."""
-    imgs = [
-        render_frame(cloud, FrameScalars.from_uniforms(cameras.view[v], cameras.view_inv[v],
-                                                      cameras.proj[v], cameras.focal[v], settings),
-                     background, width=width, height=height, config=config,
-                     compressed=compressed)
-        for v in range(cameras.view.shape[0])
-    ]
-    return torch.stack(imgs)
+    device -> (V, H, W, 3) f32 on that device.  ``graphs``: the caller's
+    cache of captured frames, which a later call at the same viewport
+    replays (apps.measure keeps one for its passes)."""
+    blocks = view_blocks(cameras, range(cameras.view.shape[0]), settings, background,
+                         cloud_device(cloud))
+    images, _ = render_blocks(cloud, blocks, graphs, width=width, height=height, config=config,
+                              compressed=compressed)
+    return images
 
 
 def make_view_parallel_renderer(group: DeviceGroup, *, width: int, height: int,
@@ -71,28 +90,27 @@ def make_view_parallel_renderer(group: DeviceGroup, *, width: int, height: int,
     ``cameras`` (a CameraBatch, the same on every rank; V a multiple of the
     group size) rank r renders ``[r V / D, (r + 1) V / D)``; ``images`` is
     its (V / D, H, W, 3) f32 on its device; ``total_visible`` is the sum of
-    every rank's num_visible (an int, the same on every rank)."""
+    every rank's num_visible (an int, the same on every rank: the step's
+    one host read, after the all_reduce).  The step keeps its captured
+    frames until it is dropped."""
     d = group.size
+    graphs = GraphCache()
 
     def step(cloud, cameras: CameraBatch, settings: ResolvedSettings,
              background: Sequence[float]):
         v = cameras.view.shape[0]
         if v % d != 0:
             raise ValueError(f"{v} views do not split over {d} devices")
-        if cloud.opacity.device != group.device:
-            raise ValueError(f"the cloud is on {cloud.opacity.device}, the rank's device is "
+        if cloud_device(cloud) != group.device:
+            raise ValueError(f"the cloud is on {cloud_device(cloud)}, the rank's device is "
                              f"{group.device}")
         per = v // d
-        imgs, visible = [], 0
-        for k in range(group.rank * per, (group.rank + 1) * per):
-            fs = FrameScalars.from_uniforms(cameras.view[k], cameras.view_inv[k],
-                                            cameras.proj[k], cameras.focal[k], settings)
-            img, diag = render_frame(cloud, fs, background, width=width, height=height,
-                                     config=config, compressed=compressed, return_diag=True)
-            imgs.append(img)
-            visible += diag["num_visible"]
-        total = torch.tensor([visible], dtype=torch.int64, device=group.device)
+        views = range(group.rank * per, (group.rank + 1) * per)
+        blocks = view_blocks(cameras, views, settings, background, group.device)
+        images, diags = render_blocks(cloud, blocks, graphs, width=width, height=height,
+                                      config=config, compressed=compressed)
+        total = diags[:, 1].sum(dtype=torch.int64).reshape(1)  # num_visible
         dist.all_reduce(total, group=group.group)
-        return torch.stack(imgs), int(total.item())
+        return images, int(total.item())
 
     return step

@@ -5,9 +5,10 @@ Counterpart of ``websplat_tpu/parallel/sharded.py``, on a ``DeviceGroup``
 
   1. each rank builds the instance stream of its splat shard with the
      single-device frame's stream function (render/renderer.py:
-     build_instance_stream: the frontend, overflow walk and dense kernels on
-     the card) and sorts it; the packed key is tile-major, so the sorted
-     stream is partitioned by screen region;
+     frame_stream: the frontend, overflow walk and dense kernels on the
+     card, into one buffer with sentinel tails) and sorts it as the frame
+     does (ops/sort.py:sort_stream); the packed key is tile-major, so the
+     sorted stream is partitioned by screen region;
   2. the screen's tile rows are split into D contiguous regions; each rank
      cuts its sorted stream into D fixed-capacity buffers (``cut_regions``;
      instances past a buffer's capacity drop and are counted), and the
@@ -36,12 +37,12 @@ import torch.distributed as dist
 from websplat_tpu_torch.config import RasterConfig, ResolvedSettings
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
-from websplat_tpu_torch.ops.preprocess import DeviceCloud, FrameScalars
+from websplat_tpu_torch.ops.preprocess import N_SCALARS, DeviceCloud
 from websplat_tpu_torch.ops.rasterize import rasterize
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu
-from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+from websplat_tpu_torch.ops.sort import SIGN, map_keys, sort_instances, sort_stream, tile_ranges
 from websplat_tpu_torch.parallel.group import DeviceGroup
-from websplat_tpu_torch.render.renderer import build_instance_stream, camera_block
+from websplat_tpu_torch.render.renderer import camera_block, frame_block, frame_stream
 
 STATS = ("num_visible", "num_clamped", "num_dropped", "num_dropped_exchange")
 WORDS = 5  # key + 4 record words per exchanged instance
@@ -95,23 +96,26 @@ def shard_cloud(cloud: DeviceCloud, group: DeviceGroup) -> DeviceCloud:
     return DeviceCloud(*(x.to(group.device) for x in split_cloud(cloud, group.size)[group.rank]))
 
 
-def cut_regions(cloud: DeviceCloud, fs: FrameScalars, plan: RegionPlan, *,
+def cut_regions(cloud: DeviceCloud, block: torch.Tensor, plan: RegionPlan, *,
                 config: RasterConfig, compressed: bool = False):
     """One rank's first half (sharded.py:144-184): its shard's instance
-    stream, sorted (stable), cut into D buffers of ``plan.cap`` instances of
-    5 int32 words (key, w0..w3).  Region r's instances are those whose key
-    lies in [r, r + 1) x tiles_per_region << depth_bits; dead slots hold key
-    0xFFFFFFFF and zero words.  Returns ((D, 5, cap) int32, stats: the
-    shard's num_visible, num_clamped and num_dropped, and
-    num_dropped_exchange = sum over regions of max(count - cap, 0))."""
-    keys, words, diag = build_instance_stream(cloud, fs, width=plan.width, height=plan.height,
-                                              config=config, compressed=compressed)
-    sk, sw = sort_instances(keys, words)
+    stream for the frame block ``block``, sorted (stable), cut into D
+    buffers of ``plan.cap`` instances of 5 int32 words (key, w0..w3).
+    Region r's instances are those whose key lies in [r, r + 1) x
+    tiles_per_region << depth_bits; dead slots hold key 0xFFFFFFFF and zero
+    words.  Returns ((D, 5, cap) int32, stats: the shard's num_visible,
+    num_clamped and num_dropped, and num_dropped_exchange = sum over
+    regions of max(count - cap, 0); the stats are the cut's one host
+    read)."""
+    st = frame_stream(cloud, block, width=plan.width, height=plan.height, config=config,
+                      compressed=compressed)
+    sk, sw = sort_stream(st.keys, st.words)  # the valid rows first, then the sentinels
     dev = sw.device
     bounds = torch.arange(plan.d + 1, dtype=torch.int64, device=dev) * plan.tiles_per_region
-    starts = torch.searchsorted(sk, bounds << plan.depth_bits, side="left")
+    starts = torch.searchsorted(sk, ((bounds << plan.depth_bits) + SIGN).to(torch.int32),
+                                side="left")
     counts = starts[1:] - starts[:-1]
-    stream = torch.cat([to_i32(sk)[None], sw])  # (5, M)
+    stream = torch.cat([map_keys(sk)[None], sw])  # (5, M), the keys back to u32 patterns
     stream = torch.nn.functional.pad(stream, (0, plan.cap))
     slot = torch.arange(plan.cap, device=dev)
     bufs = stream[:, starts[:-1, None] + slot[None]].permute(1, 0, 2)  # (D, 5, cap)
@@ -119,13 +123,12 @@ def cut_regions(cloud: DeviceCloud, fs: FrameScalars, plan: RegionPlan, *,
     dead[0] = -1  # INVALID_KEY as int32
     live = (slot[None] < counts[:, None])[:, None, :]
     outgoing = torch.where(live, bufs, dead[None])
-    stats = dict(num_visible=diag["num_visible"], num_clamped=diag["num_clamped"],
-                 num_dropped=diag["num_dropped"],
-                 num_dropped_exchange=int(torch.clamp(counts - plan.cap, min=0).sum()))
+    exchange = torch.clamp(counts - plan.cap, min=0).sum().reshape(1).to(torch.int32)
+    stats = dict(zip(STATS, torch.cat([st.diag[:3], exchange]).tolist()))
     return outgoing.contiguous(), stats
 
 
-def region_frame(incoming: torch.Tensor, rank: int, background: Sequence[float],
+def region_frame(incoming: torch.Tensor, rank: int, background: torch.Tensor,
                  plan: RegionPlan, *, config: RasterConfig) -> torch.Tensor:
     """One rank's second half (sharded.py:190-233): the (D, 5, cap)
     buffers it received, merged in sender order and sorted (stable); live
@@ -133,7 +136,8 @@ def region_frame(incoming: torch.Tensor, rank: int, background: Sequence[float],
     centres decoded with the full viewport's CenterQuant, moved up by rank
     x region_h rows and encoded with the region's; then the tile ranges
     and the rasterizer (config.composite) over the region's (width,
-    region_h) -> its (region_h, W, 3) f32 rows."""
+    region_h) on the (3,) f32 ``background`` -> its (region_h, W, 3) f32
+    rows."""
     merged = incoming.permute(1, 0, 2).reshape(WORDS, -1)  # (5, D cap), senders in order
     mk, mw = sort_instances(merged[0], merged[1:].contiguous())
     tile_base = (rank * plan.tiles_per_region) << plan.depth_bits
@@ -178,11 +182,11 @@ def make_splat_sharded_renderer(group: DeviceGroup, *, width: int, height: int,
         if shard.opacity.device != group.device:
             raise ValueError(f"the shard is on {shard.opacity.device}, the rank's device is "
                              f"{group.device}")
-        outgoing, stats = cut_regions(shard, camera_block(camera, settings), plan,
-                                      config=config, compressed=compressed)
+        block = frame_block(camera_block(camera, settings), background, group.device)
+        outgoing, stats = cut_regions(shard, block, plan, config=config, compressed=compressed)
         incoming = torch.empty_like(outgoing)
         dist.all_to_all_single(incoming, outgoing, group=group.group)
-        rows = region_frame(incoming, group.rank, background, plan, config=config)
+        rows = region_frame(incoming, group.rank, block[N_SCALARS:], plan, config=config)
         totals = torch.tensor([stats[k] for k in STATS], dtype=torch.int64, device=group.device)
         dist.all_reduce(totals, group=group.group)
         return gather_rows(rows, group, height), dict(zip(STATS, totals.tolist()))
@@ -199,10 +203,10 @@ def render_splat_sharded_loopback(shards: List[DeviceCloud], camera,
     stats) as make_splat_sharded_renderer's step gives them."""
     plan = region_plan(len(shards), width=width, height=height, config=config,
                        region_capacity=region_capacity)
-    fs = camera_block(camera, settings)
-    cuts = [cut_regions(s, fs, plan, config=config, compressed=compressed) for s in shards]
+    block = frame_block(camera_block(camera, settings), background, shards[0].opacity.device)
+    cuts = [cut_regions(s, block, plan, config=config, compressed=compressed) for s in shards]
     incoming = torch.stack([out for out, _ in cuts]).transpose(0, 1)  # (region, sender, 5, cap)
-    rows = [region_frame(incoming[r].contiguous(), r, background, plan, config=config)
+    rows = [region_frame(incoming[r].contiguous(), r, block[N_SCALARS:], plan, config=config)
             for r in range(plan.d)]
     stats = {k: sum(st[k] for _, st in cuts) for k in STATS}
     return torch.cat(rows)[:height], stats

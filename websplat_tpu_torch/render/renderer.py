@@ -13,7 +13,7 @@ frame (``render_frame_impl``) of an uncompressed or compressed cloud:
 
 With overflow off the frame runs the frontend alone (its center-out walk);
 with the window off, the frontend and the walk's first level
-(build_instance_stream).
+(frame_stream).
 
 On the card every stage but the sort, the ranges and the codebook gathers
 (index gathers, as the JAX package's are XLA gathers) is a hand-written
@@ -21,17 +21,24 @@ CUDA kernel; on the CPU each stage runs its plain PyTorch version.
 ``render_frame(..., plain=True)`` runs the plain versions on the card as
 well (for comparing the two); nothing selects them on its own.
 
-The JAX frame splices every stage's output into one padded buffer and
-sorts a prefix rung of it; here each stage returns an exact prefix and the
-sort takes their concatenation.  The prefix lengths live on the device
-until the one host synchronisation per frame, just before the sort (a
-later performance item: it stalls the host while the device drains).
+As the JAX frame is, the frame is a program with no host round trip: the
+camera, settings and background reach it as the frame block, one small f32
+device tensor (frame_block); every stage writes its instances into its own
+segment of one stream buffer, the rows past its device-side count become
+sentinels, and the whole buffer is sorted (the JAX frame's n_valid=None
+form); the diagnostics stay a device tensor until the caller reads them
+(FrameDiag).  So render/graph.py can capture render_frame as a CUDA graph
+and replay it per camera; GaussianRenderer on the card does, one graph
+per viewport.  The uncompiled render_frame is what the tests and
+chip_smoke.py compare with.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import functools
+from collections.abc import Mapping
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,15 +46,17 @@ import torch
 from websplat_tpu_torch.config import RasterConfig, SplattingArgs, resolve_settings
 from websplat_tpu_torch.io.loader import GaussianCloud
 from websplat_tpu_torch.io.npz import QuantizedStreams
+from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.models.camera import CameraUniforms, PerspectiveCamera
 from websplat_tpu_torch.ops.compact import (compact_instances, compact_torch, dense_compact,
                                             dense_compact_torch)
 from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
 from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
-from websplat_tpu_torch.ops.preprocess import CompressedDeviceCloud, DeviceCloud, FrameScalars
+from websplat_tpu_torch.ops.preprocess import (FRAME_BLOCK_LEN, N_SCALARS, CompressedDeviceCloud,
+                                               DeviceCloud, FrameScalars)
 from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
-from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+from websplat_tpu_torch.ops.sort import sort_stream, tile_ranges
 
 
 def _pack_sh_f16(sh: np.ndarray) -> np.ndarray:
@@ -67,6 +76,11 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def cloud_device(cloud) -> torch.device:
+    """The device of a DeviceCloud or a CompressedDeviceCloud."""
+    return (cloud.xyz if isinstance(cloud, CompressedDeviceCloud) else cloud.opacity).device
 
 
 def upload_cloud(cloud: GaussianCloud, device) -> DeviceCloud:
@@ -150,21 +164,23 @@ def decompress_cloud(cc: CompressedDeviceCloud) -> DeviceCloud:
     return DeviceCloud(xyz=cc.xyz, cov=cov, opacity=opacity, sh=sh)
 
 
-def frustum_visible(xyz: torch.Tensor, fs: FrameScalars) -> torch.Tensor:
+def frustum_visible(xyz: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     """(N,) bool: exactly the frontend's centre test -- clipping box, z_ndc
     in (0, 1), |clip_xy| <= 1.2 clip_w -- on the positions alone
     (renderer.py:123; the expressions of ops/preprocess.py:core_math).  A
     superset of the frontend's final visibility, so culling on it before
     dequantization drops no splat the frontend keeps; a NaN position fails
-    every comparison."""
+    every comparison.  The scalars are 0-d views of the frame block
+    ``block`` (no host read), in the f32 expressions and order of the
+    plain frontend's Python floats, so the same bits."""
     x_w, y_w, z_w = xyz[0], xyz[1], xyz[2]
-    cb_min, cb_max = fs.cb_min, fs.cb_max
+    rows = lambda o: [block[o + 4 * i:o + 4 * i + 4].unbind() for i in range(4)]
+    cb_min, cb_max, v, p = block[37:40].unbind(), block[40:43].unbind(), rows(0), rows(16)
     inside = (
         (x_w >= cb_min[0]) & (x_w <= cb_max[0])
         & (y_w >= cb_min[1]) & (y_w <= cb_max[1])
         & (z_w >= cb_min[2]) & (z_w <= cb_max[2])
     )
-    v, p = fs.view, fs.proj
     cam = [v[i][0] * x_w + v[i][1] * y_w + v[i][2] * z_w + v[i][3] for i in range(3)]
     clip = [p[i][0] * cam[0] + p[i][1] * cam[1] + p[i][2] * cam[2] + p[i][3] for i in range(4)]
     z_ndc = clip[2] / clip[3]
@@ -173,12 +189,12 @@ def frustum_visible(xyz: torch.Tensor, fs: FrameScalars) -> torch.Tensor:
             & (clip[1] >= -bounds) & (clip[1] <= bounds))
 
 
-def cull_stream(cc: CompressedDeviceCloud, fs: FrameScalars):
+def cull_stream(cc: CompressedDeviceCloud, block: torch.Tensor):
     """The culled decompression's compaction input (renderer.py:187-198):
     keys (N,) int32 ``op_u << 8 | sf_u`` of the int8 codes' bytes where the
     splat passes frustum_visible, else INVALID_KEY; payload (5, N) int32:
     the position bits, geom_idx, sh_idx."""
-    vis = frustum_visible(cc.xyz, fs)
+    vis = frustum_visible(cc.xyz, block)
     op_u = cc.opacity_q.to(torch.int32) & 0xFF
     sf_u = (cc.scale_factor_q.to(torch.int32) & 0xFF if cc.scale_factor_q is not None
             else torch.zeros_like(op_u))
@@ -187,7 +203,7 @@ def cull_stream(cc: CompressedDeviceCloud, fs: FrameScalars):
     return keys, payload
 
 
-def decompress_cloud_culled(cc: CompressedDeviceCloud, fs: FrameScalars, *, capacity: int,
+def decompress_cloud_culled(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int,
                             plain: bool = False) -> Tuple[DeviceCloud, torch.Tensor]:
     """Cull-before-gather dequantization (renderer.py:161): frustum-cull
     the resident positions, compact the survivors to ``capacity`` rows
@@ -204,7 +220,7 @@ def decompress_cloud_culled(cc: CompressedDeviceCloud, fs: FrameScalars, *, capa
     capacity)."""
     dev = cc.xyz.device
     compact = compact_torch if plain else compact_instances
-    keys_c, payload_c, count = compact(*cull_stream(cc, fs), capacity=capacity)
+    keys_c, payload_c, count = compact(*cull_stream(cc, block), capacity=capacity)
     live = torch.arange(capacity, device=dev) < count
     xyz = torch.where(live[None, :], payload_c[:3].view(torch.float32),
                       torch.full((), float("nan"), device=dev))
@@ -230,11 +246,54 @@ def camera_block(uniforms, settings) -> FrameScalars:
     )
 
 
+def frame_block(fs: FrameScalars, background: Sequence[float], device) -> torch.Tensor:
+    """The frame block: (FRAME_BLOCK_LEN,) f32 on ``device``, fs.block()
+    then the 3 background floats -- the port of JAX's camera_to_device,
+    settings_to_device and the traced background.  On a CUDA device it is
+    one non-blocking copy out of pinned memory.  The kernels read it from
+    device memory, so a captured frame (render/graph.py) follows its
+    contents."""
+    return build.device_floats(
+        np.concatenate([fs.block(), np.asarray(background, np.float32).reshape(3)]), device)
+
+
+# the frame's diagnostics tensor, in this order (render_frame)
+DIAG_KEYS = ("num_instances", "num_visible", "num_clamped", "num_dropped", "num_culled_dropped")
+
+
+class FrameDiag(Mapping):
+    """A frame's diagnostics: the (5,) int32 device tensor ``tensor`` (in
+    DIAG_KEYS order), read to the host the first time a value is looked
+    up, as JAX's device_get reads a frame's diag dict."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+        self._values = None
+
+    def _read(self) -> Dict[str, int]:
+        if self._values is None:
+            self._values = dict(zip(DIAG_KEYS, self.tensor.tolist()))
+        return self._values
+
+    def __getitem__(self, key: str) -> int:
+        return self._read()[key]
+
+    def __iter__(self):
+        return iter(DIAG_KEYS)
+
+    def __len__(self) -> int:
+        return len(DIAG_KEYS)
+
+    def __repr__(self) -> str:
+        return repr(self._read())
+
+
 class StageTimer:
     """CUDA events recorded on the stream between the frame's stages.  A
     stage's span is the device timeline between two marks: its kernels and
-    any gap in which the device waited for the host to launch them (the
-    "sort" span also holds the frame's host synchronisation)."""
+    any gap in which the device waited for the host to launch them.  The
+    eager frame's only: a captured frame (render/graph.py) is timed with
+    events around its replays."""
 
     def __init__(self):
         self._marks = []
@@ -252,15 +311,39 @@ class StageTimer:
         return out
 
 
-def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, height: int,
-                          config: RasterConfig, compressed: bool = False, plain: bool = False,
-                          timer: Optional[StageTimer] = None,
-                          culled_dropped: Optional[torch.Tensor] = None):
-    """Frontend + overflow walks + dense grid and compaction -> the unsorted
-    instance stream (keys (M,) int32, words (4, M) int32) and the frame
-    diagnostics (renderer.py:331).  Capacities and drop accounting are the
-    JAX frame's (renderer.py:365-412, config.py:80-147), from the rows of
-    ``cloud`` (after a culled decompression, its capacity).  Three paths:
+class FrameStream(NamedTuple):
+    """The frame's unsorted instance stream in one buffer (renderer.py:
+    466-555's splice, with each stage at a fixed offset in place of the
+    device-side cursor): segment s (the frontend, walk level 1, walk level
+    2, the dense stage, as the path runs them) holds rows [offset_s,
+    offset_s + capacity_s); its first min(emitted_s, capacity_s) rows are
+    the stage's instances, the rest sentinel keys (their words undefined).
+    ``emitted`` (S,) and ``diag`` (4,) are int32 on the device: the stages'
+    true emitted counts, and num_visible, num_clamped, num_dropped,
+    num_culled_dropped."""
+
+    keys: torch.Tensor  # (T,) int32 u32 patterns
+    words: torch.Tensor  # (4, T) int32
+    segments: Tuple[Tuple[int, int], ...]  # (offset, capacity) per stage
+    emitted: torch.Tensor
+    diag: torch.Tensor
+
+
+def _plain_stage(fn):
+    """A plain stage with the kernel wrapper's ``out=`` (build.plain_into)."""
+    return lambda *args, out=None, **kw: build.plain_into(fn(*args, **kw), out)
+
+
+def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
+                 config: RasterConfig, compressed: bool = False,
+                 plain: bool = False, timer: Optional[StageTimer] = None,
+                 culled_dropped: Optional[torch.Tensor] = None) -> FrameStream:
+    """Frontend + overflow walks + dense stage -> the frame's stream buffer
+    and diagnostics on the device, with no host read (renderer.py:331),
+    for the frame block ``block``.
+    Capacities and drop accounting are the JAX frame's (renderer.py:
+    365-412, config.py:80-147), from the rows of ``cloud`` (after a culled
+    decompression, its capacity).  Three paths:
 
     - default: the frontend's row-major walk, both walk levels and the
       dense stage (renderer.py:479-551);
@@ -272,12 +355,12 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
       them (renderer.py:457-463).
 
     ``compressed`` selects the compressed eigen clamp; ``culled_dropped``
-    (0-d, on the device) joins the frame's one host sync as
-    num_culled_dropped (0 when None)."""
+    (0-d, on the device) is num_culled_dropped (0 when None)."""
     mark = timer.mark if timer is not None else (lambda name: None)
-    front = frontend_torch if plain else fused_frontend
-    walk = overflow_walk_torch if plain else overflow_walk
-    dense = dense_compact_torch if plain else dense_compact
+    front = _plain_stage(frontend_torch) if plain else fused_frontend
+    walk = _plain_stage(overflow_walk_torch) if plain else overflow_walk
+    dense = _plain_stage(dense_compact_torch) if plain else dense_compact
+    dev = cloud.opacity.device
     n = int(cloud.opacity.shape[0])
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     capacity = max(4096, int(config.instance_capacity_factor * n))
@@ -292,11 +375,26 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
     dense_len = tx_tiles * ty_tiles * m_cap
     d_cap = (config.overflow_dense_compact if dense_len > 2 * config.overflow_dense_compact
              else dense_len)
+    caps = [capacity] + ([walk_cap] if overflow else []) + ([win_cap, d_cap] if window else [])
+    offsets = np.cumsum([0] + caps).tolist()
+    # every key starts as the sentinel (-1: INVALID_KEY as int32): a stage
+    # writes only its first min(emitted, capacity) rows, so each segment's
+    # tail past its device-side count stays the sentinel
+    keys = torch.full((offsets[-1],), -1, dtype=torch.int32, device=dev)
+    words = torch.empty((4, offsets[-1]), dtype=torch.int32, device=dev)
+    views = [(keys[a:b], words[:, a:b]) for a, b in zip(offsets, offsets[1:])]
     geo = dict(width=width, height=height, config=config)
 
-    fr = front(cloud, fs, capacity=capacity, capacity_c=cap_c, compressed=compressed, **geo)
+    fr = front(cloud, block, capacity=capacity, capacity_c=cap_c, compressed=compressed,
+               out=views[0], **geo)
     mark("frontend")
-    parts, stats, caps = [(fr.keys, fr.words)], [fr.stats], [capacity]
+    emitted = [fr.stats[0]]
+    num_visible, clamped = fr.stats[1], fr.stats[2]
+    # splats that lost coverage: clamped splats beyond the capture capacity;
+    # giants beyond the window capacity and megas beyond the dense capacity
+    # (window on), or every giant level 1 counted (window off); with
+    # overflow off, every clamped splat
+    num_clamped = clamped
     if overflow:
         # level 1: ranks [tile_slots, overflow_slots) of every clamped
         # splat, forwarding giants (renderer.py:479); with the window off
@@ -307,81 +405,86 @@ def build_instance_stream(cloud: DeviceCloud, fs: FrameScalars, *, width: int, h
                     else min(config.overflow_slots, config.overflow_window_slots))
         w1 = walk(fr.cid, fr.stats[2], cap_c, rank_lo=config.tile_slots,
                   rank_hi=config.overflow_slots, giant_thresh=g_thresh,
-                  capacity=walk_cap, giant_capacity=g_cap, **geo)
-        parts.append((w1.keys, w1.words))
-        stats.append(w1.stats)
-        caps.append(walk_cap)
+                  capacity=walk_cap, giant_capacity=g_cap, out=views[1], **geo)
+        emitted.append(w1.stats[0])
+        num_clamped = (torch.clamp(w1.stats[1] - g_cap, min=0)
+                       + torch.clamp(clamped - cap_c, min=0))
     if window:
         # level 2: ranks [overflow_slots, window_slots) of the giants,
         # forwarding megas (renderer.py:495-509)
         w2 = walk(w1.giants, w1.stats[1], g_cap, rank_lo=config.overflow_slots,
                   rank_hi=config.overflow_window_slots,
                   giant_thresh=config.overflow_window_slots, capacity=win_cap,
-                  giant_capacity=m_cap, **geo)
+                  giant_capacity=m_cap, out=views[2], **geo)
         mark("overflow")
         # ranks >= window_slots of the first min(megas, m_cap) level-2 giants
-        dkeys, dwords, d_count = dense(w2.giants, w2.stats[1], capacity=d_cap, **geo)
+        _, _, d_count = dense(w2.giants, w2.stats[1], capacity=d_cap, out=views[3], **geo)
         mark("dense_compact")
-        parts += [(w2.keys, w2.words), (dkeys, dwords)]
-        stats += [w2.stats, d_count.reshape(1)]
-        caps += [win_cap, d_cap]
+        emitted += [w2.stats[0], d_count]
+        num_clamped = num_clamped + torch.clamp(w2.stats[1] - m_cap, min=0)
     elif overflow:
         mark("overflow")
 
-    # the frame's one host synchronisation: every prefix length at once
-    if culled_dropped is not None:
-        stats.append(culled_dropped.to(torch.int32).reshape(1))
-    flat = torch.cat(stats).tolist()
-    per_stage = []  # each stage's stats: [emitted, ...]
-    for st in stats:
-        per_stage.append(flat[:st.numel()])
-        flat = flat[st.numel():]
-    num_culled_dropped = per_stage.pop()[0] if culled_dropped is not None else 0
-    emitted = [st[0] for st in per_stage]
-    lens = [min(e, c) for e, c in zip(emitted, caps)]
-    num_dropped = sum(max(e - c, 0) for e, c in zip(emitted, caps))
-    _, num_visible, clamped = per_stage[0]
-    # splats that lost coverage: clamped splats beyond the capture capacity;
-    # giants beyond the window capacity and megas beyond the dense capacity
-    # (window on), or every giant level 1 counted (window off); with
-    # overflow off, every clamped splat
-    if overflow:
-        giants = per_stage[1][1] - g_cap
-        megas = per_stage[2][1] - m_cap if window else 0
-        num_clamped = max(giants, 0) + max(megas, 0) + max(clamped - cap_c, 0)
-    else:
-        num_clamped = clamped
-    keys = torch.cat([k[:ln] for (k, _), ln in zip(parts, lens)])
-    words = torch.cat([w[:, :ln] for (_, w), ln in zip(parts, lens)], dim=1)
-    return keys, words, dict(num_visible=num_visible, num_clamped=num_clamped,
-                             num_dropped=num_dropped, num_culled_dropped=num_culled_dropped)
+    over = [torch.clamp(e - c, min=0) for e, c in zip(emitted, caps)]
+    num_dropped = functools.reduce(torch.add, over)
+    if culled_dropped is None:
+        culled_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    diag = torch.stack([num_visible, num_clamped, num_dropped, culled_dropped]).to(torch.int32)
+    return FrameStream(keys, words, tuple(zip(offsets, caps)), torch.stack(emitted), diag)
 
 
-def render_frame(cloud, fs: FrameScalars, background: Sequence[float], *, width: int,
-                 height: int, config: RasterConfig, compressed: bool = False,
-                 plain: bool = False, return_diag: bool = False,
+def build_instance_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
+                          config: RasterConfig,
+                          compressed: bool = False, plain: bool = False,
+                          timer: Optional[StageTimer] = None,
+                          culled_dropped: Optional[torch.Tensor] = None):
+    """The exact-prefix form of frame_stream: the unsorted instance stream
+    (keys (M,) int32, words (4, M) int32: each stage's prefix in turn) and
+    the diagnostics as a dict of ints (num_visible, num_clamped,
+    num_dropped, num_culled_dropped), after one host read of the counts.
+    For the tests; render_frame does not call it."""
+    st = frame_stream(cloud, block, width=width, height=height, config=config,
+                      compressed=compressed, plain=plain, timer=timer,
+                      culled_dropped=culled_dropped)
+    counts = torch.cat([st.emitted, st.diag]).tolist()
+    emitted, diag = counts[:len(st.segments)], counts[len(st.segments):]
+    spans = [(off, off + min(e, cap)) for (off, cap), e in zip(st.segments, emitted)]
+    keys = torch.cat([st.keys[a:b] for a, b in spans])
+    words = torch.cat([st.words[:, a:b] for a, b in spans], dim=1)
+    return keys, words, dict(zip(DIAG_KEYS[1:], diag))
+
+
+def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config: RasterConfig,
+                 compressed: bool = False, plain: bool = False, return_diag: bool = False,
                  timer: Optional[StageTimer] = None):
     """One frame of a DeviceCloud or a CompressedDeviceCloud
     (renderer.py:262): (H, W, 3) f32 linear image on the cloud's device
-    (+ diagnostics dict).  A compressed cloud is expanded first: culled to
-    max(4096, int(compressed_cull_factor * N)) rows when the factor is > 0,
-    else at full N.  ``compressed`` selects the compressed eigen clamp."""
+    (+ FrameDiag).  ``block``: the frame block (frame_block) on the cloud's
+    device.  Nothing between the block and the image reads the device
+    (render/graph.py captures it).  A compressed cloud is expanded first:
+    culled to max(4096, int(compressed_cull_factor * N)) rows when the
+    factor is > 0, else at full N.  ``compressed`` selects the compressed
+    eigen clamp."""
     mark = timer.mark if timer is not None else (lambda name: None)
     mark("start")
+    if (tuple(block.shape) != (FRAME_BLOCK_LEN,) or block.dtype != torch.float32
+            or block.device != cloud_device(cloud)):
+        raise ValueError(f"the frame block must be ({FRAME_BLOCK_LEN},) f32 on "
+                         f"{cloud_device(cloud)}, got {tuple(block.shape)} {block.dtype} on "
+                         f"{block.device}")
     culled_dropped = None
     if isinstance(cloud, CompressedDeviceCloud):
         if config.compressed_cull_factor > 0.0:
             cull_cap = max(4096, int(config.compressed_cull_factor * cloud.opacity_q.shape[0]))
-            cloud, culled_dropped = decompress_cloud_culled(cloud, fs, capacity=cull_cap,
+            cloud, culled_dropped = decompress_cloud_culled(cloud, block, capacity=cull_cap,
                                                             plain=plain)
         else:
             cloud = decompress_cloud(cloud)
         mark("decompress")
-    keys, words, stats = build_instance_stream(
-        cloud, fs, width=width, height=height, config=config, compressed=compressed,
-        plain=plain, timer=timer, culled_dropped=culled_dropped,
-    )
-    sorted_keys, sorted_words = sort_instances(keys, words)
+    st = frame_stream(cloud, block, width=width, height=height, config=config,
+                      compressed=compressed, plain=plain, timer=timer,
+                      culled_dropped=culled_dropped)
+    sorted_keys, sorted_words = sort_stream(st.keys, st.words)
     mark("sort")
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)
@@ -391,10 +494,11 @@ def render_frame(cloud, fs: FrameScalars, background: Sequence[float], *, width:
         raster = rasterize_torch if plain else rasterize
     else:
         raster = rasterize_mxu_torch if plain else rasterize_mxu
-    img = raster(sorted_words, ranges, background, width=width, height=height, config=config)
+    img = raster(sorted_words, ranges, block[N_SCALARS:], width=width, height=height,
+                 config=config)
     mark("raster")
     if return_diag:
-        return img, dict(num_instances=int(ranges[-1]), **stats)
+        return img, FrameDiag(torch.cat([ranges[-1:], st.diag]))
     return img
 
 
@@ -402,7 +506,13 @@ class GaussianRenderer:
     """Device cloud + per-frame render (renderer.py:679).  ``device``
     "cuda" (the default) runs the kernels and raises where CUDA is absent;
     "cpu" runs the plain versions.  A cloud loaded with keep_compressed
-    stays compressed on the device and is expanded per frame."""
+    stays compressed on the device and is expanded per frame.
+
+    On the card a frame replays a captured render_frame
+    (render/graph.py), one per viewport, at most GRAPH_CACHE of them, as
+    the JAX renderer's jit cache keeps one program per viewport: a new
+    viewport captures once, a new camera or setting never recaptures.  On
+    the CPU every frame is the uncompiled one."""
 
     def __init__(self, cloud: GaussianCloud, config: Optional[RasterConfig] = None, *,
                  device="cuda"):
@@ -411,6 +521,11 @@ class GaussianRenderer:
         self.device = resolve_device(device)
         self.device_cloud = upload(cloud, self.device)
         self._last_diag = None
+        self.graphs = None
+        if self.device.type == "cuda":
+            from websplat_tpu_torch.render.graph import GraphCache
+
+            self.graphs = GraphCache()
 
     def render(self, camera: PerspectiveCamera, viewport: Tuple[int, int],
                args: SplattingArgs = SplattingArgs(), fit_near_far: bool = True,
@@ -420,11 +535,14 @@ class GaussianRenderer:
             camera.fit_near_far(*self.cloud.aabb)
         cam = CameraUniforms.from_camera(camera, (width, height))
         settings = resolve_settings(args, self.cloud)
-        img, diag = render_frame(
-            self.device_cloud, camera_block(cam, settings), settings.background_color,
-            width=width, height=height, config=self.config, compressed=self.cloud.compressed,
-            return_diag=True,
-        )
+        block = frame_block(camera_block(cam, settings), settings.background_color, self.device)
+        geo = dict(width=width, height=height, config=self.config,
+                   compressed=self.cloud.compressed)
+        if self.graphs is not None:
+            img, diag = self.graphs.get(self.device_cloud, **geo).replay(block)
+            diag = FrameDiag(diag.clone())  # the next replay overwrites the graph's own
+        else:
+            img, diag = render_frame(self.device_cloud, block, return_diag=True, **geo)
         if with_diag:
             self._last_diag = diag
         return img.cpu().numpy()
