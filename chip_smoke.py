@@ -28,9 +28,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              half its row count and on its first 100,003 splats (also with
              every slot set); the wrappers refuse bad arguments.  The
              frontend's instances and clamped rows (C, C-o at 6 and 64
-             slots, C at 24 slots), both walk levels' instances and giants
-             and the culled-stream compaction are held equal to plain
-             element for element (the kernels append in tile order).  Per
+             slots, C at 24 slots), both walk levels' instances and giants,
+             the culled-stream compaction and the packed emission (all
+             four cases) are held equal to plain element for element (the
+             kernels append in tile order).  Per
              kernel: the wrapper's CUDA-event span, the kernel-only time
              (torch.profiler, by kernel name), its roofline bound from this
              run's work counts (utils/roofline.py) with the bounding term and
@@ -50,6 +51,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
              rasterizer at two other tile shapes (its other pixel maps) and
              the slab one (hybrid, highest) at two (its other block maps)
+  3b oracle  the bench scene's view 0 (make_bench_cloud(rng(0)), 1200x799,
+             scripts/psnr_check.py's camera and background) against the
+             port's NumPy oracle (ops/oracle.py, its host time printed):
+             the replayed default frame > 40 dB; hybrid and tree printed
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer (on
              the card by default) and its device cloud through the
              uncompiled render_frame (whose launches the wrappers count;
@@ -90,29 +95,51 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              torch.cuda.set_sync_debug_mode("error"), then captured once
              and replayed back to back with no host read, each image
              bit-identical to its eager frame with equal diagnostics; the
-             replayed pass's kernels by name (torch.profiler); span alone
-             and back to back, busy ms, activities and idle share, eager
-             and replayed.  GaussianRenderer (capture on) over the 8 views:
+             replays' kernels by name (torch.profiler); then the 8 views as
+             one captured pass (render_blocks: one graph, each frame writing
+             its own slots), bit-identical to the per-view replays and the
+             eager frames, its kernels by name; span alone and back to
+             back, busy ms, activities and idle share, eager, replayed and
+             as one pass.  GaussianRenderer (capture on) over the 8 views:
              one capture, frames bit-equal to phase 4's; the whole-buffer
              sort (int32 keys) against the exact-prefix one (int64)
   5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure
              at 2048x2048 MEASURE_RUNS times (each pass's wall time); the
-             median host clock of MEASURE_PASSES passes split into building
-             the frame blocks, enqueueing the replays and waiting; one
-             pass's device busy ms, wall / busy, and its kernels by name
-             (it must replay one captured frame per view); apps.render's PNGs against
+             median host clock of MEASURE_PASSES passes split into
+             enqueueing the block copy and the replay and waiting (the
+             blocks are built once, before the passes), and the graph
+             launches per pass (must be 1); one pass's device busy ms,
+             wall / busy, and its kernels by name; the graph pool of the
+             7-view pass against one frame's (each graph's own private
+             pool); apps.render's PNGs against
              GaussianRenderer frames, apps.video, apps.viewer on a free
              local port (/frame.png, a rotate event, /stats)
   6 parallel the 8 views through make_view_parallel_renderer on an NCCL
-             group of one (bit-equal to phase 4's frames, total_visible the
-             sum); view 0 splat-sharded over NCCL at D = 1 (>= 60 dB, no
-             exchange drops, CUDA-event ms beside the single frame's: the
-             exchange overhead); the loopback exchange at D = 2 and 4 at
+             group of one (one captured pass; bit-equal to phase 4's
+             frames, total_visible a 0-d device tensor equal to the sum);
+             view 0 splat-sharded over NCCL at D = 1: the step captured
+             (exchange and all_reduce in the graph) and replayed, its rows
+             bit-identical to the eager step's and the loopback's, gathered
+             (gather_rows) >= 60 dB from the phase-4 frame, stats a (4,)
+             device tensor, no exchange drops, its kernels by name equal to
+             the eager step's launches; span alone and back to back,
+             busy ms, activities and idle share of the eager and replayed
+             step beside the single frame's ms; the eager step's parts;
+             the loopback exchange at D = 2 and 4 at
              32x8 tiles (>= 60 dB from the single frame, summed stats equal,
              no drops at 1.15 x n_inst / D, drops at a small capacity);
              dryrun_multidevice(1, "cuda"); the native PLY decoder on the
              bench PLY against the NumPy path, both timed
-  7 result   per kernel: launches per frame (of the path that runs it: the
+  7 10m      scripts/bench_10m.py's configuration: make_bench_npz(rng(0),
+             n=10M) encoded, loaded resident and uploaded (each timed); at
+             distance 3.0 and 0.45, full N and culled at 1.15 x the
+             frustum-visible fraction: eager frame and replay
+             (bit-identical), resident MB, peak device memory, replayed ms
+             (median), busy ms, idle share, capacities, the eager frame's
+             launches, diagnostics (drops
+             printed); equal num_visible, culled vs full N >= 60 dB; at
+             0.45, culled, kernel vs plain path >= 50 dB
+  8 result   per kernel: launches per frame (of the path that runs it: the
              main path; the hybrid path for the slab rasterizer, the culled
              compressed path for the compressed frontend and the general
              compaction, the tree path for the tree rasterizer, the
@@ -286,17 +313,35 @@ def profile_call(fn):
             sorted({e.name[:48] for e in dev}))
 
 
-def busy_ms(fn):
-    """(device busy ms, device activities, their profiler events) of one
-    profiled call of fn(): busy is the union of the device activity
-    intervals (torch.profiler)."""
+def profiled(fn, activities=("CPU", "CUDA")):
+    """The device activities of one call of fn() (torch.profiler events),
+    recorded after a warm-up call in the same window: the profiler on that
+    machine has been seen to drop a window's first records (up to a
+    frame's worth after many windows), so the warm-up call absorbs them and
+    only the records after a marker kernel (torch.cuda._sleep's
+    spin_kernel) launched between the two calls count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[getattr(ProfilerActivity, a) for a in activities]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("the profiler recorded no marker kernel")
+    return [e for e in events if e.time_range.start >= marks[-1]]
+
+
+def busy_ms(fn):
+    """(device busy ms, device activities, their profiler events) of one
+    profiled call of fn() (profiled: after a warm-up call): busy is the
+    union of the device activity intervals (torch.profiler)."""
+    events = profiled(fn)
     if not events:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, end = 0.0, float("-inf")
@@ -1019,23 +1064,24 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     if n_valid != int(ep[2]) or int(ek[3]) != 0:
         raise AssertionError(f"emit_compact count {n_valid} != plain {int(ep[2])} "
                              f"(dropped {int(ek[3])})")
-    full_rows = stream_rows(ek[0], ek[1], n=n_valid)
-    err_e = check_rows(f"emit_compact ({n} splats)", full_rows,
-                       stream_rows(ep[0], ep[1], n=n_valid),
-                       f"; visible {int(pk.num_visible)}, clamped {int(pk.num_clamped)}")
+
+    def same_emission(name, k, p_):
+        """The packed emission equals plain element for element: both emit
+        splat by splat in index order, each splat's set bits in rank order,
+        and fill the tail alike."""
+        ok = (torch.equal(k[0], p_[0]) and torch.equal(k[1], p_[1])
+              and int(k[2]) == int(p_[2]) and int(k[3]) == int(p_[3]))
+        say("kernels", f"{name}: {min(int(k[2]), k[0].shape[0])} rows kept of {int(k[2])}, "
+                       f"element for element equal to plain {ok}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+
+    same_emission(f"emit_compact ({n} splats; visible {int(pk.num_visible)}, clamped "
+                  f"{int(pk.num_clamped)})", ek, ep)
     half = n_valid // 2
-    hk = emit_compact(pk.depth_q, pk.rect, pk.words, capacity=half, **egeo)
-    # the kept rows are a sub-multiset of the full stream iff the two
-    # multisets differ by exactly the rows left out
-    n_diff, _ = compare_rows(stream_rows(hk[0], hk[1], n=half), full_rows)
-    if not (int(hk[2]) == n_valid and int(hk[3]) == n_valid - half
-            and (hk[0].cpu().numpy().view(np.uint32) != 0xFFFFFFFF).all()
-            and n_diff == n_valid - half):
-        raise AssertionError(f"emit_compact at capacity {half}: num_valid {int(hk[2])}, "
-                             f"num_dropped {int(hk[3])}, rows outside the full stream "
-                             f"{n_diff - (n_valid - half)}")
-    say("kernels", f"emit_compact at capacity {half}: {half} rows kept, all from the full "
-                   f"stream, num_dropped {int(hk[3])}")
+    same_emission(f"emit_compact at capacity {half}",
+                  emit_compact(pk.depth_q, pk.rect, pk.words, capacity=half, **egeo),
+                  emit_compact_torch(pk.depth_q, pk.rect, pk.words, capacity=half, **egeo))
     # a splat count that is not a multiple of any block size, with the
     # view's slot masks and with every slot set (6 rows per splat overflow
     # the kernel's staging buffer, so rows also take its direct path)
@@ -1043,14 +1089,10 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     all_slots = ((1 << cfg.tile_slots) - 1) << 18
     for what, rect_m in (("", pk.rect[:m]), (", every slot set", pk.rect[:m] | all_slots)):
         part = (pk.depth_q[:m], rect_m.contiguous(), pk.words[:, :m].contiguous())
-        mk, mp = (fn(*part, capacity=m * cfg.tile_slots, **egeo)
-                  for fn in (emit_compact, emit_compact_torch))
-        if int(mk[2]) != int(mp[2]) or int(mk[3]) != 0:
-            raise AssertionError(f"emit_compact on {m} splats{what}: count {int(mk[2])} != "
-                                 f"plain {int(mp[2])}")
-        err_e = max(err_e, check_rows(f"emit_compact ({m} splats{what})",
-                                      stream_rows(mk[0], mk[1], n=int(mk[2])),
-                                      stream_rows(mp[0], mp[1], n=int(mk[2]))))
+        same_emission(f"emit_compact ({m} splats{what})",
+                      *(fn(*part, capacity=m * cfg.tile_slots, **egeo)
+                        for fn in (emit_compact, emit_compact_torch)))
+    err_e = 0.0  # every row equal
     launches_f = build.LAUNCHES["emit_compact"]
     emit = lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     results["emit_compact"] = dict(
@@ -1174,6 +1216,49 @@ def golden():
                 raise AssertionError(f"rasterize_mxu {v} at {tw}x{th} tiles: kernel disagrees "
                                      "with plain")
         torch.cuda.synchronize()
+
+
+def oracle_phase(smi):
+    """Phase 3b: the bench scene's view 0 at 1200x799 against the port's
+    NumPy oracle (ops/oracle.py), with scripts/psnr_check.py's --bench
+    settings: make_bench_cloud(rng(0)), distance 3.0, background (0.1,
+    0.12, 0.2).  The replayed frame (GaussianRenderer, RasterConfig())
+    must score > 40 dB; the hybrid and tree composites are printed."""
+    from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
+    from websplat_tpu_torch.config import resolve_settings
+    from websplat_tpu_torch.models.camera import CameraUniforms
+    from websplat_tpu_torch.ops.oracle import render_oracle
+    from websplat_tpu_torch.synth import make_bench_cloud, make_camera
+    from websplat_tpu_torch.utils.image import psnr
+
+    cloud = make_bench_cloud(np.random.default_rng(0))
+    cam = make_camera(viewport=(W, H), distance=3.0)
+    cam.fit_near_far(*cloud.aabb)
+    args = SplattingArgs(background_color=(0.1, 0.12, 0.2))
+    t0 = time.perf_counter()
+    ref = render_oracle(cloud, CameraUniforms.from_camera(cam, (W, H)),
+                        resolve_settings(args, cloud), W, H)
+    say("oracle", f"NumPy oracle, bench scene view 0 ({cloud.num_points} splats, {W}x{H}): "
+                  f"{time.perf_counter() - t0:.1f} s host wall, finite "
+                  f"{bool(np.isfinite(ref).all())}")
+    scores = {}
+    for what, cfg in (("scan (defaults)", RasterConfig()),
+                      ("scan, transmittance_eps 1e-4", RasterConfig(transmittance_eps=1e-4)),
+                      ("hybrid", RasterConfig(composite="hybrid")),
+                      ("tree", RasterConfig(composite="tree"))):
+        r = GaussianRenderer(cloud, cfg)
+        r.render(cam, (W, H), args, fit_near_far=False)  # the capture
+        img = r.render(cam, (W, H), args, fit_near_far=False, with_diag=True)
+        scores[what] = psnr(img, ref)
+        say("oracle", f"{what}, replayed frame: PSNR vs the oracle {scores[what]:.2f} dB; "
+                      f"{dict(r._last_diag)}")
+        del r
+    say("oracle", f"the JAX package's figure for the same scene and settings, taken on a TPU "
+                  f"v5e (PSNR_r05.json, scripts/psnr_check.py --bench, defaults): 63.19 dB; "
+                  f"the port on this card ({smi}): {scores['scan (defaults)']:.2f} dB")
+    if not (np.isfinite(ref).all() and scores["scan (defaults)"] > 40.0):
+        raise AssertionError(f"the bench frame vs the oracle: {scores}")
+    return scores
 
 
 def main_path(cloud):
@@ -1571,36 +1656,26 @@ def by_function(launches) -> dict:
 
 def kernels_by_function(fn, want, passes: int = 5):
     """{CUDA function of KERNELS: launches} in a profiled call of fn()
-    (torch.profiler).  The profiler has been seen to drop a record from a
-    pass (kernel_only_ms), so a pass that shows fewer than ``want`` asks is
-    repeated, up to ``passes`` calls, and each function's count is its
-    largest over them."""
+    (profiled: after a warm-up call in the same window).  A pass that
+    shows fewer than ``want`` asks is repeated, up to ``passes`` calls,
+    and each function's count is its largest over them."""
     import re
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     pats = {f: re.compile(rf"(?<![A-Za-z_]){f}") for f in FUNCTIONS}
     best = {f: 0 for f in FUNCTIONS}
     for _ in range(passes):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.ones(1, device="cuda").add_(1)  # a first record, should one be lost
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
         counts = {f: 0 for f in FUNCTIONS}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                f = next((f for f, pat in pats.items() if pat.search(e.name)), None)
-                if f is not None:
-                    counts[f] += 1
+        for e in profiled(fn, ("CUDA",)):
+            f = next((f for f, pat in pats.items() if pat.search(e.name)), None)
+            if f is not None:
+                counts[f] += 1
         best = {f: max(best[f], counts[f]) for f in FUNCTIONS}
         if all(best[f] >= k for f, k in want.items()):
             break
     return {f: k for f, k in best.items() if k}
 
 
-def graph_timing(what, frame, smi):
+def graph_timing(what, frame, smi, phase="graph"):
     """``frame(i)`` renders view i.  The median CUDA-event span of a frame
     run alone (synchronised before and after; TIMED_PASSES passes), the
     span per frame of the 8 views back to back (one synchronise), and the
@@ -1620,11 +1695,42 @@ def graph_timing(what, frame, smi):
     r = dict(span_ms=statistics.median(alone), pass_ms=pass_ms, busy_ms=busy / N_VIEWS,
              activities=acts / N_VIEWS)
     r["idle_share"] = 1 - r["busy_ms"] / r["span_ms"]
-    say("graph", f"{what}: span {r['span_ms']:.4f} ms alone (median of {len(alone)}), "
+    say(phase, f"{what}: span {r['span_ms']:.4f} ms alone (median of {len(alone)}), "
                  f"{pass_ms:.4f} ms per frame back to back, busy {r['busy_ms']:.4f} ms in "
                  f"{r['activities']:.1f} device activities per frame (torch.profiler), idle "
                  f"share {r['idle_share']:.3f} ({smi})")
     return r
+
+
+def pass_timing(what, run, views, smi):
+    """``run()`` renders a pass of ``views`` frames.  The median CUDA-event
+    span of a pass run alone (TIMED_PASSES x 3 passes) and the device busy
+    ms and activities of one profiled pass, all per frame, with the idle
+    share."""
+    import torch
+
+    spans = []
+    for _ in range(3 * TIMED_PASSES):
+        torch.cuda.synchronize()
+        spans.append(event_ms(run)[1] / views)
+    busy, acts, _ = busy_ms(run)
+    r = dict(span_ms=statistics.median(spans), busy_ms=busy / views, activities=acts / views)
+    r["idle_share"] = 1 - r["busy_ms"] / r["span_ms"]
+    say("graph", f"{what}: span {r['span_ms']:.4f} ms per frame (a pass of {views} alone, "
+                 f"median of {len(spans)}), busy {r['busy_ms']:.4f} ms in "
+                 f"{r['activities']:.1f} device activities per frame (torch.profiler), idle "
+                 f"share {r['idle_share']:.3f} ({smi})")
+    return r
+
+
+def pool_bytes(graph) -> int:
+    """Bytes of a captured torch.cuda.CUDAGraph's private memory pool: the
+    caching allocator's segments of graph.pool() (torch.cuda.memory_snapshot)."""
+    import torch
+
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
@@ -1636,8 +1742,12 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
     back with no host read, each image bit-identical to its eager frame
     and the diagnostics equal; the replayed pass's kernels by name
     (torch.profiler), equal to the eager frames' launches, which equal
-    the kernels line's ``launches`` (LINE_PATHS); span, busy, activities
-    and idle share of eager and replayed frames.  Then
+    the kernels line's ``launches`` (LINE_PATHS); then the 8 views as one
+    captured pass (render_blocks: one graph of 8 frames, each writing its
+    own slots), every image and diagnostic bit-identical to the per-view
+    replays and to the eager frames, its kernels by name equal to the
+    eager launches; span, busy, activities and idle share of eager and
+    replayed frames and of the pass.  Then
     GaussianRenderer (capture on, the default) over the 8 views: one
     capture for the viewport, frames bit-equal to phase 4's; and the
     sort of the whole stream buffer (int32 keys) against the exact-prefix
@@ -1676,13 +1786,17 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
         line = {k: (launches[k], want.get(KERNELS[k][2], 0)) for k, p in LINE_PATHS.items()
                 if p == what}
         graphs = GraphCache()
-        images, diags = render_blocks(dc, blocks, graphs, **geo)  # capture + 8 replays
-        graph = next(iter(graphs))
+        graph = graphs.get(dc, **geo)  # one view's frame, replayed per view
+        # capture + 8 replays, each copied out before the next overwrites it
+        replays = [tuple(t.clone() for t in graph.replay(blocks[i])) for i in range(N_VIEWS)]
+        images = torch.cat([img for img, _ in replays])
+        diags = torch.cat([diag for _, diag in replays])
         torch.cuda.synchronize()
         errs = [float((images[i] - eager[i][0]).abs().max()) for i in range(N_VIEWS)]
         same = [bool(torch.equal(images[i], eager[i][0])) for i in range(N_VIEWS)]
         diag_same = bool(torch.equal(diags, eager_diag))
-        launched = kernels_by_function(lambda: render_blocks(dc, blocks, graphs, **geo), want)
+        launched = kernels_by_function(lambda: [graph.replay(blocks[i]) for i in range(N_VIEWS)],
+                                       want)
         say("graph", f"{what}: eager frames under set_sync_debug_mode('error') ok; captured "
                      f"{graph.captures} time(s); {N_VIEWS} views replayed back to back: max abs "
                      f"vs eager {max(errs):.3g} (bit-identical {same}), diagnostics equal "
@@ -1694,10 +1808,27 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
             raise AssertionError(f"{what}: replayed frames differ from eager ({errs}), "
                                  f"diagnostics equal {diag_same}, captures {graph.captures}, "
                                  f"kernels {launched} vs eager {want}, kernels line {line}")
+        # the 8 views as one captured pass: one graph launch
+        p_images, p_diags = render_blocks(dc, blocks, graphs, **geo)  # capture + replay
+        pgraph = graphs.get(dc, views=N_VIEWS, **geo)
+        torch.cuda.synchronize()
+        p_same = [bool(torch.equal(p_images[i], images[i])) for i in range(N_VIEWS)]
+        p_diag = bool(torch.equal(p_diags, diags))
+        p_launched = kernels_by_function(lambda: render_blocks(dc, blocks, graphs, **geo), want)
+        say("graph", f"{what}: the {N_VIEWS} views as one captured pass (captured "
+                     f"{pgraph.captures} time(s), {pgraph.views} frames in one graph): "
+                     f"bit-identical to the per-view replays and the eager frames {p_same}, "
+                     f"diagnostics equal {p_diag}; its kernels by name {p_launched}")
+        if not (all(p_same) and p_diag and pgraph.captures == 1 and p_launched == want):
+            raise AssertionError(f"{what}: the pass graph differs: images {p_same}, "
+                                 f"diagnostics {p_diag}, captures {pgraph.captures}, kernels "
+                                 f"{p_launched} vs {want}")
         timing[what] = {mode: graph_timing(f"{what}, {mode}", fn, smi) for mode, fn in (
             ("eager", lambda i: render_frame(dc, blocks[i], **geo)),
             ("replay", lambda i: graph.replay(blocks[i])))}
-        del graphs, graph, images, eager
+        timing[what]["pass"] = pass_timing(f"{what}, one pass graph", lambda: render_blocks(
+            dc, blocks, graphs, **geo), N_VIEWS, smi)
+        del graphs, graph, pgraph, images, p_images, replays, eager
 
     # the user's entry point on the card replays its graph: one capture for
     # the viewport whatever the camera, the frames bit-equal to phase 4's
@@ -1816,10 +1947,12 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
     from websplat_tpu_torch.ops.preprocess import N_SCALARS
     from websplat_tpu_torch.parallel.group import splat_group, view_group
     from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer, stack_cameras
-    from websplat_tpu_torch.parallel.sharded import (cut_regions, make_splat_sharded_renderer,
-                                                     region_frame, region_plan,
-                                                     render_splat_sharded_loopback, shard_cloud,
-                                                     split_cloud)
+    from websplat_tpu_torch.parallel.sharded import (cut_regions, gather_rows,
+                                                     make_splat_sharded_renderer, region_frame,
+                                                     region_plan, render_splat_sharded_loopback,
+                                                     shard_cloud, split_cloud)
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.render.graph import FrameGraph
     from websplat_tpu_torch.render.renderer import (build_instance_stream, camera_block,
                                                     render_frame, upload_cloud)
     from websplat_tpu_torch.synth import bench_cameras
@@ -1838,45 +1971,84 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
     imgs = imgs.cpu().numpy()
     equal = [bool(np.array_equal(imgs[i], scan_images[i])) for i in range(N_VIEWS)]
     want = sum(d["num_visible"] for d in scan_diags)
+    on_device = (isinstance(total_visible, torch.Tensor) and total_visible.device == group.device
+                 and total_visible.shape == ())
     say("parallel", f"view-parallel, NCCL group of {group.size} on {group.device}, {N_VIEWS} "
-                    f"views: bit-equal to phase 4's frames {equal}; total_visible "
-                    f"{total_visible} (phase 4's sum {want})")
-    if not (all(equal) and total_visible == want):
+                    f"views (one captured pass): bit-equal to phase 4's frames {equal}; "
+                    f"total_visible {int(total_visible)} (phase 4's sum {want}), a 0-d tensor on "
+                    f"the rank's device {on_device}")
+    if not (all(equal) and int(total_visible) == want and on_device):
         raise AssertionError("view-parallel frames or total_visible differ from phase 4's")
 
     # splat-sharded at D = 1 over NCCL: the exchange is an all_to_all with
     # itself; its cost beside the single frame's is the exchange overhead
-    # (scripts/bench_sharded.py:133, sharded_exchange_overhead_ms)
+    # (scripts/bench_sharded.py:133, sharded_exchange_overhead_ms).  The
+    # step replays its captured program (exchange and all_reduce captured
+    # too); the eager step and the loopback are the same operations
     sgroup = splat_group(device="cuda")
     n_inst = scan_diags[0]["num_instances"]
     sstep = make_splat_sharded_renderer(sgroup, width=W, height=H, config=RasterConfig(),
                                         region_capacity=n_inst)
     shard = shard_cloud(dc, sgroup)
-    img1, st1 = sstep(shard, unis[0], settings, bg)
-    p1 = psnr(img1.cpu().numpy(), scan_images[0])
+    run = lambda: sstep(shard, unis[0], settings, bg)
+    build.reset_launches()
+    rows_e, st_e = sstep.eager(shard, unis[0], settings, bg)
+    rows_e = rows_e.clone()
+    want = by_function(build.LAUNCHES)
+    run()  # the capture
+    rows_r, st_r = run()
+    launched = kernels_by_function(run, want)
+    loop, st_l = render_splat_sharded_loopback(split_cloud(dc, 1), unis[0], settings, bg,
+                                               width=W, height=H, config=RasterConfig(),
+                                               region_capacity=n_inst)
+    whole = gather_rows(rows_r, sgroup, sstep.plan)
+    captures = [g.captures for g in sstep.graphs]
+    same = dict(eager=bool(torch.equal(rows_r, rows_e)), loopback=bool(torch.equal(rows_r, loop)),
+                gathered=bool(torch.equal(whole, loop)),
+                stats=dict(st_r) == dict(st_e) == dict(st_l))
+    stats_on_device = st_r.tensor.device == sgroup.device and tuple(st_r.tensor.shape) == (4,)
+    p1 = psnr(whole.cpu().numpy(), scan_images[0])
+    say("parallel", f"splat-sharded D = 1 (NCCL), view 0, region capacity {n_inst}: captured "
+                    f"{captures}; the replayed step's rows {tuple(rows_r.shape)} bit-identical to "
+                    f"the eager step's, the loopback's and (gathered) the loopback frame, stats "
+                    f"equal: {same}; stats a (4,) device tensor {stats_on_device}; PSNR vs the "
+                    f"phase-4 frame {p1:.2f} dB, stats {dict(st_r)}; the replayed step's kernels "
+                    f"by name {launched} (the eager step's launches {want})")
+    if not (all(same.values()) and captures == [1] and stats_on_device and p1 >= SHARDED_PSNR
+            and launched == want
+            and st_r["num_dropped_exchange"] == 0
+            and st_r["num_visible"] == scan_diags[0]["num_visible"]):
+        raise AssertionError(f"splat-sharded D = 1: {same}, captures {captures}, {p1:.2f} dB, "
+                             f"stats {dict(st_r)}, kernels {launched} vs {want}")
     block0 = device_block(camera_block(unis[0], settings), settings)
-    sharded_ms = cuda_ms(lambda: sstep(shard, unis[0], settings, bg), 10)
+    sharded = {mode: graph_timing(f"splat-sharded D = 1 step, {mode}", lambda i: fn(),
+                                  smi, phase="parallel")
+               for mode, fn in (("eager", lambda: sstep.eager(shard, unis[0], settings, bg)),
+                                ("replay", run))}
+    single = FrameGraph(dc, width=W, height=H, config=RasterConfig())
     single_ms = cuda_ms(lambda: render_frame(dc, block0, width=W, height=H,
                                              config=RasterConfig()), 10)
-    # its parts: the cut (the stream, the stable sort, the region buffers),
-    # the exchange, the region's frame (merge, re-sort, rebase, raster)
-    plan = region_plan(1, width=W, height=H, config=RasterConfig(), region_capacity=n_inst)
+    single_replay_ms = cuda_ms(lambda: single.replay(block0), 10)
+    # its parts, eager: the cut (the stream, the stable sort, the region
+    # buffers), the exchange, the region's frame (merge, re-sort, rebase,
+    # raster)
+    plan = sstep.plan
     outgoing, _ = cut_regions(shard, block0, plan, config=RasterConfig())
     incoming = torch.empty_like(outgoing)
     cut_ms = cuda_ms(lambda: cut_regions(shard, block0, plan, config=RasterConfig()), 10)
     x_ms = cuda_ms(lambda: dist.all_to_all_single(incoming, outgoing, group=sgroup.group), 10)
     region_ms = cuda_ms(lambda: region_frame(incoming, 0, block0[N_SCALARS:], plan,
                                              config=RasterConfig()), 10)
-    say("parallel", f"splat-sharded D = 1 parts (CUDA events, median of 10): cut {cut_ms:.3f} "
-                    f"ms, all_to_all_single of {tuple(outgoing.shape)} int32 {x_ms:.3f} ms, "
-                    f"region frame {region_ms:.3f} ms")
-    say("parallel", f"splat-sharded D = 1 (NCCL), view 0, region capacity {n_inst}: PSNR vs the "
-                    f"phase-4 frame {p1:.2f} dB, stats {st1}; {sharded_ms:.3f} ms vs the single "
-                    f"frame's {single_ms:.3f} ms (CUDA events, median of 10): exchange overhead "
-                    f"{sharded_ms - single_ms:.3f} ms ({smi})")
-    if not (p1 >= SHARDED_PSNR and st1["num_dropped_exchange"] == 0
-            and st1["num_visible"] == scan_diags[0]["num_visible"]):
-        raise AssertionError(f"splat-sharded D = 1: {p1:.2f} dB, stats {st1}")
+    say("parallel", f"splat-sharded D = 1 parts, eager (CUDA events, median of 10): cut "
+                    f"{cut_ms:.3f} ms, all_to_all_single of {tuple(outgoing.shape)} int32 "
+                    f"{x_ms:.3f} ms, region frame {region_ms:.3f} ms")
+    say("parallel", f"splat-sharded D = 1: replayed step {sharded['replay']['span_ms']:.3f} ms "
+                    f"alone vs the replayed single frame's {single_replay_ms:.3f} ms; eager step "
+                    f"{sharded['eager']['span_ms']:.3f} ms vs the eager single frame's "
+                    f"{single_ms:.3f} ms (single frames: CUDA events, median of 10): exchange "
+                    f"overhead replayed {sharded['replay']['span_ms'] - single_replay_ms:.3f} ms, "
+                    f"eager {sharded['eager']['span_ms'] - single_ms:.3f} ms ({smi})")
+    del single, sstep
 
     # the loopback exchange at D = 2 and 4: 32 x 8 tiles give 100 tile rows
     cfg8 = RasterConfig(**SHARD_CONFIG)
@@ -1897,16 +2069,17 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
         floor = SHARDED_PSNR if n_far == 0 else CLAMPED_SHARDED_PSNR
         say("parallel", f"loopback D = {d} at 32x8 tiles, region capacity {cap}: PSNR vs the "
                         f"single frame {pd:.2f} dB (floor {floor}: {n_far} splat centres lie "
-                        f"outside their region's quantization range), stats {st} (single {dref})")
+                        f"outside their region's quantization range), stats {dict(st)} (single "
+                        f"{dref})")
         if not (pd >= floor and same and st["num_dropped_exchange"] == 0):
-            raise AssertionError(f"loopback D = {d}: {pd:.2f} dB, stats {st} vs {dref}")
+            raise AssertionError(f"loopback D = {d}: {pd:.2f} dB, stats {dict(st)} vs {dref}")
     small = dref["num_instances"] // 64
     img, st = render_splat_sharded_loopback(split_cloud(dc, 4), unis[0], settings, bg,
                                             region_capacity=small, **geo)
     say("parallel", f"loopback D = 4 at region capacity {small}: num_dropped_exchange "
                     f"{st['num_dropped_exchange']}, finite {bool(torch.isfinite(img).all())}")
     if not (st["num_dropped_exchange"] > 0 and torch.isfinite(img).all()):
-        raise AssertionError(f"loopback at a small capacity: stats {st}")
+        raise AssertionError(f"loopback at a small capacity: stats {dict(st)}")
 
 
 def apps_phase(cloud, smi):
@@ -1964,14 +2137,17 @@ def run_apps(cloud, smi, root):
     if not all(f > 0 for f in fps_runs):
         raise AssertionError(f"measure FPS {fps_runs}")
     # the device's share of one measure pass: busy ms (torch.profiler)
-    # against the pass's wall time
-    from websplat_tpu_torch.parallel import multiview
+    # against the pass's wall time; the first pass captures the views as one
+    # graph: the memory it takes
+    from websplat_tpu_torch.render import graph as graph_mod
 
     one_pass, views = measure.prepare(measure.parse_args([ply, cams_json]))
     one_pass()
-    # the pass's host clock: building and uploading the views' frame blocks,
-    # enqueueing the replays, then waiting in its synchronize
-    marks = {}
+    pass_pool = pool_bytes(next(iter(one_pass.graphs)).graph)
+    # the pass's host clock: enqueueing the block copy and the replay, then
+    # waiting in its synchronize (the blocks were built once, in prepare);
+    # and its graph launches (FrameGraph.replay calls)
+    marks, replays = {}, [0]
 
     def timed(name, fn):
         def run(*args, **kw):
@@ -1981,27 +2157,31 @@ def run_apps(cloud, smi, root):
             return out
         return run
 
-    orig = multiview.view_blocks, multiview.render_blocks
-    multiview.view_blocks = timed("blocks", orig[0])
-    multiview.render_blocks = timed("replays", orig[1])
-    parts = {k: [] for k in ("wall", "before", "blocks", "replays", "wait")}
+    def counted(self, blocks):
+        replays[0] += 1
+        return orig_replay(self, blocks)
+
+    orig, orig_replay = measure.render_blocks, graph_mod.FrameGraph.replay
+    measure.render_blocks = timed("replays", orig)
+    graph_mod.FrameGraph.replay = counted
+    parts = {k: [] for k in ("wall", "before", "replays", "wait")}
     try:
         for _ in range(MEASURE_PASSES):
             t0 = time.perf_counter()
             one_pass()
             t1 = time.perf_counter()
             parts["wall"].append(1e3 * (t1 - t0))
-            parts["before"].append(1e3 * (marks["blocks_start"] - t0))
-            for k in ("blocks", "replays"):
-                parts[k].append(1e3 * (marks[k + "_end"] - marks[k + "_start"]))
+            parts["before"].append(1e3 * (marks["replays_start"] - t0))
+            parts["replays"].append(1e3 * (marks["replays_end"] - marks["replays_start"]))
             parts["wait"].append(1e3 * (t1 - marks["replays_end"]))
     finally:
-        multiview.view_blocks, multiview.render_blocks = orig
+        measure.render_blocks, graph_mod.FrameGraph.replay = orig, orig_replay
     split = {k: statistics.median(v) for k, v in parts.items()}
     wall = split["wall"]
     busy, acts, _ = busy_ms(one_pass)
     say("apps", f"measure pass host clock (ms, median of {MEASURE_PASSES} passes): " + ", ".join(
-        f"{k} {split[k]:.3f}" for k in ("wall", "before", "blocks", "replays", "wait")))
+        f"{k} {split[k]:.3f}" for k in ("wall", "before", "replays", "wait"))
+        + f"; graph launches per pass {replays[0] / MEASURE_PASSES:g}")
 
     # what a measure frame holds: its first train view through the same
     # config, warm, with the stage spans, diagnostics and launches
@@ -2021,17 +2201,27 @@ def run_apps(cloud, smi, root):
                              return_diag=True, timer=timer)
         ms2 = timer.stages_ms()
     want = {f: k * views for f, k in by_function(build.LAUNCHES).items()}
+    # the graph of one such frame: the memory its capture takes
+    one = graph_mod.FrameGraph(dc2, width=2048, height=2048, config=cfg2)
+    one.replay(block2)
+    frame_pool = pool_bytes(one.graph)
+    del one
+    say("apps", f"graph pool at 2048x2048: the {views}-view pass {pass_pool / 2**20:.1f} MiB, "
+                f"one frame {frame_pool / 2**20:.1f} MiB: ratio {pass_pool / frame_pool:.2f} "
+                f"(each graph's private pool, torch.cuda.memory_snapshot)")
 
-    measured = [g.captures for g in one_pass.graphs]
+    measured = [(g.views, g.captures) for g in one_pass.graphs]
     launched = kernels_by_function(one_pass, want)
     say("apps", f"measure pass ({views} views): {wall:.3f} ms host wall (median), device busy "
                 f"{busy:.3f} ms in {acts} device activities (torch.profiler, the next pass); "
                 f"per frame {wall / views:.3f} / {busy / views:.3f} ms, wall / busy "
-                f"{wall / busy:.3f}; replayed graphs' captures {measured}, kernels by name "
-                f"{launched} (the eager frame's launches x {views}: {want}) ({smi})")
-    if not (measured == [1] and launched == want):
-        raise AssertionError(f"measure did not replay one captured frame per view: captures "
-                             f"{measured}, kernels {launched} vs {want}")
+                f"{wall / busy:.3f}; replayed graphs (views, captures) {measured}, kernels by "
+                f"name {launched} (the eager frame's launches x {views}: {want}) ({smi})")
+    if not (measured == [(views, 1)] and launched == want
+            and replays[0] == MEASURE_PASSES):
+        raise AssertionError(f"measure did not replay one captured pass per pass: graphs "
+                             f"{measured}, graph launches {replays[0]} in {MEASURE_PASSES} "
+                             f"passes, kernels {launched} vs {want}")
     say("apps", f"measure's first train view at 2048x2048 ({cfg2.tile_w}x{cfg2.tile_h} tiles), "
                 f"warm: {sum(ms2.values()):.3f} ms event span; stages ms "
                 + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items()) + f"; {d2}")
@@ -2106,6 +2296,127 @@ def run_apps(cloud, smi, root):
         log.close()
 
 
+TENM_SPLATS = 10_000_000  # scripts/bench_10m.py's default (BASELINE.json configuration 5)
+TENM_DISTANCES = (3.0, 0.45)  # the bench camera and a walkthrough camera (bench_10m.py:86-101)
+TENM_REPLAYS = 10
+
+
+def tenm_phase(smi):
+    """Phase 7: the 10M-splat compressed frame (scripts/bench_10m.py's
+    configuration): make_bench_npz(rng(0), n=10M) encoded and loaded
+    resident (load_gaussian_cloud(keep_compressed=True)); at distance 3.0
+    and 0.45, RasterConfig.for_viewport(1200, 799) at full N and culled at
+    1.15 x the camera's frustum-visible fraction.  Per variant: the eager
+    frame and the replayed one (bit-identical), the resident MB, peak
+    device memory, replayed ms per frame (median), busy ms and idle share,
+    its rows and its stream's capacities (full N's for both), and the
+    diagnostics.  Gates: finite images; culled and full N equal in
+    num_visible and >= CULLED_PSNR apart; at 0.45, culled, the kernel frame
+    >= PLAIN_PSNR from the plain path.  Drops are printed, not gated (as in
+    bench_10m.py)."""
+    import dataclasses
+
+    import torch
+
+    from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.io.loader import load_gaussian_cloud
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.render.graph import FrameGraph
+    from websplat_tpu_torch.render.renderer import frustum_visible, render_frame, upload
+    from websplat_tpu_torch.synth import make_bench_npz, make_camera
+    from websplat_tpu_torch.utils.image import psnr
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    blob = make_bench_npz(np.random.default_rng(0), n=TENM_SPLATS)
+    t1 = time.perf_counter()
+    resident = load_gaussian_cloud(blob, keep_compressed=True)
+    t2 = time.perf_counter()
+    cc = upload(resident, "cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    resident_mb = sum(x.numel() * x.element_size() for x in cc
+                      if isinstance(x, torch.Tensor)) / 1e6
+    say("10m", f"{resident.num_points} splats: npz {len(blob) / 1e6:.1f} MB encoded in "
+               f"{t1 - t0:.1f} s, loaded resident in {t2 - t1:.1f} s, uploaded in "
+               f"{t3 - t2:.1f} s (host wall); resident on the card {resident_mb:.1f} MB "
+               f"({1e6 * resident_mb / resident.num_points:.1f} B per splat)")
+    del blob
+    base = RasterConfig.for_viewport(W, H)
+    out = {}
+    for dist_ in TENM_DISTANCES:
+        cam = make_camera(viewport=(W, H), distance=dist_)
+        block = device_block(*view_block(resident, cam))
+        n_vis = int(frustum_visible(cc.xyz, block).sum())
+        factor = min(1.0, 1.15 * n_vis / resident.num_points)
+        frames = {}
+        for name, cfg in (("full N", base),
+                          ("culled", dataclasses.replace(base, compressed_cull_factor=factor))):
+            geo = dict(width=W, height=H, config=cfg, compressed=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            img, diag = render_frame(cc, block, return_diag=True, **geo)
+            img = img.clone()
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            graph = FrameGraph(cc, **geo)
+            images, diags = graph.replay(block)  # the capture
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            same = bool(torch.equal(images[0], img)) and bool(torch.equal(diags[0], diag.tensor))
+            times = [event_ms(lambda: graph.replay(block))[1] for _ in range(TENM_REPLAYS)]
+            busy, acts, _ = busy_ms(lambda: graph.replay(block))
+            med = statistics.median(times)
+            d = dict(diag)
+            frames[name] = dict(img=img, diag=d, ms=med, busy_ms=busy, same=same)
+            # the frame's rows (the culled capacity, or N) and its stream's
+            # capacities, full N's on both variants (renderer.py:render_frame)
+            rows = (max(4096, int(cfg.compressed_cull_factor * resident.num_points))
+                    if cfg.compressed_cull_factor > 0 else resident.num_points)
+            n = resident.num_points
+            cap_c = cfg.overflow_capacity_for(n)
+            caps = dict(rows=rows, instances=max(4096, int(cfg.instance_capacity_factor * n)),
+                        clamped=cap_c, walk=cfg.overflow_walk_capacity_for(cap_c),
+                        giants=cfg.overflow_grid_capacity_for(cap_c),
+                        megas=cfg.overflow_dense_capacity_for(cap_c))
+            say("10m", f"distance {dist_}, {name} (compressed_cull_factor "
+                       f"{cfg.compressed_cull_factor:.4f}; frustum-visible {n_vis}; capacities "
+                       f"{caps}; launches {launched}): replayed "
+                       f"{med:.3f} ms per frame (median of {TENM_REPLAYS}), busy {busy:.3f} ms in "
+                       f"{acts} device activities, idle share {1 - busy / med:.3f}; peak device "
+                       f"memory {peak:.2f} GiB; replay bit-identical to eager {same}; finite "
+                       f"{bool(torch.isfinite(img).all())}; num_visible {d['num_visible']} "
+                       f"num_instances {d['num_instances']} num_clamped {d['num_clamped']} "
+                       f"num_dropped {d['num_dropped']} num_culled_dropped "
+                       f"{d['num_culled_dropped']} ({smi})")
+            if not (same and bool(torch.isfinite(img).all())):
+                raise AssertionError(f"10M, distance {dist_}, {name}: replay equal {same}")
+            del graph, images, diags
+        full, culled = frames["full N"], frames["culled"]
+        p = psnr(culled["img"].cpu().numpy(), full["img"].cpu().numpy())
+        say("10m", f"distance {dist_}: culled vs full N {p:.2f} dB (floor {CULLED_PSNR}), "
+                   f"num_visible {culled['diag']['num_visible']} / "
+                   f"{full['diag']['num_visible']}")
+        if not (culled["diag"]["num_visible"] == full["diag"]["num_visible"]
+                and p >= CULLED_PSNR):
+            raise AssertionError(f"10M, distance {dist_}: culled vs full N {p:.2f} dB")
+        if dist_ == min(TENM_DISTANCES):
+            cfg = dataclasses.replace(base, compressed_cull_factor=factor)
+            plain = render_frame(cc, block, width=W, height=H, config=cfg, compressed=True,
+                                 plain=True)
+            pp = psnr(culled["img"].cpu().numpy(), plain.cpu().numpy())
+            say("10m", f"distance {dist_}, culled: kernel frame vs the plain path {pp:.2f} dB "
+                       f"(floor {PLAIN_PSNR})")
+            if not pp >= PLAIN_PSNR:
+                raise AssertionError(f"10M culled kernel vs plain {pp:.2f} dB")
+            del plain
+        out[dist_] = {k: {f: v for f, v in fr.items() if f != "img"} for k, fr in frames.items()}
+        del frames, full, culled
+    del cc
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     name, smi = probe()
     build_kernels()
@@ -2115,6 +2426,7 @@ def main() -> int:
     results = {}
     kernels_vs_plain(cloud, resident, cull_factor, results)
     golden()
+    oracle_phase(smi)
     launches, scan_images, scan_diags, blocks = main_path(cloud)
     launches["rasterize_mxu"] = slab_path(cloud, scan_images, blocks)["rasterize_mxu"]
     c_launches = compressed_path(resident, decoded, cull_factor)
@@ -2127,6 +2439,7 @@ def main() -> int:
     graph_phase(cloud, resident, cull_factor, scan_images, launches, smi)
     apps_phase(cloud, smi)
     parallel_phase(cloud, scan_images, scan_diags, smi)
+    tenm_phase(smi)
     import torch
 
     # launches per frame of the path each kernel is on (the scan path of

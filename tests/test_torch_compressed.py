@@ -125,3 +125,32 @@ def test_bench_npz_small_culls_what_it_must():
     cut.render(cam, (W, H), with_diag=True)  # capacity max(4096, 3000)
     d = cut._last_diag
     assert d["num_culled_dropped"] > 0 and d["num_visible"] <= 4096 < vis
+
+
+def test_culled_frame_keeps_full_n_capacities():
+    """A close camera: 40,000 bench splats at 1200x799 and distance 0.45
+    emit 18,271 instances from 3,910 visible splats, more than twice the
+    culled capacity's rows (5,566 at 1.15 x the frustum-visible fraction).
+    The culled frame keeps full N's stream capacities, so it drops nothing
+    and equals the full-N frame bit for bit (sized from its own rows it
+    dropped 781 instances)."""
+    from websplat_tpu_torch.config import SplattingArgs as TorchArgs
+    from websplat_tpu_torch.config import resolve_settings
+    from websplat_tpu_torch.models.camera import CameraUniforms as TorchUniforms
+    from websplat_tpu_torch.render.renderer import camera_block, frame_block, frustum_visible
+
+    w, h = 1200, 799
+    res = load_gaussian_cloud(make_bench_npz(np.random.default_rng(0), n=40000, n_geom=64,
+                                             n_sh=64), keep_compressed=True)
+    cam = make_camera(viewport=(w, h), distance=0.45)
+    full = GaussianRenderer(res, RasterConfig(), device="cpu")
+    img_full = full.render(cam, (w, h), with_diag=True)
+    block = frame_block(camera_block(TorchUniforms.from_camera(cam, (w, h)),
+                                     resolve_settings(TorchArgs(), res)), (0.0, 0.0, 0.0), "cpu")
+    factor = 1.15 * int(frustum_visible(full.device_cloud.xyz, block).sum()) / res.num_points
+    cut = GaussianRenderer(res, RasterConfig(compressed_cull_factor=factor), device="cpu")
+    img_cut = cut.render(cam, (w, h), with_diag=True)
+    d_full, d_cut = dict(full._last_diag), dict(cut._last_diag)
+    assert d_full["num_instances"] > 2 * int(factor * res.num_points)
+    assert d_cut == d_full and d_cut["num_dropped"] == 0
+    np.testing.assert_array_equal(img_cut, img_full)

@@ -11,8 +11,12 @@ same seeds).
 - ``emit_compact_torch`` on JAX's packed arrays against JAX ``emit_compact``
   (interpret mode): num_valid equal and the valid rows equal as multisets
   (observed: 5530 rows, equal).
-- Capacity: exactly ``capacity`` rows kept, all from the full stream, and
-  num_dropped = num_valid - capacity.  JAX's num_dropped counts stream
+- The plain order is the kernel's (csrc/emit_compact.cu): splat by splat,
+  512-splat tiles in index order, splats t and t + 256 of a tile in turn,
+  each splat's set bits in rank order; checked element for element
+  against a loop over that order.
+- Capacity: exactly ``capacity`` rows kept, the first ``capacity`` rows of
+  the full stream, and num_dropped = num_valid - capacity.  JAX's num_dropped counts stream
   positions with its alignment pads (emit_compact_pallas.py:247-270), so
   only num_valid is compared with JAX there.
 """
@@ -34,8 +38,9 @@ from websplat_tpu.render.renderer import camera_to_device, settings_to_device, u
 from tests.synth import make_camera, make_cloud
 from tests.test_torch_frontend import _unmatched
 from websplat_tpu_torch.config import RasterConfig
-from websplat_tpu_torch.ops.emit_compact import emit_compact, emit_compact_torch
-from websplat_tpu_torch.ops.preprocess import MASK_SHIFT, preprocess_packed
+from websplat_tpu_torch.ops.emit_compact import EMIT_SPLATS, emit_compact, emit_compact_torch
+from websplat_tpu_torch.ops.preprocess import (MASK_SHIFT, TX0_BITS, TY0_BITS, WT_BITS,
+                                               preprocess_packed)
 from websplat_tpu_torch.render.renderer import camera_block, cloud_from_host_arrays
 
 torch.set_num_threads(2)
@@ -127,6 +132,8 @@ def test_emit_compact_capacity_bound():
     assert int(nv_c) == n_valid and int(nd) == n_valid - cap
     assert (_u(keys) != INVALID).all()  # exactly `capacity` rows kept
     assert not (_rows(keys, words, cap) - _rows(full_k, full_w, n_valid))
+    # ... and they are the full stream's first `capacity` rows, in order
+    assert torch.equal(keys, full_k[:cap]) and torch.equal(words, full_w[:, :cap])
     # the port's own packed arrays emit the same rows as JAX's
     ok, ow, onv, _ = emit_compact_torch(tp.depth_q, tp.rect, tp.words, capacity=1 << 15, **geo)
     assert int(onv) == n_valid and _rows(ok, ow, n_valid) == _rows(full_k, full_w, n_valid)
@@ -160,3 +167,38 @@ def test_preprocess_packed_limits(scene):
     with pytest.raises(ValueError, match="slots"):
         emit_compact_torch(z, z, torch.zeros((4, 8), dtype=torch.int32),
                            **dict(geo, slots=9), capacity=16)
+
+
+@pytest.mark.parametrize("n", [1, EMIT_SPLATS, 1100])
+def test_emit_compact_plain_order_is_the_kernels(n):
+    """Rows come splat by splat in index order, the kernel's order, each
+    splat's set bits in rank order: the plain stream equals a loop over
+    the splats element for element, at a splat count inside one kernel
+    tile of 512 splats, at one full tile and past two (a partial last
+    tile)."""
+    rng = np.random.default_rng(77)
+    slots, tx_tiles, depth_bits = 6, 40, 12
+    tx0 = rng.integers(0, 30, n)
+    ty0 = rng.integers(0, 20, n)
+    w_t = rng.integers(1, 4, n)
+    mask = rng.integers(0, 1 << slots, n) * (rng.random(n) < 0.8)
+    rect = tx0 | (ty0 << TX0_BITS) | (w_t << (TX0_BITS + TY0_BITS)) | (mask << (
+        TX0_BITS + TY0_BITS + WT_BITS))
+    depth_q = rng.integers(0, 1 << depth_bits, n)
+    words = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64)
+    want = []
+    for i in range(n):
+        for j in range(slots):
+            if (mask[i] >> j) & 1:
+                dy = j // w_t[i]
+                tile = (ty0[i] + dy) * tx_tiles + tx0[i] + (j - dy * w_t[i])
+                want.append([(tile << depth_bits) | depth_q[i]] + [int(w) for w in words[:, i]])
+    want = np.array(want, np.uint64).reshape(-1, 5).astype(np.uint32)
+    keys, out_words, nv, nd = emit_compact_torch(
+        _i32(depth_q.astype(np.uint32)), _i32(rect.astype(np.uint32)),
+        _i32(words.astype(np.uint32)), slots=slots, tx_tiles=tx_tiles, depth_bits=depth_bits,
+        capacity=len(want) + 7)
+    assert int(nv) == len(want) and int(nd) == 0
+    assert np.array_equal(_u(keys)[:len(want)], want[:, 0])
+    assert np.array_equal(_u(out_words)[:, :len(want)], want[:, 1:].T)
+    assert (_u(keys)[len(want):] == INVALID).all()

@@ -16,7 +16,11 @@ render_frame; render/graph.py), on the CPU.
   (parallel/multiview.py:view_blocks) equal each view's frame_block.
 - render_frame's own orchestration reads nothing to the host: Tensor.item,
   tolist, __int__, __float__, __bool__ and __index__ raise outside the
-  stage functions for the whole frame.
+  stage functions for the whole frame (``refuse_host_reads``, which the
+  parallel tests apply to their steps too).
+- render_blocks on the CPU writes each view's frame into its own slots of
+  the pass's images and diagnostics (render_frame's ``out=``), bit-equal
+  to the view's own frame.
 - FrameGraph refuses the CPU, and GaussianRenderer on the CPU renders the
   uncompiled frame.
 """
@@ -40,7 +44,7 @@ from websplat_tpu_torch.ops.rasterize import rasterize_torch
 from websplat_tpu_torch.ops.sort import map_keys, sort_instances, sort_stream, tile_ranges
 from websplat_tpu_torch.parallel.multiview import stack_cameras, view_blocks
 from websplat_tpu_torch.render import renderer
-from websplat_tpu_torch.render.graph import FrameGraph
+from websplat_tpu_torch.render.graph import FrameGraph, GraphCache, render_blocks
 from websplat_tpu_torch.render.renderer import (DIAG_KEYS, build_instance_stream, camera_block,
                                                 cloud_from_host_arrays, decompress_cloud,
                                                 decompress_cloud_culled, frame_block,
@@ -256,14 +260,10 @@ STAGES = ("fused_frontend", "frontend_torch", "overflow_walk", "overflow_walk_to
           "rasterize", "rasterize_torch", "rasterize_mxu", "rasterize_mxu_torch")
 
 
-@pytest.mark.parametrize("name", ["default", "window_off", "culled_compressed", "hybrid"])
-def test_orchestration_reads_nothing(monkeypatch, name):
-    kind, cfg = CASES.get(name, ("sparse", RasterConfig(tile_w=16, tile_h=16,
-                                                        composite="hybrid")))
-    cloud, dc = _cloud(kind)
-    if cloud.quantized is not None:
-        dc = upload(cloud, "cpu")
-    block = _block(cloud)
+def refuse_host_reads(monkeypatch, modules=(renderer,)):
+    """Patches every Tensor read of READS to raise outside the stage
+    functions (STAGES, as each of ``modules`` names them: the plain versions
+    may read inside); ``monkeypatch.undo()`` lifts it."""
     depth = [0]
 
     def refuse(attr):
@@ -286,15 +286,51 @@ def test_orchestration_reads_nothing(monkeypatch, name):
 
         return run
 
-    for s in STAGES:
-        monkeypatch.setattr(renderer, s, stage(getattr(renderer, s)))
+    for module in modules:
+        for s in STAGES:
+            if hasattr(module, s):
+                monkeypatch.setattr(module, s, stage(getattr(module, s)))
     for attr in READS:
         refuse(attr)
+
+
+@pytest.mark.parametrize("name", ["default", "window_off", "culled_compressed", "hybrid"])
+def test_orchestration_reads_nothing(monkeypatch, name):
+    kind, cfg = CASES.get(name, ("sparse", RasterConfig(tile_w=16, tile_h=16,
+                                                        composite="hybrid")))
+    cloud, dc = _cloud(kind)
+    if cloud.quantized is not None:
+        dc = upload(cloud, "cpu")
+    block = _block(cloud)
+    refuse_host_reads(monkeypatch)
     img, d = render_frame(dc, block, width=W, height=H, config=cfg, compressed=cloud.compressed,
                           return_diag=True)
     monkeypatch.undo()
     assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
     assert d["num_visible"] > 0
+
+
+def test_render_blocks_writes_each_view_slot():
+    """The pass on the CPU: each view's frame written into its own slots of
+    the (V, H, W, 3) images and (V, 5) diagnostics (render_frame's out=),
+    bit-equal to the view's own frame."""
+    cloud, dc = _cloud("sparse")
+    settings = resolve_settings(SplattingArgs(background_color=BG), cloud)
+    unis = []
+    for az in (0.1, 0.9, 1.7):
+        cam = make_camera(viewport=(W, H), azimuth=az)
+        cam.fit_near_far(*cloud.aabb)
+        unis.append(CameraUniforms.from_camera(cam, (W, H)))
+    blocks = view_blocks(stack_cameras(unis), range(3), settings, BG, "cpu")
+    geo = dict(width=W, height=H, config=RasterConfig(tile_w=16, tile_h=8))
+    images, diags = render_blocks(dc, blocks, GraphCache(), **geo)
+    assert images.shape == (3, H, W, 3) and diags.shape == (3, 5)
+    for i in range(3):
+        img, d = render_frame(dc, blocks[i], return_diag=True, **geo)
+        assert torch.equal(images[i], img) and torch.equal(diags[i], d.tensor)
+    out = (torch.empty((H, W, 3)), torch.empty((5,), dtype=torch.int32))
+    img, d = render_frame(dc, blocks[0], return_diag=True, out=out, **geo)
+    assert img is out[0] and d.tensor is out[1] and torch.equal(img, images[0])
 
 
 def test_graph_refuses_cpu_and_renderer_runs_eager():

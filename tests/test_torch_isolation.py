@@ -44,6 +44,8 @@ MODULES = [
     "websplat_tpu_torch.ops.frontend",
     "websplat_tpu_torch.ops.overflow",
     "websplat_tpu_torch.render.renderer",
+    "websplat_tpu_torch.render.graph",
+    "websplat_tpu_torch.ops.oracle",
     "websplat_tpu_torch.kernels.build",
 ]
 
@@ -54,7 +56,8 @@ def test_imports_without_jax_and_renders():
     overflow off), and so does an npz written by the port's dumps_npz,
     loaded resident (through the culled decompression) and decoded; the
     render app renders a dataset on the CPU; a PLY decodes natively; a
-    splat-sharded frame renders through the loopback exchange at D = 2."""
+    splat-sharded frame renders through the loopback exchange at D = 2;
+    the port's NumPy oracle renders."""
     code = textwrap.dedent(f"""
         import sys
         for blocked in ("jax", "jaxlib", "websplat_tpu"):
@@ -121,6 +124,9 @@ def test_imports_without_jax_and_renders():
             st.background_color, width=64, height=64,
             config=RasterConfig(tile_w=16, tile_h=8), region_capacity=1024)
         assert img.shape == (64, 64, 3) and np.isfinite(img).all() and stats["num_visible"] > 0
+        from websplat_tpu_torch.ops.oracle import render_oracle
+        ref = render_oracle(c, CameraUniforms.from_camera(cam, (64, 64)), st, 64, 64)
+        assert ref.shape == (64, 64, 3) and np.isfinite(ref).all()
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                   or m.startswith("websplat_tpu.") or m == "websplat_tpu"]
         assert all(sys.modules[m] is None for m in loaded), loaded

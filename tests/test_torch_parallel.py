@@ -13,13 +13,19 @@ tiles, 8 slots, on the conftest's 8-device CPU mesh).  Tolerances:
     num_dropped_exchange equal to JAX's, exchange drops 0;
   - the capacity-overflow case (tests/test_sharded.py:64-83): drops > 0 and
     equal to JAX's count, image finite;
-  - a split whose tile rows do not divide raises "tile rows".
+  - a split whose tile rows do not divide raises "tile rows";
+  - the step on an in-process gloo world of one (D = 1, 96x60: the rank's
+    rows cropped from 64 to the frame's 60): its stats one (4,) int32
+    device tensor, its rows gathered (gather_rows) bit-equal to the
+    loopback frame and the stats equal, and no host read inside the step
+    (tests/test_torch_frame_graph.py:refuse_host_reads).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from tests.synth import make_camera as jax_make_camera
 from tests.synth import make_cloud as jax_make_cloud
@@ -35,7 +41,9 @@ from websplat_tpu_torch import RasterConfig, SplattingArgs
 from websplat_tpu_torch.config import resolve_settings
 from websplat_tpu_torch.models.camera import CameraUniforms
 from websplat_tpu_torch.parallel import sharded
-from websplat_tpu_torch.parallel.group import DeviceGroup
+from websplat_tpu_torch.parallel.group import DeviceGroup, splat_group
+from websplat_tpu_torch.render import renderer
+from tests.test_torch_frame_graph import refuse_host_reads
 from websplat_tpu_torch.render.renderer import (camera_block, cloud_from_host_arrays, frame_block,
                                                 render_frame)
 from websplat_tpu_torch.synth import make_camera
@@ -91,7 +99,10 @@ def test_splat_sharded_matches_jax_and_single():
                         settings.background_color, "cpu")
     single = render_frame(dc, block, width=W, height=H, config=CFG).numpy()
     assert img.shape == (H, W, 3) and np.isfinite(img).all()
-    assert stats == jstats, (stats, jstats)
+    # the four stats are one device tensor, summed over the shards on the device
+    assert stats.tensor.shape == (4,) and stats.tensor.dtype == torch.int32
+    assert tuple(stats) == sharded.STATS
+    assert dict(stats) == jstats, (dict(stats), jstats)
     assert stats["num_dropped_exchange"] == 0 and stats["num_visible"] > 0
     assert psnr(img, jimg) >= 50.0, psnr(img, jimg)
     assert psnr(img, single) >= 60.0, psnr(img, single)
@@ -107,7 +118,7 @@ def test_splat_sharded_capacity_overflow_matches_jax():
     img, stats = _port_sharded(tc, dc, cam, SplattingArgs(), 8, 128)
     assert np.isfinite(img).all()
     assert stats["num_dropped_exchange"] > 0
-    assert stats["num_dropped_exchange"] == jstats["num_dropped_exchange"], (stats, jstats)
+    assert stats["num_dropped_exchange"] == jstats["num_dropped_exchange"], (dict(stats), jstats)
 
 
 @pytest.mark.parametrize("d", [3, 5])
@@ -116,3 +127,36 @@ def test_splat_sharded_bad_split_raises(d):
     with pytest.raises(ValueError, match="tile rows"):
         sharded.make_splat_sharded_renderer(group, width=W, height=H, config=CFG,
                                             region_capacity=256)
+
+
+@pytest.fixture
+def gloo_world():
+    """An in-process gloo world of one (parallel/group.py), torn down after."""
+    assert not dist.is_initialized()
+    group = splat_group(device="cpu")
+    yield group
+    dist.destroy_process_group()
+
+
+def test_splat_sharded_step_rows_and_device_stats(gloo_world, monkeypatch):
+    h = 60  # 8 tile rows of 8: the rank's 64 rows cropped to the frame's 60
+    jc, tc, dc = _scene(303, (W, h))
+    cam = make_camera(viewport=(W, h))
+    cam.fit_near_far(*tc.aabb)
+    settings = resolve_settings(SplattingArgs(background_color=BG), tc)
+    uni = CameraUniforms.from_camera(cam, (W, h))
+    geo = dict(width=W, height=h, config=CFG, region_capacity=2048)
+    want, want_stats = sharded.render_splat_sharded_loopback(
+        sharded.split_cloud(dc, 1), uni, settings, settings.background_color, **geo)
+    step = sharded.make_splat_sharded_renderer(gloo_world, **geo)
+    assert step.plan.region_h == 64
+    refuse_host_reads(monkeypatch, (renderer, sharded))
+    rows, stats = step(sharded.shard_cloud(dc, gloo_world), uni, settings,
+                       settings.background_color)
+    monkeypatch.undo()
+    assert rows.shape == (h, W, 3)
+    assert stats.tensor.shape == (4,) and stats.tensor.dtype == torch.int32
+    assert tuple(stats) == sharded.STATS
+    assert torch.equal(stats.tensor, want_stats.tensor) and stats["num_visible"] > 0
+    assert torch.equal(sharded.gather_rows(rows, gloo_world, step.plan), want)
+    assert torch.equal(rows, want)

@@ -11,13 +11,19 @@ Tolerances:
     total_visible equal;
   - two spawned gloo ranks (dryrun.strategies, join timeout 120 s): the
     same operations on the same data as the loopback at D = 2 and as
-    in-process frames, so bit-equal to them.
+    in-process frames, so bit-equal to them (each rank's rows of the
+    sharded frame through gather_rows);
+  - the view-parallel step on an in-process gloo world of one: total_visible
+    a 0-d int64 device tensor equal to the frames' summed num_visible, the
+    images bit-equal to render_blocks', and no host read inside the step
+    (tests/test_torch_frame_graph.py:refuse_host_reads).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from tests.synth import make_camera as jax_make_camera
 from tests.synth import make_cloud as jax_make_cloud
@@ -34,10 +40,13 @@ from websplat_tpu_torch.config import resolve_settings
 from websplat_tpu_torch.models.camera import CameraUniforms
 from websplat_tpu_torch.ops.preprocess import FrameScalars
 from websplat_tpu_torch.parallel import dryrun, sharded
-from websplat_tpu_torch.parallel.group import DeviceGroup
-from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer, stack_cameras
-from websplat_tpu_torch.render.renderer import (cloud_from_host_arrays, frame_block, render_frame,
-                                                upload_cloud)
+from websplat_tpu_torch.parallel.group import DeviceGroup, view_group
+from websplat_tpu_torch.parallel.multiview import (make_view_parallel_renderer, stack_cameras,
+                                                   view_blocks)
+from websplat_tpu_torch.render.graph import GraphCache, render_blocks
+from websplat_tpu_torch.render.renderer import (DIAG_KEYS, cloud_from_host_arrays, frame_block,
+                                                render_frame, upload_cloud)
+from tests.test_torch_frame_graph import refuse_host_reads
 from websplat_tpu_torch.synth import make_camera
 
 torch.set_num_threads(2)
@@ -77,8 +86,9 @@ def test_view_parallel_matches_jax():
             mp.setattr("torch.distributed.all_reduce", lambda t, group=None: None)
             part, vis = fn(dc, batch, settings, settings.background_color)
         assert part.shape == (2, vh, vw, 3)
+        assert vis.shape == () and vis.dtype == torch.int64
         imgs.append(part.numpy())
-        visible += vis
+        visible += int(vis)
     imgs = np.concatenate(imgs)
     assert visible == int(jvis)
     for i in range(4):
@@ -113,4 +123,26 @@ def test_gloo_two_ranks_bit_equal_to_loopback():
         config=RasterConfig(tile_slots=4, tile_w=16, tile_h=8), region_capacity=2048)
     for r in results:
         np.testing.assert_array_equal(r["sharded_image"], img.numpy())
-        assert r["sharded_stats"] == stats
+        assert r["sharded_stats"] == dict(stats)
+
+
+def test_view_parallel_step_keeps_total_on_device(monkeypatch):
+    assert not dist.is_initialized()
+    group = view_group(device="cpu")  # an in-process gloo world of one
+    try:
+        cloud, unis, cams, settings = dryrun.make_inputs(3, 1, 400)
+        dc = upload_cloud(cloud, "cpu")
+        cfg = RasterConfig(tile_slots=4)
+        geo = dict(width=dryrun.WIDTH, height=dryrun.HEIGHT, config=cfg)
+        step = make_view_parallel_renderer(group, **geo)
+        refuse_host_reads(monkeypatch)
+        imgs, total = step(dc, cams, settings, settings.background_color)
+        monkeypatch.undo()
+        want, diags = render_blocks(dc, view_blocks(cams, range(3), settings,
+                                                    settings.background_color, "cpu"),
+                                    GraphCache(), **geo)
+    finally:
+        dist.destroy_process_group()
+    assert total.shape == () and total.dtype == torch.int64
+    assert int(total) == int(diags[:, DIAG_KEYS.index("num_visible")].sum()) > 0
+    assert torch.equal(imgs, want)

@@ -117,14 +117,13 @@ def time_root(root: str) -> None:
            f"wall {statistics.median(wall):.3f} ms, busy {busy / len(blocks):.3f} ms in "
            f"{acts / len(blocks):.0f} device activities per frame"]
     try:  # the captured frame, where the root has one
-        from websplat_tpu_torch.render.graph import GraphCache, render_blocks
+        from websplat_tpu_torch.render.graph import GraphCache
     except ImportError:
         out.append("replay n/a")
     else:
         blk = torch.stack([a[0] for a in args])
         graphs = GraphCache()
-        render_blocks(renderer.device_cloud, blk, graphs, **geo)
-        graph = next(iter(graphs))
+        graph = graphs.get(renderer.device_cloud, **geo)  # one view's frame
         r = cs.graph_timing("replay", lambda i: graph.replay(blk[i]), root)
         out.append(f"replay span {r['span_ms']:.3f} ms alone, {r['pass_ms']:.3f} ms back to "
                    f"back, busy {r['busy_ms']:.3f} ms in {r['activities']:.0f} device "

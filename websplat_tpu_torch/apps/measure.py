@@ -4,10 +4,13 @@ Equivalent of the web-splat ``measure`` binary (src/bin/measure.rs), as
 ``websplat_tpu/apps/measure.py`` runs it: renders all Train cameras at a
 fixed 2048x2048, ``samples`` passes over them, one warm-up pass excluded
 for lazy init (the kernels build there; measure.rs:59-96), average FPS =
-views * samples / wall (measure.rs:148-153), no image readback: each pass
-renders every view (parallel/multiview.py:render_views) and ends with one
-torch.cuda.synchronize.  Each pass's wall time is printed too, so that a
-slow pass shows apart from a slow run.
+views * samples / wall (measure.rs:148-153), no image readback: the views'
+frame blocks go to the device once, before the passes, as the JAX measure
+uploads its cameras once (websplat_tpu/apps/measure.py:58); each pass
+renders every view (render/graph.py:render_blocks: on the card one replay
+of the captured pass) and ends with one torch.cuda.synchronize.  Each
+pass's wall time is printed too, so that a slow pass shows apart from a
+slow run.
 
 Usage:
     python -m websplat_tpu_torch.apps.measure INPUT.ply|npz [SCENE.json]
@@ -25,8 +28,8 @@ from websplat_tpu_torch.apps.common import add_device_arg, load_inputs
 from websplat_tpu_torch.config import RasterConfig, SplattingArgs, resolve_settings
 from websplat_tpu_torch.models.camera import CameraUniforms
 from websplat_tpu_torch.models.scene import Split
-from websplat_tpu_torch.parallel.multiview import render_views, stack_cameras
-from websplat_tpu_torch.render.graph import GraphCache
+from websplat_tpu_torch.parallel.multiview import stack_cameras, view_blocks
+from websplat_tpu_torch.render.graph import GraphCache, render_blocks
 from websplat_tpu_torch.render.renderer import resolve_device, upload
 
 
@@ -42,10 +45,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def prepare(args_ns: argparse.Namespace):
-    """Loads the inputs and uploads the cloud -> (one_pass, number of
-    views): one_pass() renders every Train view once and synchronises,
-    returning the (V, H, W, 3) images on the device.  On the card the first
-    pass captures the frame and every pass replays it (one_pass.graphs)."""
+    """Loads the inputs, uploads the cloud and the views' frame blocks ->
+    (one_pass, number of views): one_pass() renders every Train view once
+    and synchronises, returning the (V, H, W, 3) images on the device.  On
+    the card the first pass captures the V frames as one graph and every
+    pass replays it (one_pass.graphs)."""
     dev = resolve_device(args_ns.device)
     cloud, scene = load_inputs(args_ns.input, args_ns.scene)
     cams = scene.cameras(Split.TRAIN)
@@ -61,12 +65,13 @@ def prepare(args_ns: argparse.Namespace):
     config = RasterConfig.for_viewport(w, h)
     settings = resolve_settings(SplattingArgs(walltime=100.0), cloud)
     dc = upload(cloud, dev)
-    dcams = stack_cameras(unis)
+    blocks = view_blocks(stack_cameras(unis), range(len(unis)), settings,
+                         settings.background_color, dev)
     graphs = GraphCache()
 
     def one_pass():
-        imgs = render_views(dc, dcams, settings, settings.background_color, width=w, height=h,
-                            config=config, compressed=cloud.compressed, graphs=graphs)
+        imgs, _ = render_blocks(dc, blocks, graphs, width=w, height=h, config=config,
+                                compressed=cloud.compressed)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return imgs

@@ -79,7 +79,8 @@ class RasterConfig:
     # first, compact the survivors to max(4096, int(factor * N)) rows and
     # run the codebook gathers over those only (render/renderer.py:
     # decompress_cloud_culled); splats past that capacity are dropped and
-    # counted as num_culled_dropped.  0 gathers at full N.
+    # counted as num_culled_dropped.  The instance stream keeps full N's
+    # capacities either way.  0 gathers at full N.
     compressed_cull_factor: float = 0.0
     # Fields kept only so that configurations written for the JAX package
     # fail loudly here: each accepts its default value alone.

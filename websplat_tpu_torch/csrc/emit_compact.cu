@@ -18,10 +18,12 @@
 //   CTAs per SM then overlap one another's load -> reserve -> store chains;
 // - the depth and record words are loaded before the reservation,
 //   predicated on a non-zero mask, so their latency overlaps the scan;
-// - one block scan and one ordered reservation (stream.cuh: tile order by
-//   decoupled look-back) place the block's rows, so the stream's order is
-//   the same on every run: tile by tile, within a tile thread t's splats
-//   t, t + 256 in turn, each splat's set slots ascending;
+// - one block scan of the two splats' counts packed in one int and one
+//   ordered reservation (stream.cuh: BlockAppend::reserve_halves, tile
+//   order by decoupled look-back) place the block's rows, so the stream's
+//   order is the same on every run and the splats' index order: the
+//   tile's first 256 splats, then its second 256, each splat's set slots
+//   ascending;
 // - each thread writes its instances into shared memory at their place in
 //   the block's run, and after one barrier the block writes the run with
 //   consecutive threads on consecutive rows, one plane at a time.  Rows of
@@ -44,6 +46,7 @@ constexpr int EMIT_PER_THREAD = 2;
 constexpr int EMIT_SPLATS = EMIT_BLOCK * EMIT_PER_THREAD;
 constexpr int EMIT_STAGE = 2 * EMIT_SPLATS;  // staged rows per block: 5 planes, 20 KB
 constexpr int EMIT_MASK_SHIFT = 18;
+static_assert(EMIT_PER_THREAD == 2, "the reservation packs two halves of a tile");
 
 __global__ void __launch_bounds__(EMIT_BLOCK)
     emit_compact_kernel(const uint32_t* __restrict__ depth_q, const uint32_t* __restrict__ rect,
@@ -61,12 +64,12 @@ __global__ void __launch_bounds__(EMIT_BLOCK)
     const int64_t i = i0 + k * EMIT_BLOCK;
     r[k] = i < n ? rect[i] : 0u;
   }
-  int count = 0;
+  int count[EMIT_PER_THREAD];
 #pragma unroll
   for (int k = 0; k < EMIT_PER_THREAD; ++k) {
     const int64_t i = i0 + k * EMIT_BLOCK;
     const uint32_t mask = (r[k] >> EMIT_MASK_SHIFT) & slot_mask;
-    count += __popc(mask);
+    count[k] = __popc(mask);
     dq[k] = 0u;
 #pragma unroll
     for (int c = 0; c < 4; ++c) w[k][c] = 0u;
@@ -77,13 +80,14 @@ __global__ void __launch_bounds__(EMIT_BLOCK)
     }
   }
 
-  int local = append.reserve(count, s) - append.base;
+  const int2 first = append.reserve_halves(count[0], count[1], s);
   const int64_t base = append.base;
   const int total = append.total;
 #pragma unroll
   for (int k = 0; k < EMIT_PER_THREAD; ++k) {
     const uint32_t mask = (r[k] >> EMIT_MASK_SHIFT) & slot_mask;
     if (mask == 0u) continue;
+    int local = (k == 0 ? first.x : first.y) - (int)base;
     const int tx0 = (int)(r[k] & 0x7Fu);
     const int ty0 = (int)((r[k] >> 7) & 0x7Fu);
     const int w_t = max((int)((r[k] >> 14) & 0xFu), 1);

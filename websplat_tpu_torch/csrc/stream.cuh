@@ -153,6 +153,26 @@ struct BlockAppend {
   __device__ __forceinline__ int reserve(int count, const OrderedScratch& s) {
     int excl, sum;
     Scan(scan).ExclusiveSum(count, excl, sum);
+    publish(sum, s);
+    return base + excl;
+  }
+
+  // Collective, for a block whose rows come in two halves: thread t's
+  // count0 rows lie in the first half, in thread order, and its count1
+  // rows in the second, in thread order (each half's sum < 2^16).  One
+  // scan of the two counts packed in one int; returns the global index of
+  // this thread's first row in each half.
+  __device__ __forceinline__ int2 reserve_halves(int count0, int count1,
+                                                 const OrderedScratch& s) {
+    int excl, sum;
+    Scan(scan).ExclusiveSum(count0 | (count1 << 16), excl, sum);
+    const int sum0 = sum & 0xFFFF;
+    publish(sum0 + (sum >> 16), s);
+    return make_int2(base + (excl & 0xFFFF), base + sum0 + (excl >> 16));
+  }
+
+  // The block's total: its base by look-back, the stream's counter.
+  __device__ __forceinline__ void publish(int sum, const OrderedScratch& s) {
     if (threadIdx.x < 32) {
       const long long b = lookback(s.stream(0), tile, (unsigned long long)sum);
       if (threadIdx.x == 0) {
@@ -162,7 +182,6 @@ struct BlockAppend {
       }
     }
     __syncthreads();
-    return base + excl;
   }
 };
 

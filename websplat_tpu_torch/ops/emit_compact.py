@@ -13,10 +13,11 @@ mask (rect == 0, for one) emit nothing.
 
 Returns ``(keys (capacity,), words (4, capacity), num_valid, num_dropped)``:
 int32 tensors, the counts 0-d on the input's device.  Rows
-``[0, min(num_valid, capacity))`` are the valid instances (an exact prefix;
-the kernel's order is its own, the same on every run, and differs from the
-plain version's slot-major order), the keys after them are 0xFFFFFFFF and
-the words 0.  ``num_dropped = max(0, num_valid - capacity)`` counts real
+``[0, min(num_valid, capacity))`` are the valid instances, an exact prefix
+in the kernel's order, which the plain version keeps too: the splats in
+index order, each splat's set bits in rank order.  So kernel and plain are
+equal element for element, and a capacity keeps the first ``capacity``
+rows of that order.  The keys after them are 0xFFFFFFFF and the words 0.  ``num_dropped = max(0, num_valid - capacity)`` counts real
 instances; the JAX kernel's counts stream positions, its 1024-alignment
 pads included (emit_compact_pallas.py:247-270).
 """
@@ -35,7 +36,7 @@ from websplat_tpu_torch.ops.preprocess import (
     WT_BITS,
 )
 
-EMIT_SPLATS = 512  # splats per tile (csrc/emit_compact.cu)
+EMIT_SPLATS = 512  # splats per kernel tile (csrc/emit_compact.cu)
 
 
 def _check(depth_q, rect, words, slots, capacity):
@@ -63,15 +64,12 @@ def emit_compact_torch(depth_q: torch.Tensor, rect: torch.Tensor, words: torch.T
     _check(depth_q, rect, words, slots, capacity)
     dev = rect.device
     tx0, ty0, w_t, mask = _decode(rect)
-    dq = u32(depth_q)
-    key_parts, idx_parts = [], []
-    for j in range(slots):
-        (idx,) = torch.nonzero((mask >> j) & 1, as_tuple=True)
-        dy = j // w_t[idx]
-        tile = (ty0[idx] + dy) * tx_tiles + tx0[idx] + (j - dy * w_t[idx])
-        key_parts.append((tile << depth_bits) | dq[idx])
-        idx_parts.append(idx)
-    keys_all, idx_all = torch.cat(key_parts), torch.cat(idx_parts)
+    # (splat, rank) of every set bit, splats in index order, ranks ascending
+    ranks = torch.arange(slots, dtype=torch.int64, device=dev)
+    idx_all, j = torch.nonzero((mask[:, None] >> ranks) & 1, as_tuple=True)
+    dy = j // w_t[idx_all]
+    tile = (ty0[idx_all] + dy) * tx_tiles + tx0[idx_all] + (j - dy * w_t[idx_all])
+    keys_all = (tile << depth_bits) | u32(depth_q)[idx_all]
     n_valid = keys_all.shape[0]
     k = min(n_valid, capacity)
     keys = torch.full((capacity,), INVALID_KEY, dtype=torch.int64, device=dev)

@@ -35,6 +35,8 @@ span past its tile's range (unlike rasterize_xla, it has no per-tile cap).
 from __future__ import annotations
 
 import numpy as np
+from typing import Optional
+
 import torch
 
 from websplat_tpu_torch.config import CUTOFF, RasterConfig
@@ -378,16 +380,20 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
 
 def rasterize(words: torch.Tensor, ranges: torch.Tensor,
               background: torch.Tensor, *,
-              width: int, height: int, config: RasterConfig) -> torch.Tensor:
+              width: int, height: int, config: RasterConfig,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The rasterizer: the CUDA kernel for a stream on the card
     (``rasterize_kernel``, or ``rasterize_tree_kernel`` for
     composite="tree"), the plain version for a stream on the CPU; any other
     device raises.  ``background``: (3,) f32 on the stream's device (the
-    frame block's last 3 floats), which the kernel reads there."""
+    frame block's last 3 floats), which the kernel reads there.  ``out``:
+    the (H, W, 3) f32 image to write, where given (a captured pass writes
+    each view's slot of its images, render/graph.py)."""
     dev = words.device
     if dev.type == "cpu":
-        return rasterize_torch(words, ranges, background, width=width, height=height,
-                               config=config)
+        img = rasterize_torch(words, ranges, background, width=width, height=height,
+                              config=config)
+        return img if out is None else out.copy_(img)
     if dev.type != "cuda":
         raise ValueError(f"rasterize: unsupported device {dev}")
     check_stream(words, ranges, width, height, config)
@@ -397,7 +403,9 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor,
     tx_tiles, _ = config.tiles_for(width, height)
     cq = packing.CenterQuant.for_viewport(width, height)
     build.require(background, "background", dtype=torch.float32, shape=(3,), device=dev)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    build.require(out, "out", dtype=torch.float32, shape=(height, width, 3), device=dev)
     err = build.lib().ws_rasterize(
         words.data_ptr(), words.shape[1], ranges.data_ptr(),
         background.data_ptr(), out.data_ptr(), width, height,

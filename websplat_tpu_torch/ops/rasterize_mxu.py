@@ -56,6 +56,8 @@ still run at that index (in groups of ``_TILE_GROUP`` to bound memory).
 from __future__ import annotations
 
 import numpy as np
+from typing import Optional
+
 import torch
 
 from websplat_tpu_torch.config import CUTOFF, RasterConfig
@@ -286,14 +288,17 @@ def rasterize_mxu_work_torch(words: torch.Tensor, ranges: torch.Tensor, tile_sto
 
 def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor,
                   background: torch.Tensor, *,
-                  width: int, height: int, config: RasterConfig) -> torch.Tensor:
+                  width: int, height: int, config: RasterConfig,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The slab rasterizer: the CUDA kernel for a stream on the card, the
     plain version for a stream on the CPU; any other device raises.
-    ``background``: (3,) f32 on the stream's device."""
+    ``background``: (3,) f32 on the stream's device; ``out``: the (H, W, 3)
+    f32 image to write, where given."""
     dev = words.device
     if dev.type == "cpu":
-        return rasterize_mxu_torch(words, ranges, background, width=width, height=height,
-                                   config=config)
+        img = rasterize_mxu_torch(words, ranges, background, width=width, height=height,
+                                  config=config)
+        return img if out is None else out.copy_(img)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_mxu: unsupported device {dev}")
     _check(words, ranges, width, height, config)
@@ -303,7 +308,9 @@ def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor,
     tx_tiles, _ = config.tiles_for(width, height)
     cq = packing.CenterQuant.for_viewport(width, height)
     build.require(background, "background", dtype=torch.float32, shape=(3,), device=dev)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    build.require(out, "out", dtype=torch.float32, shape=(height, width, 3), device=dev)
     err = build.lib().ws_rasterize_mxu(
         words.data_ptr(), words.shape[1], ranges.data_ptr(),
         background.data_ptr(), out.data_ptr(), width, height,

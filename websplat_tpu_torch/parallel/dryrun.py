@@ -8,7 +8,8 @@ CPU), runs a function in it and returns each rank's result; a rank that
 fails or outlives the timeout raises here, and every process is stopped.
 ``dryrun_multidevice`` runs ``strategies`` at 64x64 on 2,000 splats:
 view-parallel over N views, then splat-sharded at 16x8 tiles when the 8
-tile rows divide by N.
+tile rows divide by N, held bit for bit against its eager body and the
+loopback (on the card this is the check of the captured step at D = N).
 
     python -m websplat_tpu_torch.parallel.dryrun N [cuda|cpu]
 """
@@ -123,13 +124,24 @@ def strategies(device: str, seed: int = 0, n_splats: int = N_SPLATS) -> dict:
     """One rank's dry run over the default process group: view-parallel
     over as many views as ranks (RasterConfig(tile_slots=4)), then
     splat-sharded on view 0 at 16x8 tiles with region capacity 2048 when
-    the tile rows divide by the ranks.  Returns this rank's images (numpy),
-    total_visible, and the sharded frame and stats (None when skipped)."""
+    the tile rows divide by the ranks: the step (on the card the captured
+    one: its first call captures, the second, for another camera,
+    replays), its eager body on the same inputs, and the loopback of the
+    same shards on this rank's device.  Returns this rank's images
+    (numpy), total_visible (read from the device), the sharded frame (the
+    ranks' rows gathered) and stats (None when skipped), and whether both
+    calls' rows and stats equal the eager step's bit for bit and the
+    gathered frame and stats equal the loopback's (``sharded_same``)."""
     from websplat_tpu_torch.config import RasterConfig
     from websplat_tpu_torch.parallel.group import splat_group, view_group
     from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer
-    from websplat_tpu_torch.parallel.sharded import make_splat_sharded_renderer, shard_cloud
+    from websplat_tpu_torch.models.camera import CameraUniforms
+    from websplat_tpu_torch.parallel.sharded import (STATS, gather_rows,
+                                                     make_splat_sharded_renderer,
+                                                     render_splat_sharded_loopback, shard_cloud,
+                                                     split_cloud)
     from websplat_tpu_torch.render.renderer import upload_cloud
+    from websplat_tpu_torch.synth import make_camera
 
     group = view_group(device=device)
     cloud, unis, cams, settings = make_inputs(group.size, seed, n_splats)
@@ -139,15 +151,32 @@ def strategies(device: str, seed: int = 0, n_splats: int = N_SPLATS) -> dict:
     imgs, total_visible = step(dc, cams, settings, settings.background_color)
     cfg2 = dataclasses.replace(config, tile_w=16, tile_h=8)
     out = dict(rank=group.rank, size=group.size, view_images=imgs.cpu().numpy(),
-               total_visible=total_visible, sharded_image=None, sharded_stats=None,
-               tile_rows=cfg2.tiles_for(WIDTH, HEIGHT)[1])
+               total_visible=int(total_visible), sharded_image=None, sharded_stats=None,
+               sharded_same=None, tile_rows=cfg2.tiles_for(WIDTH, HEIGHT)[1])
     if out["tile_rows"] % group.size == 0:
         sgroup = splat_group(device=device)
         sstep = make_splat_sharded_renderer(sgroup, width=WIDTH, height=HEIGHT, config=cfg2,
                                             region_capacity=2048)
-        img, stats = sstep(shard_cloud(dc, sgroup), unis[0], settings,
-                           settings.background_color)
-        out.update(sharded_image=img.cpu().numpy(), sharded_stats=stats)
+        shard = shard_cloud(dc, sgroup)
+        cam2 = make_camera(viewport=(WIDTH, HEIGHT), azimuth=1.9)
+        cam2.fit_near_far(*cloud.aabb)
+        same = True
+        for cam in (unis[0], CameraUniforms.from_camera(cam2, (WIDTH, HEIGHT))):
+            args = (cam, settings, settings.background_color)
+            rows, stats = sstep(shard, *args)
+            rows, stats = rows.clone(), stats.tensor.clone()  # a replay's own outputs
+            e_rows, e_stats = sstep.eager(shard, *args)
+            frame = gather_rows(rows, sgroup, sstep.plan)
+            l_img, l_stats = render_splat_sharded_loopback(
+                split_cloud(dc, sgroup.size), *args, width=WIDTH, height=HEIGHT, config=cfg2,
+                region_capacity=2048)
+            same = same and all(torch.equal(a, b) for a, b in (
+                (rows, e_rows), (stats, e_stats.tensor), (frame, l_img),
+                (stats, l_stats.tensor)))
+            if cam is unis[0]:
+                out.update(sharded_image=frame.cpu().numpy(),
+                           sharded_stats=dict(zip(STATS, stats.tolist())))
+        out["sharded_same"] = same
     return out
 
 
@@ -162,14 +191,17 @@ def dryrun_multidevice(n_devices: int, device: str = "cuda", timeout: float = 30
                                  f"{r['view_images'].shape} wrong or not finite")
         if r["sharded_image"] is not None and not (
                 r["sharded_image"].shape == (HEIGHT, WIDTH, 3)
-                and np.isfinite(r["sharded_image"]).all()):
-            raise AssertionError(f"rank {r['rank']}: splat-sharded image wrong or not finite")
+                and np.isfinite(r["sharded_image"]).all() and r["sharded_same"]):
+            raise AssertionError(f"rank {r['rank']}: splat-sharded image wrong or not finite, "
+                                 f"or not equal to the eager step and the loopback")
     r0 = results[0]
     backend = BACKENDS[device]
     print(f"dryrun_multidevice({n_devices}): view-parallel ok, "
           f"total_visible={r0['total_visible']}, group={n_devices} ranks ({backend})", flush=True)
     if r0["sharded_stats"] is not None:
-        print(f"dryrun_multidevice({n_devices}): splat-sharded ok, "
+        form = "captured" if device == "cuda" else "eager"
+        print(f"dryrun_multidevice({n_devices}): splat-sharded ok ({form} step, equal to "
+              f"the eager step and the loopback on every rank), "
               f"dropped={r0['sharded_stats']['num_dropped_exchange']}", flush=True)
     else:
         print(f"dryrun_multidevice({n_devices}): splat-sharded skipped "

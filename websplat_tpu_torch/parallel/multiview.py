@@ -4,14 +4,16 @@ over a group of devices.
 Counterpart of ``websplat_tpu/parallel/multiview.py``.  ``render_views``
 renders V views in sequence on one device: the reference measure binary's
 inner loop (web-splat measure.rs:98-146).  The V frame blocks go to the
-device in one upload; on the card each view replays the captured frame of
-render/graph.py, from the caller's GraphCache, so nothing is read back to
-the host between views (the JAX package's lax.map program over views);
-the images stay on the device, stacked.  ``make_view_parallel_renderer`` splits the views over a
-``DeviceGroup`` (parallel/group.py; JAX: a ``shard_map`` over the view
-mesh): each rank holds a replica of the cloud and renders its contiguous
-block of views, and the visible-splat counts are summed over the group
-(``all_reduce``, JAX's ``psum``); the images never leave their device.
+device in one upload; on the card the V frames are one captured pass
+(render/graph.py: one graph, from the caller's GraphCache), so nothing is
+read back to the host between views (the JAX package's lax.map program
+over views); the images stay on the device, stacked.
+``make_view_parallel_renderer`` splits the views over a ``DeviceGroup``
+(parallel/group.py; JAX: a ``shard_map`` over the view mesh): each rank
+holds a replica of the cloud and renders its contiguous block of views as
+one pass, and the visible-splat counts are summed over the group on the
+device (``all_reduce``, JAX's ``psum``); neither the images nor the count
+leave their device until the caller reads them.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from websplat_tpu_torch.models.camera import CameraUniforms
 from websplat_tpu_torch.ops.preprocess import FrameScalars
 from websplat_tpu_torch.parallel.group import DeviceGroup
 from websplat_tpu_torch.render.graph import GraphCache, render_blocks
-from websplat_tpu_torch.render.renderer import cloud_device
+from websplat_tpu_torch.render.renderer import DIAG_KEYS, cloud_device
 
 
 class CameraBatch(NamedTuple):
@@ -71,9 +73,10 @@ def render_views(cloud, cameras: CameraBatch, settings: ResolvedSettings,
                  background: Sequence[float], *, graphs: GraphCache, width: int, height: int,
                  config: RasterConfig, compressed: bool = False) -> torch.Tensor:
     """Render the V views of ``cameras`` one after another on the cloud's
-    device -> (V, H, W, 3) f32 on that device.  ``graphs``: the caller's
-    cache of captured frames, which a later call at the same viewport
-    replays (apps.measure keeps one for its passes)."""
+    device -> (V, H, W, 3) f32 on that device (on the card the pass
+    graph's own images, which its next replay overwrites).  ``graphs``: the
+    caller's cache of captured passes, which a later call at the same
+    viewport and V replays."""
     blocks = view_blocks(cameras, range(cameras.view.shape[0]), settings, background,
                          cloud_device(cloud))
     images, _ = render_blocks(cloud, blocks, graphs, width=width, height=height, config=config,
@@ -89,10 +92,11 @@ def make_view_parallel_renderer(group: DeviceGroup, *, width: int, height: int,
     ``cloud`` is this rank's replica on ``group.device``; of the V views of
     ``cameras`` (a CameraBatch, the same on every rank; V a multiple of the
     group size) rank r renders ``[r V / D, (r + 1) V / D)``; ``images`` is
-    its (V / D, H, W, 3) f32 on its device; ``total_visible`` is the sum of
-    every rank's num_visible (an int, the same on every rank: the step's
-    one host read, after the all_reduce).  The step keeps its captured
-    frames until it is dropped."""
+    its (V / D, H, W, 3) f32 on its device (on the card the pass graph's
+    own, which the step's next call overwrites); ``total_visible`` is the
+    sum of every rank's num_visible, a 0-d int64 tensor on the rank's
+    device, the same on every rank (JAX's psum): the step reads nothing to
+    the host.  The step keeps its captured passes until it is dropped."""
     d = group.size
     graphs = GraphCache()
 
@@ -109,8 +113,8 @@ def make_view_parallel_renderer(group: DeviceGroup, *, width: int, height: int,
         blocks = view_blocks(cameras, views, settings, background, group.device)
         images, diags = render_blocks(cloud, blocks, graphs, width=width, height=height,
                                       config=config, compressed=compressed)
-        total = diags[:, 1].sum(dtype=torch.int64).reshape(1)  # num_visible
+        total = diags[:, DIAG_KEYS.index("num_visible")].sum(dtype=torch.int64)
         dist.all_reduce(total, group=group.group)
-        return images, int(total.item())
+        return images, total
 
     return step

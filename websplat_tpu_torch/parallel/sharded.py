@@ -19,12 +19,24 @@ Counterpart of ``websplat_tpu/parallel/sharded.py``, on a ``DeviceGroup``
      (``region_frame``: the same rasterizer dispatch as the single frame).
 
 The region cut, the exchange and the rebase are plain PyTorch, as they are
-XLA code in the JAX package.  The stats are summed over the group
-(``all_reduce``) and the rows gathered (``gather_rows``).
+XLA code in the JAX package.  As JAX's step (sharded.py:248-262) returns
+them, the step returns this rank's rows of the image -- rows [r region_h,
+min((r + 1) region_h, H)), the last rank's bottom-tile padding dropped,
+JAX's ``out_specs=P(SPLAT_AXIS)`` then ``img[:height]`` -- and the four
+stats as one device tensor summed over the group (one ``all_reduce``,
+JAX's ``psum``), wrapped as the frame's diagnostics are
+(render/renderer.py:FrameDiag: read on first lookup); nothing is read to
+the host.  ``gather_rows`` assembles the whole frame on every rank, for
+callers that want it.  On the card the step is a captured program
+(render/graph.py:CapturedGraph), one per shard: frame block in -> frame_stream
+-> sort -> cut -> ``all_to_all_single`` -> region_frame -> the stats'
+``all_reduce``, every later call one block copy and one replay; the NCCL
+collectives are captured with the rest.  On gloo and the CPU it runs
+eager (there is nothing to capture).
 ``render_splat_sharded_loopback`` runs the D ranks' bodies in one process
 on one device, with a transpose in place of the exchange: the same
-operations on the same data, so its image and stats are bit-identical to
-the collective path's at the same D.
+operations on the same data, so its image (the whole frame, stacked) and
+stats are bit-identical to the collective path's at the same D.
 """
 
 from __future__ import annotations
@@ -37,12 +49,13 @@ import torch.distributed as dist
 from websplat_tpu_torch.config import RasterConfig, ResolvedSettings
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
-from websplat_tpu_torch.ops.preprocess import N_SCALARS, DeviceCloud
+from websplat_tpu_torch.ops.preprocess import FRAME_BLOCK_LEN, N_SCALARS, DeviceCloud
 from websplat_tpu_torch.ops.rasterize import rasterize
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu
 from websplat_tpu_torch.ops.sort import SIGN, map_keys, sort_instances, sort_stream, tile_ranges
 from websplat_tpu_torch.parallel.group import DeviceGroup
-from websplat_tpu_torch.render.renderer import camera_block, frame_block, frame_stream
+from websplat_tpu_torch.render.graph import CapturedGraph, GraphCache
+from websplat_tpu_torch.render.renderer import FrameDiag, camera_block, frame_block, frame_stream
 
 STATS = ("num_visible", "num_clamped", "num_dropped", "num_dropped_exchange")
 WORDS = 5  # key + 4 record words per exchanged instance
@@ -103,10 +116,10 @@ def cut_regions(cloud: DeviceCloud, block: torch.Tensor, plan: RegionPlan, *,
     buffers of ``plan.cap`` instances of 5 int32 words (key, w0..w3).
     Region r's instances are those whose key lies in [r, r + 1) x
     tiles_per_region << depth_bits; dead slots hold key 0xFFFFFFFF and zero
-    words.  Returns ((D, 5, cap) int32, stats: the shard's num_visible,
-    num_clamped and num_dropped, and num_dropped_exchange = sum over
-    regions of max(count - cap, 0); the stats are the cut's one host
-    read)."""
+    words.  Returns ((D, 5, cap) int32, the (4,) int32 stats in STATS
+    order: the shard's num_visible, num_clamped and num_dropped, and
+    num_dropped_exchange = sum over regions of max(count - cap, 0)), both
+    on the device, with no host read."""
     st = frame_stream(cloud, block, width=plan.width, height=plan.height, config=config,
                       compressed=compressed)
     sk, sw = sort_stream(st.keys, st.words)  # the valid rows first, then the sentinels
@@ -124,8 +137,7 @@ def cut_regions(cloud: DeviceCloud, block: torch.Tensor, plan: RegionPlan, *,
     live = (slot[None] < counts[:, None])[:, None, :]
     outgoing = torch.where(live, bufs, dead[None])
     exchange = torch.clamp(counts - plan.cap, min=0).sum().reshape(1).to(torch.int32)
-    stats = dict(zip(STATS, torch.cat([st.diag[:3], exchange]).tolist()))
-    return outgoing.contiguous(), stats
+    return outgoing.contiguous(), torch.cat([st.diag[:3], exchange])
 
 
 def region_frame(incoming: torch.Tensor, rank: int, background: torch.Tensor,
@@ -153,12 +165,15 @@ def region_frame(incoming: torch.Tensor, rank: int, background: torch.Tensor,
                   config=config)
 
 
-def gather_rows(rows: torch.Tensor, group: DeviceGroup, height: int) -> torch.Tensor:
-    """Every rank's (region_h, W, 3) rows stacked in rank order, cropped to
-    the frame's first ``height`` rows (the bottom tile row's padding)."""
-    parts = [torch.empty_like(rows) for _ in range(group.size)]
-    dist.all_gather(parts, rows.contiguous(), group=group.group)
-    return torch.cat(parts)[:height]
+def gather_rows(rows: torch.Tensor, group: DeviceGroup, plan: RegionPlan) -> torch.Tensor:
+    """The whole (H, W, 3) frame on every rank: each rank's rows as the
+    step returns them (plan.region_h rows; the last rank's cropped to the
+    frame) stacked in rank order."""
+    short = plan.region_h - rows.shape[0]
+    full = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, short)) if short else rows
+    parts = [torch.empty_like(full) for _ in range(group.size)]
+    dist.all_gather(parts, full.contiguous(), group=group.group)
+    return torch.cat(parts)[:plan.height]
 
 
 def make_splat_sharded_renderer(group: DeviceGroup, *, width: int, height: int,
@@ -166,31 +181,57 @@ def make_splat_sharded_renderer(group: DeviceGroup, *, width: int, height: int,
                                 compressed: bool = False):
     """The splat-sharded render step of one rank (JAX:
     ``make_splat_sharded_renderer``, sharded.py:84).  Returns
-    ``fn(shard, camera, settings, background) -> (image, stats)``: ``shard``
-    is this rank's ``shard_cloud``; ``camera`` a CameraUniforms; ``image``
-    the whole (H, W, 3) f32 frame on every rank; ``stats`` num_visible,
-    num_clamped, num_dropped and num_dropped_exchange summed over the
-    group.  ``region_capacity`` is the per-(sender, region) buffer size:
-    the exchange moves D x cap instances per rank; sizing as in
-    sharded.py:100-113 (skew x n_inst / D; skew D never drops), and a
-    nonzero num_dropped_exchange is a signal to resize."""
+    ``fn(shard, camera, settings, background) -> (rows, stats)``: ``shard``
+    is this rank's ``shard_cloud``; ``camera`` a CameraUniforms; ``rows``
+    this rank's rows of the frame, (min(region_h, H - rank region_h), W, 3)
+    f32 on its device (``gather_rows(rows, group, fn.plan)`` gives the
+    whole frame); ``stats`` num_visible, num_clamped, num_dropped and
+    num_dropped_exchange summed over the group, a mapping over a (4,) int32
+    device tensor read on first lookup.  On the card the first call with a
+    shard captures the step (every rank at the same call: it is
+    collective) and later calls replay it; ``rows`` are then the graph's
+    own, which the next call overwrites.  ``fn.eager`` is the uncompiled
+    step, ``fn.graphs`` its GraphCache of captured steps (one per shard),
+    ``fn.plan`` the RegionPlan.  ``region_capacity`` is the
+    per-(sender, region) buffer size: the exchange moves D x cap instances
+    per rank; sizing as in sharded.py:100-113 (skew x n_inst / D; skew D
+    never drops), and a nonzero num_dropped_exchange is a signal to
+    resize."""
     plan = region_plan(group.size, width=width, height=height, config=config,
                        region_capacity=region_capacity)
+    kept = min(plan.region_h, height - group.rank * plan.region_h)  # the last rank's crop
+    graphs = GraphCache()
 
-    def step(shard: DeviceCloud, camera, settings: ResolvedSettings,
-             background: Sequence[float]):
-        if shard.opacity.device != group.device:
-            raise ValueError(f"the shard is on {shard.opacity.device}, the rank's device is "
-                             f"{group.device}")
-        block = frame_block(camera_block(camera, settings), background, group.device)
+    def body(shard: DeviceCloud, block: torch.Tensor):
         outgoing, stats = cut_regions(shard, block, plan, config=config, compressed=compressed)
         incoming = torch.empty_like(outgoing)
         dist.all_to_all_single(incoming, outgoing, group=group.group)
         rows = region_frame(incoming, group.rank, block[N_SCALARS:], plan, config=config)
-        totals = torch.tensor([stats[k] for k in STATS], dtype=torch.int64, device=group.device)
-        dist.all_reduce(totals, group=group.group)
-        return gather_rows(rows, group, height), dict(zip(STATS, totals.tolist()))
+        dist.all_reduce(stats, group=group.group)
+        return rows[:kept], stats
 
+    def checked_block(shard, camera, settings, background):
+        if shard.opacity.device != group.device:
+            raise ValueError(f"the shard is on {shard.opacity.device}, the rank's device is "
+                             f"{group.device}")
+        return frame_block(camera_block(camera, settings), background, group.device)
+
+    def eager(shard: DeviceCloud, camera, settings: ResolvedSettings,
+              background: Sequence[float]):
+        rows, stats = body(shard, checked_block(shard, camera, settings, background))
+        return rows, FrameDiag(stats, STATS)
+
+    def step(shard: DeviceCloud, camera, settings: ResolvedSettings,
+             background: Sequence[float]):
+        if group.device.type != "cuda":  # gloo: nothing to capture
+            return eager(shard, camera, settings, background)
+        block = checked_block(shard, camera, settings, background)
+        g = graphs.graph(shard, (), lambda: CapturedGraph(
+            shard, lambda b: body(shard, b), group.device, (FRAME_BLOCK_LEN,)))
+        rows, stats = g.replay(block)
+        return rows, FrameDiag(stats.clone(), STATS)  # the next replay overwrites the graph's
+
+    step.eager, step.graphs, step.plan = eager, graphs, plan
     return step
 
 
@@ -199,8 +240,9 @@ def render_splat_sharded_loopback(shards: List[DeviceCloud], camera,
                                   width: int, height: int, config: RasterConfig,
                                   region_capacity: int, compressed: bool = False):
     """The D = len(shards) ranks' bodies in one process, on the shards'
-    device, the exchange a transpose of the stacked buffers: (image,
-    stats) as make_splat_sharded_renderer's step gives them."""
+    device, the exchange a transpose of the stacked buffers: (the whole
+    (H, W, 3) frame -- every rank's rows stacked, as gather_rows gives
+    them -- and the stats summed on the device, as the step gives them)."""
     plan = region_plan(len(shards), width=width, height=height, config=config,
                        region_capacity=region_capacity)
     block = frame_block(camera_block(camera, settings), background, shards[0].opacity.device)
@@ -208,5 +250,5 @@ def render_splat_sharded_loopback(shards: List[DeviceCloud], camera,
     incoming = torch.stack([out for out, _ in cuts]).transpose(0, 1)  # (region, sender, 5, cap)
     rows = [region_frame(incoming[r].contiguous(), r, block[N_SCALARS:], plan, config=config)
             for r in range(plan.d)]
-    stats = {k: sum(st[k] for _, st in cuts) for k in STATS}
-    return torch.cat(rows)[:height], stats
+    stats = torch.stack([st for _, st in cuts]).sum(0, dtype=torch.int32)
+    return torch.cat(rows)[:height], FrameDiag(stats, STATS)

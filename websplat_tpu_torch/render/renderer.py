@@ -262,27 +262,29 @@ DIAG_KEYS = ("num_instances", "num_visible", "num_clamped", "num_dropped", "num_
 
 
 class FrameDiag(Mapping):
-    """A frame's diagnostics: the (5,) int32 device tensor ``tensor`` (in
-    DIAG_KEYS order), read to the host the first time a value is looked
-    up, as JAX's device_get reads a frame's diag dict."""
+    """A frame's diagnostics: the int32 device tensor ``tensor`` (one value
+    per name of ``names``, DIAG_KEYS by default), read to the host the first
+    time a value is looked up, as JAX's device_get reads a frame's diag
+    dict.  parallel/sharded.py wraps its step's stats the same way."""
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, names: Tuple[str, ...] = DIAG_KEYS):
         self.tensor = tensor
+        self.names = names
         self._values = None
 
     def _read(self) -> Dict[str, int]:
         if self._values is None:
-            self._values = dict(zip(DIAG_KEYS, self.tensor.tolist()))
+            self._values = dict(zip(self.names, self.tensor.tolist()))
         return self._values
 
     def __getitem__(self, key: str) -> int:
         return self._read()[key]
 
     def __iter__(self):
-        return iter(DIAG_KEYS)
+        return iter(self.names)
 
     def __len__(self) -> int:
-        return len(DIAG_KEYS)
+        return len(self.names)
 
     def __repr__(self) -> str:
         return repr(self._read())
@@ -337,13 +339,18 @@ def _plain_stage(fn):
 def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
                  config: RasterConfig, compressed: bool = False,
                  plain: bool = False, timer: Optional[StageTimer] = None,
-                 culled_dropped: Optional[torch.Tensor] = None) -> FrameStream:
+                 culled_dropped: Optional[torch.Tensor] = None,
+                 rows: Optional[int] = None) -> FrameStream:
     """Frontend + overflow walks + dense stage -> the frame's stream buffer
     and diagnostics on the device, with no host read (renderer.py:331),
     for the frame block ``block``.
     Capacities and drop accounting are the JAX frame's (renderer.py:
-    365-412, config.py:80-147), from the rows of ``cloud`` (after a culled
-    decompression, its capacity).  Three paths:
+    365-412, config.py:80-147), sized from ``rows`` splats (default: the
+    rows of ``cloud``).  render_frame passes the resident N for a culled
+    decompression, where the JAX frame sizes from the culled capacity
+    (renderer.py:365): a close camera then emits more instances and
+    clamped splats than that capacity holds (chip_smoke.py phase 7), and
+    the cull would change the frame.  Three paths:
 
     - default: the frontend's row-major walk, both walk levels and the
       dense stage (renderer.py:479-551);
@@ -361,7 +368,7 @@ def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height:
     walk = _plain_stage(overflow_walk_torch) if plain else overflow_walk
     dense = _plain_stage(dense_compact_torch) if plain else dense_compact
     dev = cloud.opacity.device
-    n = int(cloud.opacity.shape[0])
+    n = int(cloud.opacity.shape[0]) if rows is None else rows
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     capacity = max(4096, int(config.instance_capacity_factor * n))
     overflow, window = config.overflow_enabled, config.overflow_enabled and config.window_enabled
@@ -456,15 +463,21 @@ def build_instance_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int
 
 def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config: RasterConfig,
                  compressed: bool = False, plain: bool = False, return_diag: bool = False,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One frame of a DeviceCloud or a CompressedDeviceCloud
     (renderer.py:262): (H, W, 3) f32 linear image on the cloud's device
     (+ FrameDiag).  ``block``: the frame block (frame_block) on the cloud's
     device.  Nothing between the block and the image reads the device
     (render/graph.py captures it).  A compressed cloud is expanded first:
     culled to max(4096, int(compressed_cull_factor * N)) rows when the
-    factor is > 0, else at full N.  ``compressed`` selects the compressed
-    eigen clamp."""
+    factor is > 0, else at full N; either way the instance stream's
+    capacities are full N's (frame_stream's ``rows``), so a cull that drops
+    no splat renders full N's frame.  ``compressed`` selects the compressed
+    eigen clamp.  ``out``: the (H, W, 3) f32 image and (5,) int32
+    diagnostics tensors to write, where given (render/graph.py's pass writes
+    each view's slots; the rasterizer writes the image in place; not with
+    ``plain``)."""
     mark = timer.mark if timer is not None else (lambda name: None)
     mark("start")
     if (tuple(block.shape) != (FRAME_BLOCK_LEN,) or block.dtype != torch.float32
@@ -472,10 +485,11 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
         raise ValueError(f"the frame block must be ({FRAME_BLOCK_LEN},) f32 on "
                          f"{cloud_device(cloud)}, got {tuple(block.shape)} {block.dtype} on "
                          f"{block.device}")
-    culled_dropped = None
+    culled_dropped, rows = None, None
     if isinstance(cloud, CompressedDeviceCloud):
+        rows = int(cloud.opacity_q.shape[0])
         if config.compressed_cull_factor > 0.0:
-            cull_cap = max(4096, int(config.compressed_cull_factor * cloud.opacity_q.shape[0]))
+            cull_cap = max(4096, int(config.compressed_cull_factor * rows))
             cloud, culled_dropped = decompress_cloud_culled(cloud, block, capacity=cull_cap,
                                                             plain=plain)
         else:
@@ -483,7 +497,7 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
         mark("decompress")
     st = frame_stream(cloud, block, width=width, height=height, config=config,
                       compressed=compressed, plain=plain, timer=timer,
-                      culled_dropped=culled_dropped)
+                      culled_dropped=culled_dropped, rows=rows)
     sorted_keys, sorted_words = sort_stream(st.keys, st.words)
     mark("sort")
     tx_tiles, ty_tiles = config.tiles_for(width, height)
@@ -494,12 +508,14 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
         raster = rasterize_torch if plain else rasterize
     else:
         raster = rasterize_mxu_torch if plain else rasterize_mxu
+    into = {} if out is None else dict(out=out[0])
     img = raster(sorted_words, ranges, block[N_SCALARS:], width=width, height=height,
-                 config=config)
+                 config=config, **into)
     mark("raster")
-    if return_diag:
-        return img, FrameDiag(torch.cat([ranges[-1:], st.diag]))
-    return img
+    if not return_diag:
+        return img
+    parts = [ranges[-1:], st.diag]
+    return img, FrameDiag(torch.cat(parts) if out is None else torch.cat(parts, out=out[1]))
 
 
 class GaussianRenderer:
@@ -539,8 +555,9 @@ class GaussianRenderer:
         geo = dict(width=width, height=height, config=self.config,
                    compressed=self.cloud.compressed)
         if self.graphs is not None:
-            img, diag = self.graphs.get(self.device_cloud, **geo).replay(block)
-            diag = FrameDiag(diag.clone())  # the next replay overwrites the graph's own
+            # the next replay overwrites the graph's own diagnostics
+            images, diags = self.graphs.get(self.device_cloud, **geo).replay(block)
+            img, diag = images[0], FrameDiag(diags[0].clone())
         else:
             img, diag = render_frame(self.device_cloud, block, return_diag=True, **geo)
         if with_diag:
