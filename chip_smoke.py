@@ -9,7 +9,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   0 probe    torch / CUDA versions, the card, nvcc, nvidia-smi name + limit
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
              in parallel, with -Xptxas -v) linked into one library; each
-             kernel's registers, shared memory, spills and CTAs per SM
+             kernel's registers, shared memory, spills and CTAs per SM; the
+             sort's tile and segment limit equal to ops/sort.py's
   2 kernels  frontend (also with the compressed eigen clamp, on the
              compressed bench cloud, at 24 slots (its 64-bit-mask
              row-major walk), and with overflow off: the center-out
@@ -46,7 +47,15 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              (ops/rasterize_mxu.py: rasterize_mxu_work_torch), for the
              frontend past 16 slots its walk in lane steps (one thread per
              splat against long walks by warp, utils/roofline.py:
-             frontend_walk_lanes), for the walk each level's time
+             frontend_walk_lanes), for the walk each level's time.  The
+             count-following sort (csrc/sort.cu) against its plain version
+             (the whole buffer's stable torch.sort) on four frame stream
+             buffers: bench view 0's, the window-off path's, one whose
+             stages drop (instance_capacity_factor 0.25) and a camera that
+             sees nothing (n = 0): keys equal on every row, words on
+             [0, n), the tile ranges ending at n (all zero at n = 0); its
+             library_ms is one stable torch.sort of the int32 keys of the
+             exact n-row prefix and the words' gather
   3 golden   the 500-splat golden scene through the kernels vs
              tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
              rasterizer at two other tile shapes (its other pixel maps) and
@@ -59,7 +68,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              the card by default) and its device cloud through the
              uncompiled render_frame (whose launches the wrappers count;
              4f replays the captured frame) over the 8 orbit views of bench.py; launch
-             counts (the dense grid itself only on the plain path),
+             counts (the dense grid itself only on the plain path; the
+             sort once per frame),
              diagnostics, plain-path PSNR, view 0 rendered twice more (max
              abs 0 between the two: run-to-run reproducibility; also on the
              hybrid, culled compressed, tree and overflow-off paths),
@@ -98,11 +108,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              replays' kernels by name (torch.profiler); then the 8 views as
              one captured pass (render_blocks: one graph, each frame writing
              its own slots), bit-identical to the per-view replays and the
-             eager frames, its kernels by name; span alone and back to
+             eager frames, its kernels by name, no library sort kernel
+             among the replays; span alone and back to
              back, busy ms, activities and idle share, eager, replayed and
              as one pass.  GaussianRenderer (capture on) over the 8 views:
-             one capture, frames bit-equal to phase 4's; the whole-buffer
-             sort (int32 keys) against the exact-prefix one (int64)
+             one capture, frames bit-equal to phase 4's; view 0's sort: the
+             kernel, the whole buffer's torch.sort and the library
+             yardstick (torch.sort of the int32 exact prefix + gather)
   5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure
              at 2048x2048 MEASURE_RUNS times (each pass's wall time); the
              median host clock of MEASURE_PASSES passes split into
@@ -134,11 +146,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              n=10M) encoded, loaded resident and uploaded (each timed); at
              distance 3.0 and 0.45, full N and culled at 1.15 x the
              frustum-visible fraction: eager frame and replay
-             (bit-identical), resident MB, peak device memory, replayed ms
-             (median), busy ms, idle share, capacities, the eager frame's
-             launches, diagnostics (drops
+             (bit-identical), resident MB, peak device memory, the
+             graph's pool, replayed ms (median), busy ms, idle share,
+             capacities, the eager frame's launches, diagnostics (drops
              printed); equal num_visible, culled vs full N >= 60 dB; at
-             0.45, culled, kernel vs plain path >= 50 dB
+             0.45, culled, kernel vs plain path >= 50 dB; per distance the
+             sort kernel against its plain version on full N's stream, and
+             timed as in 4f
   8 result   per kernel: launches per frame (of the path that runs it: the
              main path; the hybrid path for the slab rasterizer, the culled
              compressed path for the compressed frontend and the general
@@ -254,7 +268,21 @@ KERNELS = {
                       "websplat_tpu/ops/rasterize_pallas.py:138", "rasterize_mxu_kernel", 256),
     "emit_compact": ("websplat_tpu_torch/csrc/emit_compact.cu",
                      "websplat_tpu/ops/emit_compact_pallas.py:81", "emit_compact_kernel", 256),
+    # the counterpart of the JAX frame's n_valid sort (lax.sort over a prefix
+    # ladder: an XLA op, no Pallas kernel); named by its histogram kernel,
+    # launched once per sort before the four digit passes
+    "sort": ("websplat_tpu_torch/csrc/sort.cu", "websplat_tpu/ops/sort.py:110",
+             "live_sort_histogram_kernel", 256),
 }
+# the sort's kernels per sort (csrc/sort.cu: the histogram, four digit
+# passes, the words' gather)
+SORT_KERNELS = 6
+SORT_PASS_KERNEL = "live_sort_pass_kernel"
+# a library sort's kernels by name (torch.sort: CUB's radix sort, or its
+# bitonic and segmented sorts), not torch.searchsorted's; csrc/sort.cu's
+# (live_sort_*) are left out by name
+LIBRARY_SORT = r"(?i)radix|(?<!search)sort"
+INT32_MAX = 2**31 - 1
 
 
 def say(phase: str, msg: str) -> None:
@@ -291,6 +319,131 @@ def kernel_only_ms(fn, name: str, reps: int) -> float:
             return statistics.median(ev)
     raise AssertionError(f"{name}: the profiler saw {len(ev)} of {reps} launches of "
                          f"{KERNELS[name][2]}")
+
+
+def sort_kernel_ms(fn, reps: int):
+    """(median device time per call of fn() of the sort's SORT_KERNELS
+    kernels, the median of each in launch order: the histogram, the digit
+    passes, the gather) by torch.profiler, by name (a call is its histogram
+    kernel and the passes after it), after one warm-up call.  A call whose
+    records the profiler dropped is left out; a pass that keeps fewer than
+    half of its calls whole is repeated."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    first, ours = kernel_pattern("sort"), re.compile(r"live_sort_\w*kernel")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, bool(first.search(e.name)))
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and ours.search(e.name))
+        calls, cur = [], None
+        for start, end, is_first in ev:
+            if is_first:
+                cur = [end - start]
+                calls.append(cur)
+            elif cur is not None:
+                cur.append(end - start)
+        whole = [[t / 1e3 for t in c] for c in calls if len(c) == SORT_KERNELS]
+        if 2 * len(whole) >= reps:
+            return (statistics.median(sum(c) for c in whole),
+                    [statistics.median(c[k] for c in whole) for k in range(SORT_KERNELS)])
+    raise AssertionError(f"sort: the profiler kept {len(whole)} of {reps} calls whole")
+
+
+def library_sorts(fn) -> list:
+    """Names of a library sort's kernels (LIBRARY_SORT) among the device
+    activities of one profiled call of fn() (profiled: after a warm-up)."""
+    import re
+
+    pat = re.compile(LIBRARY_SORT)
+    return sorted({e.name[:80] for e in profiled(fn, ("CUDA",))
+                   if pat.search(e.name) and "live_sort_" not in e.name})
+
+
+def live_count(st) -> int:
+    """The live rows of a FrameStream: sum of min(emitted_s, capacity_s)
+    (one host read)."""
+    return sum(min(e, c) for e, (_, c) in zip(st.emitted.tolist(), st.segments))
+
+
+def check_sort(phase, what, st, config, width=None, height=None) -> dict:
+    """The count-following sort's kernel (ops/sort.py:sort_live) against
+    its plain version (the whole buffer's stable torch.sort) on one
+    FrameStream: the mapped keys equal on all T rows (rows [n, T) the
+    sentinel in both), the words equal on [0, n), and the tile ranges end
+    at n (all zero when n = 0).  Returns n, T, the segments' counts and
+    capacities and the max abs difference (0)."""
+    import torch
+
+    from websplat_tpu_torch.ops.sort import sort_live, sort_live_torch, tile_ranges
+
+    width, height = width or W, height or H
+    n, t = live_count(st), st.keys.shape[0]
+    kk, kw = sort_live(st.keys, st.words, st.segments, st.emitted)
+    pk, pw = sort_live_torch(st.keys, st.words, st.segments, st.emitted)
+    tx, ty = config.tiles_for(width, height)
+    ranges = tile_ranges(kk, tx * ty, config.key_bits(width, height)[1])
+    err = max(float((kk.long() - pk.long()).abs().max()),
+              float((kw[:, :n].long() - pw[:, :n].long()).abs().max()) if n else 0.0)
+    keys_equal = bool(torch.equal(kk, pk))
+    words_equal = bool(torch.equal(kw[:, :n], pw[:, :n]))
+    tail = bool((kk[n:] == INT32_MAX).all())
+    end = int(ranges[-1])
+    emitted = st.emitted.tolist()
+    caps = [c for _, c in st.segments]
+    say(phase, f"sort, {what}: {n} live of {t} rows (emitted {emitted}, capacities {caps}); "
+               f"kernel vs plain: keys equal on all rows {keys_equal}, words equal on [0, n) "
+               f"{words_equal}, sentinel tail {tail}, max abs {err:.3g}; ranges[-1] {end}"
+               + ("" if n else f", ranges all zero {not bool(ranges.any())}"))
+    if not (keys_equal and words_equal and tail and end == n and (n or not ranges.any())):
+        raise AssertionError(f"sort, {what}: kernel disagrees with its plain version")
+    return dict(live=n, rows=t, emitted=emitted, capacities=caps, max_abs_err=err)
+
+
+def sort_timing(phase, what, st, smi, reps: int) -> dict:
+    """The sort of one FrameStream timed three ways, in turns (kernel,
+    whole buffer, library, kernel; CUDA events, median of reps): the
+    kernel (ops/sort.py:sort_live), the whole buffer's stable torch.sort of
+    the mapped int32 keys and the words' gather (ops/sort.py:sort_stream,
+    the sort it replaced), and the library yardstick: one stable torch.sort
+    of the int32 keys of the exact n-row prefix and the words' gather; with
+    the kernel's own time (its SORT_KERNELS kernels, torch.profiler)."""
+    import torch
+
+    from websplat_tpu_torch.ops.sort import map_keys, sort_live, sort_stream
+    from websplat_tpu_torch.utils import roofline
+
+    n, t = live_count(st), st.keys.shape[0]
+    spans = [(o, o + min(e, c)) for (o, c), e in zip(st.segments, st.emitted.tolist())]
+    pk = map_keys(torch.cat([st.keys[a:b] for a, b in spans]))
+    pw = torch.cat([st.words[:, a:b] for a, b in spans], dim=1)
+    fns = dict(kernel=lambda: sort_live(st.keys, st.words, st.segments, st.emitted),
+               whole=lambda: sort_stream(st.keys, st.words),
+               library=lambda: torch.index_select(pw, 1, torch.sort(pk, stable=True).indices))
+    order = ("kernel", "whole", "library", "kernel")
+    ms = {}
+    for k in order:
+        ms.setdefault(k, []).append(cuda_ms(fns[k], reps))
+    only, parts = sort_kernel_ms(fns["kernel"], reps)
+    bound, _ = roofline.bound(roofline.sort_work(n, t, len(st.segments)))
+    r = dict(live=n, rows=t, kernel_ms=statistics.mean(ms["kernel"]), kernel_runs=ms["kernel"],
+             kernel_only_ms=only, kernel_only_parts=parts, bound_ms=bound,
+             whole_ms=ms["whole"][0], library_ms=ms["library"][0])
+    say(phase, f"sort, {what}: {n} live of {t} rows; kernel {r['kernel_ms']:.4f} ms (runs "
+               f"{', '.join(f'{x:.4f}' for x in ms['kernel'])}; kernel only {only:.4f}: "
+               f"{', '.join(f'{x:.4f}' for x in parts)}; bound {bound:.4f} by bytes, share "
+               f"{bound / only:.3f}); whole-buffer torch.sort + gather "
+               f"{r['whole_ms']:.4f} ms; library: torch.sort of the int32 {n}-row prefix + "
+               f"gather {r['library_ms']:.4f} ms (CUDA events, median of {reps}; {smi})")
+    return r
 
 
 def profile_call(fn):
@@ -454,8 +607,11 @@ def probe():
 
 
 def build_kernels():
+    import re
+
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.frontend import LONG_QUEUE, SHORT_WALK
+    from websplat_tpu_torch.ops.sort import MAX_SEGMENTS, SORT_TILE
     from websplat_tpu_torch.utils import roofline
 
     t0 = time.perf_counter()
@@ -466,11 +622,16 @@ def build_kernels():
     if walk_split != (SHORT_WALK, LONG_QUEUE):
         raise AssertionError(f"csrc/frontend.cu's SHORT_WALK, LONG_QUEUE {walk_split} differ from "
                              f"ops/frontend.py's {(SHORT_WALK, LONG_QUEUE)}")
+    sort_layout = (lib.ws_sort_tile(), lib.ws_sort_max_segments())
+    if sort_layout != (SORT_TILE, MAX_SEGMENTS):
+        raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS {sort_layout} differ from "
+                             f"ops/sort.py's {(SORT_TILE, MAX_SEGMENTS)}")
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
+        pats = (pat, re.compile(SORT_PASS_KERNEL)) if name == "sort" else (pat,)
         for entry, u in usage.items():
-            if pat.search(entry) and entry not in shown:
+            if any(p.search(entry) for p in pats) and entry not in shown:
                 shown.add(entry)
                 say("build", f"{name} ({entry}): {u['registers']} registers, {u['smem']} B "
                              f"static smem, spills {u['spill_stores']}/{u['spill_loads']} B "
@@ -561,10 +722,12 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, rasterize_work_torch
     from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
                                                       rasterize_mxu_work_torch)
-    from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
+    from websplat_tpu_torch.ops.sort import (map_keys, sort_instances, sort_live,
+                                             sort_live_torch, tile_ranges)
     from websplat_tpu_torch.render.renderer import (build_instance_stream, cull_stream,
-                                                    decompress_cloud, upload, upload_cloud)
-    from websplat_tpu_torch.synth import bench_cameras
+                                                    decompress_cloud, frame_stream, upload,
+                                                    upload_cloud)
+    from websplat_tpu_torch.synth import bench_cameras, make_camera
     from websplat_tpu_torch.utils import roofline
     from websplat_tpu_torch.utils.streams import compare_rows, stream_rows
 
@@ -947,6 +1110,56 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     with_bound(results["compact"], roofline.compact_work(cn, 5, min(n_cull, cull_cap)))
     del ckk, ckp, cdc
 
+    # the count-following sort on frame stream buffers: bench view 0's, the
+    # window-off path's, one whose stages drop (the instance capacity cut
+    # to a quarter of the splats) and a camera that sees nothing (n = 0)
+    away = make_camera(viewport=(W, H), target=(0.0, 0.0, 100.0), azimuth=0.0, elevation=0.0)
+    sort_cases = {}
+    for what, scfg, sblock in (
+            ("bench view 0", cfg, block),
+            ("window off", RasterConfig(overflow_grid_capacity=0), block),
+            ("drops", RasterConfig(instance_capacity_factor=0.25), block),
+            ("nothing visible", cfg, device_block(*view_block(cloud, away)))):
+        st = frame_stream(dc, sblock, width=W, height=H, config=scfg)
+        sort_cases[what] = check_sort("kernels", what, st, scfg)
+        if what == "bench view 0":
+            st0 = st
+        del st
+    drops = sort_cases["drops"]
+    if not (any(e > c for e, c in zip(drops["emitted"], drops["capacities"]))
+            and sort_cases["nothing visible"]["live"] == 0):
+        raise AssertionError(f"sort: the drops case dropped nothing ({drops}) or the camera "
+                             f"that sees nothing saw {sort_cases['nothing visible']['live']} rows")
+    n0, t0 = sort_cases["bench view 0"]["live"], st0.keys.shape[0]
+    spans = [(o, o + min(e, c)) for (o, c), e in zip(st0.segments, st0.emitted.tolist())]
+    prefix_keys = map_keys(torch.cat([st0.keys[a:b] for a, b in spans]))
+    prefix_words = torch.cat([st0.words[:, a:b] for a, b in spans], dim=1)
+    sort_k = lambda: sort_live(st0.keys, st0.words, st0.segments, st0.emitted)
+    # the library yardstick: one stable torch.sort of the int32 keys of the
+    # exact n-row prefix, and the words' gather
+    library = lambda: torch.index_select(prefix_words, 1,
+                                         torch.sort(prefix_keys, stable=True).indices)
+    build.LAUNCHES["sort"] = 0
+    results["sort"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in sort_cases.values()), live=n0, rows=t0,
+        ms=cuda_ms(sort_k, 20),
+        plain_ms=cuda_ms(lambda: sort_live_torch(st0.keys, st0.words, st0.segments,
+                                                 st0.emitted), 10),
+        library_ms=cuda_ms(library, 20),
+        cases={k: {f: v for f, v in c.items() if f in ("live", "rows", "max_abs_err")}
+               for k, c in sort_cases.items()})
+    results["sort"]["kernel_ms"], parts = sort_kernel_ms(sort_k, 20)
+    results["sort"]["kernel_ms_parts"] = parts
+    with_bound(results["sort"], roofline.sort_work(n0, t0, len(st0.segments)))
+    r = results["sort"]
+    say("kernels", f"sort, bench view 0: {n0} live of {t0} rows; kernel {r['ms']:.4f} ms "
+                   f"({r['kernel_ms']:.4f} kernel only: histogram, digit passes, gather "
+                   f"{', '.join(f'{t:.4f}' for t in parts)}), plain (whole buffer) "
+                   f"{r['plain_ms']:.4f} ms, library "
+                   f"(torch.sort of the int32 {n0}-row prefix + gather) "
+                   f"{r['library_ms']:.4f} ms")
+    del st0, prefix_keys, prefix_words
+
     # rasterizer on the kernel path's sorted stream
     keys, words, _ = build_instance_stream(dc, block, **geo)
     sk, sw = sort_instances(keys, words)
@@ -1127,6 +1340,12 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         "host row count": lambda: overflow_walk(
             fk.cid, 5, cap_c, rank_lo=6, rank_hi=32, giant_thresh=32, capacity=10,
             giant_capacity=0, **geo),
+        "sort counts on the CPU": lambda: sort_live(
+            keys.new_full((8,), -1), words.new_zeros((4, 8)), ((0, 8),),
+            torch.zeros((1,), dtype=torch.int32)),
+        "a sort segment past the buffer": lambda: sort_live(
+            keys.new_full((8,), -1), words.new_zeros((4, 8)), ((4, 8),),
+            keys.new_zeros((1,))),
     }
     for what, call in bad_calls.items():
         try:
@@ -1289,6 +1508,9 @@ def main_path(cloud):
     if launches["dense_compact"] != N_VIEWS or grids_kernel != 0:
         raise AssertionError(f"dense_compact launched {launches['dense_compact']} times and the "
                              f"dense grid built {grids_kernel} times on the main path")
+    if launches["sort"] != N_VIEWS:
+        raise AssertionError(f"the sort launched {launches['sort']} times on the main path, "
+                             f"expected one per frame ({N_VIEWS})")
 
     # view 0 through the plain versions on the card
     blocks = [view_block(cloud, cam) for cam in cams]
@@ -1638,7 +1860,7 @@ GRAPH_PATHS = {
 # kernels line (main(): phases 4, 4b, 4c, 4d and 4e); emit_compact is on
 # no render path
 LINE_PATHS = {"frontend": "main", "overflow_walk": "main", "dense_compact": "main",
-              "rasterize": "main", "rasterize_mxu": "hybrid",
+              "rasterize": "main", "sort": "main", "rasterize_mxu": "hybrid",
               "frontend_compressed": "culled compressed", "compact": "culled compressed",
               "rasterize_tree": "tree", "frontend_center_out": "overflow off"}
 FUNCTIONS = sorted({spec[2] for spec in KERNELS.values()})
@@ -1742,24 +1964,23 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
     back with no host read, each image bit-identical to its eager frame
     and the diagnostics equal; the replayed pass's kernels by name
     (torch.profiler), equal to the eager frames' launches, which equal
-    the kernels line's ``launches`` (LINE_PATHS); then the 8 views as one
+    the kernels line's ``launches`` (LINE_PATHS), and no library sort
+    kernel among them (LIBRARY_SORT); then the 8 views as one
     captured pass (render_blocks: one graph of 8 frames, each writing its
     own slots), every image and diagnostic bit-identical to the per-view
     replays and to the eager frames, its kernels by name equal to the
     eager launches; span, busy, activities and idle share of eager and
     replayed frames and of the pass.  Then
     GaussianRenderer (capture on, the default) over the 8 views: one
-    capture for the viewport, frames bit-equal to phase 4's; and the
-    sort of the whole stream buffer (int32 keys) against the exact-prefix
-    sort (int64 keys) it replaced."""
+    capture for the viewport, frames bit-equal to phase 4's; and view 0's
+    sort timed (sort_timing): the kernel, the whole buffer's torch.sort it
+    replaced and the library yardstick."""
     import torch
 
     from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
     from websplat_tpu_torch.kernels import build
-    from websplat_tpu_torch.ops.sort import sort_instances, sort_stream
     from websplat_tpu_torch.render.graph import GraphCache, render_blocks
-    from websplat_tpu_torch.render.renderer import (build_instance_stream, frame_stream,
-                                                    render_frame, upload)
+    from websplat_tpu_torch.render.renderer import frame_stream, render_frame, upload
     from websplat_tpu_torch.synth import bench_cameras
 
     say("graph", f"card: {smi}")
@@ -1797,17 +2018,20 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
         diag_same = bool(torch.equal(diags, eager_diag))
         launched = kernels_by_function(lambda: [graph.replay(blocks[i]) for i in range(N_VIEWS)],
                                        want)
+        lib_sorts = library_sorts(lambda: [graph.replay(blocks[i]) for i in range(N_VIEWS)])
         say("graph", f"{what}: eager frames under set_sync_debug_mode('error') ok; captured "
                      f"{graph.captures} time(s); {N_VIEWS} views replayed back to back: max abs "
                      f"vs eager {max(errs):.3g} (bit-identical {same}), diagnostics equal "
                      f"{diag_same} ({diags[0].tolist()} at view 0); replayed kernels by name "
                      f"{launched}, eager launches {want}; the kernels line's launches from "
-                     f"this path (line, eager here) {line}")
+                     f"this path (line, eager here) {line}; library sort kernels in the "
+                     f"replays {lib_sorts} (none allowed)")
         if not (all(same) and diag_same and graph.captures == 1 and launched == want
-                and all(a == b for a, b in line.values())):
+                and all(a == b for a, b in line.values()) and not lib_sorts):
             raise AssertionError(f"{what}: replayed frames differ from eager ({errs}), "
                                  f"diagnostics equal {diag_same}, captures {graph.captures}, "
-                                 f"kernels {launched} vs eager {want}, kernels line {line}")
+                                 f"kernels {launched} vs eager {want}, kernels line {line}, "
+                                 f"library sorts {lib_sorts}")
         # the 8 views as one captured pass: one graph launch
         p_images, p_diags = render_blocks(dc, blocks, graphs, **geo)  # capture + replay
         pgraph = graphs.get(dc, views=N_VIEWS, **geo)
@@ -1841,20 +2065,13 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
     if not (caps == [1] and all(same)):
         raise AssertionError(f"GaussianRenderer: captures {caps}, frames equal {same}")
 
-    # the sort: the whole buffer (int32 keys) against the exact prefix
-    # (int64 keys) of the same view 0 stream
+    # the sort of view 0's stream: the kernel, the whole buffer's torch.sort
+    # (the parent's sort) and the library yardstick, in turns
     dc = device_clouds["bench"]
     block0 = device_block(*view_block(cloud, cams[0]))
     geo = dict(width=W, height=H, config=RasterConfig())
     st = frame_stream(dc, block0, **geo)
-    keys, words, _ = build_instance_stream(dc, block0, **geo)
-    whole = cuda_ms(lambda: sort_stream(st.keys, st.words), 10)
-    prefix = cuda_ms(lambda: sort_instances(keys, words), 10)
-    say("graph", f"sort, view 0: whole buffer {st.keys.shape[0]} rows, int32 keys {whole:.4f} ms; "
-                 f"exact prefix {keys.shape[0]} rows, int64 keys {prefix:.4f} ms (CUDA events, "
-                 f"median of 10; {smi})")
-    timing["sort"] = dict(whole_ms=whole, whole_rows=st.keys.shape[0], prefix_ms=prefix,
-                          prefix_rows=keys.shape[0])
+    timing["sort"] = sort_timing("graph", "view 0", st, smi, reps=10)
     return timing
 
 
@@ -2306,9 +2523,12 @@ def tenm_phase(smi):
     configuration): make_bench_npz(rng(0), n=10M) encoded and loaded
     resident (load_gaussian_cloud(keep_compressed=True)); at distance 3.0
     and 0.45, RasterConfig.for_viewport(1200, 799) at full N and culled at
-    1.15 x the camera's frustum-visible fraction.  Per variant: the eager
+    1.15 x the camera's frustum-visible fraction.  Per distance first the
+    sort kernel against its plain version on full N's stream (check_sort)
+    and its timing (sort_timing).  Per variant: the eager
     frame and the replayed one (bit-identical), the resident MB, peak
-    device memory, replayed ms per frame (median), busy ms and idle share,
+    device memory, the graph's pool, replayed ms per frame (median), busy
+    ms and idle share,
     its rows and its stream's capacities (full N's for both), and the
     diagnostics.  Gates: finite images; culled and full N equal in
     num_visible and >= CULLED_PSNR apart; at 0.45, culled, the kernel frame
@@ -2322,7 +2542,8 @@ def tenm_phase(smi):
     from websplat_tpu_torch.io.loader import load_gaussian_cloud
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.graph import FrameGraph
-    from websplat_tpu_torch.render.renderer import frustum_visible, render_frame, upload
+    from websplat_tpu_torch.render.renderer import (decompress_cloud, frame_stream,
+                                                    frustum_visible, render_frame, upload)
     from websplat_tpu_torch.synth import make_bench_npz, make_camera
     from websplat_tpu_torch.utils.image import psnr
 
@@ -2349,6 +2570,14 @@ def tenm_phase(smi):
         block = device_block(*view_block(resident, cam))
         n_vis = int(frustum_visible(cc.xyz, block).sum())
         factor = min(1.0, 1.15 * n_vis / resident.num_points)
+        # the sort on full N's stream (the culled frame's has its capacities
+        # and, dropping nothing, its rows): kernel vs plain, then timed
+        st = frame_stream(decompress_cloud(cc), block, width=W, height=H, config=base,
+                          compressed=True, rows=resident.num_points)
+        sort_check = check_sort("10m", f"distance {dist_}, full N's stream", st, base)
+        sort_ms = sort_timing("10m", f"distance {dist_}, full N's stream", st, smi, reps=5)
+        del st
+        torch.cuda.empty_cache()
         frames = {}
         for name, cfg in (("full N", base),
                           ("culled", dataclasses.replace(base, compressed_cull_factor=factor))):
@@ -2363,12 +2592,14 @@ def tenm_phase(smi):
             images, diags = graph.replay(block)  # the capture
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**30
+            pool = pool_bytes(graph.graph) / 2**20
             same = bool(torch.equal(images[0], img)) and bool(torch.equal(diags[0], diag.tensor))
             times = [event_ms(lambda: graph.replay(block))[1] for _ in range(TENM_REPLAYS)]
             busy, acts, _ = busy_ms(lambda: graph.replay(block))
             med = statistics.median(times)
             d = dict(diag)
-            frames[name] = dict(img=img, diag=d, ms=med, busy_ms=busy, same=same)
+            frames[name] = dict(img=img, diag=d, ms=med, busy_ms=busy, same=same, peak_gib=peak,
+                                pool_mib=pool)
             # the frame's rows (the culled capacity, or N) and its stream's
             # capacities, full N's on both variants (renderer.py:render_frame)
             rows = (max(4096, int(cfg.compressed_cull_factor * resident.num_points))
@@ -2384,7 +2615,8 @@ def tenm_phase(smi):
                        f"{caps}; launches {launched}): replayed "
                        f"{med:.3f} ms per frame (median of {TENM_REPLAYS}), busy {busy:.3f} ms in "
                        f"{acts} device activities, idle share {1 - busy / med:.3f}; peak device "
-                       f"memory {peak:.2f} GiB; replay bit-identical to eager {same}; finite "
+                       f"memory {peak:.2f} GiB, graph pool {pool:.1f} MiB; replay bit-identical "
+                       f"to eager {same}; finite "
                        f"{bool(torch.isfinite(img).all())}; num_visible {d['num_visible']} "
                        f"num_instances {d['num_instances']} num_clamped {d['num_clamped']} "
                        f"num_dropped {d['num_dropped']} num_culled_dropped "
@@ -2411,6 +2643,7 @@ def tenm_phase(smi):
                 raise AssertionError(f"10M culled kernel vs plain {pp:.2f} dB")
             del plain
         out[dist_] = {k: {f: v for f, v in fr.items() if f != "img"} for k, fr in frames.items()}
+        out[dist_]["sort"] = dict(sort_check, **sort_ms)
         del frames, full, culled
     del cc
     torch.cuda.empty_cache()

@@ -351,6 +351,27 @@ def test_compact_counts_at_five_payload_words():
     assert roofline.compact_work(m, 5, kept).bytes == brute
 
 
+def test_sort_counts():
+    """sort_work against a per-row count of the sort's inputs and outputs:
+    each segment's count read; a live row's key and 4 words read and
+    written; a tail row's sentinel key written, its words neither."""
+    rng = np.random.default_rng(8)
+    caps = rng.integers(1000, 5000, 4)
+    emitted = rng.integers(0, 6000, 4)
+    live = np.zeros(int(caps.sum()), bool)
+    off = 0
+    for cap, e in zip(caps, emitted):
+        live[off:off + min(e, cap)] = True
+        off += cap
+    n = int(live.sum())
+    brute = 4 * len(caps) + sum(4 + 16 + 4 + 16 if row else 4 for row in live)
+    work = roofline.sort_work(n, len(live), len(caps))
+    assert work.bytes == brute and work.f32 == work.tensor == work.sfu == 0
+    # the bound: bytes over the HBM rate
+    ms, term = roofline.bound(work)
+    assert term == "bytes" and ms == pytest.approx(1e3 * brute / 3.35e12)
+
+
 def test_dense_compact_counts():
     """The dense stage's reach tests and bytes against a brute force over
     the tile grid: one test per (valid row, in-rect tile of rank >= the

@@ -32,6 +32,14 @@ given the camera and background as host values, as its wrappers take
 them.
 Needs CUDA; exits nonzero without it.
 
+    python3 time_checkout.py --tenm ROOT [ROOT ...]
+
+adds, per root, chip_smoke.py phase 7's 10M-splat compressed frame
+(make_bench_npz(rng(0), n=10M) resident; distance 3.0 and 0.45, full N
+and culled at 1.15 x the frustum-visible fraction): the captured frame's
+replayed ms (median of TENM_REPLAYS) and its device busy ms and idle
+share (torch.profiler).
+
     python3 time_checkout.py --sass ROOT_A ROOT_B [SOURCE.cu ...]
 
 compiles each named csrc source (default: all) of both roots with the
@@ -54,7 +62,41 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_REPS = 60  # launches per kernel-only median
 
 
-def time_root(root: str) -> None:
+def time_tenm(cs) -> list:
+    """The 10M-splat compressed frames of chip_smoke.py phase 7, replayed:
+    one "10M ..." entry per distance and variant."""
+    import dataclasses
+
+    import numpy as np
+    from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.io.loader import load_gaussian_cloud
+    from websplat_tpu_torch.render.graph import FrameGraph
+    from websplat_tpu_torch.render.renderer import frustum_visible, upload
+    from websplat_tpu_torch.synth import make_bench_npz, make_camera
+
+    resident = load_gaussian_cloud(make_bench_npz(np.random.default_rng(0), n=cs.TENM_SPLATS),
+                                   keep_compressed=True)
+    cc = upload(resident, "cuda")
+    base = RasterConfig.for_viewport(cs.W, cs.H)
+    out = []
+    for dist in cs.TENM_DISTANCES:
+        block = cs.device_block(*cs.view_block(
+            resident, make_camera(viewport=(cs.W, cs.H), distance=dist)))
+        factor = min(1.0, 1.15 * int(frustum_visible(cc.xyz, block).sum()) / resident.num_points)
+        for name, cfg in (("full N", base),
+                          ("culled", dataclasses.replace(base, compressed_cull_factor=factor))):
+            graph = FrameGraph(cc, width=cs.W, height=cs.H, config=cfg, compressed=True)
+            graph.replay(block)  # the capture
+            ms = statistics.median(cs.event_ms(lambda: graph.replay(block))[1]
+                                   for _ in range(cs.TENM_REPLAYS))
+            busy, _, _ = cs.busy_ms(lambda: graph.replay(block))
+            out.append(f"10M {dist} {name} {ms:.3f} ms, busy {busy:.3f} ms, idle "
+                       f"{1 - busy / ms:.3f}")
+            del graph
+    return out
+
+
+def time_root(root: str, tenm: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
     import websplat_tpu_torch
@@ -171,6 +213,10 @@ def time_root(root: str) -> None:
         regs = [f"{u['registers']} registers, {u['spill_stores']} B spills"
                 for entry, u in usage.items() if cs.kernel_pattern(name).search(entry)]
         out.append(f"{name} {kernel_ms:.4f} ms ({'; '.join(regs)})")
+    if tenm:
+        del renderer, keys, words, sk, sw
+        torch.cuda.empty_cache()
+        out += time_tenm(cs)
     torch.cuda.synchronize()
     print(f"[time] {root}: " + "; ".join(out), flush=True)
 
@@ -227,10 +273,12 @@ def main() -> int:
     if len(sys.argv) >= 4 and sys.argv[1] == "--sass":
         compare_sass(os.path.abspath(sys.argv[2]), os.path.abspath(sys.argv[3]), sys.argv[4:])
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--in-process":
-        time_root(os.path.abspath(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--in-process":
+        time_root(os.path.abspath(sys.argv[2]), tenm=sys.argv[3:] == ["--tenm"])
         return 0
-    if len(sys.argv) < 2:
+    tenm = sys.argv[1:2] == ["--tenm"]
+    roots = sys.argv[2:] if tenm else sys.argv[1:]
+    if not roots:
         raise SystemExit(__doc__)
     import torch
 
@@ -238,9 +286,9 @@ def main() -> int:
         raise SystemExit("time_checkout: torch.cuda.is_available() is False -- needs an NVIDIA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    for root in sys.argv[1:]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--in-process", root],
-                       check=True)
+    for root in roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--in-process", root]
+                       + (["--tenm"] if tenm else []), check=True)
     return 0
 
 

@@ -15,8 +15,9 @@ run as separate, unfused elementwise ops.  Relaxing either is a later
 performance decision.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per launch of its
-kernel, nowhere else), so a caller can show which kernels a run went
-through.
+kernel, nowhere else; the sort counts one per sort, whose entry point
+launches its histogram, four digit passes and a gather), so a caller can
+show which kernels a run went through.
 
 The stream kernels append in tile order (``csrc/stream.cuh``): each takes a
 scratch buffer from its wrapper (``ordered_scratch``) that holds its
@@ -42,7 +43,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 SOURCES = ("rasterize.cu", "rasterize_mxu.cu", "compact.cu", "emit_compact.cu", "frontend.cu",
-           "overflow.cu")
+           "overflow.cu", "sort.cu")
 HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh", "cp_async.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
@@ -50,7 +51,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_tree": 0, "rasterize_mxu": 0,
                             "frontend": 0, "frontend_compressed": 0, "frontend_center_out": 0,
                             "overflow_walk": 0,
-                            "compact": 0, "dense_compact": 0, "emit_compact": 0}
+                            "compact": 0, "dense_compact": 0, "emit_compact": 0, "sort": 0}
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
@@ -64,8 +65,11 @@ _SIGNATURES = {
                     _i64, _vp],
     "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i64, _i, _vp, _i, _vp, _i64,
                          _vp],
+    "ws_sort_live": [_vp, _vp, _i64, _i64, _vp, _i, _vp, _vp, _vp, _vp, _i64, _vp],
     "ws_frontend_short_walk": [],
     "ws_frontend_long_queue": [],
+    "ws_sort_tile": [],
+    "ws_sort_max_segments": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,8 +6,8 @@ Counterpart of ``websplat_tpu/parallel/sharded.py``, on a ``DeviceGroup``
   1. each rank builds the instance stream of its splat shard with the
      single-device frame's stream function (render/renderer.py:
      frame_stream: the frontend, overflow walk and dense kernels on the
-     card, into one buffer with sentinel tails) and sorts it as the frame
-     does (ops/sort.py:sort_stream); the packed key is tile-major, so the
+     card, into one buffer with sentinel tails) and sorts its live rows as
+     the frame does (ops/sort.py:sort_live); the packed key is tile-major, so the
      sorted stream is partitioned by screen region;
   2. the screen's tile rows are split into D contiguous regions; each rank
      cuts its sorted stream into D fixed-capacity buffers (``cut_regions``;
@@ -52,7 +52,7 @@ from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
 from websplat_tpu_torch.ops.preprocess import FRAME_BLOCK_LEN, N_SCALARS, DeviceCloud
 from websplat_tpu_torch.ops.rasterize import rasterize
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu
-from websplat_tpu_torch.ops.sort import SIGN, map_keys, sort_instances, sort_stream, tile_ranges
+from websplat_tpu_torch.ops.sort import SIGN, map_keys, sort_instances, sort_live, tile_ranges
 from websplat_tpu_torch.parallel.group import DeviceGroup
 from websplat_tpu_torch.render.graph import CapturedGraph, GraphCache
 from websplat_tpu_torch.render.renderer import FrameDiag, camera_block, frame_block, frame_stream
@@ -122,7 +122,8 @@ def cut_regions(cloud: DeviceCloud, block: torch.Tensor, plan: RegionPlan, *,
     on the device, with no host read."""
     st = frame_stream(cloud, block, width=plan.width, height=plan.height, config=config,
                       compressed=compressed)
-    sk, sw = sort_stream(st.keys, st.words)  # the valid rows first, then the sentinels
+    # the live rows first, then the sentinel keys (words unspecified there)
+    sk, sw = sort_live(st.keys, st.words, st.segments, st.emitted)
     dev = sw.device
     bounds = torch.arange(plan.d + 1, dtype=torch.int64, device=dev) * plan.tiles_per_region
     starts = torch.searchsorted(sk, ((bounds << plan.depth_bits) + SIGN).to(torch.int32),
@@ -134,6 +135,8 @@ def cut_regions(cloud: DeviceCloud, block: torch.Tensor, plan: RegionPlan, *,
     bufs = stream[:, starts[:-1, None] + slot[None]].permute(1, 0, 2)  # (D, 5, cap)
     dead = torch.zeros((WORDS, plan.cap), dtype=torch.int32, device=dev)
     dead[0] = -1  # INVALID_KEY as int32
+    # slots past a region's count gather rows past its end, the tail's
+    # unspecified words among them: they become dead slots here
     live = (slot[None] < counts[:, None])[:, None, :]
     outgoing = torch.where(live, bufs, dead[None])
     exchange = torch.clamp(counts - plan.cap, min=0).sum().reshape(1).to(torch.int32)

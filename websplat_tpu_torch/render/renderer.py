@@ -15,9 +15,9 @@ With overflow off the frame runs the frontend alone (its center-out walk);
 with the window off, the frontend and the walk's first level
 (frame_stream).
 
-On the card every stage but the sort, the ranges and the codebook gathers
-(index gathers, as the JAX package's are XLA gathers) is a hand-written
-CUDA kernel; on the CPU each stage runs its plain PyTorch version.
+On the card every stage but the ranges and the codebook gathers (index
+gathers, as the JAX package's are XLA gathers) is a hand-written CUDA
+kernel; on the CPU each stage runs its plain PyTorch version.
 ``render_frame(..., plain=True)`` runs the plain versions on the card as
 well (for comparing the two); nothing selects them on its own.
 
@@ -25,8 +25,9 @@ As the JAX frame is, the frame is a program with no host round trip: the
 camera, settings and background reach it as the frame block, one small f32
 device tensor (frame_block); every stage writes its instances into its own
 segment of one stream buffer, the rows past its device-side count become
-sentinels, and the whole buffer is sorted (the JAX frame's n_valid=None
-form); the diagnostics stay a device tensor until the caller reads them
+sentinels, and the sort reads the live count from the device and sorts
+those rows only (ops/sort.py:sort_live, the JAX frame's n_valid sort);
+the diagnostics stay a device tensor until the caller reads them
 (FrameDiag).  So render/graph.py can capture render_frame as a CUDA graph
 and replay it per camera; GaussianRenderer on the card does, one graph
 per viewport.  The uncompiled render_frame is what the tests and
@@ -56,7 +57,7 @@ from websplat_tpu_torch.ops.preprocess import (FRAME_BLOCK_LEN, N_SCALARS, Compr
                                                DeviceCloud, FrameScalars)
 from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
-from websplat_tpu_torch.ops.sort import sort_stream, tile_ranges
+from websplat_tpu_torch.ops.sort import sort_live, sort_live_torch, tile_ranges
 
 
 def _pack_sh_f16(sh: np.ndarray) -> np.ndarray:
@@ -498,7 +499,8 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
     st = frame_stream(cloud, block, width=width, height=height, config=config,
                       compressed=compressed, plain=plain, timer=timer,
                       culled_dropped=culled_dropped, rows=rows)
-    sorted_keys, sorted_words = sort_stream(st.keys, st.words)
+    sort = sort_live_torch if plain else sort_live
+    sorted_keys, sorted_words = sort(st.keys, st.words, st.segments, st.emitted)
     mark("sort")
     tx_tiles, ty_tiles = config.tiles_for(width, height)
     _, depth_bits = config.key_bits(width, height)

@@ -272,3 +272,13 @@ def emit_compact_work(n: int, n_emitting: int, n_valid: int) -> Work:
     """Each splat's rect word read, depth and record of the splats that emit
     read, 20 B per instance written, the count written."""
     return Work(bytes=4.0 * n + 20.0 * n_emitting + 20.0 * n_valid + 4.0)
+
+
+# --- the sort (csrc/sort.cu) ------------------------------------------------
+
+def sort_work(n: int, rows: int, segments: int) -> Work:
+    """The count-following sort of a stream buffer of ``rows`` rows with
+    ``n`` live ones: the segments' device counts read; per live row its key
+    and 4 words read and its mapped key and words written (40 B); per tail
+    row its sentinel key written."""
+    return Work(bytes=4.0 * segments + 40.0 * n + 4.0 * (rows - n))
