@@ -49,11 +49,14 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              splat against long walks by warp, utils/roofline.py:
              frontend_walk_lanes), for the walk each level's time.  The
              count-following sort (csrc/sort.cu) against its plain version
-             (the whole buffer's stable torch.sort) on four frame stream
+             (the whole buffer's stable torch.sort) on frame stream
              buffers: bench view 0's, the window-off path's, one whose
-             stages drop (instance_capacity_factor 0.25) and a camera that
-             sees nothing (n = 0): keys equal on every row, words on
-             [0, n), the tile ranges ending at n (all zero at n = 0); its
+             stages drop (instance_capacity_factor 0.25), a camera that
+             sees nothing (n = 0), a 7680x4320 frame's (15 tile bits), a
+             64x48 viewport's (3 tile bits) and view 0's with every live
+             key's middle digit, then its top digit, set to one value:
+             keys equal on every row, words on [0, n), the tile ranges
+             ending at n (all zero at n = 0); its
              library_ms is one stable torch.sort of the int32 keys of the
              exact n-row prefix and the words' gather
   3 golden   the 500-splat golden scene through the kernels vs
@@ -168,6 +171,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib.util
 import io
 import json
@@ -176,6 +180,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -272,7 +277,7 @@ KERNELS = {
     # ladder: an XLA op, no Pallas kernel); named by its histogram kernel,
     # launched once per sort before the four digit passes
     "sort": ("websplat_tpu_torch/csrc/sort.cu", "websplat_tpu/ops/sort.py:110",
-             "live_sort_histogram_kernel", 256),
+             "live_sort_histogram_kernel", 512),
 }
 # the sort's kernels per sort (csrc/sort.cu: the histogram, four digit
 # passes, the words' gather)
@@ -321,13 +326,15 @@ def kernel_only_ms(fn, name: str, reps: int) -> float:
                          f"{KERNELS[name][2]}")
 
 
-def sort_kernel_ms(fn, reps: int):
-    """(median device time per call of fn() of the sort's SORT_KERNELS
-    kernels, the median of each in launch order: the histogram, the digit
-    passes, the gather) by torch.profiler, by name (a call is its histogram
-    kernel and the passes after it), after one warm-up call.  A call whose
-    records the profiler dropped is left out; a pass that keeps fewer than
-    half of its calls whole is repeated."""
+def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
+    """(median device time per call of fn() of the sort's kernels, the
+    median of each in launch order: the histogram, the digit passes, the
+    gather) by torch.profiler, by name (a call is its histogram kernel and
+    the passes after it), after one warm-up call.  A call has ``kernels``
+    kernels (None: as many as the longest call seen, for a checkout whose
+    sort has another count); a call whose records the profiler dropped is
+    left out; a pass that keeps fewer than half of its calls whole is
+    repeated."""
     import re
 
     import torch
@@ -351,10 +358,11 @@ def sort_kernel_ms(fn, reps: int):
                 calls.append(cur)
             elif cur is not None:
                 cur.append(end - start)
-        whole = [[t / 1e3 for t in c] for c in calls if len(c) == SORT_KERNELS]
+        count = kernels or max(map(len, calls), default=0)
+        whole = [[t / 1e3 for t in c] for c in calls if len(c) == count]
         if 2 * len(whole) >= reps:
             return (statistics.median(sum(c) for c in whole),
-                    [statistics.median(c[k] for c in whole) for k in range(SORT_KERNELS)])
+                    [statistics.median(c[k] for c in whole) for k in range(count)])
     raise AssertionError(f"sort: the profiler kept {len(whole)} of {reps} calls whole")
 
 
@@ -408,14 +416,14 @@ def check_sort(phase, what, st, config, width=None, height=None) -> dict:
     return dict(live=n, rows=t, emitted=emitted, capacities=caps, max_abs_err=err)
 
 
-def sort_timing(phase, what, st, smi, reps: int) -> dict:
+def sort_timing(phase, what, st, smi, reps: int, kernels: Optional[int] = SORT_KERNELS) -> dict:
     """The sort of one FrameStream timed three ways, in turns (kernel,
     whole buffer, library, kernel; CUDA events, median of reps): the
     kernel (ops/sort.py:sort_live), the whole buffer's stable torch.sort of
     the mapped int32 keys and the words' gather (ops/sort.py:sort_stream,
     the sort it replaced), and the library yardstick: one stable torch.sort
     of the int32 keys of the exact n-row prefix and the words' gather; with
-    the kernel's own time (its SORT_KERNELS kernels, torch.profiler)."""
+    the kernel's own time (its kernels, torch.profiler: sort_kernel_ms)."""
     import torch
 
     from websplat_tpu_torch.ops.sort import map_keys, sort_live, sort_stream
@@ -432,7 +440,7 @@ def sort_timing(phase, what, st, smi, reps: int) -> dict:
     ms = {}
     for k in order:
         ms.setdefault(k, []).append(cuda_ms(fns[k], reps))
-    only, parts = sort_kernel_ms(fns["kernel"], reps)
+    only, parts = sort_kernel_ms(fns["kernel"], reps, kernels)
     bound, _ = roofline.bound(roofline.sort_work(n, t, len(st.segments)))
     r = dict(live=n, rows=t, kernel_ms=statistics.mean(ms["kernel"]), kernel_runs=ms["kernel"],
              kernel_only_ms=only, kernel_only_parts=parts, bound_ms=bound,
@@ -611,7 +619,8 @@ def build_kernels():
 
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.frontend import LONG_QUEUE, SHORT_WALK
-    from websplat_tpu_torch.ops.sort import MAX_SEGMENTS, SORT_TILE
+    from websplat_tpu_torch.ops.sort import (DIGIT_BITS, DIGIT_SHIFTS, MAX_SEGMENTS, SORT_TILE,
+                                             sort_scratch_words)
     from websplat_tpu_torch.utils import roofline
 
     t0 = time.perf_counter()
@@ -622,10 +631,20 @@ def build_kernels():
     if walk_split != (SHORT_WALK, LONG_QUEUE):
         raise AssertionError(f"csrc/frontend.cu's SHORT_WALK, LONG_QUEUE {walk_split} differ from "
                              f"ops/frontend.py's {(SHORT_WALK, LONG_QUEUE)}")
-    sort_layout = (lib.ws_sort_tile(), lib.ws_sort_max_segments())
-    if sort_layout != (SORT_TILE, MAX_SEGMENTS):
-        raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS {sort_layout} differ from "
-                             f"ops/sort.py's {(SORT_TILE, MAX_SEGMENTS)}")
+    plan = np.zeros(16, np.int32)
+    passes = lib.ws_sort_digit_plan(plan.ctypes.data_as(ctypes.c_void_p))
+    rows = (1, SORT_TILE, SORT_TILE + 1, 2_987_302, 23_416_064)
+    sort_layout = (lib.ws_sort_tile(), lib.ws_sort_max_segments(),
+                   tuple(int(b) for b in plan[0:2 * passes:2]),
+                   tuple(int(b) for b in plan[1:2 * passes:2]),
+                   [lib.ws_sort_scratch_words(r) for r in rows])
+    mirror = (SORT_TILE, MAX_SEGMENTS, DIGIT_BITS, DIGIT_SHIFTS,
+              [sort_scratch_words(r) for r in rows])
+    say("build", f"sort: tile {sort_layout[0]} rows, digits of {sort_layout[2]} bits at shifts "
+                 f"{sort_layout[3]}, scratch words at {rows} rows {sort_layout[4]}")
+    if sort_layout != mirror:
+        raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS, digit plan and scratch "
+                             f"{sort_layout} differ from ops/sort.py's {mirror}")
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
@@ -722,8 +741,8 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, rasterize_work_torch
     from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
                                                       rasterize_mxu_work_torch)
-    from websplat_tpu_torch.ops.sort import (map_keys, sort_instances, sort_live,
-                                             sort_live_torch, tile_ranges)
+    from websplat_tpu_torch.ops.sort import (DIGIT_BITS, DIGIT_SHIFTS, map_keys, sort_instances,
+                                             sort_live, sort_live_torch, tile_ranges)
     from websplat_tpu_torch.render.renderer import (build_instance_stream, cull_stream,
                                                     decompress_cloud, frame_stream, upload,
                                                     upload_cloud)
@@ -1112,19 +1131,39 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
 
     # the count-following sort on frame stream buffers: bench view 0's, the
     # window-off path's, one whose stages drop (the instance capacity cut
-    # to a quarter of the splats) and a camera that sees nothing (n = 0)
+    # to a quarter of the splats), a camera that sees nothing (n = 0), a
+    # 7680x4320 frame (15 tile bits), a 64x48 viewport (3 tile bits), and
+    # view 0's with every live key's middle digit, then its top digit, set
+    # to one value (csrc/sort.cu's digits: ops/sort.py:DIGIT_SHIFTS)
     away = make_camera(viewport=(W, H), target=(0.0, 0.0, 100.0), azimuth=0.0, elevation=0.0)
+    wide, small = (7680, 4320), (64, 48)
     sort_cases = {}
-    for what, scfg, sblock in (
-            ("bench view 0", cfg, block),
-            ("window off", RasterConfig(overflow_grid_capacity=0), block),
-            ("drops", RasterConfig(instance_capacity_factor=0.25), block),
-            ("nothing visible", cfg, device_block(*view_block(cloud, away)))):
-        st = frame_stream(dc, sblock, width=W, height=H, config=scfg)
-        sort_cases[what] = check_sort("kernels", what, st, scfg)
+    for what, scfg, sblock, (sw_, sh_) in (
+            ("bench view 0", cfg, block, (W, H)),
+            ("window off", RasterConfig(overflow_grid_capacity=0), block, (W, H)),
+            ("drops", RasterConfig(instance_capacity_factor=0.25), block, (W, H)),
+            ("nothing visible", cfg, device_block(*view_block(cloud, away)), (W, H)),
+            ("7680x4320", cfg, device_block(*view_block(cloud, make_camera(
+                viewport=wide, distance=3.0 * wide[0] / W, azimuth=0.0), wide)), wide),
+            ("64x48", cfg, device_block(*view_block(cloud, make_camera(
+                viewport=small, distance=3.0, azimuth=0.0), small)), small)):
+        st = frame_stream(dc, sblock, width=sw_, height=sh_, config=scfg)
+        bits = scfg.key_bits(sw_, sh_)[0]
+        if bits != {wide: 15, small: 3}.get((sw_, sh_), 10):
+            raise AssertionError(f"sort, {what}: {bits} tile bits")
+        sort_cases[what] = check_sort("kernels", f"{what} ({bits} tile bits)", st, scfg,
+                                      sw_, sh_)
         if what == "bench view 0":
             st0 = st
         del st
+    for what, digit in (("middle digit shared", 1), ("top digit shared", len(DIGIT_BITS) - 1)):
+        shift, bits = DIGIT_SHIFTS[digit], DIGIT_BITS[digit]
+        keep = ~(((1 << bits) - 1) << shift) & 0xFFFFFFFF
+        keep -= (keep >> 31) << 32  # as int32
+        # the digit set to 5 (the top digit: tiles 20-23 of the frame's 950)
+        keys = torch.where(st0.keys == -1, st0.keys, (st0.keys & keep) | (5 << shift))
+        sort_cases[what] = check_sort("kernels", what, st0._replace(keys=keys), cfg)
+        del keys
     drops = sort_cases["drops"]
     if not (any(e > c for e, c in zip(drops["emitted"], drops["capacities"]))
             and sort_cases["nothing visible"]["live"] == 0):

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from tests.test_torch_frame_graph import BG, CASES, H, W, _block, _cloud
+from tests.test_torch_sort_plan import lsd_order
 from websplat_tpu.ops.sort import sort_instances as jax_sort
 from websplat_tpu_torch.config import SplattingArgs, resolve_settings
 from websplat_tpu_torch.models.camera import CameraUniforms
@@ -131,6 +132,15 @@ def test_order_is_stable_and_tail_is_sentinel(sorted_stream):
     if s["name"] == "gaps":
         # many equal keys, so stability decides the order of most rows
         assert len(np.unique(s["live_keys"])) < n // 50
+
+
+def test_digit_plan_model_equals_the_port(sorted_stream):
+    """csrc/sort.cu's digit plan, modelled in numpy (one stable argsort per
+    digit), orders the live rows as the port's sort does."""
+    s, n = sorted_stream, sorted_stream["n"]
+    perm = lsd_order(s["live_keys"])
+    assert np.array_equal((s["sk"][:n] ^ np.int32(SIGN)).view(np.uint32), s["live_keys"][perm])
+    assert np.array_equal(s["sw"][:, :n], s["live_words"][:, perm])
 
 
 def test_plain_version_is_the_whole_buffer_sort():

@@ -26,7 +26,13 @@ them in turns: A B B A). Per root, on the bench scene (1,244,819 splats,
   - the scan, tree and slab ("hybrid") rasterizers' kernel-only ms on
     view 0's sorted stream (torch.profiler, median of KERNEL_REPS
     launches), with each kernel's registers and spill bytes (ptxas); "n/a"
-    where the checkout has no tree composite.
+    where the checkout has no tree composite;
+  - the count-following sort (ops/sort.py:sort_live) of view 0's frame
+    stream: its kernel-only ms, summed over its kernels and per kernel
+    (torch.profiler, median of SORT_REPS calls; chip_smoke.sort_timing,
+    which also times it by CUDA events beside the whole buffer's
+    torch.sort and the library yardstick); "n/a" where the checkout has
+    no sort_live.
 A root from before the frame block (render/renderer.py:frame_block) is
 given the camera and background as host values, as its wrappers take
 them.
@@ -38,7 +44,13 @@ adds, per root, chip_smoke.py phase 7's 10M-splat compressed frame
 (make_bench_npz(rng(0), n=10M) resident; distance 3.0 and 0.45, full N
 and culled at 1.15 x the frustum-visible fraction): the captured frame's
 replayed ms (median of TENM_REPLAYS) and its device busy ms and idle
-share (torch.profiler).
+share (torch.profiler), and the sort of full N's stream at each distance,
+timed as view 0's.
+
+    python3 time_checkout.py --sort-only [--tenm] ROOT [ROOT ...]
+
+times only the sort per root: view 0's stream (and under --tenm the 10M
+streams), for comparing forms of csrc/sort.cu, each a root under _dev/.
 
     python3 time_checkout.py --sass ROOT_A ROOT_B [SOURCE.cu ...]
 
@@ -60,18 +72,43 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_REPS = 60  # launches per kernel-only median
+SORT_REPS = 20  # sorts per kernel-only median
 
 
-def time_tenm(cs) -> list:
-    """The 10M-splat compressed frames of chip_smoke.py phase 7, replayed:
-    one "10M ..." entry per distance and variant."""
+def time_sort(cs, what: str, st, config) -> str:
+    """The sort of one FrameStream, held against its plain version
+    (chip_smoke.check_sort; a form that disagrees, such as an ablation
+    that leaves a step out, is said to), then timed (chip_smoke.
+    sort_timing, its kernel count taken from the calls): one entry."""
+    try:
+        from websplat_tpu_torch.ops.sort import sort_live  # noqa: F401
+    except ImportError:
+        return f"sort {what} n/a"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    try:
+        cs.check_sort("time", what, st, config)
+        wrong = ""
+    except AssertionError:  # an ablation: timed, and said to be wrong
+        wrong = " (DISAGREES with its plain version)"
+    r = cs.sort_timing("time", what, st, smi, SORT_REPS, kernels=None)
+    return (f"sort {what} {r['kernel_only_ms']:.4f} ms kernel only ("
+            + ", ".join(f"{x:.4f}" for x in r["kernel_only_parts"])
+            + f"), {r['live']} live of {r['rows']} rows{wrong}")
+
+
+def time_tenm(cs, sort_only: bool = False) -> list:
+    """The 10M-splat compressed frames of chip_smoke.py phase 7: the sort
+    of full N's stream and the replayed frames (one "10M ..." entry per
+    distance and variant; with sort_only the sort alone)."""
     import dataclasses
 
     import numpy as np
     from websplat_tpu_torch import RasterConfig
     from websplat_tpu_torch.io.loader import load_gaussian_cloud
     from websplat_tpu_torch.render.graph import FrameGraph
-    from websplat_tpu_torch.render.renderer import frustum_visible, upload
+    from websplat_tpu_torch.render.renderer import (decompress_cloud, frame_stream,
+                                                    frustum_visible, upload)
     from websplat_tpu_torch.synth import make_bench_npz, make_camera
 
     resident = load_gaussian_cloud(make_bench_npz(np.random.default_rng(0), n=cs.TENM_SPLATS),
@@ -82,6 +119,12 @@ def time_tenm(cs) -> list:
     for dist in cs.TENM_DISTANCES:
         block = cs.device_block(*cs.view_block(
             resident, make_camera(viewport=(cs.W, cs.H), distance=dist)))
+        st = frame_stream(decompress_cloud(cc), block, width=cs.W, height=cs.H, config=base,
+                          compressed=True, rows=resident.num_points)
+        out.append(time_sort(cs, f"10M {dist} full N's stream", st, base))
+        del st
+        if sort_only:
+            continue
         factor = min(1.0, 1.15 * int(frustum_visible(cc.xyz, block).sum()) / resident.num_points)
         for name, cfg in (("full N", base),
                           ("culled", dataclasses.replace(base, compressed_cull_factor=factor))):
@@ -96,7 +139,7 @@ def time_tenm(cs) -> list:
     return out
 
 
-def time_root(root: str, tenm: bool = False) -> None:
+def time_root(root: str, tenm: bool = False, sort_only: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
     import websplat_tpu_torch
@@ -143,6 +186,19 @@ def time_root(root: str, tenm: bool = False) -> None:
              if frame_block is not None else
              (lambda a, **kw: render_frame(renderer.device_cloud, *a, **kw)))
     geo = dict(width=cs.W, height=cs.H, config=renderer.config)
+    try:  # the count-following sort of view 0's stream, where the root has one
+        from websplat_tpu_torch.render.renderer import frame_stream
+    except ImportError:
+        out = ["sort view 0 n/a"]
+    else:
+        out = [time_sort(cs, "view 0", frame_stream(renderer.device_cloud, args[0][0], **geo),
+                         renderer.config)]
+    if sort_only:
+        del renderer
+        torch.cuda.empty_cache()
+        out += time_tenm(cs, sort_only=True) if tenm else []
+        print(f"[time] {root}: " + "; ".join(out), flush=True)
+        return
     span, wall = [], []
     for p in range(6):  # the first pass warms up
         for a in args:
@@ -155,7 +211,7 @@ def time_root(root: str, tenm: bool = False) -> None:
                 wall.append(1e3 * (time.perf_counter() - t0))
     q = statistics.quantiles(span, n=4)
     busy, acts, _ = cs.busy_ms(lambda: [frame(a, **geo) for a in args])
-    out = [f"main span {statistics.median(span):.3f} ms (quartiles {q[0]:.3f}, {q[2]:.3f}), "
+    out += [f"main span {statistics.median(span):.3f} ms (quartiles {q[0]:.3f}, {q[2]:.3f}), "
            f"wall {statistics.median(wall):.3f} ms, busy {busy / len(blocks):.3f} ms in "
            f"{acts / len(blocks):.0f} device activities per frame"]
     try:  # the captured frame, where the root has one
@@ -273,11 +329,13 @@ def main() -> int:
     if len(sys.argv) >= 4 and sys.argv[1] == "--sass":
         compare_sass(os.path.abspath(sys.argv[2]), os.path.abspath(sys.argv[3]), sys.argv[4:])
         return 0
-    if len(sys.argv) in (3, 4) and sys.argv[1] == "--in-process":
-        time_root(os.path.abspath(sys.argv[2]), tenm=sys.argv[3:] == ["--tenm"])
+    flags = [a for a in sys.argv[1:] if a in ("--tenm", "--sort-only")]
+    args = [a for a in sys.argv[1:] if a not in flags]
+    tenm, sort_only = "--tenm" in flags, "--sort-only" in flags
+    if args[:1] == ["--in-process"] and len(args) == 2:
+        time_root(os.path.abspath(args[1]), tenm=tenm, sort_only=sort_only)
         return 0
-    tenm = sys.argv[1:2] == ["--tenm"]
-    roots = sys.argv[2:] if tenm else sys.argv[1:]
+    roots = args
     if not roots:
         raise SystemExit(__doc__)
     import torch
@@ -287,8 +345,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for root in roots:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--in-process", root]
-                       + (["--tenm"] if tenm else []), check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--in-process", root, *flags],
+                       check=True)
     return 0
 
 

@@ -70,6 +70,8 @@ _SIGNATURES = {
     "ws_frontend_long_queue": [],
     "ws_sort_tile": [],
     "ws_sort_max_segments": [],
+    "ws_sort_digit_plan": [_vp],
+    "ws_sort_scratch_words": [_i64],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -176,6 +178,7 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        handle.ws_sort_scratch_words.restype = ctypes.c_int64
         handle.ws_error_string.argtypes = [ctypes.c_int]
         handle.ws_error_string.restype = ctypes.c_char_p
         _lib = handle

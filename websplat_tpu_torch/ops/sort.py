@@ -13,9 +13,10 @@ one buffer, each stage's exact prefix at the head of its own segment and
 sentinel keys behind it, with the stages' true counts on the device
 (``FrameStream.emitted``).  ``sort_live`` sorts the live rows only, reading
 their count from the device: on the card a hand-written stable LSD radix
-sort (csrc/sort.cu), launched for the buffer's capacity, whose blocks past
-the live count exit -- no host read and no device-side branch, so the
-frame stays one captured program.  ``sort_live_torch`` is its plain
+sort (csrc/sort.cu) of four digit passes, its grids sized from the
+buffer's capacity and its blocks walking the live rows only -- no host
+read, no device-side branch and a fixed number of launches, so the frame
+stays one captured program.  ``sort_live_torch`` is its plain
 version: a stable ``torch.sort`` of the whole buffer (``sort_stream``),
 equal to the kernel on the live rows.
 
@@ -45,15 +46,19 @@ from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops.packing import u32
 
 SIGN = -(1 << 31)  # 0x80000000 as int32
-# csrc/sort.cu's rows per block, segment limit and scratch layout: the
-# four digits' histograms and four tickets (int32 words), then one status
-# word per (digit pass, tile, digit), then the live rows' words (4 per
-# row), the ping-pong keys and two row index buffers; chip_smoke.py phase
-# 1 holds the first two equal to the library's
-SORT_TILE = 4096
+# csrc/sort.cu's rows per tile, segment limit, digit plan and scratch
+# layout, which chip_smoke.py phase 1 holds equal to the library's.  The
+# plan: four digits, least significant first, of DIGIT_BITS bits at
+# DIGIT_SHIFTS; every digit is sorted (no pass is skipped).  The scratch:
+# the live rows' words (4 int32 per row), one ping-pong key and index pair,
+# the digits' histograms and a ticket per pass, then one status word per
+# (tile, digit) of every pass
+SORT_TILE = 8192
 MAX_SEGMENTS = 8
-RADIX = 256
-SORT_HEAD_WORDS = 4 * RADIX + 8
+DIGIT_BITS = (8, 8, 8, 8)
+DIGIT_SHIFTS = tuple(sum(DIGIT_BITS[:p]) for p in range(len(DIGIT_BITS)))
+HIST_WORDS = sum(1 << b for b in DIGIT_BITS)
+SORT_HEAD_WORDS = HIST_WORDS + 8
 
 
 def map_keys(keys: torch.Tensor) -> torch.Tensor:
@@ -71,7 +76,7 @@ def sort_stream(keys: torch.Tensor, words: torch.Tensor) -> Tuple[torch.Tensor, 
 
 def sort_scratch_words(rows: int) -> int:
     """int32 words of csrc/sort.cu's scratch for a buffer of ``rows``."""
-    return SORT_HEAD_WORDS + 4 * -(-rows // SORT_TILE) * RADIX + 7 * rows
+    return SORT_HEAD_WORDS + HIST_WORDS * -(-rows // SORT_TILE) + 6 * rows
 
 
 def sort_live_torch(keys: torch.Tensor, words: torch.Tensor,
