@@ -10,15 +10,22 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM; the
-             sort's tile and segment limit equal to ops/sort.py's
+             sort's tile and segment limit equal to ops/sort.py's, and
+             the culled decode's tile to ops/decompress.py's
   2 kernels  frontend (also with the compressed eigen clamp, on the
              compressed bench cloud, at 24 slots (its 64-bit-mask
              row-major walk), and with overflow off: the center-out
              walk at 6 and 64 slots), overflow walk (also level 1 at giant
              capacity 0, as with the window off), the dense stage (grid
              emitted and compacted in one kernel), the general compaction
-             (on the plain dense grid, and on the compressed cloud's culled
-             stream: 5 payload words), both rasterizers (the scan one also
+             (on no render path: on the plain dense grid, and on the
+             compressed cloud's culled stream: 5 payload words), the
+             compressed decode (decode_kernel at full N, cull_decode_kernel
+             culled at phase 4c's capacity, at 7 below the kept count, for
+             a camera that sees nothing, without the scale-factor stream
+             and with codes -128 and 127: decoded rows, count and drops
+             equal to plain, dead rows' xyz NaN, and the chain it replaced
+             timed beside it), both rasterizers (the scan one also
              with the tree composite; the slab one at mxu/highest,
              mxu/high, mxu/default and hybrid) and the packed emission
              against their plain versions on the card, at the shapes of the
@@ -86,12 +93,15 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              load_gaussian_cloud(keep_compressed=True) -> GaussianRenderer
              over the 8 views at compressed_cull_factor 0 (full-N gathers)
              and culled (1.15 x the largest visible fraction of the views),
-             and the decode-at-load cloud; launch counts, diagnostics,
+             and the decode-at-load cloud; launch counts (decode_kernel once
+             per full-N frame, cull_decode_kernel once per culled frame,
+             E's general compactor never), diagnostics,
              culled vs full-N and resident vs decoded PSNR, the plain path
              at view 0, view 0 twice more on the culled path
              (reproducibility), the decompression's device ms by part (the
-             codebook gathers alone), the culled and full-N paths' frame
-             timing with the "decompress" stage
+             two kernels, the plain versions and their index_select
+             gathers alone), the culled and full-N paths' frame timing
+             with the "decompress" stage
   4d tree    the 8 views with RasterConfig(composite="tree") against the
              scan frames; qform="direct" at view 0; frame timing
   4e refused the 8 views with overflow off (center-out frontend, no walk)
@@ -112,7 +122,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              one captured pass (render_blocks: one graph, each frame writing
              its own slots), bit-identical to the per-view replays and the
              eager frames, its kernels by name, no library sort kernel
-             among the replays; span alone and back to
+             among the replays and, on the compressed paths, none of the
+             eager decode's kernels (OLD_DECODE); span alone and back to
              back, busy ms, activities and idle share, eager, replayed and
              as one pass.  GaussianRenderer (capture on) over the 8 views:
              one capture, frames bit-equal to phase 4's; view 0's sort: the
@@ -158,11 +169,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              timed as in 4f
   8 result   per kernel: launches per frame (of the path that runs it: the
              main path; the hybrid path for the slab rasterizer, the culled
-             compressed path for the compressed frontend and the general
-             compaction, the tree path for the tree rasterizer, the
-             overflow-off path for the center-out frontend) and ms above its
-             bound per frame; a JSON line of per-kernel numbers, then the
-             final JSON line
+             compressed path for the compressed frontend and the culled
+             decode, the full-N compressed path for the full-N decode, the
+             tree path for the tree rasterizer, the overflow-off path for
+             the center-out frontend; 0 for the packed emission and E's
+             general compactor, on no render path) and ms above its bound
+             per frame; a JSON line of per-kernel numbers, then the final
+             JSON line
 
 It imports nothing of JAX.  Without CUDA it exits nonzero and prints no
 result.
@@ -278,6 +291,13 @@ KERNELS = {
     # launched once per sort before the four digit passes
     "sort": ("websplat_tpu_torch/csrc/sort.cu", "websplat_tpu/ops/sort.py:110",
              "live_sort_histogram_kernel", 512),
+    # the compressed cloud's decode: counterparts of two XLA fusions of the
+    # JAX frame, the full-N decode and the culled one (frustum test, E's
+    # compaction and the decode of the kept rows in one pass)
+    "decode": ("websplat_tpu_torch/csrc/decompress.cu", "websplat_tpu/render/renderer.py:102",
+               "decode_kernel", 256),
+    "cull_decode": ("websplat_tpu_torch/csrc/decompress.cu",
+                    "websplat_tpu/render/renderer.py:161", "cull_decode_kernel", 512),
 }
 # the sort's kernels per sort (csrc/sort.cu: the histogram, four digit
 # passes, the words' gather)
@@ -287,6 +307,14 @@ SORT_PASS_KERNEL = "live_sort_pass_kernel"
 # bitonic and segmented sorts), not torch.searchsorted's; csrc/sort.cu's
 # (live_sort_*) are left out by name
 LIBRARY_SORT = r"(?i)radix|(?<!search)sort"
+# the kernels of the eager decode that decode_kernel and cull_decode_kernel
+# replaced (index_select gathers, exp, where), by name
+OLD_DECODE = r"_scatter_gather_elementwise|indexSelect|index_select|exp_kernel_cuda|where_kernel"
+# the plain version's NaN of a dead row's position (torch.full(nan))
+NAN_BITS = 0x7FC00000
+# decode vs plain, max abs on the covariance: the kernel's expf and the
+# plain version's torch.exp on the card are the same CUDA expf
+DECODE_COV_TOL = 0.0
 INT32_MAX = 2**31 - 1
 
 
@@ -364,6 +392,15 @@ def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
             return (statistics.median(sum(c) for c in whole),
                     [statistics.median(c[k] for c in whole) for k in range(count)])
     raise AssertionError(f"sort: the profiler kept {len(whole)} of {reps} calls whole")
+
+
+def old_decode_kernels(fn) -> list:
+    """Names of the eager decode's kernels (OLD_DECODE) among the device
+    activities of one profiled call of fn() (profiled: after a warm-up)."""
+    import re
+
+    pat = re.compile(OLD_DECODE)
+    return sorted({e.name[:80] for e in profiled(fn, ("CUDA",)) if pat.search(e.name)})
 
 
 def library_sorts(fn) -> list:
@@ -645,6 +682,16 @@ def build_kernels():
     if sort_layout != mirror:
         raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS, digit plan and scratch "
                              f"{sort_layout} differ from ops/sort.py's {mirror}")
+    from websplat_tpu_torch.ops.decompress import CULL_TILE
+
+    cull_rows = (0, 1, CULL_TILE, CULL_TILE + 1, 10_000_000)
+    cull_layout = (lib.ws_cull_tile(), [lib.ws_cull_tiles(r) for r in cull_rows])
+    cull_mirror = (CULL_TILE, [max(1, -(-r // CULL_TILE)) for r in cull_rows])
+    say("build", f"cull_decode: tile {cull_layout[0]} splats, tiles at {cull_rows} splats "
+                 f"{cull_layout[1]}")
+    if cull_layout != cull_mirror:
+        raise AssertionError(f"csrc/decompress.cu's CULL_TILE and tiles {cull_layout} differ from "
+                             f"ops/decompress.py's {cull_mirror}")
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
@@ -721,6 +768,128 @@ def device_block(fs, settings):
     from websplat_tpu_torch.render.renderer import frame_block
 
     return frame_block(fs, settings.background_color, "cuda")
+
+
+def decompress_vs_plain(cc, block, cull_factor, results):
+    """Phase 2, the compressed decode: decode_kernel and cull_decode_kernel
+    against their plain versions on the card, on the compressed bench cloud
+    ``cc`` at view 0 (frame block ``block``): full N, and culled at phase
+    4c's capacity; culled at a capacity 7 below the kept count; a camera
+    that sees nothing (the clipping box moved away from the cloud); the
+    cloud without its scale-factor stream; its codes with -128 and 127
+    among them.  The decoded rows equal to plain element for element (cov
+    within DECODE_COV_TOL), the count and drops equal, the dead rows' xyz
+    the plain version's NaN bits.  Timing: kernel-only ms, bound, share,
+    plain ms; for cull_decode also the chain the card ran before it
+    (cull_stream, compact_instances and the eager decode), its device ms
+    and activities in one profiled call (profile_call), beside the
+    kernel's; for decode, the eager decode's."""
+    import torch
+
+    from websplat_tpu_torch.ops.compact import compact_instances
+    from websplat_tpu_torch.ops.decompress import (cull_decode, cull_decode_torch, decode_full,
+                                                   decode_full_torch, frustum_visible)
+    from websplat_tpu_torch.ops.preprocess import CompressedDeviceCloud
+    from websplat_tpu_torch.utils import roofline
+
+    n = cc.opacity_q.shape[0]
+    cb_words = 6 * cc.covars.shape[1] + 24 * cc.sh_cb.shape[1]
+    n_vis = int(frustum_visible(cc.xyz, block).sum())
+    cull_cap = max(4096, int(cull_factor * n))
+    nosf = cc._replace(scale_factor_q=None)
+    op, sf = cc.opacity_q.clone(), cc.scale_factor_q.clone()
+    op[::97], op[1::97], sf[::97], sf[1::97] = -128, 127, 127, -128
+    extreme = cc._replace(opacity_q=op, scale_factor_q=sf)
+    nowhere = block.clone()
+    nowhere[37:40], nowhere[40:43] = 1e6, 1e6 + 1.0  # a clipping box far from the cloud
+    bits = lambda t: t.view(torch.int32)
+
+    def decoded_rows(k, p, rows):
+        """(max abs error of cov and opacity, whether SH words and the
+        opacity are equal) on columns [0, rows)."""
+        err = max([float((k.cov[:, :rows] - p.cov[:, :rows]).abs().max()),
+                   float((k.opacity[:rows] - p.opacity[:rows]).abs().max())] if rows else [0.0])
+        return err, (torch.equal(k.sh[:, :rows], p.sh[:, :rows])
+                     and torch.equal(k.opacity[:rows], p.opacity[:rows]))
+
+    errs = {"decode": 0.0, "cull_decode": 0.0}
+    for what, c in (("view 0", cc), ("no scale-factor stream", nosf),
+                    ("codes -128 and 127", extreme)):
+        k, p = decode_full(c), decode_full_torch(c)
+        err, same = decoded_rows(k, p, n)
+        ok = same and err <= DECODE_COV_TOL and bool(torch.isfinite(k.cov).all())
+        say("kernels", f"decode ({what}, {n} splats): max abs vs plain {err:.3g} (cov tolerance "
+                       f"{DECODE_COV_TOL}), SH words and opacity equal {same}")
+        if not ok:
+            raise AssertionError(f"decode ({what}): kernel disagrees with its plain version")
+        errs["decode"] = max(errs["decode"], err)
+    for what, c, b, cap in (("view 0", cc, block, cull_cap),
+                            (f"capacity {n_vis - 7}: 7 below the kept count", cc, block,
+                             n_vis - 7),
+                            ("a camera that sees nothing", cc, nowhere, cull_cap),
+                            ("no scale-factor stream", nosf, block, cull_cap),
+                            ("codes -128 and 127", extreme, block, cull_cap)):
+        (kc, kn, kd), (pc, pn, pd) = (cull_decode(c, b, capacity=cap),
+                                      cull_decode_torch(c, b, capacity=cap))
+        count, drops = int(kn), int(kd)
+        live = min(count, cap)
+        err, same = decoded_rows(kc, pc, live)
+        same_xyz = torch.equal(bits(kc.xyz), bits(pc.xyz))  # the live rows and the NaN tail
+        tail = bool((bits(kc.xyz[:, live:]) == NAN_BITS).all())
+        ok = (count == int(pn) and drops == int(pd) == max(count - cap, 0) and same and same_xyz
+              and tail and err <= DECODE_COV_TOL)
+        say("kernels", f"cull_decode ({what}): count {count} kernel, {int(pn)} plain; drops "
+                       f"{drops} / {int(pd)}; capacity {cap}; the {live} decoded rows: max abs "
+                       f"vs plain {err:.3g}, SH words and opacity equal {same}; xyz bits equal "
+                       f"(live rows and tail) {same_xyz}; the {cap - live} dead rows' xyz "
+                       f"0x{NAN_BITS:08X} {tail}")
+        if not ok:
+            raise AssertionError(f"cull_decode ({what}): kernel disagrees with its plain version")
+        errs["cull_decode"] = max(errs["cull_decode"], err)
+
+    bad_calls = {
+        "a cloud on the meta device": lambda: decode_full(CompressedDeviceCloud(
+            *[t.to("meta") if isinstance(t, torch.Tensor) else t for t in cc])),
+        "int32 opacity codes": lambda: decode_full(cc._replace(opacity_q=cc.opacity_q.int())),
+        "the frame block on the CPU": lambda: cull_decode(cc, block.cpu(), capacity=cull_cap),
+        "capacity 0": lambda: cull_decode(cc, block, capacity=0),
+    }
+    for what, call in bad_calls.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"a decode wrapper accepted {what}")
+    say("kernels", f"decode wrappers refuse: {', '.join(bad_calls)}")
+
+    full, culled = lambda: decode_full(cc), lambda: cull_decode(cc, block, capacity=cull_cap)
+    results["decode"] = dict(
+        max_abs_err=errs["decode"], ms=cuda_ms(full, 50),
+        kernel_ms=kernel_only_ms(full, "decode", 50),
+        plain_ms=cuda_ms(lambda: decode_full_torch(cc), 20), library_ms=None)
+    with_bound(results["decode"], roofline.decompress_work(n, n, n, False, True, cb_words))
+    results["cull_decode"] = dict(
+        max_abs_err=errs["cull_decode"], ms=cuda_ms(culled, 50),
+        kernel_ms=kernel_only_ms(culled, "cull_decode", 50),
+        plain_ms=cuda_ms(lambda: cull_decode_torch(cc, block, capacity=cull_cap), 20),
+        library_ms=None)
+    with_bound(results["cull_decode"],
+               roofline.decompress_work(n, n_vis, cull_cap, True, True, cb_words))
+    # what each replaced on the card: the eager decode (the plain version at
+    # full N), and the chain cull_stream -> compact_instances -> eager decode
+    for name, new, was in (
+            ("decode", full, lambda: decode_full_torch(cc)),
+            ("cull_decode", culled,
+             lambda: cull_decode_torch(cc, block, capacity=cull_cap, compact=compact_instances))):
+        _, acts, dev_ms, _ = profile_call(new)
+        _, was_acts, was_ms, _ = profile_call(was)
+        results[name].update(device_ms=dev_ms, activities=acts, was_device_ms=was_ms,
+                             was_activities=was_acts)
+        r = results[name]
+        say("kernels", f"{name}: kernel only {r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                       f"ms ({r['bound_term']}), share {r['share']:.3f}, plain {r['plain_ms']:.4f} "
+                       f"ms; one call {dev_ms:.4f} device ms in {acts} activities, was "
+                       f"{was_ms:.4f} device ms in {was_acts} activities (torch.profiler)")
 
 
 def kernels_vs_plain(cloud, resident, cull_factor, results):
@@ -1128,6 +1297,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         grid_library_ms=grid_lib_ms)
     with_bound(results["compact"], roofline.compact_work(cn, 5, min(n_cull, cull_cap)))
     del ckk, ckp, cdc
+    decompress_vs_plain(cc, cblock, cull_factor, results)
 
     # the count-following sort on frame stream buffers: bench view 0's, the
     # window-off path's, one whose stages drop (the instance capacity cut
@@ -1719,7 +1889,8 @@ def compressed_path(resident, decoded, cull_factor):
                     == d["num_culled_dropped"] == 0):
                 raise AssertionError(f"{what} view {i}: diagnostics {d}")
         need = dict(frontend_compressed=N_VIEWS, dense_compact=N_VIEWS, rasterize=N_VIEWS,
-                    compact=N_VIEWS if what == "culled" else 0, frontend=0)
+                    cull_decode=N_VIEWS if what == "culled" else 0,
+                    decode=N_VIEWS if what == "full-N" else 0, compact=0, frontend=0)
         if (any(launches[k] != v for k, v in need.items())
                 or launches["overflow_walk"] < N_VIEWS):
             raise AssertionError(f"{what}: launches {launches}, expected {need} and overflow_walk "
@@ -1745,24 +1916,29 @@ def compressed_path(resident, decoded, cull_factor):
     say("compressed", f"view 0 plain path (culled): PSNR vs kernel frame {p:.2f} dB, diag {diag_p}")
     if not p >= PLAIN_PSNR:
         raise AssertionError(f"compressed plain-path PSNR {p:.2f} dB < {PLAIN_PSNR}")
-    # the decompression's device work by part (the gathers are index_select)
+    # the decompression's device work by part: the kernels, and the plain
+    # versions with their index_select gathers alone
     cc = renderer.device_cloud
     cull_cap = max(4096, int(cull_factor * resident.num_points))
     gathers = lambda n: (cc.covars.index_select(1, cc.geom_idx[:n]),
                          cc.sh_cb.index_select(1, cc.sh_idx[:n]))
-    for what, fn in (("codebook gathers at full N", lambda: gathers(resident.num_points)),
-                     (f"codebook gathers at the culled capacity {cull_cap}",
+    for what, fn in (("codebook gathers (index_select) at full N",
+                      lambda: gathers(resident.num_points)),
+                     (f"codebook gathers (index_select) at the culled capacity {cull_cap}",
                       lambda: gathers(cull_cap)),
-                     ("decompress_cloud (full N)", lambda: decompress_cloud(cc)),
-                     ("decompress_cloud_culled", lambda: decompress_cloud_culled(
-                         cc, block0, capacity=cull_cap))):
+                     ("decompress_cloud (full N: decode_kernel)", lambda: decompress_cloud(cc)),
+                     ("decompress_cloud_culled (cull_decode_kernel)",
+                      lambda: decompress_cloud_culled(cc, block0, capacity=cull_cap)),
+                     ("decompress_cloud, plain", lambda: decompress_cloud(cc, plain=True)),
+                     ("decompress_cloud_culled, plain", lambda: decompress_cloud_culled(
+                         cc, block0, capacity=cull_cap, plain=True))):
         _, acts, ms, names = profile_call(fn)
         say("compressed", f"{what}: {ms:.4f} device ms in {acts} device activities "
                           f"(torch.profiler; kernels {names})")
     reproducibility("compressed", renderer, bench_cameras()[0])
     frame_timing("compressed", renderer, blocks)
     frame_timing("compressed full-N", full[0], blocks)
-    return culled[3]
+    return culled[3], full[3]
 
 
 def tree_path(cloud, scan_images, scan_diags, blocks):
@@ -1896,12 +2072,13 @@ GRAPH_PATHS = {
     "culled compressed": ("npz", None),
 }
 # the phase 4f path whose eager run gives each kernel's launches in the
-# kernels line (main(): phases 4, 4b, 4c, 4d and 4e); emit_compact is on
-# no render path
+# kernels line (main(): phases 4, 4b, 4c, 4d and 4e); emit_compact and E's
+# general compactor (compact) are on no render path
 LINE_PATHS = {"frontend": "main", "overflow_walk": "main", "dense_compact": "main",
               "rasterize": "main", "sort": "main", "rasterize_mxu": "hybrid",
-              "frontend_compressed": "culled compressed", "compact": "culled compressed",
-              "rasterize_tree": "tree", "frontend_center_out": "overflow off"}
+              "frontend_compressed": "culled compressed", "cull_decode": "culled compressed",
+              "decode": "full-N compressed", "rasterize_tree": "tree",
+              "frontend_center_out": "overflow off"}
 FUNCTIONS = sorted({spec[2] for spec in KERNELS.values()})
 
 
@@ -2058,19 +2235,25 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
         launched = kernels_by_function(lambda: [graph.replay(blocks[i]) for i in range(N_VIEWS)],
                                        want)
         lib_sorts = library_sorts(lambda: [graph.replay(blocks[i]) for i in range(N_VIEWS)])
+        # the compressed paths decode in their kernels: none of the eager
+        # decode's gathers and elementwise kernels among the replays
+        old_decode = (old_decode_kernels(lambda: [graph.replay(blocks[i]) for i in range(N_VIEWS)])
+                      if kind == "npz" else [])
         say("graph", f"{what}: eager frames under set_sync_debug_mode('error') ok; captured "
                      f"{graph.captures} time(s); {N_VIEWS} views replayed back to back: max abs "
                      f"vs eager {max(errs):.3g} (bit-identical {same}), diagnostics equal "
                      f"{diag_same} ({diags[0].tolist()} at view 0); replayed kernels by name "
                      f"{launched}, eager launches {want}; the kernels line's launches from "
                      f"this path (line, eager here) {line}; library sort kernels in the "
-                     f"replays {lib_sorts} (none allowed)")
+                     f"replays {lib_sorts} (none allowed); the eager decode's kernels in the "
+                     f"replays {old_decode} (none allowed)")
         if not (all(same) and diag_same and graph.captures == 1 and launched == want
-                and all(a == b for a, b in line.values()) and not lib_sorts):
+                and all(a == b for a, b in line.values()) and not lib_sorts
+                and not old_decode):
             raise AssertionError(f"{what}: replayed frames differ from eager ({errs}), "
                                  f"diagnostics equal {diag_same}, captures {graph.captures}, "
                                  f"kernels {launched} vs eager {want}, kernels line {line}, "
-                                 f"library sorts {lib_sorts}")
+                                 f"library sorts {lib_sorts}, eager decode kernels {old_decode}")
         # the 8 views as one captured pass: one graph launch
         p_images, p_diags = render_blocks(dc, blocks, graphs, **geo)  # capture + replay
         pgraph = graphs.get(dc, views=N_VIEWS, **geo)
@@ -2701,9 +2884,10 @@ def main() -> int:
     oracle_phase(smi)
     launches, scan_images, scan_diags, blocks = main_path(cloud)
     launches["rasterize_mxu"] = slab_path(cloud, scan_images, blocks)["rasterize_mxu"]
-    c_launches = compressed_path(resident, decoded, cull_factor)
-    for k in ("frontend_compressed", "compact"):
+    c_launches, f_launches = compressed_path(resident, decoded, cull_factor)
+    for k in ("frontend_compressed", "cull_decode"):
         launches[k] = c_launches[k]
+    launches["decode"] = f_launches["decode"]
     launches["rasterize_tree"] = tree_path(cloud, scan_images, scan_diags,
                                            blocks)["rasterize_tree"]
     launches["frontend_center_out"] = refused_frames(cloud, scan_images,
@@ -2716,10 +2900,11 @@ def main() -> int:
 
     # launches per frame of the path each kernel is on (the scan path of
     # phase 4; the hybrid path of phase 4b for rasterize_mxu; the culled
-    # compressed path of phase 4c for frontend_compressed and compact; the
-    # tree path of phase 4d for rasterize_tree; the overflow-off path of
-    # phase 4e for frontend_center_out); the packed emission is on
-    # no render path (its launches_phase2 counts phase 2's).  kernel_ms and
+    # compressed path of phase 4c for frontend_compressed and cull_decode,
+    # its full-N path for decode; the tree path of phase 4d for
+    # rasterize_tree; the overflow-off path of phase 4e for
+    # frontend_center_out); the packed emission and E's general compactor
+    # are on no render path (their launches_phase2 count phase 2's).  kernel_ms and
     # bound_ms cover one frame's work of phase 2's view: both walk levels
     # for the overflow walk, one launch for the others.
     for k, r in results.items():

@@ -351,6 +351,37 @@ def test_compact_counts_at_five_payload_words():
     assert roofline.compact_work(m, 5, kept).bytes == brute
 
 
+@pytest.mark.parametrize("has_sf", [True, False])
+@pytest.mark.parametrize("culled", [False, True])
+def test_decompress_counts(culled, has_sf):
+    """decompress_work against a per-row count of the decode's inputs and
+    outputs: per decoded row its codes (1 B opacity, 1 B scale factor where
+    the stream exists, two 4 B indices) read and 124 B written; culled,
+    every resident position read, a decoded row's position written, a dead
+    row's NaN position written, the two counts and the 28 cull scalars;
+    each codebook word read once."""
+    rng = np.random.default_rng(11)
+    n, k_cov, k_sh = 3000, 64, 48
+    keep = rng.random(n) < 0.6
+    kept = int(keep.sum())
+    capacity = kept - 100 if culled else n
+    brute = 4 * 6 * k_cov + 4 * 24 * k_sh
+    decoded = 0
+    for i in range(n):
+        decode = (not culled) or (keep[i] and decoded < capacity)
+        if culled:
+            brute += 12  # the position, read for the cull
+        if decode:
+            decoded += 1
+            brute += 1 + (1 if has_sf else 0) + 4 + 4 + 24 + 4 + 96 + (12 if culled else 0)
+    if culled:
+        brute += 12 * (capacity - decoded) + 8 + 4 * 28
+    work = roofline.decompress_work(n, kept, capacity, culled, has_sf, 6 * k_cov + 24 * k_sh)
+    assert decoded == (capacity if culled else n) and work.bytes == brute
+    assert work.sfu == (decoded if has_sf else 0)
+    assert roofline.bound(work)[1] == "bytes"
+
+
 def test_sort_counts():
     """sort_work against a per-row count of the sort's inputs and outputs:
     each segment's count read; a live row's key and 4 words read and

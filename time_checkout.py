@@ -27,6 +27,11 @@ them in turns: A B B A). Per root, on the bench scene (1,244,819 splats,
     view 0's sorted stream (torch.profiler, median of KERNEL_REPS
     launches), with each kernel's registers and spill bytes (ptxas); "n/a"
     where the checkout has no tree composite;
+  - the compressed bench npz (make_bench_npz(rng(0)), resident) over the
+    8 views, at full N and culled at 1.15 x the largest frustum-visible
+    fraction: the replayed frame's span alone and back to back, busy ms
+    and activities per frame (chip_smoke.graph_timing); "n/a" where the
+    root captures no frame;
   - the count-following sort (ops/sort.py:sort_live) of view 0's frame
     stream: its kernel-only ms, summed over its kernels and per kernel
     (torch.profiler, median of SORT_REPS calls; chip_smoke.sort_timing,
@@ -51,6 +56,16 @@ timed as view 0's.
 
 times only the sort per root: view 0's stream (and under --tenm the 10M
 streams), for comparing forms of csrc/sort.cu, each a root under _dev/.
+
+    python3 time_checkout.py --decode-only [--tenm] ROOT [ROOT ...]
+
+times only the compressed decode per root (ops/decompress.py): decode_full
+and cull_decode (at 1.15 x the frustum-visible fraction) on the compressed
+bench cloud's view 0 (and under --tenm the 10M cloud at both distances),
+each held to its plain version first (a form that disagrees is timed and
+said to), then timed kernel-only (torch.profiler, median of KERNEL_REPS):
+for comparing forms of csrc/decompress.cu, each a root under _dev/; "n/a"
+where the checkout has no ops/decompress.py.
 
     python3 time_checkout.py --sass ROOT_A ROOT_B [SOURCE.cu ...]
 
@@ -139,7 +154,88 @@ def time_tenm(cs, sort_only: bool = False) -> list:
     return out
 
 
-def time_root(root: str, tenm: bool = False, sort_only: bool = False) -> None:
+def time_decode(cs, tenm: bool) -> list:
+    """The compressed decode's kernels, held to plain, then timed kernel
+    only: one "decode ..." entry per cloud and camera."""
+    try:
+        from websplat_tpu_torch.ops.decompress import (cull_decode, cull_decode_torch,
+                                                       decode_full, decode_full_torch,
+                                                       frustum_visible)
+    except ImportError:
+        return ["decode n/a"]
+    import numpy as np
+    import torch
+    from websplat_tpu_torch.io.loader import load_gaussian_cloud
+    from websplat_tpu_torch.render.renderer import upload
+    from websplat_tpu_torch.synth import bench_cameras, make_bench_npz, make_camera
+
+    bits = lambda t: t.view(torch.int32)
+    cases = [("bench view 0", None, bench_cameras()[0])]
+    if tenm:
+        cases += [(f"10M {d}", cs.TENM_SPLATS, make_camera(viewport=(cs.W, cs.H), distance=d))
+                  for d in cs.TENM_DISTANCES]
+    out, cc, loaded = [], None, -1
+    for what, n_splats, cam in cases:
+        if loaded != n_splats:
+            del cc
+            torch.cuda.empty_cache()
+            kw = {} if n_splats is None else dict(n=n_splats)
+            resident = load_gaussian_cloud(make_bench_npz(np.random.default_rng(0), **kw),
+                                           keep_compressed=True)
+            cc, loaded = upload(resident, "cuda"), n_splats
+        block = cs.device_block(*cs.view_block(resident, cam))
+        n = resident.num_points
+        kept = int(frustum_visible(cc.xyz, block).sum())
+        cap = max(4096, int(min(1.0, 1.15 * kept / n) * n))
+        (k, kn, _), (p, pn, _) = (cull_decode(cc, block, capacity=cap),
+                                  cull_decode_torch(cc, block, capacity=cap))
+        live = min(int(kn), cap)
+        fk, fp = decode_full(cc), decode_full_torch(cc)
+        right = (int(kn) == int(pn) and torch.equal(bits(k.xyz), bits(p.xyz))
+                 and all(torch.equal(a[..., :live], b[..., :live])
+                         for a, b in ((k.cov, p.cov), (k.opacity, p.opacity), (k.sh, p.sh)))
+                 and all(torch.equal(a, b) for a, b in zip(fk, fp)))
+        del k, p, fk, fp
+        full_ms = cs.kernel_only_ms(lambda: decode_full(cc), "decode", KERNEL_REPS)
+        cull_ms = cs.kernel_only_ms(lambda: cull_decode(cc, block, capacity=cap), "cull_decode",
+                                    KERNEL_REPS)
+        out.append(f"decode {what}: full N {full_ms:.4f} ms, culled {cull_ms:.4f} ms ({kept} "
+                   f"kept of {n}, capacity {cap})"
+                   + ("" if right else " (DISAGREES with its plain version)"))
+    return out
+
+
+def time_compressed(cs, cams) -> list:
+    """The compressed bench cloud's replayed frames over the 8 views, full
+    N and culled (chip_smoke.py phase 4f's two compressed paths): one
+    "compressed ..." entry each."""
+    import numpy as np
+    from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.io.loader import load_gaussian_cloud
+    from websplat_tpu_torch.render.graph import GraphCache
+    from websplat_tpu_torch.render.renderer import upload
+    from websplat_tpu_torch.synth import make_bench_npz
+
+    resident = load_gaussian_cloud(make_bench_npz(np.random.default_rng(0)),
+                                   keep_compressed=True)
+    factor = cs.cull_factor_for(resident)
+    cc = upload(resident, "cuda")
+    blk = [cs.device_block(*cs.view_block(resident, cam)) for cam in cams]
+    out = []
+    for name, cfg in (("full N", RasterConfig()),
+                      ("culled", RasterConfig(compressed_cull_factor=factor))):
+        graphs = GraphCache()
+        graph = graphs.get(cc, width=cs.W, height=cs.H, config=cfg, compressed=True)
+        r = cs.graph_timing(f"compressed {name}", lambda i: graph.replay(blk[i]), "")
+        out.append(f"compressed {name} replay span {r['span_ms']:.4f} ms alone, "
+                   f"{r['pass_ms']:.4f} ms back to back, busy {r['busy_ms']:.4f} ms in "
+                   f"{r['activities']:.0f} device activities per frame")
+        del graphs, graph
+    return out
+
+
+def time_root(root: str, tenm: bool = False, sort_only: bool = False,
+              decode_only: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
     import websplat_tpu_torch
@@ -177,6 +273,11 @@ def time_root(root: str, tenm: bool = False, sort_only: bool = False) -> None:
         return block, block[-3:]
 
     usage = build.build_report()
+    if decode_only:
+        regs = [f"{entry[:40]} {u['registers']} registers, {u['spill_stores']} B spills"
+                for entry, u in usage.items() if "decode_kernel" in entry]
+        print(f"[time] {root}: " + "; ".join(time_decode(cs, tenm) + regs), flush=True)
+        return
     cloud = cs.bench_cloud()
     renderer = GaussianRenderer(cloud, RasterConfig())
     cams = bench_cameras()
@@ -227,6 +328,7 @@ def time_root(root: str, tenm: bool = False, sort_only: bool = False) -> None:
                    f"back, busy {r['busy_ms']:.3f} ms in {r['activities']:.0f} device "
                    f"activities per frame")
         del graphs, graph
+        out += time_compressed(cs, cams)
 
     # the splat-sharded step at D = 1, eager in every root
     cam0, (fs0, st0) = cams[0], blocks[0]
@@ -329,11 +431,13 @@ def main() -> int:
     if len(sys.argv) >= 4 and sys.argv[1] == "--sass":
         compare_sass(os.path.abspath(sys.argv[2]), os.path.abspath(sys.argv[3]), sys.argv[4:])
         return 0
-    flags = [a for a in sys.argv[1:] if a in ("--tenm", "--sort-only")]
+    flags = [a for a in sys.argv[1:] if a in ("--tenm", "--sort-only", "--decode-only")]
     args = [a for a in sys.argv[1:] if a not in flags]
-    tenm, sort_only = "--tenm" in flags, "--sort-only" in flags
+    tenm, sort_only, decode_only = ("--tenm" in flags, "--sort-only" in flags,
+                                    "--decode-only" in flags)
     if args[:1] == ["--in-process"] and len(args) == 2:
-        time_root(os.path.abspath(args[1]), tenm=tenm, sort_only=sort_only)
+        time_root(os.path.abspath(args[1]), tenm=tenm, sort_only=sort_only,
+                  decode_only=decode_only)
         return 0
     roots = args
     if not roots:

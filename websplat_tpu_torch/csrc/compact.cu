@@ -5,8 +5,11 @@
 // compact_instances).
 //
 // compact_kernel drops rows keyed 0xFFFFFFFF from any stream: the general
-// compactor, launched by the culled compressed decompression (render/
-// renderer.py:decompress_cloud_culled, 5 payload words).  What bounds it on the
+// compactor, the counterpart of compact_instances.  No render path launches
+// it: the culled compressed decode, its one caller, became
+// csrc/decompress.cu:cull_decode_kernel, which compacts and decodes in one
+// pass; chip_smoke.py holds it against its plain version on the dense grid
+// and on view 0's culled stream (5 payload words).  What bounds it on the
 // card: pure memory traffic -- it reads 4 + 4 * n_payload bytes per row and
 // writes the same per kept row -- and, at the sizes it sees, launch latency.
 // Its design: one thread per row, a block scan of the keep flags and one

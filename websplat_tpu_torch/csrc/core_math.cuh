@@ -149,11 +149,14 @@ struct Frustum {
   bool visible;
 };
 
-__device__ __forceinline__ Frustum frustum_cull(float x_w, float y_w, float z_w,
-                                                const FrameParams& p) {
+// P: FrameParams (the scalars read from the frame block where they are
+// used), or any type with view, proj, cb_min and cb_max runs indexed as
+// those are (csrc/decompress.cu holds them in registers).
+template <class P>
+__device__ __forceinline__ Frustum frustum_cull(float x_w, float y_w, float z_w, const P& p) {
   Frustum f;
-  const BlockFloats v = p.view;
-  const BlockFloats m = p.proj;
+  const auto& v = p.view;
+  const auto& m = p.proj;
   const bool inside = (x_w >= p.cb_min[0]) && (x_w <= p.cb_max[0]) && (y_w >= p.cb_min[1]) &&
                       (y_w <= p.cb_max[1]) && (z_w >= p.cb_min[2]) && (z_w <= p.cb_max[2]);
   f.cam_x = v[0] * x_w + v[1] * y_w + v[2] * z_w + v[3];

@@ -43,7 +43,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 SOURCES = ("rasterize.cu", "rasterize_mxu.cu", "compact.cu", "emit_compact.cu", "frontend.cu",
-           "overflow.cu", "sort.cu")
+           "overflow.cu", "sort.cu", "decompress.cu")
 HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh", "cp_async.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
@@ -51,7 +51,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_tree": 0, "rasterize_mxu": 0,
                             "frontend": 0, "frontend_compressed": 0, "frontend_center_out": 0,
                             "overflow_walk": 0,
-                            "compact": 0, "dense_compact": 0, "emit_compact": 0, "sort": 0}
+                            "compact": 0, "dense_compact": 0, "emit_compact": 0, "sort": 0,
+                            "decode": 0, "cull_decode": 0}
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
@@ -66,12 +67,18 @@ _SIGNATURES = {
     "ws_overflow_walk": [_vp, _i, _vp, _i, _vp, _vp, _vp, _vp, _i64, _i, _vp, _i, _vp, _i64,
                          _vp],
     "ws_sort_live": [_vp, _vp, _i64, _i64, _vp, _i, _vp, _vp, _vp, _vp, _i64, _vp],
+    "ws_decode": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _f, _f, _f, _f, _vp, _vp, _vp,
+                  _vp],
+    "ws_cull_decode": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _f, _f, _f, _f,
+                       _vp, _vp, _vp, _vp, _i64, _vp, _i64, _vp],
     "ws_frontend_short_walk": [],
     "ws_frontend_long_queue": [],
     "ws_sort_tile": [],
     "ws_sort_max_segments": [],
     "ws_sort_digit_plan": [_vp],
     "ws_sort_scratch_words": [_i64],
+    "ws_cull_tiles": [_i64],
+    "ws_cull_tile": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -179,6 +186,7 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         handle.ws_sort_scratch_words.restype = ctypes.c_int64
+        handle.ws_cull_tiles.restype = ctypes.c_int64
         handle.ws_error_string.argtypes = [ctypes.c_int]
         handle.ws_error_string.restype = ctypes.c_char_p
         _lib = handle

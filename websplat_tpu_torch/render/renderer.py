@@ -3,8 +3,9 @@
 Counterpart of ``websplat_tpu/render/renderer.py`` for the single-device
 frame (``render_frame_impl``) of an uncompressed or compressed cloud:
 
-    [compressed cloud: decompress_cloud, or decompress_cloud_culled =
-     frustum_visible -> compaction (ops/compact.py) -> codebook gathers]
+    [compressed cloud: decompress_cloud (ops/decompress.py:decode_full), or
+     decompress_cloud_culled = frustum cull -> compaction -> decode in one
+     pass (ops/decompress.py:cull_decode)]
       ->  frontend (ops/frontend.py)  ->  overflow walk x2 (ops/overflow.py)
       ->  dense extreme-tail grid + compaction (ops/compact.py:
           dense_compact)  ->  sort + tile ranges (ops/sort.py)
@@ -15,9 +16,8 @@ With overflow off the frame runs the frontend alone (its center-out walk);
 with the window off, the frontend and the walk's first level
 (frame_stream).
 
-On the card every stage but the ranges and the codebook gathers (index
-gathers, as the JAX package's are XLA gathers) is a hand-written CUDA
-kernel; on the CPU each stage runs its plain PyTorch version.
+On the card every stage but the ranges is a hand-written CUDA kernel; on
+the CPU each stage runs its plain PyTorch version.
 ``render_frame(..., plain=True)`` runs the plain versions on the card as
 well (for comparing the two); nothing selects them on its own.
 
@@ -49,8 +49,11 @@ from websplat_tpu_torch.io.loader import GaussianCloud
 from websplat_tpu_torch.io.npz import QuantizedStreams
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.models.camera import CameraUniforms, PerspectiveCamera
-from websplat_tpu_torch.ops.compact import (compact_instances, compact_torch, dense_compact,
-                                            dense_compact_torch)
+from websplat_tpu_torch.ops.compact import dense_compact, dense_compact_torch
+# cull_stream and frustum_visible (the plain predicate and the compactor's
+# input) are also this module's names, as they are the JAX renderer's
+from websplat_tpu_torch.ops.decompress import (cull_decode, cull_decode_torch, cull_stream,
+                                               decode_full, decode_full_torch, frustum_visible)
 from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
 from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
 from websplat_tpu_torch.ops.preprocess import (FRAME_BLOCK_LEN, N_SCALARS, CompressedDeviceCloud,
@@ -151,91 +154,28 @@ def upload(cloud: GaussianCloud, device):
     return upload_cloud(cloud, device)
 
 
-def decompress_cloud(cc: CompressedDeviceCloud) -> DeviceCloud:
+def decompress_cloud(cc: CompressedDeviceCloud, *, plain: bool = False) -> DeviceCloud:
     """Per-frame dequantization at full N (renderer.py:102,
     preprocess_compressed.wgsl:137-171,216-242): opacity and scale factor
     int8 dequant (+ exp), the covariance codebook row scaled by the squared
-    factor, the SH codebook row.  The gathers are index_select."""
-    opacity = (cc.opacity_q.to(torch.float32) - cc.opacity_zp) * cc.opacity_scale
-    cov = cc.covars.index_select(1, cc.geom_idx)  # (6, N)
-    if cc.scale_factor_q is not None:
-        sf = torch.exp((cc.scale_factor_q.to(torch.float32) - cc.sf_zp) * cc.sf_scale)
-        cov = cov * (sf * sf)[None, :]
-    sh = cc.sh_cb.index_select(1, cc.sh_idx)  # (24, N)
-    return DeviceCloud(xyz=cc.xyz, cov=cov, opacity=opacity, sh=sh)
-
-
-def frustum_visible(xyz: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
-    """(N,) bool: exactly the frontend's centre test -- clipping box, z_ndc
-    in (0, 1), |clip_xy| <= 1.2 clip_w -- on the positions alone
-    (renderer.py:123; the expressions of ops/preprocess.py:core_math).  A
-    superset of the frontend's final visibility, so culling on it before
-    dequantization drops no splat the frontend keeps; a NaN position fails
-    every comparison.  The scalars are 0-d views of the frame block
-    ``block`` (no host read), in the f32 expressions and order of the
-    plain frontend's Python floats, so the same bits."""
-    x_w, y_w, z_w = xyz[0], xyz[1], xyz[2]
-    rows = lambda o: [block[o + 4 * i:o + 4 * i + 4].unbind() for i in range(4)]
-    cb_min, cb_max, v, p = block[37:40].unbind(), block[40:43].unbind(), rows(0), rows(16)
-    inside = (
-        (x_w >= cb_min[0]) & (x_w <= cb_max[0])
-        & (y_w >= cb_min[1]) & (y_w <= cb_max[1])
-        & (z_w >= cb_min[2]) & (z_w <= cb_max[2])
-    )
-    cam = [v[i][0] * x_w + v[i][1] * y_w + v[i][2] * z_w + v[i][3] for i in range(3)]
-    clip = [p[i][0] * cam[0] + p[i][1] * cam[1] + p[i][2] * cam[2] + p[i][3] for i in range(4)]
-    z_ndc = clip[2] / clip[3]
-    bounds = 1.2 * clip[3]
-    return (inside & (z_ndc > 0.0) & (z_ndc < 1.0) & (clip[0] >= -bounds) & (clip[0] <= bounds)
-            & (clip[1] >= -bounds) & (clip[1] <= bounds))
-
-
-def cull_stream(cc: CompressedDeviceCloud, block: torch.Tensor):
-    """The culled decompression's compaction input (renderer.py:187-198):
-    keys (N,) int32 ``op_u << 8 | sf_u`` of the int8 codes' bytes where the
-    splat passes frustum_visible, else INVALID_KEY; payload (5, N) int32:
-    the position bits, geom_idx, sh_idx."""
-    vis = frustum_visible(cc.xyz, block)
-    op_u = cc.opacity_q.to(torch.int32) & 0xFF
-    sf_u = (cc.scale_factor_q.to(torch.int32) & 0xFF if cc.scale_factor_q is not None
-            else torch.zeros_like(op_u))
-    keys = torch.where(vis, (op_u << 8) | sf_u, -1)  # -1: INVALID_KEY as int32
-    payload = torch.cat([cc.xyz.view(torch.int32), cc.geom_idx[None], cc.sh_idx[None]])
-    return keys, payload
+    factor, the SH codebook row (ops/decompress.py: the kernel on the card,
+    its plain version on the CPU or with ``plain``)."""
+    return decode_full_torch(cc) if plain else decode_full(cc)
 
 
 def decompress_cloud_culled(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int,
                             plain: bool = False) -> Tuple[DeviceCloud, torch.Tensor]:
     """Cull-before-gather dequantization (renderer.py:161): frustum-cull
-    the resident positions, compact the survivors to ``capacity`` rows
-    (ops/compact.py: the kernel on the card, compact_torch on the CPU or
-    with ``plain``) and run the codebook gathers over those rows only.  The
-    key carries the int8 opacity and scale factor (``op << 8 | sf``), the 5
-    payload words the position bits and the two codebook indices.
-
-    The compaction leaves rows past its count undefined on the card, so
-    liveness is ``arange(capacity) < count`` against the device-side count
-    (no host sync): dead rows get NaN positions, which the frontend's cull
-    rejects, and codebook index 0.  Returns (the cloud of ``capacity``
-    rows, num_culled_dropped: the 0-d count of visible splats past the
-    capacity)."""
-    dev = cc.xyz.device
-    compact = compact_torch if plain else compact_instances
-    keys_c, payload_c, count = compact(*cull_stream(cc, block), capacity=capacity)
-    live = torch.arange(capacity, device=dev) < count
-    xyz = torch.where(live[None, :], payload_c[:3].view(torch.float32),
-                      torch.full((), float("nan"), device=dev))
-    geom_idx = torch.where(live, payload_c[3], 0)
-    sh_idx = torch.where(live, payload_c[4], 0)
-    to_i8 = lambda u: torch.where(u > 127, u - 256, u).to(torch.float32)
-    opacity = (to_i8((keys_c >> 8) & 0xFF) - cc.opacity_zp) * cc.opacity_scale
-    cov = cc.covars.index_select(1, geom_idx)  # (6, capacity)
-    if cc.scale_factor_q is not None:
-        sf = torch.exp((to_i8(keys_c & 0xFF) - cc.sf_zp) * cc.sf_scale)
-        cov = cov * (sf * sf)[None, :]
-    sh = cc.sh_cb.index_select(1, sh_idx)  # (24, capacity)
-    n_drop = torch.clamp(count - capacity, min=0)
-    return DeviceCloud(xyz=xyz, cov=cov, opacity=opacity, sh=sh), n_drop
+    the resident positions, compact the survivors to ``capacity`` rows and
+    decode those rows only (ops/decompress.py:cull_decode: one kernel on
+    the card, its plain version on the CPU or with ``plain``).  The kept
+    rows come first, in splat order; dead rows get NaN positions, which
+    the frontend's cull rejects (their other fields are undefined on the
+    card).  Returns (the cloud of ``capacity`` rows, num_culled_dropped:
+    the 0-d count of visible splats past the capacity)."""
+    cull = cull_decode_torch if plain else cull_decode
+    cloud, _, n_drop = cull(cc, block, capacity=capacity)
+    return cloud, n_drop
 
 
 def camera_block(uniforms, settings) -> FrameScalars:
@@ -494,7 +434,7 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
             cloud, culled_dropped = decompress_cloud_culled(cloud, block, capacity=cull_cap,
                                                             plain=plain)
         else:
-            cloud = decompress_cloud(cloud)
+            cloud = decompress_cloud(cloud, plain=plain)
         mark("decompress")
     st = frame_stream(cloud, block, width=width, height=height, config=config,
                       compressed=compressed, plain=plain, timer=timer,

@@ -274,6 +274,35 @@ def emit_compact_work(n: int, n_emitting: int, n_valid: int) -> Work:
     return Work(bytes=4.0 * n + 20.0 * n_emitting + 20.0 * n_valid + 4.0)
 
 
+# --- the compressed cloud's decode (csrc/decompress.cu) ---------------------
+
+DEQUANT_FLOPS = 2  # (float(q) - zp) * scale
+SF_FLOPS = 3 + 6  # the factor's dequantization, sf * sf, the six products (+ its exp)
+
+
+def decompress_work(n: int, kept: int, capacity: int, culled: bool, has_sf: bool,
+                    codebook_words: int = 0) -> Work:
+    """The decode of ``n`` resident splats (full N), or the cull of ``n``
+    and the decode of the first min(kept, capacity) splats that pass it
+    (culled, ``capacity`` rows).  Per decoded row: its codes and indices
+    read (1 B opacity, 1 B scale factor where the stream exists, 4 B each
+    index) and cov, opacity and SH written (24 + 4 + 96 B); culled, also
+    12 B of position read per resident splat, written per decoded row, and
+    a NaN position per dead row, the two counts and the frame block's 28
+    cull scalars; the two codebooks (``codebook_words`` 4-byte words: 6 per
+    covariance entry, 24 per SH entry) read once.  The cull's f32 operations per resident splat
+    (CULL_FLOPS), the dequantization per decoded row, one exp per decoded
+    row with a scale factor."""
+    rows = min(kept, capacity) if culled else n
+    codes = 1.0 + (1.0 if has_sf else 0.0) + 8.0
+    b = (codes + 124.0) * rows + 4.0 * codebook_words
+    f32 = float((DEQUANT_FLOPS + (SF_FLOPS if has_sf else 0)) * rows)
+    if culled:
+        b += 12.0 * n + 12.0 * rows + 12.0 * (capacity - rows) + 8.0 + 4.0 * 28
+        f32 += float(sum(CULL_FLOPS.values()) * n)
+    return Work(bytes=b, f32=f32, sfu=float(rows if has_sf else 0))
+
+
 # --- the sort (csrc/sort.cu) ------------------------------------------------
 
 def sort_work(n: int, rows: int, segments: int) -> Work:
