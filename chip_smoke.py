@@ -11,7 +11,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM; the
              sort's tile and segment limit equal to ops/sort.py's, and
-             the culled decode's tile to ops/decompress.py's
+             the decode kernels' layout (csrc/decompress.cu:ws_decode_plan:
+             staged codebooks, stages, chunk, shared memory, grid, the
+             cull's tiles and scratch) to ops/decompress.py's mirror on 42
+             cases; the decode kernels' blocks per SM at their shared memory
   2 kernels  frontend (also with the compressed eigen clamp, on the
              compressed bench cloud, at 24 slots (its 64-bit-mask
              row-major walk), and with overflow off: the center-out
@@ -20,12 +23,17 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              emitted and compacted in one kernel), the general compaction
              (on no render path: on the plain dense grid, and on the
              compressed cloud's culled stream: 5 payload words), the
-             compressed decode (decode_kernel at full N, cull_decode_kernel
-             culled at phase 4c's capacity, at 7 below the kept count, for
-             a camera that sees nothing, without the scale-factor stream
-             and with codes -128 and 127: decoded rows, count and drops
-             equal to plain, dead rows' xyz NaN, and the chain it replaced
-             timed beside it), both rasterizers (the scan one also
+             compressed decode (decode_kernel at full N, the culled decode's
+             cull_ballot_kernel + cull_decode_kernel at phase 4c's capacity,
+             at 7 below the kept count, for a camera that sees nothing and
+             for a close one that keeps under 20% of the cloud; both without
+             the scale-factor stream, with codes -128 and 127, with an SH
+             codebook of 65,536 entries (gathered from global memory), with
+             codebooks of 4,095 entries (unaligned planes: global memory)
+             and the same padded to 4,096 (staged): decoded rows, count and
+             drops equal to plain, dead rows' xyz NaN, the culled decode's
+             two kernels timed per call and each, and the eager chain
+             they replaced timed beside them), both rasterizers (the scan one also
              with the tree composite; the slab one at mxu/highest,
              mxu/high, mxu/default and hybrid) and the packed emission
              against their plain versions on the card, at the shapes of the
@@ -94,7 +102,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              over the 8 views at compressed_cull_factor 0 (full-N gathers)
              and culled (1.15 x the largest visible fraction of the views),
              and the decode-at-load cloud; launch counts (decode_kernel once
-             per full-N frame, cull_decode_kernel once per culled frame,
+             per full-N frame, cull_ballot_kernel then cull_decode_kernel
+             once per culled frame,
              E's general compactor never), diagnostics,
              culled vs full-N and resident vs decoded PSNR, the plain path
              at view 0, view 0 twice more on the culled path
@@ -295,10 +304,18 @@ KERNELS = {
     # JAX frame, the full-N decode and the culled one (frustum test, E's
     # compaction and the decode of the kept rows in one pass)
     "decode": ("websplat_tpu_torch/csrc/decompress.cu", "websplat_tpu/render/renderer.py:102",
-               "decode_kernel", 256),
+               "decode_kernel", 1024),
+    # named by its decode kernel, launched once per call after the cull
+    # pass's (CULL_BALLOT_KERNEL)
     "cull_decode": ("websplat_tpu_torch/csrc/decompress.cu",
-                    "websplat_tpu/render/renderer.py:161", "cull_decode_kernel", 512),
+                    "websplat_tpu/render/renderer.py:161", "cull_decode_kernel", 1024),
 }
+# the culled decode's kernels per call (csrc/decompress.cu: the cull, the
+# decode) and their names
+CULL_DECODE_KERNELS = 2
+CULL_BALLOT_KERNEL = "cull_ballot_kernel"
+CULL_BLOCK_THREADS = 512  # csrc/decompress.cu:CULL_BLOCK
+CULL_DECODE_NAMES = r"(?<![A-Za-z_])cull_(ballot|decode)_kernel"
 # the sort's kernels per sort (csrc/sort.cu: the histogram, four digit
 # passes, the words' gather)
 SORT_KERNELS = 6
@@ -315,6 +332,9 @@ NAN_BITS = 0x7FC00000
 # decode vs plain, max abs on the covariance: the kernel's expf and the
 # plain version's torch.exp on the card are the same CUDA expf
 DECODE_COV_TOL = 0.0
+# phase 2's close camera on the compressed bench cloud (it keeps under 20%
+# of the splats: the culled decode's sparse case, as 10M's distance 0.45)
+SPARSE_DISTANCE = 0.45
 INT32_MAX = 2**31 - 1
 
 
@@ -354,15 +374,16 @@ def kernel_only_ms(fn, name: str, reps: int) -> float:
                          f"{KERNELS[name][2]}")
 
 
-def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
-    """(median device time per call of fn() of the sort's kernels, the
-    median of each in launch order: the histogram, the digit passes, the
-    gather) by torch.profiler, by name (a call is its histogram kernel and
-    the passes after it), after one warm-up call.  A call has ``kernels``
-    kernels (None: as many as the longest call seen, for a checkout whose
-    sort has another count); a call whose records the profiler dropped is
-    left out; a pass that keeps fewer than half of its calls whole is
-    repeated."""
+def calls_kernel_ms(fn, ours: str, reps: int, kernels: Optional[int], first=None,
+                    what: str = ""):
+    """(median device time per call of fn() of the kernels whose names match
+    ``ours``, the median of each in launch order) by torch.profiler, after
+    one warm-up call.  A call starts at each launch of the kernel matching
+    ``first`` (None, or none launched: the first kernel launched) and has
+    ``kernels`` kernels (None: as many as the longest call seen, for a
+    checkout with another count); a call whose records the profiler
+    dropped is left out; a pass that keeps fewer than half of its calls
+    whole is repeated."""
     import re
 
     import torch
@@ -370,18 +391,19 @@ def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
 
     fn()
     torch.cuda.synchronize()
-    first, ours = kernel_pattern("sort"), re.compile(r"live_sort_\w*kernel")
+    ours = re.compile(ours)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = sorted((e.time_range.start, e.time_range.end, bool(first.search(e.name)))
-                    for e in prof.events()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA and ours.search(e.name))
+        head = (first if first is not None and any(first.search(e[2]) for e in ev)
+                else re.compile(re.escape(ev[0][2])) if ev else None)
         calls, cur = [], None
-        for start, end, is_first in ev:
-            if is_first:
+        for start, end, name in ev:
+            if head.search(name):
                 cur = [end - start]
                 calls.append(cur)
             elif cur is not None:
@@ -391,7 +413,26 @@ def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
         if 2 * len(whole) >= reps:
             return (statistics.median(sum(c) for c in whole),
                     [statistics.median(c[k] for c in whole) for k in range(count)])
-    raise AssertionError(f"sort: the profiler kept {len(whole)} of {reps} calls whole")
+    raise AssertionError(f"{what}: the profiler kept {len(whole)} of {reps} calls whole")
+
+
+def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
+    """(median device time per call of fn() of the sort's kernels, the
+    median of each in launch order: the histogram, the digit passes, the
+    gather): calls_kernel_ms, a call being its histogram kernel and the
+    passes after it."""
+    return calls_kernel_ms(fn, r"live_sort_\w*kernel", reps, kernels, kernel_pattern("sort"),
+                           "sort")
+
+
+def cull_decode_ms(fn, reps: int, kernels: Optional[int] = CULL_DECODE_KERNELS):
+    """(median device time per call of fn() of the culled decode's kernels,
+    the median of each: the cull, the decode): calls_kernel_ms, a call
+    starting at its cull kernel (a checkout with one kernel: that one)."""
+    import re
+
+    return calls_kernel_ms(fn, CULL_DECODE_NAMES, reps, kernels,
+                           re.compile(rf"(?<![A-Za-z_]){CULL_BALLOT_KERNEL}"), "cull_decode")
 
 
 def old_decode_kernels(fn) -> list:
@@ -682,27 +723,61 @@ def build_kernels():
     if sort_layout != mirror:
         raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS, digit plan and scratch "
                              f"{sort_layout} differ from ops/sort.py's {mirror}")
-    from websplat_tpu_torch.ops.decompress import CULL_TILE
+    from websplat_tpu_torch.ops import decompress
 
-    cull_rows = (0, 1, CULL_TILE, CULL_TILE + 1, 10_000_000)
-    cull_layout = (lib.ws_cull_tile(), [lib.ws_cull_tiles(r) for r in cull_rows])
-    cull_mirror = (CULL_TILE, [max(1, -(-r // CULL_TILE)) for r in cull_rows])
-    say("build", f"cull_decode: tile {cull_layout[0]} splats, tiles at {cull_rows} splats "
-                 f"{cull_layout[1]}")
+    plans = decode_plan_cases()
+    cull_layout = [library_layout(lib, case) for case in plans]
+    cull_mirror = [decompress.decode_layout(*case) for case in plans]
     if cull_layout != cull_mirror:
-        raise AssertionError(f"csrc/decompress.cu's CULL_TILE and tiles {cull_layout} differ from "
+        raise AssertionError(f"csrc/decompress.cu's decode plans {cull_layout} differ from "
                              f"ops/decompress.py's {cull_mirror}")
+    say("build", f"decode plans (stages, chunk, shared memory, grid, the cull's tiles and "
+                 f"scratch) equal to ops/decompress.py's at {len(plans)} (n, k_cov, k_sh, "
+                 f"aligned, resident) cases")
+    pl = decompress.decode_plan(4096, 4096, True, True)
+    per_sm = [lib.ws_decode_blocks_per_sm(which, pl.smem) for which in range(4)]
+    say("build", f"decode kernels at 4096-entry codebooks: {pl.stages} stages of "
+                 f"{4 * pl.stage_words} B, chunks of {pl.chunk} rows, {pl.smem} B dynamic smem; "
+                 f"blocks/SM {per_sm} (full N, culled; each without, with the scale-factor "
+                 f"stream)")
+    if min(per_sm) < 1:
+        raise AssertionError(f"decode kernels cannot be resident: {per_sm}")
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
-        pats = (pat, re.compile(SORT_PASS_KERNEL)) if name == "sort" else (pat,)
+        pats = ((pat, re.compile(SORT_PASS_KERNEL)) if name == "sort" else
+                (pat, re.compile(CULL_BALLOT_KERNEL)) if name == "cull_decode" else (pat,))
         for entry, u in usage.items():
             if any(p.search(entry) for p in pats) and entry not in shown:
                 shown.add(entry)
+                # the decode kernels' dynamic shared memory at 4096-entry
+                # codebooks; the cull pass's blocks are CULL_BLOCK_THREADS
+                ballot = CULL_BALLOT_KERNEL in entry
+                dyn = pl.smem if name in ("decode", "cull_decode") and not ballot else 0
+                nt = CULL_BLOCK_THREADS if ballot else threads
                 say("build", f"{name} ({entry}): {u['registers']} registers, {u['smem']} B "
-                             f"static smem, spills {u['spill_stores']}/{u['spill_loads']} B "
-                             f"(stores/loads), {threads} threads -> "
-                             f"{roofline.ctas_per_sm(u['registers'], u['smem'], threads)} CTAs/SM")
+                             f"static + {dyn} B dynamic smem, spills {u['spill_stores']}/"
+                             f"{u['spill_loads']} B (stores/loads), {nt} threads -> "
+                             f"{roofline.ctas_per_sm(u['registers'], u['smem'] + dyn, nt)} "
+                             f"CTAs/SM")
+
+
+def library_layout(lib, case) -> tuple:
+    """The library's decode layout (csrc/decompress.cu:ws_decode_plan) of a
+    decode_plan_cases case, as ops/decompress.py:decode_layout gives it."""
+    out = np.zeros(9, np.int64)
+    lib.ws_decode_plan(*case, out.ctypes.data_as(ctypes.c_void_p))
+    return tuple(int(x) for x in out)
+
+
+def decode_plan_cases() -> list:
+    """(n, k_cov, k_sh, aligned_cov, aligned_sh, resident) cases
+    of the decode plan (ops/decompress.py:decode_layout): the tile edges,
+    10M splats, staged and unstaged codebooks (too large, unaligned)."""
+    rows = (0, 1, 4095, 4096, 4097, 10_000_000)
+    books = ((4096, 4096, 1, 1), (4096, 65536, 1, 1), (4095, 4095, 0, 0), (17, 4096, 0, 1),
+             (4096, 12288, 1, 1), (24576, 4, 1, 1), (28672, 4, 1, 1))
+    return [(n, *b, 132) for n in rows for b in books]
 
 
 def bench_cloud():
@@ -770,39 +845,69 @@ def device_block(fs, settings):
     return frame_block(fs, settings.background_color, "cuda")
 
 
-def decompress_vs_plain(cc, block, cull_factor, results):
-    """Phase 2, the compressed decode: decode_kernel and cull_decode_kernel
-    against their plain versions on the card, on the compressed bench cloud
-    ``cc`` at view 0 (frame block ``block``): full N, and culled at phase
-    4c's capacity; culled at a capacity 7 below the kept count; a camera
-    that sees nothing (the clipping box moved away from the cloud); the
-    cloud without its scale-factor stream; its codes with -128 and 127
-    among them.  The decoded rows equal to plain element for element (cov
-    within DECODE_COV_TOL), the count and drops equal, the dead rows' xyz
-    the plain version's NaN bits.  Timing: kernel-only ms, bound, share,
-    plain ms; for cull_decode also the chain the card ran before it
-    (cull_stream, compact_instances and the eager decode), its device ms
-    and activities in one profiled call (profile_call), beside the
-    kernel's; for decode, the eager decode's."""
+def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
+    """Phase 2, the compressed decode: decode_kernel and the culled decode
+    (cull_ballot_kernel, cull_decode_kernel) against their plain versions on
+    the card, on the compressed bench cloud ``cc`` at view 0 (frame block
+    ``block``): full N, and culled at phase 4c's capacity; culled at a
+    capacity 7 below the kept count; a camera that sees nothing (the
+    clipping box moved away from the cloud); a camera close in that keeps
+    under 20% of the cloud (``sparse_block``); the cloud without its
+    scale-factor stream; its codes with -128 and 127 among them; an SH
+    codebook of 65,536 entries (a 256 KB plane: gathered from global
+    memory); codebooks of 4,095 entries (planes not 16-byte aligned:
+    gathered from global memory) and the same padded to 4,096 as
+    render/renderer.py:upload_compressed_cloud pads them (staged).  The
+    decoded rows equal to plain element for element (cov within
+    DECODE_COV_TOL), the count and drops equal, the dead rows' xyz the plain
+    version's NaN bits.  Timing: kernel-only ms (the culled decode's two
+    kernels summed per call, and each), bound, share, plain ms; for
+    cull_decode also the eager chain the kernels replaced
+    (cull_stream, compact_instances and the eager decode), its device ms and
+    activities in one profiled call (profile_call), beside the kernels';
+    for decode, the eager decode's."""
     import torch
 
     from websplat_tpu_torch.ops.compact import compact_instances
     from websplat_tpu_torch.ops.decompress import (cull_decode, cull_decode_torch, decode_full,
-                                                   decode_full_torch, frustum_visible)
+                                                   decode_full_torch, decode_plan,
+                                                   frustum_visible, planes_aligned)
     from websplat_tpu_torch.ops.preprocess import CompressedDeviceCloud
     from websplat_tpu_torch.utils import roofline
 
     n = cc.opacity_q.shape[0]
     cb_words = 6 * cc.covars.shape[1] + 24 * cc.sh_cb.shape[1]
     n_vis = int(frustum_visible(cc.xyz, block).sum())
+    n_sparse = int(frustum_visible(cc.xyz, sparse_block).sum())
     cull_cap = max(4096, int(cull_factor * n))
+    sparse_cap = max(4096, int(1.15 * n_sparse))
+    if not 0 < n_sparse < 0.2 * n:
+        raise AssertionError(f"the close camera keeps {n_sparse} of {n} splats, not under 20%")
     nosf = cc._replace(scale_factor_q=None)
     op, sf = cc.opacity_q.clone(), cc.scale_factor_q.clone()
     op[::97], op[1::97], sf[::97], sf[1::97] = -128, 127, 127, -128
     extreme = cc._replace(opacity_q=op, scale_factor_q=sf)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    big_k = 65536
+    big = cc._replace(sh_cb=torch.randint(-2**31, 2**31 - 1, (24, big_k), generator=gen,
+                                          dtype=torch.int32, device="cuda"),
+                      sh_idx=torch.randint(0, big_k, (n,), generator=gen, dtype=torch.int32,
+                                           device="cuda"))
+    odd = cc._replace(covars=cc.covars[:, :4095].contiguous(),
+                      sh_cb=cc.sh_cb[:, :4095].contiguous(), geom_idx=cc.geom_idx % 4095,
+                      sh_idx=cc.sh_idx % 4095)
+    padded = odd._replace(covars=torch.nn.functional.pad(odd.covars, (0, 1)),
+                          sh_cb=torch.nn.functional.pad(odd.sh_cb, (0, 1)))
     nowhere = block.clone()
     nowhere[37:40], nowhere[40:43] = 1e6, 1e6 + 1.0  # a clipping box far from the cloud
     bits = lambda t: t.view(torch.int32)
+
+    def staging(c):
+        """Which codebooks the kernel stages for cloud c (the plan mirror)."""
+        pl = decode_plan(c.covars.shape[1], c.sh_cb.shape[1], planes_aligned(c.covars),
+                         planes_aligned(c.sh_cb))
+        return (f"cov {'staged' if pl.stage_cov else 'global'}, SH "
+                f"{'staged' if pl.stage_sh else 'global'}, {pl.stages} stages")
 
     def decoded_rows(k, p, rows):
         """(max abs error of cov and opacity, whether SH words and the
@@ -813,22 +918,29 @@ def decompress_vs_plain(cc, block, cull_factor, results):
                      and torch.equal(k.opacity[:rows], p.opacity[:rows]))
 
     errs = {"decode": 0.0, "cull_decode": 0.0}
+    books = (("SH codebook of 65,536 entries", big), ("codebooks of 4,095 entries", odd),
+             ("codebooks of 4,095 entries padded to 4,096", padded))
     for what, c in (("view 0", cc), ("no scale-factor stream", nosf),
-                    ("codes -128 and 127", extreme)):
+                    ("codes -128 and 127", extreme), *books):
         k, p = decode_full(c), decode_full_torch(c)
         err, same = decoded_rows(k, p, n)
         ok = same and err <= DECODE_COV_TOL and bool(torch.isfinite(k.cov).all())
-        say("kernels", f"decode ({what}, {n} splats): max abs vs plain {err:.3g} (cov tolerance "
-                       f"{DECODE_COV_TOL}), SH words and opacity equal {same}")
+        say("kernels", f"decode ({what}, {n} splats; {staging(c)}): max abs vs plain "
+                       f"{err:.3g} (cov tolerance {DECODE_COV_TOL}), SH words and opacity equal "
+                       f"{same}")
         if not ok:
             raise AssertionError(f"decode ({what}): kernel disagrees with its plain version")
         errs["decode"] = max(errs["decode"], err)
+        del k, p
     for what, c, b, cap in (("view 0", cc, block, cull_cap),
                             (f"capacity {n_vis - 7}: 7 below the kept count", cc, block,
                              n_vis - 7),
                             ("a camera that sees nothing", cc, nowhere, cull_cap),
+                            (f"a close camera that keeps {n_sparse} of {n}", cc, sparse_block,
+                             sparse_cap),
                             ("no scale-factor stream", nosf, block, cull_cap),
-                            ("codes -128 and 127", extreme, block, cull_cap)):
+                            ("codes -128 and 127", extreme, block, cull_cap),
+                            *((w, c, block, cull_cap) for w, c in books)):
         (kc, kn, kd), (pc, pn, pd) = (cull_decode(c, b, capacity=cap),
                                       cull_decode_torch(c, b, capacity=cap))
         count, drops = int(kn), int(kd)
@@ -838,14 +950,16 @@ def decompress_vs_plain(cc, block, cull_factor, results):
         tail = bool((bits(kc.xyz[:, live:]) == NAN_BITS).all())
         ok = (count == int(pn) and drops == int(pd) == max(count - cap, 0) and same and same_xyz
               and tail and err <= DECODE_COV_TOL)
-        say("kernels", f"cull_decode ({what}): count {count} kernel, {int(pn)} plain; drops "
-                       f"{drops} / {int(pd)}; capacity {cap}; the {live} decoded rows: max abs "
-                       f"vs plain {err:.3g}, SH words and opacity equal {same}; xyz bits equal "
-                       f"(live rows and tail) {same_xyz}; the {cap - live} dead rows' xyz "
-                       f"0x{NAN_BITS:08X} {tail}")
+        say("kernels", f"cull_decode ({what}; {staging(c)}): count {count} kernel, "
+                       f"{int(pn)} plain; drops {drops} / {int(pd)}; capacity {cap}; the {live} "
+                       f"decoded rows: max abs vs plain {err:.3g}, SH words and opacity equal "
+                       f"{same}; xyz bits equal (live rows and tail) {same_xyz}; the "
+                       f"{cap - live} dead rows' xyz 0x{NAN_BITS:08X} {tail}")
         if not ok:
             raise AssertionError(f"cull_decode ({what}): kernel disagrees with its plain version")
         errs["cull_decode"] = max(errs["cull_decode"], err)
+        del kc, pc
+    del big, odd, padded
 
     bad_calls = {
         "a cloud on the meta device": lambda: decode_full(CompressedDeviceCloud(
@@ -863,18 +977,29 @@ def decompress_vs_plain(cc, block, cull_factor, results):
     say("kernels", f"decode wrappers refuse: {', '.join(bad_calls)}")
 
     full, culled = lambda: decode_full(cc), lambda: cull_decode(cc, block, capacity=cull_cap)
+    sparse = lambda: cull_decode(cc, sparse_block, capacity=sparse_cap)
     results["decode"] = dict(
         max_abs_err=errs["decode"], ms=cuda_ms(full, 50),
         kernel_ms=kernel_only_ms(full, "decode", 50),
         plain_ms=cuda_ms(lambda: decode_full_torch(cc), 20), library_ms=None)
     with_bound(results["decode"], roofline.decompress_work(n, n, n, False, True, cb_words))
+    only, parts = cull_decode_ms(culled, 50)
+    sparse_only, sparse_parts = cull_decode_ms(sparse, 50)
+    sparse_bound, _ = roofline.bound(roofline.decompress_work(n, n_sparse, sparse_cap, True, True,
+                                                              cb_words))
     results["cull_decode"] = dict(
-        max_abs_err=errs["cull_decode"], ms=cuda_ms(culled, 50),
-        kernel_ms=kernel_only_ms(culled, "cull_decode", 50),
+        max_abs_err=errs["cull_decode"], ms=cuda_ms(culled, 50), kernel_ms=only,
+        kernel_ms_parts=parts,
         plain_ms=cuda_ms(lambda: cull_decode_torch(cc, block, capacity=cull_cap), 20),
-        library_ms=None)
+        library_ms=None, sparse_kernel_ms=sparse_only, sparse_kernel_ms_parts=sparse_parts,
+        sparse_bound_ms=sparse_bound, sparse_kept=n_sparse)
     with_bound(results["cull_decode"],
                roofline.decompress_work(n, n_vis, cull_cap, True, True, cb_words))
+    say("kernels", f"cull_decode: kernel only {only:.4f} ms (cull, decode: "
+                   f"{', '.join(f'{x:.4f}' for x in parts)}); the close camera ({n_sparse} kept, "
+                   f"capacity {sparse_cap}): {sparse_only:.4f} ms ("
+                   f"{', '.join(f'{x:.4f}' for x in sparse_parts)}), bound {sparse_bound:.4f} ms, "
+                   f"share {sparse_bound / sparse_only:.3f}")
     # what each replaced on the card: the eager decode (the plain version at
     # full N), and the chain cull_stream -> compact_instances -> eager decode
     for name, new, was in (
@@ -1297,7 +1422,9 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         grid_library_ms=grid_lib_ms)
     with_bound(results["compact"], roofline.compact_work(cn, 5, min(n_cull, cull_cap)))
     del ckk, ckp, cdc
-    decompress_vs_plain(cc, cblock, cull_factor, results)
+    sparse_block = device_block(*view_block(resident, make_camera(viewport=(W, H),
+                                                                  distance=SPARSE_DISTANCE)))
+    decompress_vs_plain(cc, cblock, sparse_block, cull_factor, results)
 
     # the count-following sort on frame stream buffers: bench view 0's, the
     # window-off path's, one whose stages drop (the instance capacity cut
@@ -1927,7 +2054,7 @@ def compressed_path(resident, decoded, cull_factor):
                      (f"codebook gathers (index_select) at the culled capacity {cull_cap}",
                       lambda: gathers(cull_cap)),
                      ("decompress_cloud (full N: decode_kernel)", lambda: decompress_cloud(cc)),
-                     ("decompress_cloud_culled (cull_decode_kernel)",
+                     ("decompress_cloud_culled (cull_ballot_kernel, cull_decode_kernel)",
                       lambda: decompress_cloud_culled(cc, block0, capacity=cull_cap)),
                      ("decompress_cloud, plain", lambda: decompress_cloud(cc, plain=True)),
                      ("decompress_cloud_culled, plain", lambda: decompress_cloud_culled(
@@ -2079,7 +2206,12 @@ LINE_PATHS = {"frontend": "main", "overflow_walk": "main", "dense_compact": "mai
               "frontend_compressed": "culled compressed", "cull_decode": "culled compressed",
               "decode": "full-N compressed", "rasterize_tree": "tree",
               "frontend_center_out": "overflow off"}
-FUNCTIONS = sorted({spec[2] for spec in KERNELS.values()})
+# the kernels a wrapper's call launches besides the one KERNELS names it by
+# (the culled decode's cull pass; the sort's passes are counted by name
+# elsewhere)
+EXTRA_FUNCTIONS = {"cull_decode": (CULL_BALLOT_KERNEL,)}
+FUNCTIONS = sorted({spec[2] for spec in KERNELS.values()}
+                   | {f for fs in EXTRA_FUNCTIONS.values() for f in fs})
 
 
 def by_function(launches) -> dict:
@@ -2088,7 +2220,8 @@ def by_function(launches) -> dict:
     out = {}
     for name, k in launches.items():
         if k:
-            out[KERNELS[name][2]] = out.get(KERNELS[name][2], 0) + k
+            for f in (KERNELS[name][2], *EXTRA_FUNCTIONS.get(name, ())):
+                out[f] = out.get(f, 0) + k
     return out
 
 

@@ -63,7 +63,8 @@ times only the compressed decode per root (ops/decompress.py): decode_full
 and cull_decode (at 1.15 x the frustum-visible fraction) on the compressed
 bench cloud's view 0 (and under --tenm the 10M cloud at both distances),
 each held to its plain version first (a form that disagrees is timed and
-said to), then timed kernel-only (torch.profiler, median of KERNEL_REPS):
+said to), then timed kernel-only (torch.profiler, median of KERNEL_REPS;
+the culled decode's kernels summed per call, each in brackets):
 for comparing forms of csrc/decompress.cu, each a root under _dev/; "n/a"
 where the checkout has no ops/decompress.py.
 
@@ -197,11 +198,11 @@ def time_decode(cs, tenm: bool) -> list:
                  and all(torch.equal(a, b) for a, b in zip(fk, fp)))
         del k, p, fk, fp
         full_ms = cs.kernel_only_ms(lambda: decode_full(cc), "decode", KERNEL_REPS)
-        cull_ms = cs.kernel_only_ms(lambda: cull_decode(cc, block, capacity=cap), "cull_decode",
-                                    KERNEL_REPS)
-        out.append(f"decode {what}: full N {full_ms:.4f} ms, culled {cull_ms:.4f} ms ({kept} "
-                   f"kept of {n}, capacity {cap})"
-                   + ("" if right else " (DISAGREES with its plain version)"))
+        cull_ms, parts = cs.cull_decode_ms(lambda: cull_decode(cc, block, capacity=cap),
+                                           KERNEL_REPS, kernels=None)
+        out.append(f"decode {what}: full N {full_ms:.4f} ms, culled {cull_ms:.4f} ms ("
+                   + " + ".join(f"{x:.4f}" for x in parts) + f"; {kept} kept of {n}, capacity "
+                   f"{cap})" + ("" if right else " (DISAGREES with its plain version)"))
     return out
 
 
@@ -275,7 +276,8 @@ def time_root(root: str, tenm: bool = False, sort_only: bool = False,
     usage = build.build_report()
     if decode_only:
         regs = [f"{entry[:40]} {u['registers']} registers, {u['spill_stores']} B spills"
-                for entry, u in usage.items() if "decode_kernel" in entry]
+                for entry, u in usage.items() if "decode_kernel" in entry
+                or "cull_ballot_kernel" in entry]
         print(f"[time] {root}: " + "; ".join(time_decode(cs, tenm) + regs), flush=True)
         return
     cloud = cs.bench_cloud()

@@ -1,78 +1,110 @@
-// The compressed cloud's per-frame decode: the full-N decode, and the cull,
-// compaction and decode of the culled frame in one pass.
+// The compressed cloud's per-frame decode: the full-N decode, and the
+// culled decode (a cull pass, then a decode pass over the kept rows).
 //
 // Replace two XLA fusions of the JAX frame (no Pallas kernel):
 //  - decode_kernel: websplat_tpu/render/renderer.py:102 decompress_cloud --
 //    the int8 opacity dequantization, the scale factor's dequantization and
 //    exp, the covariance codebook row times the squared factor, the SH
 //    codebook row, for every resident splat;
-//  - cull_decode_kernel: websplat_tpu/render/renderer.py:161
-//    decompress_cloud_culled -- frustum_visible on the resident positions,
-//    the compactor's key and payload, E's compact_instances
-//    (websplat_tpu/ops/compact_pallas.py:51 _compact_kernel) and the same
-//    decode over the kept rows.  It is E's general compactor redesigned for
-//    the one path that runs it: the kept rows are never written as a
-//    compacted (key, payload) stream and read back; the decode runs on them
-//    where the compaction puts them.
+//  - cull_ballot_kernel + cull_decode_kernel: websplat_tpu/render/
+//    renderer.py:161 decompress_cloud_culled -- frustum_visible on the
+//    resident positions, the compactor's key and payload, E's
+//    compact_instances (websplat_tpu/ops/compact_pallas.py:51
+//    _compact_kernel) and the same decode over the kept rows.  E's general
+//    compactor redesigned for the one path that runs it: the kept rows are
+//    never written as a compacted (key, payload) stream and read back.
 //
 // What bounds both: bytes.  The full-N decode reads 10 B of codes and
 // indices per splat and writes 124 B (cov 24, opacity 4, SH 96); the culled
-// pass reads 12 B of position per resident splat and 10 B per kept row, and
-// writes 136 B per kept row (its position too) and a NaN position per dead
-// row (utils/roofline.py:decompress_work).  The codebooks (~0.5 MB) stay in
-// L2; each gathered word is a 4-byte read from a random codebook entry.
+// decode reads 12 B of position per resident splat and 10 B per kept row,
+// and writes 136 B per kept row (its position too) and a NaN position per
+// dead row (utils/roofline.py:decompress_work).  Each decoded row also
+// gathers 30 words from random codebook entries: 6 covariance planes of
+// k_cov f32 and 24 SH planes of k_sh words (480 KB at 4096 entries, past
+// any SM's L1).  What held the first forms back was not the bytes but the
+// load/store pipe, which the gathers, the shared-memory reads and the
+// stores share (PERF.md §6: the forms and ablations measured).
 //
-// Design (the forms measured: PERF.md §6, PR 14):
-//  - the decode is one function (decode_rows) that both kernels run, in the
-//    plain version's arithmetic and order (ops/decompress.py:
-//    decode_full_torch): opacity (float(q) - zp) * scale; sf =
-//    expf((float(q_sf) - sf_zp) * sf_scale), cov * (sf * sf); the SH words
-//    copied.  A thread decodes 8 rows plane by plane, so an SM's gathers hit
-//    a few codebook rows at a time, which stay in L1, with 8 independent
-//    gathers in flight; each output plane is written along the row index,
-//    so a warp's stores are coalesced;
-//  - the cull is core_math.cuh:frustum_cull, the frontend's own test (the
-//    same f32 expressions as ops/decompress.py:frustum_visible, IEEE
-//    division, no contraction under -fmad=false); a NaN position fails it.
-//    Its 34 scalars are loaded once per block into registers;
-//  - the culled pass takes tiles of CULL_TILE = 4096 rows by ticket (a 10M
-//    cloud makes 2,442 ordered reservations where E's compactor, at 256
-//    rows a tile, makes ~39k; tiles of 8192 were slower where most splats
-//    are kept, faster where few are): each warp tests 8 rounds of 32 rows,
-//    4 rounds' positions loaded (coalesced) before any is tested, and
-//    keeps one ballot per round in shared memory; the (round, warp) counts
-//    are scanned in row order, the tile reserves its run in tile order
-//    (stream.cuh: a decoupled look-back), the kept rows' offsets are listed
-//    in shared memory in row order, and the block's threads then decode
-//    the list 8 rows at a time, so the output is the exact prefix of the
-//    kept rows in splat order that the plain compaction gives, and its
-//    stores are coalesced;
-//  - the grid is at most what the card holds at once; a block loops over
-//    tiles by ticket, then waits for the last tile's inclusive prefix (the
-//    kept count) and writes its share of the dead rows' NaN positions
-//    [min(count, capacity), capacity).  A block waits only on tiles that
-//    running blocks took, so the wait cannot deadlock.  The count ends in
-//    the scratch's first counter and max(count - capacity, 0) in its second:
-//    no host read, so a captured frame replays it.
+// Design:
+//  - one 1024-thread block per SM: 31 consumer warps and a producer warp,
+//    all of the block's 227 KB of shared memory (DecodePlan);
+//  - the gathers come from shared memory.  A plane at 4096 entries is 16
+//    KB; the block keeps a ring of 4 plane stages, and the producer (one
+//    thread) fills them with Hopper's bulk asynchronous copy
+//    (cp.async.bulk, completed on an mbarrier per stage) in the order the
+//    consumers gather them.  A warp's 32 random reads cost as many passes
+//    as its most-used bank (~3.5), where from L1 they cost one per distinct
+//    128-byte line (~28).  Consumers release a stage per warp on its
+//    "empty" mbarrier, after the stores that use what they read (a stage
+//    refilled under a read still in flight: the bulk copy is another
+//    proxy);
+//  - a block decodes chunks of up to ~13.8k rows: first each row's codes
+//    (its two indices and squared scale factor into the chunk's shared
+//    arrays, its opacity written), then the 30 planes in turn, so the
+//    codebook is re-read from L2 once per chunk (480 KB per ~13.8k rows);
+//    chunk c goes to block c mod G, so the blocks running at once write
+//    neighbouring rows;
+//  - a plane's rows go 4 to a thread: the rows' indices and factors as two
+//    aligned 16-byte shared reads, 4 gathers, one 16-byte streaming store
+//    (the first rows up to a 16-byte line and the last few one to a
+//    thread): 4-byte stores and reads took most of the kernel's time;
+//  - any codebook size works: a codebook is staged when its planes are
+//    16-byte aligned (k a multiple of 4 entries, as render/renderer.py:
+//    upload_compressed_cloud pads them; a 16-byte-aligned base) and two of
+//    its planes fit beside a chunk of MIN_CHUNK rows; otherwise its planes
+//    are gathered from global memory (__ldg) by the same kernel, a runtime
+//    branch per codebook (DecodePlan::stage_cov, stage_sh);
+//  - the decode is in the plain version's arithmetic and order
+//    (ops/decompress.py:decode_full_torch): opacity (float(q) - zp) *
+//    scale; sf = expf((float(q_sf) - sf_zp) * sf_scale), cov * (sf * sf);
+//    the SH words copied;
+//  - the culled decode is two launches with no ordered chain between
+//    tiles: cull_ballot_kernel, one block per CULL_TILE rows, runs
+//    core_math.cuh:frustum_cull (the frontend's own test, the same f32
+//    expressions as ops/decompress.py:frustum_visible; a NaN position fails
+//    it) and writes one ballot word per 32 rows and a count per tile;
+//    cull_decode_kernel, a grid of what the card holds, sums the tile counts
+//    itself (they stay in L2), so it knows the kept count from its start,
+//    splits the kept rows below the capacity into the interleaved chunks
+//    above (so a sparse and a dense view balance alike), finds each
+//    chunk's first tile by a scan of the counts, expands the ballots into
+//    the chunk's row list (a block scan of 992 ballot words at a time),
+//    copies their positions and decodes them.  Every block writes a share
+//    of the dead rows' NaN positions [min(count, capacity), capacity);
+//    block 0 writes the count and max(count - capacity, 0) into the
+//    scratch's first two ints: no host read, so a captured frame replays
+//    it.  The output is the exact prefix of the kept rows in splat order
+//    that the plain compaction gives.
 #include <cstdint>
 
 #include "core_math.cuh"
-#include "stream.cuh"
 
 namespace ws {
 
-constexpr int DECODE_BLOCK = 256;
-constexpr int DECODE_ROWS = 8;  // rows per thread of the full-N decode
+constexpr int DEC_CONSUMERS = 992;            // gathering threads of a decode block
+constexpr int DEC_WARPS = DEC_CONSUMERS / 32;
+constexpr int DEC_THREADS = DEC_CONSUMERS + 32;  // + the producer warp
+constexpr int DEC_CTAS = 1;                   // decode blocks per SM the plan sizes for
+constexpr int MAX_STAGES = 4;
+constexpr int64_t ROW_BYTES = 12;             // a chunk row's two indices and squared factor
+constexpr int64_t ROW_SLACK = 16;             // bytes past the arrays a quad read may touch
+constexpr int64_t MIN_CHUNK = DEC_CONSUMERS;  // rows of the smallest chunk a plan allows
+constexpr int64_t MAX_CHUNK = 16 * DEC_CONSUMERS;
+constexpr int64_t DEC_MIN_ROWS = 2 * DEC_CONSUMERS;  // the least share a decode block takes
+constexpr int64_t SMEM_PER_SM = 233472;       // H100: 228 KB per SM ...
+constexpr int64_t SMEM_PER_BLOCK = 232448;    // ... 227 KB per block,
+constexpr int64_t SMEM_RESERVED = 1024;       // 1 KB reserved per block
+constexpr int64_t DEC_HEADER = 1024;          // barriers, scan totals, the block's range
+constexpr int64_t DEC_BUDGET = SMEM_PER_SM / DEC_CTAS - SMEM_RESERVED;
+static_assert(DEC_BUDGET <= SMEM_PER_BLOCK, "a block's share fits a block");
+static_assert(DEC_THREADS <= 1024, "a block holds at most 1024 threads");
 constexpr int CULL_BLOCK = 512;
-constexpr int CULL_MIN_BLOCKS = 2;  // CTAs per SM the register budget allows
-constexpr int CULL_DECODE_ROWS = 8;  // kept rows per decode_rows call of the culled pass
 constexpr int CULL_WARPS = CULL_BLOCK / 32;
 constexpr int CULL_ROUNDS = 8;  // rows per thread
-constexpr int CULL_BATCH = 4;    // rounds whose positions are loaded at once
+constexpr int CULL_BATCH = 4;   // rounds whose positions are loaded at once
 constexpr int CULL_TILE = CULL_BLOCK * CULL_ROUNDS;
-constexpr int CULL_RUNS = CULL_WARPS * CULL_ROUNDS;  // (round, warp) counts per tile
-static_assert(CULL_RUNS <= CULL_BLOCK, "one thread scans each (round, warp) count");
-static_assert(CULL_TILE <= 65536, "a kept row's offset in its tile is 16 bits");
+constexpr int CULL_WORDS = CULL_TILE / 32;  // ballot words per tile
+constexpr int CULL_HEAD = 4;                // scratch ints before the tile counts
 static_assert(CULL_ROUNDS % CULL_BATCH == 0, "whole batches of rounds");
 constexpr uint32_t NAN_BITS = 0x7FC00000u;  // the plain version's NaN (torch.full(nan))
 
@@ -97,71 +129,374 @@ struct Decoded {
   int64_t ld;
 };
 
-// A thread's rows src0 + src[j] of the streams, decoded into columns dst0 +
-// dst[j] of the planes, for j < live (the rows past it are not read or
-// written).  The
-// planes are walked one at a time, each row's word of a plane gathered
-// for all R rows before any is stored: at any moment the threads of an SM
-// gather from a few codebook rows (16 KB at 4096 entries), which stay in
-// L1.  A row at a time gathered from all 30 codebook rows at once (0.5
-// MB, past L1) and ran at a third of the HBM rate (PERF.md §6).
-template <bool HAS_SF, int R>
-__device__ __forceinline__ void decode_rows(const Codes& c, int64_t src0, const int (&src)[R],
-                                            int64_t dst0, const int (&dst)[R], int live,
-                                            const Decoded& o) {
-  int g[R], s[R];
-  float sf2[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    g[j] = s[j] = 0;
-    sf2[j] = 1.0f;
-    if (j < live) {
-      const int64_t r = src0 + src[j];
-      g[j] = __ldg(c.geom_idx + r);
-      s[j] = __ldg(c.sh_idx + r);
-      o.opacity[dst0 + dst[j]] = ((float)__ldg(c.op_q + r) - c.op_zp) * c.op_scale;
-      if (HAS_SF) {
-        const float sf = expf(((float)__ldg(c.sf_q + r) - c.sf_zp) * c.sf_scale);
-        sf2[j] = sf * sf;
-      }
+// Which codebooks a decode block stages, how many rows a chunk holds, and
+// the block's dynamic shared memory: the header, `stages` stages of
+// `stage_words` words, then the chunk's three arrays of `chunk` words (a
+// multiple of 4, so each array starts on 16 bytes) and ROW_SLACK bytes
+// (ops/decompress.py:decode_plan mirrors it; chip_smoke.py phase 1 holds
+// the two equal).
+struct DecodePlan {
+  int stage_cov, stage_sh;  // 1: the codebook's planes go through the ring
+  int stages;
+  int64_t stage_words;
+  int64_t chunk;
+  int64_t smem;  // dynamic shared memory bytes
+};
+
+inline DecodePlan decode_plan(int64_t k_cov, int64_t k_sh, bool aligned_cov, bool aligned_sh) {
+  const int64_t avail = DEC_BUDGET - DEC_HEADER - ROW_SLACK, rows_min = ROW_BYTES * MIN_CHUNK;
+  const auto fits = [&](int64_t k) { return k > 0 && 2 * 4 * k + rows_min <= avail; };
+  DecodePlan pl{};
+  pl.stage_cov = aligned_cov && fits(k_cov);
+  pl.stage_sh = aligned_sh && fits(k_sh);
+  pl.stage_words = pl.stage_cov ? k_cov : 0;
+  if (pl.stage_sh && k_sh > pl.stage_words) pl.stage_words = k_sh;
+  pl.stages = 0;
+  if (pl.stage_words > 0) {
+    const int64_t s = (avail - rows_min) / (4 * pl.stage_words);
+    pl.stages = (int)(s < MAX_STAGES ? s : MAX_STAGES);
+  }
+  const int64_t left = (avail - 4 * pl.stage_words * pl.stages) / ROW_BYTES / 4 * 4;
+  pl.chunk = left < MAX_CHUNK ? left : MAX_CHUNK;
+  pl.smem = DEC_HEADER + 4 * pl.stage_words * pl.stages + ROW_BYTES * pl.chunk + ROW_SLACK;
+  return pl;
+}
+
+// a codebook's planes can be bulk-copied: 16-byte-aligned starts and sizes
+inline bool planes_aligned(const void* base, int64_t k) {
+  return ((uintptr_t)base & 15u) == 0 && k % 4 == 0;
+}
+
+// the decode blocks that take a share of `rows` rows: at most `resident`,
+// each at least DEC_MIN_ROWS (a block stages the whole codebook per chunk)
+__host__ __device__ inline int64_t decode_blocks(int64_t rows, int64_t resident) {
+  if (rows <= 0) return 0;
+  const int64_t blocks = (rows + DEC_MIN_ROWS - 1) / DEC_MIN_ROWS;
+  return blocks < resident ? blocks : resident;
+}
+
+inline int64_t cull_tiles(int64_t n) { return n > 0 ? (n + CULL_TILE - 1) / CULL_TILE : 1; }
+
+// the culled decode's scratch in int64 words: CULL_HEAD ints (the count,
+// the drops), a count per tile, CULL_WORDS ballot words per tile
+inline int64_t cull_scratch_words(int64_t n) {
+  const int64_t ints = CULL_HEAD + cull_tiles(n) * (1 + CULL_WORDS);
+  return (ints + 1) / 2;
+}
+
+// --- Hopper's mbarriers and bulk copies (PTX) -------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global src to shared dst (both 16-byte
+// aligned), completing on bar's transaction count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 4-byte read of shared memory at a shared-window address; volatile, so
+// the compiler keeps it between the mbarrier wait and arrive around it
+__device__ __forceinline__ uint32_t lds(unsigned addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// orders this thread's view of shared memory (the consumers' reads it
+// acquired through an mbarrier) before its next async-proxy copy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the consumer warps' own barrier (the producer warp never joins it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(DEC_CONSUMERS) : "memory");
+}
+
+// --- the decode block's shared memory ---------------------------------------
+
+struct DecodeShared {
+  uint64_t* full;   // [MAX_STAGES]: a stage's plane has landed
+  uint64_t* empty;  // [MAX_STAGES]: every consumer warp is done with it
+  int* totals;      // [2][DEC_WARPS]: the consumer scan's warp totals
+  long long* range;  // the culled decode's kept count; a chunk's first tile and
+                     // the kept rows before it
+  uint32_t* stages;  // [stages][stage_words]
+  int* g;    // [chunk]: covariance indices (the culled walk lists its rows here first)
+  int* s;    // [chunk]: SH indices
+  float* f;  // [chunk]: squared scale factors
+
+  __device__ DecodeShared(unsigned char* base, const DecodePlan& pl) {
+    full = (uint64_t*)base;
+    empty = full + MAX_STAGES;
+    totals = (int*)(empty + MAX_STAGES);
+    range = (long long*)(totals + 2 * DEC_WARPS);
+    stages = (uint32_t*)(base + DEC_HEADER);
+    g = (int*)(stages + pl.stage_words * pl.stages);
+    s = g + pl.chunk;
+    f = (float*)(s + pl.chunk);
+  }
+};
+static_assert(16 * MAX_STAGES + 8 * DEC_WARPS + 8 * 3 <= DEC_HEADER, "the header fits");
+
+// barriers set up by thread 0, visible to the block and the async proxy
+__device__ __forceinline__ void init_ring(const DecodeShared& sh, const DecodePlan& pl) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < pl.stages; ++i) {
+      mbar_init(sh.full + i, 1);
+      mbar_init(sh.empty + i, DEC_WARPS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float* cov = o.cov + dst0;
-  int* sh = o.sh + dst0;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    float v[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) v[j] = __ldg(c.covars + k * c.k_cov + g[j]);
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-      if (j < live) cov[k * o.ld + dst[j]] = HAS_SF ? v[j] * sf2[j] : v[j];
-  }
-#pragma unroll
-  for (int k = 0; k < 24; ++k) {
-    int w[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) w[j] = __ldg(c.sh_cb + k * c.k_sh + s[j]);
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-      if (j < live) sh[k * o.ld + dst[j]] = w[j];
+  __syncthreads();
+}
+
+// The producer (one thread): the staged planes of `chunks` chunks, in the
+// order the consumers gather them (cov 0-5, then SH 0-23, per chunk).  A
+// stage is refilled once every consumer warp has released its last plane.
+__device__ __forceinline__ void produce(const Codes& c, const DecodePlan& pl,
+                                        const DecodeShared& sh, int64_t chunks) {
+  int slot = 0;
+  unsigned lap = 0;
+  const auto put = [&](const void* src, int64_t words) {
+    if (lap > 0) {
+      mbar_wait(sh.empty + slot, (lap - 1) & 1u);
+      fence_proxy_async();
+    }
+    const unsigned bytes = (unsigned)(4 * words);
+    mbar_expect_tx(sh.full + slot, bytes);
+    bulk_copy(sh.stages + slot * pl.stage_words, src, bytes, sh.full + slot);
+    if (++slot == pl.stages) {
+      slot = 0;
+      ++lap;
+    }
+  };
+  for (int64_t ch = 0; ch < chunks; ++ch) {
+    if (pl.stage_cov)
+      for (int k = 0; k < 6; ++k) put(c.covars + k * c.k_cov, c.k_cov);
+    if (pl.stage_sh)
+      for (int k = 0; k < 24; ++k) put(c.sh_cb + k * c.k_sh, c.k_sh);
   }
 }
 
-// rows [b * DECODE_ROWS * DECODE_BLOCK, ...) of block b, thread t's at
-// t + j * DECODE_BLOCK (a warp's loads and stores coalesced)
-template <bool HAS_SF>
-__global__ void __launch_bounds__(DECODE_BLOCK)
-    decode_kernel(Codes c, int64_t n, Decoded o) {
-  const int64_t row0 = (int64_t)blockIdx.x * DECODE_ROWS * DECODE_BLOCK;
-  int rows[DECODE_ROWS];
-  int live = 0;
-#pragma unroll
-  for (int j = 0; j < DECODE_ROWS; ++j) {
-    rows[j] = j * DECODE_BLOCK + threadIdx.x;
-    live += row0 + rows[j] < n ? 1 : 0;
+// The consumers' view of the ring: the shared-window address of the next
+// plane's stage, waited for, and released per warp once its lanes have
+// used what they gathered (a stage released while a lane's read of it is
+// still in flight can be refilled under it: the bulk copy is another
+// proxy, which the mbarrier's release does not order the read against).
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned stages;  // shared-window address of stage 0
+  unsigned stage_bytes;
+  int count;
+  int stage_cov, stage_sh;
+  int slot = 0;
+  unsigned phase = 0;
+
+  __device__ Ring(const DecodeShared& sh, const DecodePlan& pl)
+      : full(sh.full), empty(sh.empty), stages(smem_u32(sh.stages)),
+        stage_bytes((unsigned)(4 * pl.stage_words)), count(pl.stages),
+        stage_cov(pl.stage_cov), stage_sh(pl.stage_sh) {}
+
+  __device__ __forceinline__ unsigned acquire() {
+    mbar_wait(full + slot, phase);
+    return stages + slot * stage_bytes;
   }
-  decode_rows<HAS_SF, DECODE_ROWS>(c, row0, rows, row0, rows, live, o);
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + slot);
+    if (++slot == count) {
+      slot = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// The four consecutive words v[H .. H + 4) of the eight a (v[0 .. 4)) and
+// b (v[4 .. 8)) hold.
+template <int H, class V>
+__device__ __forceinline__ V quad_at(const V& a, const V& b) {
+  if constexpr (H == 0) return a;
+  else if constexpr (H == 1) return V{a.y, a.z, a.w, b.x};
+  else if constexpr (H == 2) return V{a.z, a.w, b.x, b.y};
+  else return V{a.w, b.x, b.y, b.z};
+}
+
+// A plane's words for rows [H, H + 4 * quads) of a chunk, 4 to a thread and
+// a 16-byte streaming (evict-first) store to out (out + H starts a 16-byte
+// line; the planes are far larger than L2, and streaming stores took the
+// bench decode from 0.068 to 0.057 ms, PERF.md §6): row q's word is
+// gathered at idx[q] from the staged plane at shared-window address st (or
+// from cb in global memory), times scale[q] (SCALED).  The rows' indices
+// and factors come as two aligned 16-byte reads of the chunk's arrays (4
+// reads of 4 bytes at a 16-byte stride cost 4 passes each).
+template <bool SCALED, int H>
+__device__ __forceinline__ void plane_quads(float* out, const int* idx, const float* scale,
+                                            int quads, bool staged, unsigned st,
+                                            const float* cb) {
+  for (int i = threadIdx.x; i < quads; i += DEC_CONSUMERS) {
+    const int4 ia = *(const int4*)(idx + 4 * i);
+    const int4 r = quad_at<H>(ia, H ? *(const int4*)(idx + 4 * i + 4) : ia);
+    float4 v;
+    if (staged) {
+      v.x = __uint_as_float(lds(st + 4u * (unsigned)r.x));
+      v.y = __uint_as_float(lds(st + 4u * (unsigned)r.y));
+      v.z = __uint_as_float(lds(st + 4u * (unsigned)r.z));
+      v.w = __uint_as_float(lds(st + 4u * (unsigned)r.w));
+    } else {
+      v = float4{__ldg(cb + r.x), __ldg(cb + r.y), __ldg(cb + r.z), __ldg(cb + r.w)};
+    }
+    if (SCALED) {
+      const float4 fa = *(const float4*)(scale + 4 * i);
+      const float4 f = quad_at<H>(fa, H ? *(const float4*)(scale + 4 * i + 4) : fa);
+      v = float4{v.x * f.x, v.y * f.y, v.z * f.z, v.w * f.w};
+    }
+    __stcs((float4*)(out + H + 4 * i), v);
+  }
+}
+
+// A plane's word for rows [0, rows) of a chunk, gathered at idx[q] from the
+// staged plane at shared-window address st (or from cb in global memory),
+// times scale[q] (SCALED), into out[q].  The rows from the first one whose
+// word starts a 16-byte line go 4 to a thread and a 16-byte store
+// (plane_quads: a plane's 4-byte stores shared the load/store pipe with
+// the gathers and took most of the kernel's time, PERF.md §6); the rows
+// before it and the last rows past a whole 4 one to a thread.
+template <bool SCALED>
+__device__ __forceinline__ void store_plane(float* out, const int* idx, const float* scale,
+                                            int rows, bool staged, unsigned st,
+                                            const float* cb) {
+  const int t = threadIdx.x;
+  const auto word = [&](int q) {
+    const int i = idx[q];
+    const float v = staged ? __uint_as_float(lds(st + 4u * (unsigned)i)) : __ldg(cb + i);
+    return SCALED ? v * scale[q] : v;
+  };
+  const int h = (int)(((16u - ((unsigned)(uintptr_t)out & 15u)) & 15u) >> 2);
+  const int head = min(rows, h), quads = (rows - head) >> 2;
+  if (t < head) out[t] = word(t);
+  const int tail = head + 4 * quads + t;
+  if (tail < rows) out[tail] = word(tail);
+  switch (h) {  // block-uniform
+    case 0: plane_quads<SCALED, 0>(out, idx, scale, quads, staged, st, cb); break;
+    case 1: plane_quads<SCALED, 1>(out, idx, scale, quads, staged, st, cb); break;
+    case 2: plane_quads<SCALED, 2>(out, idx, scale, quads, staged, st, cb); break;
+    default: plane_quads<SCALED, 3>(out, idx, scale, quads, staged, st, cb); break;
+  }
+}
+
+// One chunk of `rows` rows, consumer thread t's q = t, t + DEC_CONSUMERS,
+// ...: source row row0 + q (full N) or sh.g[q], where the culled walk
+// listed it (CULLED); output column dst0 + q.  First each row's codes:
+// its indices and squared factor into the chunk's shared arrays (a thread
+// gathers for any row of it), its opacity (CULLED: and its position from
+// xyz (3, n) to xyz_out (3, o.ld)) written; the chunk's arrays are whole
+// after the consumers' barrier.  Then the 30 planes (store_plane); a
+// staged plane's stage is released after the stores, which wait for the
+// reads.
+template <bool HAS_SF, bool CULLED>
+__device__ __forceinline__ void decode_chunk(const Codes& c, const Decoded& o, Ring& ring,
+                                             const DecodeShared& sh, int rows, int64_t row0,
+                                             int64_t dst0, const float* __restrict__ xyz,
+                                             int64_t n, float* __restrict__ xyz_out) {
+  const int t = threadIdx.x;
+#pragma unroll 4
+  for (int q = t; q < rows; q += DEC_CONSUMERS) {
+    const int64_t r = CULLED ? (int64_t)sh.g[q] : row0 + q;
+    const int64_t d = dst0 + q;
+    const int g = __ldg(c.geom_idx + r), s_ = __ldg(c.sh_idx + r);
+    o.opacity[d] = ((float)__ldg(c.op_q + r) - c.op_zp) * c.op_scale;
+    if (HAS_SF) {
+      const float sf = expf(((float)__ldg(c.sf_q + r) - c.sf_zp) * c.sf_scale);
+      sh.f[q] = sf * sf;
+    }
+    if (CULLED) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xyz_out[k * o.ld + d] = xyz[k * n + r];
+    }
+    sh.g[q] = g;
+    sh.s[q] = s_;
+  }
+  consumers_sync();  // the chunk's arrays are whole
+#pragma unroll 1
+  for (int k = 0; k < 30; ++k) {
+    const bool is_cov = k < 6;
+    const bool staged = is_cov ? ring.stage_cov : ring.stage_sh;
+    const unsigned st = staged ? ring.acquire() : 0u;
+    if (is_cov)
+      store_plane<HAS_SF>(o.cov + k * o.ld + dst0, sh.g, sh.f, rows, staged, st,
+                          c.covars + k * c.k_cov);
+    else
+      store_plane<false>((float*)(o.sh + (k - 6) * o.ld + dst0), sh.s, sh.f, rows, staged, st,
+                         (const float*)(c.sh_cb + (k - 6) * c.k_sh));
+    if (staged) ring.release();
+  }
+  consumers_sync();  // every read of the chunk's arrays is done
+}
+
+// The chunks of `rows` rows over `blocks` blocks: at most `chunk` rows
+// each, a whole number per block; chunk i is [rows * i / C, rows * (i + 1)
+// / C) of C, and block b takes chunks b, b + blocks, ..., so the blocks
+// running at once write neighbouring rows of every plane (a contiguous
+// share per block measured the same: PERF.md §6).
+__device__ __forceinline__ int64_t chunks_over(int64_t rows, int64_t chunk, int64_t blocks) {
+  const int64_t c = (rows + chunk - 1) / chunk;
+  return (c + blocks - 1) / blocks * blocks;
+}
+
+// Rows [0, n) in the interleaved chunks of chunks_over.
+template <bool HAS_SF>
+__global__ void __launch_bounds__(DEC_THREADS, DEC_CTAS)
+    decode_kernel(Codes c, int64_t n, Decoded o, DecodePlan pl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DecodeShared sh(smem, pl);
+  init_ring(sh, pl);
+  const int64_t chunks = chunks_over(n, pl.chunk, gridDim.x), mine = chunks / gridDim.x;
+  if (threadIdx.x >= DEC_CONSUMERS) {
+    if (threadIdx.x == DEC_CONSUMERS) produce(c, pl, sh, mine);
+    return;
+  }
+  Ring ring(sh, pl);
+  for (int64_t i = 0; i < mine; ++i) {
+    const int64_t ch = blockIdx.x + i * gridDim.x;
+    const int64_t lo = n * ch / chunks, hi = n * (ch + 1) / chunks;
+    decode_chunk<HAS_SF, false>(c, o, ring, sh, (int)(hi - lo), lo, lo, nullptr, 0, nullptr);
+  }
 }
 
 // The cull's scalars of the frame block, in registers: the view rows, the
@@ -192,138 +527,222 @@ struct CullScalars {
   }
 };
 
-// xyz: (3, n) resident positions; xyz_out: (3, capacity); o.ld == capacity.
-// s: one stream of s.tiles tiles (at least 1); counters [0] the kept count,
-// [1] the kept rows past the capacity.
-template <bool HAS_SF>
-__global__ void __launch_bounds__(CULL_BLOCK, CULL_MIN_BLOCKS)
-    cull_decode_kernel(const float* __restrict__ xyz, int64_t n, FrameParams p, Codes c,
-                       float* __restrict__ xyz_out, Decoded o, int64_t capacity,
-                       OrderedScratch s) {
-  __shared__ BlockAppend<CULL_BLOCK> append;
-  __shared__ unsigned ballots[CULL_RUNS];  // the kept rows of each (round, warp)
-  __shared__ int runs[CULL_RUNS];          // their prefix in the tile
-  __shared__ uint16_t kept[CULL_TILE];     // the tile's kept rows, in row order
-  __shared__ int64_t count_all;
+// Tile blockIdx.x of xyz (3, n): one ballot word per 32 rows, in row order
+// (round j of warp w covers the tile's rows j * CULL_BLOCK + 32 w + lane,
+// word j * CULL_WARPS + w), and the tile's kept count.  Rows past n fail.
+__global__ void __launch_bounds__(CULL_BLOCK)
+    cull_ballot_kernel(const float* __restrict__ xyz, int64_t n, FrameParams p,
+                       int* __restrict__ counts, unsigned* __restrict__ ballots) {
+  __shared__ int warp_kept[CULL_WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
   const CullScalars cs(p);
-  for (;;) {
-    const int tile = append.take(s);
-    if (tile >= s.tiles) break;  // block-uniform
-    const int64_t row0 = (int64_t)tile * CULL_TILE;
-    // CULL_BATCH rounds' positions loaded before any is tested
+  const int64_t row0 = (int64_t)blockIdx.x * CULL_TILE;
+  unsigned* words = ballots + (int64_t)blockIdx.x * CULL_WORDS;
+  int kept = 0;
 #pragma unroll
-    for (int j0 = 0; j0 < CULL_ROUNDS; j0 += CULL_BATCH) {
-      float x[CULL_BATCH], y[CULL_BATCH], z[CULL_BATCH];
+  for (int j0 = 0; j0 < CULL_ROUNDS; j0 += CULL_BATCH) {
+    float x[CULL_BATCH], y[CULL_BATCH], z[CULL_BATCH];
 #pragma unroll
-      for (int b = 0; b < CULL_BATCH; ++b) {
-        const int64_t r = row0 + (j0 + b) * CULL_BLOCK + threadIdx.x;
-        x[b] = y[b] = z[b] = 0.0f;
-        if (r < n) {
-          x[b] = xyz[r];
-          y[b] = xyz[n + r];
-          z[b] = xyz[2 * n + r];
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < CULL_BATCH; ++b) {
-        const int64_t r = row0 + (j0 + b) * CULL_BLOCK + threadIdx.x;
-        const bool keep = r < n && frustum_cull(x[b], y[b], z[b], cs).visible;
-        const unsigned bal = __ballot_sync(0xffffffffu, keep);
-        if (lane == 0) ballots[(j0 + b) * CULL_WARPS + warp] = bal;
+    for (int b = 0; b < CULL_BATCH; ++b) {
+      const int64_t r = row0 + (j0 + b) * CULL_BLOCK + threadIdx.x;
+      x[b] = y[b] = z[b] = 0.0f;
+      if (r < n) {
+        x[b] = xyz[r];
+        y[b] = xyz[n + r];
+        z[b] = xyz[2 * n + r];
       }
     }
-    __syncthreads();
-    // (round, warp) is row order: round j's rows precede round j + 1's
-    const int v = threadIdx.x < CULL_RUNS ? __popc(ballots[threadIdx.x]) : 0;
-    using Scan = typename BlockAppend<CULL_BLOCK>::Scan;
-    int excl, total;
-    Scan(append.scan).ExclusiveSum(v, excl, total);
-    if (threadIdx.x < CULL_RUNS) runs[threadIdx.x] = excl;
-    append.publish(total, s);  // ends in __syncthreads: base, runs visible
-    if (tile == s.tiles - 1 && threadIdx.x == 0) {
-      const int64_t all = (int64_t)append.base + total;
-      s.counters[1] = (int)(all > capacity ? all - capacity : 0);
+#pragma unroll
+    for (int b = 0; b < CULL_BATCH; ++b) {
+      const int64_t r = row0 + (j0 + b) * CULL_BLOCK + threadIdx.x;
+      const bool keep = r < n && frustum_cull(x[b], y[b], z[b], cs).visible;
+      const unsigned bal = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) words[(j0 + b) * CULL_WARPS + warp] = bal;
+      kept += __popc(bal);
     }
-#pragma unroll
-    for (int j = 0; j < CULL_ROUNDS; ++j) {
-      const unsigned b = ballots[j * CULL_WARPS + warp];
-      if (b & (1u << lane))
-        kept[runs[j * CULL_WARPS + warp] + __popc(b & below)] =
-            (uint16_t)(j * CULL_BLOCK + threadIdx.x);
-    }
-    __syncthreads();
-    // the kept rows below the capacity, CULL_DECODE_ROWS a thread at a time
-    const int64_t base = append.base;
-    const int rows = (int)max((int64_t)0, min((int64_t)total, capacity - base));
-    for (int q0 = threadIdx.x; q0 < rows; q0 += CULL_DECODE_ROWS * CULL_BLOCK) {
-      int src[CULL_DECODE_ROWS], dst[CULL_DECODE_ROWS];
-      int live = 0;
-#pragma unroll
-      for (int j = 0; j < CULL_DECODE_ROWS; ++j) {
-        const int q = q0 + j * CULL_BLOCK;
-        src[j] = q < rows ? kept[q] : 0;
-        dst[j] = q;
-        live += q < rows ? 1 : 0;
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-#pragma unroll
-        for (int j = 0; j < CULL_DECODE_ROWS; ++j)
-          if (j < live) xyz_out[k * capacity + base + dst[j]] = xyz[k * n + row0 + src[j]];
-      }
-      decode_rows<HAS_SF, CULL_DECODE_ROWS>(c, row0, src, base, dst, live, o);
-    }
-    // the next take's __syncthreads keeps kept[] until every thread is done
   }
-  // the dead rows: every tile is taken, so the last one's prefix will come
+  if (lane == 0) warp_kept[warp] = kept;
+  __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned long long* last = s.stream(0) + (s.tiles - 1);
-    unsigned long long w = peek(last);
-    while (!(w & STATUS_PREFIX)) {
-      __nanosleep(256);
-      w = peek(last);
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < CULL_WARPS; ++w) total += warp_kept[w];
+    counts[blockIdx.x] = total;
+  }
+}
+
+// An exclusive scan of v over the consumer threads (consumers only, their
+// named barrier); `total` gets the sum.  The warp totals alternate between
+// two buffers, so one barrier per scan suffices.
+struct ConsumerScan {
+  int* totals;
+  int buf = 0;
+
+  __device__ __forceinline__ int operator()(int v, int& total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
     }
-    count_all = (int64_t)(w & STATUS_VALUE);
+    int* tot = totals + buf * DEC_WARPS;
+    if (lane == 31) tot[warp] = incl;
+    consumers_sync();
+    int before = 0, all = 0;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const int x = tot[w];
+      before += w < warp ? x : 0;
+      all += x;
+    }
+    buf ^= 1;
+    total = all;
+    return before + incl - v;
+  }
+};
+
+// The kept rows [0, min(count, capacity)) of the cull's ballots and tile
+// counts, in the interleaved chunks of chunks_over over decode_blocks of
+// them, decoded into xyz_out (3, capacity) and o (o.ld == capacity); the
+// dead rows' NaN positions, a share per block of the grid; block 0 writes
+// the count and the drops.
+template <bool HAS_SF>
+__global__ void __launch_bounds__(DEC_THREADS, DEC_CTAS)
+    cull_decode_kernel(const float* __restrict__ xyz, int64_t n, Codes c,
+                       float* __restrict__ xyz_out, Decoded o, int64_t capacity,
+                       const int* __restrict__ counts, const unsigned* __restrict__ ballots,
+                       int64_t tiles, int* __restrict__ counters, DecodePlan pl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DecodeShared sh(smem, pl);
+  init_ring(sh, pl);
+  const int t = threadIdx.x;
+  const bool consumer = t < DEC_CONSUMERS;
+  ConsumerScan scan{sh.totals};
+  if (consumer) {
+    // the kept count: every block sums the tile counts (L2-resident)
+    long long sum = 0;
+    for (int64_t i = t; i < tiles; i += DEC_CONSUMERS) sum += counts[i];
+    int part = (int)sum, all;  // a thread's sum is below 2^31 for n < 2^31
+    scan(part, all);
+    if (t == 0) {
+      sh.range[0] = all;
+      if (blockIdx.x == 0) {
+        counters[0] = all;
+        counters[1] = (int)(all > capacity ? all - capacity : 0);
+      }
+    }
   }
   __syncthreads();
+  const int64_t count = sh.range[0];
+  const int64_t rows = count < capacity ? count : capacity;
+  const int64_t active = decode_blocks(rows, gridDim.x);
+  const int64_t chunks = active > 0 ? chunks_over(rows, pl.chunk, active) : 0;
+  const int64_t mine = (int64_t)blockIdx.x < active ? chunks / active : 0;
+  if (!consumer) {
+    if (t == DEC_CONSUMERS) produce(c, pl, sh, mine);
+    return;
+  }
+  // a share of the dead rows
   const float dead = __uint_as_float(NAN_BITS);
-  const int64_t stride = (int64_t)gridDim.x * CULL_BLOCK;
-  for (int64_t i = min(count_all, capacity) + (int64_t)blockIdx.x * CULL_BLOCK + threadIdx.x;
-       i < capacity; i += stride) {
+  for (int64_t i = rows + (int64_t)blockIdx.x * DEC_CONSUMERS + t; i < capacity;
+       i += (int64_t)gridDim.x * DEC_CONSUMERS) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) xyz_out[k * capacity + i] = dead;
   }
+  // Per chunk [lo, hi) of the kept rows: the tile holding kept row lo (a
+  // scan of the tile counts, from the batch of tiles where the block's last
+  // search ended: its chunks come in row order), then the ballots walked
+  // from that tile's first word in batches of DEC_CONSUMERS words, the
+  // chunk's rows listed in sh.g, then decoded.
+  const int64_t words = tiles * CULL_WORDS;
+  int64_t tb = 0, rb = 0;  // the search's batch of tiles, and the kept rows before it
+  Ring ring(sh, pl);
+  for (int64_t i = 0; i < mine; ++i) {
+    const int64_t ch = blockIdx.x + i * active;
+    const int64_t lo = rows * ch / chunks, hi = rows * (ch + 1) / chunks;
+    for (;;) {
+      const int64_t j = tb + t;
+      const int v = j < tiles ? counts[j] : 0;
+      int tot;
+      const int64_t p = rb + scan(v, tot);
+      if (v > 0 && p <= lo && lo < p + v) {
+        sh.range[1] = j;
+        sh.range[2] = p;
+      }
+      if (rb + tot > lo) break;  // uniform
+      rb += tot;
+      tb += DEC_CONSUMERS;
+    }
+    consumers_sync();  // the tile is known
+    int64_t w = sh.range[1] * CULL_WORDS, run = sh.range[2];
+    for (;;) {
+      const int64_t wi = w + t;
+      const unsigned bal = wi < words ? ballots[wi] : 0u;
+      const int pc = __popc(bal);
+      int tot;
+      int64_t p = run + scan(pc, tot);
+      if (pc > 0 && p < hi && p + pc > lo) {
+        for (unsigned bb = bal; bb; bb &= bb - 1u, ++p)
+          if (p >= lo && p < hi) sh.g[p - lo] = (int)(wi * 32 + __ffs((int)bb) - 1);
+      }
+      if (run + tot >= hi) break;  // uniform
+      run += tot;
+      w += DEC_CONSUMERS;
+    }
+    consumers_sync();  // the list is whole
+    decode_chunk<HAS_SF, true>(c, o, ring, sh, (int)(hi - lo), 0, lo, xyz, n, xyz_out);
+    // the next chunk's first scan (a consumer barrier) follows every
+    // thread's reads of the list and of sh.range
+  }
 }
 
-// Blocks of the culled pass the card holds at once (per instantiation),
-// for the current device; queried once.
-struct CullGrids {
+// Decode blocks per SM (per kernel and dynamic shared memory) and SMs, for
+// the current device; the dynamic shared memory limit raised once.
+struct DecodeGrids {
   int device = -1;
-  int blocks[2] = {};  // [HAS_SF]
+  int sms = 0;
+  int64_t smem[4] = {-1, -1, -1, -1};  // [culled * 2 + has_sf]: the last query's
+  int per_sm[4] = {};
 };
 
-inline cudaError_t cull_grids(CullGrids* g) {
-  int dev = 0, sms = 0, a = 0, b = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev == g->device) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a, cull_decode_kernel<false>,
-                                                           CULL_BLOCK, 0)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, cull_decode_kernel<true>,
-                                                           CULL_BLOCK, 0)) != cudaSuccess)
-    return err;
-  if (a < 1 || b < 1) return cudaErrorInvalidConfiguration;
-  g->blocks[0] = a * sms;
-  g->blocks[1] = b * sms;
-  g->device = dev;
-  return cudaSuccess;
+inline const void* decode_fn(int which) {
+  switch (which) {
+    case 0: return (const void*)decode_kernel<false>;
+    case 1: return (const void*)decode_kernel<true>;
+    case 2: return (const void*)cull_decode_kernel<false>;
+    default: return (const void*)cull_decode_kernel<true>;
+  }
 }
 
-inline int64_t cull_tiles(int64_t n) { return n > 0 ? (n + CULL_TILE - 1) / CULL_TILE : 1; }
+inline cudaError_t resident_blocks(DecodeGrids* g, int which, int64_t smem, int64_t* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != g->device) {
+    if ((err = cudaDeviceGetAttribute(&g->sms, cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return err;
+    for (int i = 0; i < 4; ++i) {
+      if ((err = cudaFuncSetAttribute(decode_fn(i), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)SMEM_PER_BLOCK)) != cudaSuccess)
+        return err;
+      g->smem[i] = -1;
+    }
+    g->device = dev;
+  }
+  if (g->smem[which] != smem) {
+    int b = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, decode_fn(which), DEC_THREADS,
+                                                             (size_t)smem)) != cudaSuccess)
+      return err;
+    if (b < 1) return cudaErrorInvalidConfiguration;
+    g->per_sm[which] = b;
+    g->smem[which] = smem;
+  }
+  *out = (int64_t)g->per_sm[which] * g->sms;
+  return cudaSuccess;
+}
 
 inline Codes codes_of(const int8_t* op_q, const int8_t* sf_q, const int* geom_idx,
                       const int* sh_idx, const float* covars, int64_t k_cov, const int* sh_cb,
@@ -331,6 +750,13 @@ inline Codes codes_of(const int8_t* op_q, const int8_t* sf_q, const int* geom_id
   return Codes{op_q, sf_q, geom_idx, sh_idx, covars, sh_cb, k_cov, k_sh,
                op_zp, op_scale, sf_zp, sf_scale};
 }
+
+inline DecodePlan plan_of(const Codes& c) {
+  return decode_plan(c.k_cov, c.k_sh, planes_aligned(c.covars, c.k_cov),
+                     planes_aligned(c.sh_cb, c.k_sh));
+}
+
+static DecodeGrids grids;
 
 }  // namespace ws
 
@@ -345,13 +771,18 @@ int ws_decode(const int8_t* op_q, const int8_t* sf_q, const int* geom_idx, const
   if (n <= 0) return 0;
   const ws::Codes c = ws::codes_of(op_q, sf_q, geom_idx, sh_idx, covars, k_cov, sh_cb, k_sh,
                                    op_zp, op_scale, sf_zp, sf_scale);
+  const ws::DecodePlan pl = ws::plan_of(c);
+  const bool has_sf = sf_q != nullptr;
+  int64_t resident = 0;
+  int err = (int)ws::resident_blocks(&ws::grids, has_sf ? 1 : 0, pl.smem, &resident);
+  if (err != 0) return err;
   const ws::Decoded o{cov, opacity, sh, n};
-  const int64_t per_block = (int64_t)ws::DECODE_ROWS * ws::DECODE_BLOCK;
-  const unsigned grid = (unsigned)((n + per_block - 1) / per_block);
-  if (sf_q != nullptr)
-    ws::decode_kernel<true><<<grid, ws::DECODE_BLOCK, 0, (cudaStream_t)stream>>>(c, n, o);
+  const unsigned grid = (unsigned)ws::decode_blocks(n, resident);
+  const auto st = (cudaStream_t)stream;
+  if (has_sf)
+    ws::decode_kernel<true><<<grid, ws::DEC_THREADS, (size_t)pl.smem, st>>>(c, n, o, pl);
   else
-    ws::decode_kernel<false><<<grid, ws::DECODE_BLOCK, 0, (cudaStream_t)stream>>>(c, n, o);
+    ws::decode_kernel<false><<<grid, ws::DEC_THREADS, (size_t)pl.smem, st>>>(c, n, o, pl);
   return (int)cudaGetLastError();
 }
 
@@ -359,44 +790,67 @@ int ws_decode(const int8_t* op_q, const int8_t* sf_q, const int* geom_idx, const
 // frustum test, in splat order, decoded into the first min(count, capacity)
 // rows of xyz_out (3, capacity), cov (6, capacity), opacity (capacity,) and
 // sh (24, capacity); rows past them get NaN positions (their other planes
-// are not written).  scratch: scratch_words u64 (stream.cuh; one stream over
-// ws_cull_tiles(n) tiles), zeroed here; its first int ends at the kept
-// count, its second at max(count - capacity, 0).
+// are not written).  scratch: cull_scratch_words(n) int64 words, written
+// before they are read (no clearing); its first int ends at the kept
+// count, its second at max(count - capacity, 0).  Two launches: the cull,
+// then the decode.
 int ws_cull_decode(const float* xyz, const float* block, const int8_t* op_q,
                    const int8_t* sf_q, const int* geom_idx, const int* sh_idx,
                    const float* covars, int64_t k_cov, const int* sh_cb, int64_t k_sh,
                    int64_t n, float op_zp, float op_scale, float sf_zp, float sf_scale,
                    float* xyz_out, float* cov, float* opacity, int* sh, int64_t capacity,
                    void* scratch, int64_t scratch_words, void* stream) {
-  static ws::CullGrids grids;
-  int err = (int)ws::cull_grids(&grids);
-  if (err != 0) return err;
-  if (capacity < 1) return (int)cudaErrorInvalidValue;
-  const int64_t tiles = ws::cull_tiles(n);
-  err = ws::clear_scratch(scratch, scratch_words, 1, tiles, (cudaStream_t)stream);
+  if (capacity < 1 || n < 0 || n >= (int64_t)INT32_MAX || scratch == nullptr ||
+      scratch_words < ws::cull_scratch_words(n))
+    return (int)cudaErrorInvalidValue;
+  const ws::Codes c = ws::codes_of(op_q, sf_q, geom_idx, sh_idx, covars, k_cov, sh_cb, k_sh,
+                                   op_zp, op_scale, sf_zp, sf_scale);
+  const ws::DecodePlan pl = ws::plan_of(c);
+  const bool has_sf = sf_q != nullptr;
+  int64_t resident = 0;
+  int err = (int)ws::resident_blocks(&ws::grids, has_sf ? 3 : 2, pl.smem, &resident);
   if (err != 0) return err;
   ws::FrameParams p{};
   ws::frame_params_at(block, p);
-  const ws::Codes c = ws::codes_of(op_q, sf_q, geom_idx, sh_idx, covars, k_cov, sh_cb, k_sh,
-                                   op_zp, op_scale, sf_zp, sf_scale);
+  const int64_t tiles = ws::cull_tiles(n);
+  int* counters = (int*)scratch;
+  int* counts = counters + ws::CULL_HEAD;
+  unsigned* ballots = (unsigned*)(counts + tiles);
+  const auto st = (cudaStream_t)stream;
+  ws::cull_ballot_kernel<<<(unsigned)tiles, ws::CULL_BLOCK, 0, st>>>(xyz, n, p, counts, ballots);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
   const ws::Decoded o{cov, opacity, sh, capacity};
-  const ws::OrderedScratch s = ws::ordered_scratch(scratch, tiles);
-  const bool has_sf = sf_q != nullptr;
-  const int64_t cap = grids.blocks[has_sf ? 1 : 0];
-  const unsigned grid = (unsigned)(tiles < cap ? tiles : cap);
+  const unsigned grid = (unsigned)resident;
   if (has_sf)
-    ws::cull_decode_kernel<true><<<grid, ws::CULL_BLOCK, 0, (cudaStream_t)stream>>>(
-        xyz, n, p, c, xyz_out, o, capacity, s);
+    ws::cull_decode_kernel<true><<<grid, ws::DEC_THREADS, (size_t)pl.smem, st>>>(
+        xyz, n, c, xyz_out, o, capacity, counts, ballots, tiles, counters, pl);
   else
-    ws::cull_decode_kernel<false><<<grid, ws::CULL_BLOCK, 0, (cudaStream_t)stream>>>(
-        xyz, n, p, c, xyz_out, o, capacity, s);
+    ws::cull_decode_kernel<false><<<grid, ws::DEC_THREADS, (size_t)pl.smem, st>>>(
+        xyz, n, c, xyz_out, o, capacity, counts, ballots, tiles, counters, pl);
   return (int)cudaGetLastError();
 }
 
-// the culled pass's tiles for n splats and its rows per tile, for the
-// wrapper's scratch (ops/decompress.py; chip_smoke.py phase 1 holds them
-// equal)
-int64_t ws_cull_tiles(int64_t n) { return ws::cull_tiles(n); }
-int ws_cull_tile() { return ws::CULL_TILE; }
+// The layout chip_smoke.py phase 1 holds ops/decompress.py's mirror to:
+// out[0..9) = stage_cov, stage_sh, stage_words, stages, chunk, dynamic
+// shared memory bytes (both decode kernels), the full-N grid at `resident`
+// blocks (the culled decode's grid is `resident`), the cull's tiles for n
+// rows, the culled scratch's int64 words.
+int ws_decode_plan(int64_t n, int64_t k_cov, int64_t k_sh, int aligned_cov, int aligned_sh,
+                   int64_t resident, int64_t* out) {
+  const ws::DecodePlan pl = ws::decode_plan(k_cov, k_sh, aligned_cov != 0, aligned_sh != 0);
+  const int64_t v[9] = {pl.stage_cov, pl.stage_sh, pl.stage_words, pl.stages, pl.chunk, pl.smem,
+                        ws::decode_blocks(n, resident), ws::cull_tiles(n),
+                        ws::cull_scratch_words(n)};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// decode blocks per SM at `smem` bytes of dynamic shared memory (kernel
+// `which`: 2 * culled + has_sf), on the current device
+int ws_decode_blocks_per_sm(int which, int64_t smem) {
+  int64_t resident = 0;
+  const int err = (int)ws::resident_blocks(&ws::grids, which, smem, &resident);
+  return err != 0 ? -err : (int)(resident / ws::grids.sms);
+}
 
 }  // extern "C"

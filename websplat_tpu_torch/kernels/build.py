@@ -16,8 +16,9 @@ performance decision.
 
 Each wrapper counts its launches in ``LAUNCHES`` (one per launch of its
 kernel, nowhere else; the sort counts one per sort, whose entry point
-launches its histogram, four digit passes and a gather), so a caller can
-show which kernels a run went through.
+launches its histogram, four digit passes and a gather, and the culled
+decode one per call, whose entry point launches the cull and the decode),
+so a caller can show which kernels a run went through.
 
 The stream kernels append in tile order (``csrc/stream.cuh``): each takes a
 scratch buffer from its wrapper (``ordered_scratch``) that holds its
@@ -77,8 +78,8 @@ _SIGNATURES = {
     "ws_sort_max_segments": [],
     "ws_sort_digit_plan": [_vp],
     "ws_sort_scratch_words": [_i64],
-    "ws_cull_tiles": [_i64],
-    "ws_cull_tile": [],
+    "ws_decode_plan": [_i64, _i64, _i64, _i, _i, _i64, _vp],
+    "ws_decode_blocks_per_sm": [_i, _i64],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -186,7 +187,6 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         handle.ws_sort_scratch_words.restype = ctypes.c_int64
-        handle.ws_cull_tiles.restype = ctypes.c_int64
         handle.ws_error_string.argtypes = [ctypes.c_int]
         handle.ws_error_string.restype = ctypes.c_char_p
         _lib = handle

@@ -9,12 +9,20 @@ renderer.py``), no Pallas kernel:
   ``csrc/decompress.cu:decode_kernel`` on the card;
 - ``cull_decode``: ``decompress_cloud_culled`` (:161) -- frustum_visible on
   the resident positions, the compactor's key and payload (cull_stream),
-  E's compaction and the same decode over the kept rows only, in one pass
-  (``csrc/decompress.cu:cull_decode_kernel``, E's general compactor
-  redesigned for this path).  The kept rows come first, in splat order,
-  as an exact prefix; rows past it get NaN positions (bits 0x7FC00000),
-  which the frontend's cull rejects, and their other fields are undefined
-  on the card (the plain version decodes them from codebook entry 0).
+  E's compaction and the same decode over the kept rows only, in two
+  launches (``csrc/decompress.cu``: ``cull_ballot_kernel``, the cull's
+  ballots and tile counts, then ``cull_decode_kernel``, E's general
+  compactor redesigned for this path).  The kept rows come first, in splat
+  order, as an exact prefix; rows past it get NaN positions (bits
+  0x7FC00000), which the frontend's cull rejects, and their other fields
+  are undefined on the card (the plain version decodes them from codebook
+  entry 0).
+
+Both kernels gather the codebooks from shared memory, staged plane by
+plane by bulk asynchronous copies, where a codebook's planes are 16-byte
+aligned and fit (``decode_plan``, the mirror of the kernels' layout, which
+``chip_smoke.py`` phase 1 holds equal to the library's); otherwise from
+global memory, in the same kernel.
 
 ``decode_full_torch`` and ``cull_decode_torch`` are the plain versions:
 index_select gathers and a boolean-mask compaction (ops/compact.py:
@@ -25,13 +33,91 @@ device.  Nothing here reads the device from the host.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops.compact import compact_torch
 from websplat_tpu_torch.ops.preprocess import FRAME_BLOCK_LEN, CompressedDeviceCloud, DeviceCloud
 
-CULL_TILE = 4096  # splats per tile of the culled pass (csrc/decompress.cu)
+# the kernels' layout (csrc/decompress.cu; chip_smoke.py phase 1 holds these
+# equal to the library's)
+CULL_TILE = 4096  # splats per block of the cull pass
+CULL_WORDS = CULL_TILE // 32  # its ballot words
+CULL_HEAD = 4  # scratch ints before the tile counts (the count, the drops)
+DEC_CONSUMERS = 992  # gathering threads of a decode block (and one producer warp)
+MAX_STAGES = 4  # codebook plane stages per decode block
+ROW_BYTES = 12  # a chunk row's two codebook indices and squared scale factor
+ROW_SLACK = 16  # bytes past the chunk's arrays that a 16-byte read may touch
+MIN_CHUNK, MAX_CHUNK = DEC_CONSUMERS, 16 * DEC_CONSUMERS  # rows of a chunk
+DEC_MIN_ROWS = 2 * DEC_CONSUMERS  # the least share of rows a decode block takes
+DEC_HEADER = 1024  # shared-memory bytes before the stages
+DEC_BUDGET = 233472 - 1024  # a decode block's share of an SM's shared memory (one a SM)
+
+
+class DecodePlan(NamedTuple):
+    """A decode block's shared memory (csrc/decompress.cu:decode_plan):
+    which codebooks go through the ring of plane stages, the stage size in
+    words, the number of stages, the rows of a chunk (its indices and
+    squared factors held in shared memory), and the dynamic shared memory
+    in bytes."""
+    stage_cov: int
+    stage_sh: int
+    stage_words: int
+    stages: int
+    chunk: int
+    smem: int
+
+
+def decode_plan(k_cov: int, k_sh: int, aligned_cov: bool, aligned_sh: bool) -> DecodePlan:
+    """A codebook is staged when its planes are 16-byte aligned and two of
+    them fit beside a chunk of MIN_CHUNK rows; the stages are as large as
+    the larger staged plane, as many as fit beside that chunk, at most
+    MAX_STAGES; the chunk takes the rest, a multiple of 4 rows, at most
+    MAX_CHUNK."""
+    avail, rows_min = DEC_BUDGET - DEC_HEADER - ROW_SLACK, ROW_BYTES * MIN_CHUNK
+    fits = lambda k: k > 0 and 2 * 4 * k + rows_min <= avail
+    sc, ss = int(bool(aligned_cov) and fits(k_cov)), int(bool(aligned_sh) and fits(k_sh))
+    words = max(k_cov if sc else 0, k_sh if ss else 0)
+    stages = min(MAX_STAGES, (avail - rows_min) // (4 * words)) if words else 0
+    chunk = min(MAX_CHUNK, (avail - 4 * words * stages) // ROW_BYTES // 4 * 4)
+    return DecodePlan(sc, ss, words, stages, chunk,
+                      DEC_HEADER + 4 * words * stages + ROW_BYTES * chunk + ROW_SLACK)
+
+
+def planes_aligned(codebook: torch.Tensor) -> bool:
+    """Whether a (planes, k) codebook's planes can be bulk-copied: a
+    16-byte-aligned base and k a multiple of 4 entries."""
+    return codebook.data_ptr() % 16 == 0 and codebook.shape[1] % 4 == 0
+
+
+def decode_blocks(rows: int, resident: int) -> int:
+    """The decode blocks that take a share of ``rows`` rows: at most the
+    ``resident`` blocks the card holds at once, each at least DEC_MIN_ROWS
+    (a block stages the whole codebook once per chunk).  The full-N
+    decode's grid; the culled decode launches ``resident`` blocks and this
+    many of them decode."""
+    return min(resident, -(-rows // DEC_MIN_ROWS)) if rows > 0 else 0
+
+
+def cull_tiles(n: int) -> int:
+    """Blocks of the cull pass for n splats (at least one)."""
+    return max(1, -(-n // CULL_TILE))
+
+
+def cull_scratch_words(n: int) -> int:
+    """The culled decode's scratch, int64 words: CULL_HEAD ints, a count
+    and CULL_WORDS ballot words per tile."""
+    return -(-(CULL_HEAD + cull_tiles(n) * (1 + CULL_WORDS)) // 2)
+
+
+def decode_layout(n: int, k_cov: int, k_sh: int, aligned_cov: bool, aligned_sh: bool,
+                  resident: int) -> tuple:
+    """The library's ws_decode_plan: the plan's fields, the full-N grid,
+    the cull's tiles and the culled scratch's words."""
+    plan = decode_plan(k_cov, k_sh, aligned_cov, aligned_sh)
+    return (*plan, decode_blocks(n, resident), cull_tiles(n), cull_scratch_words(n))
 
 
 def frustum_visible(xyz: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
@@ -175,7 +261,7 @@ def cull_decode(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int
     cloud on the card, the plain version for a cloud on the CPU; any other
     device raises.  Returns (the cloud of ``capacity`` rows, the kept count,
     the kept rows past the capacity), the counts 0-d int32 tensors on the
-    cloud's device (views of the kernel's scratch)."""
+    cloud's device (views of the kernels' scratch)."""
     dev = _device(cc, "cull_decode")
     if dev.type == "cpu":
         return cull_decode_torch(cc, block, capacity=capacity)
@@ -186,12 +272,12 @@ def cull_decode(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int
     n = codes[8]
     xyz = torch.empty((3, capacity), dtype=torch.float32, device=dev)
     cov, opacity, sh = _planes(capacity, dev)
-    scratch = build.ordered_scratch(1, max(1, -(-n // CULL_TILE)), dev)
+    scratch = torch.empty((cull_scratch_words(n),), dtype=torch.int64, device=dev)
     err = build.lib().ws_cull_decode(
         cc.xyz.data_ptr(), block.data_ptr(), *codes, xyz.data_ptr(), cov.data_ptr(),
         opacity.data_ptr(), sh.data_ptr(), capacity, scratch.data_ptr(), scratch.numel(),
         build.stream_ptr(dev))
-    build.LAUNCHES["cull_decode"] += 1
-    build.check(err, "cull_decode kernel")
+    build.LAUNCHES["cull_decode"] += 1  # one per call: the cull, then the decode
+    build.check(err, "cull_decode kernels")
     count, n_drop = build.scratch_counters(scratch, 2)
     return DeviceCloud(xyz=xyz, cov=cov, opacity=opacity, sh=sh), count, n_drop

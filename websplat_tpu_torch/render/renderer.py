@@ -100,10 +100,20 @@ def upload_cloud(cloud: GaussianCloud, device) -> DeviceCloud:
     )
 
 
+def _pad_entries(codebook: np.ndarray) -> np.ndarray:
+    """A (planes, k) codebook with zero entries appended up to a multiple of
+    4, so that each plane starts and ends on 16 bytes and the decode kernels
+    can stage it with bulk copies (ops/decompress.py:decode_plan); the
+    indices never reach the padding."""
+    pad = -codebook.shape[1] % 4
+    return np.pad(codebook, ((0, 0), (0, pad))) if pad else codebook
+
+
 def upload_compressed_cloud(cloud: GaussianCloud, device) -> CompressedDeviceCloud:
     """Compressed residency upload (renderer.py:79): the int8 and index
     streams and the codebooks stay on the device, ~22 B per splat; the
-    frame expands them (decompress_cloud, decompress_cloud_culled)."""
+    frame expands them (decompress_cloud, decompress_cloud_culled).  The
+    codebooks' planes are padded to a multiple of 4 entries."""
     dev = resolve_device(device)
     q = cloud.quantized
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dt))).to(dev)
@@ -116,9 +126,9 @@ def upload_compressed_cloud(cloud: GaussianCloud, device) -> CompressedDeviceClo
         scale_factor_q=None if q.scale_factor_q is None else t(q.scale_factor_q, np.int8),
         sf_scale=f32(q.sf_scale),
         sf_zp=f32(q.sf_zp),
-        covars=t(np.asarray(q.covars).T, np.float32),
+        covars=t(_pad_entries(np.asarray(q.covars, np.float32).T), np.float32),
         geom_idx=t(q.geom_idx, np.int32),
-        sh_cb=t(_pack_sh_f16(np.asarray(q.sh_codebook)), np.int32),
+        sh_cb=t(_pad_entries(_pack_sh_f16(np.asarray(q.sh_codebook))), np.int32),
         sh_idx=t(q.sh_idx, np.int32),
     )
 
