@@ -30,10 +30,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              the scale-factor stream, with codes -128 and 127, with an SH
              codebook of 65,536 entries (gathered from global memory), with
              codebooks of 4,095 entries (unaligned planes: global memory)
-             and the same padded to 4,096 (staged): decoded rows, count and
-             drops equal to plain, dead rows' xyz NaN, the culled decode's
-             two kernels timed per call and each, and the eager chain
-             they replaced timed beside them), both rasterizers (the scan one also
+             and the same padded to 4,096 (staged), both with index 4,094
+             (the last entry) at every 101st row of each index stream:
+             decoded rows, count and drops equal to plain, dead rows' xyz
+             NaN, the culled decode's two kernels timed per call and each,
+             and the eager chain they replaced timed beside them; a cloud
+             with index k in either stream refused at upload with no kernel
+             launch and no device activity), both rasterizers (the scan one also
              with the tree composite; the slab one at mxu/highest,
              mxu/high, mxu/default and hybrid) and the packed emission
              against their plain versions on the card, at the shapes of the
@@ -194,6 +197,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import importlib.util
 import io
 import json
@@ -857,7 +861,8 @@ def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
     codebook of 65,536 entries (a 256 KB plane: gathered from global
     memory); codebooks of 4,095 entries (planes not 16-byte aligned:
     gathered from global memory) and the same padded to 4,096 as
-    render/renderer.py:upload_compressed_cloud pads them (staged).  The
+    render/renderer.py:upload_compressed_cloud pads them (staged), both
+    with every 101st row of each index stream at the last entry, 4,094.  The
     decoded rows equal to plain element for element (cov within
     DECODE_COV_TOL), the count and drops equal, the dead rows' xyz the plain
     version's NaN bits.  Timing: kernel-only ms (the culled decode's two
@@ -893,9 +898,11 @@ def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
                                           dtype=torch.int32, device="cuda"),
                       sh_idx=torch.randint(0, big_k, (n,), generator=gen, dtype=torch.int32,
                                            device="cuda"))
+    # every 101st row of both index streams reads the last real entry, k - 1
+    last = lambda idx: idx.index_fill(0, torch.arange(0, n, 101, device="cuda"), 4094)
     odd = cc._replace(covars=cc.covars[:, :4095].contiguous(),
-                      sh_cb=cc.sh_cb[:, :4095].contiguous(), geom_idx=cc.geom_idx % 4095,
-                      sh_idx=cc.sh_idx % 4095)
+                      sh_cb=cc.sh_cb[:, :4095].contiguous(), geom_idx=last(cc.geom_idx % 4095),
+                      sh_idx=last(cc.sh_idx % 4095))
     padded = odd._replace(covars=torch.nn.functional.pad(odd.covars, (0, 1)),
                           sh_cb=torch.nn.functional.pad(odd.sh_cb, (0, 1)))
     nowhere = block.clone()
@@ -918,8 +925,10 @@ def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
                      and torch.equal(k.opacity[:rows], p.opacity[:rows]))
 
     errs = {"decode": 0.0, "cull_decode": 0.0}
-    books = (("SH codebook of 65,536 entries", big), ("codebooks of 4,095 entries", odd),
-             ("codebooks of 4,095 entries padded to 4,096", padded))
+    books = (("SH codebook of 65,536 entries", big),
+             ("codebooks of 4,095 entries, index 4,094 at every 101st row", odd),
+             ("codebooks of 4,095 entries padded to 4,096, index 4,094 at every 101st row",
+              padded))
     for what, c in (("view 0", cc), ("no scale-factor stream", nosf),
                     ("codes -128 and 127", extreme), *books):
         k, p = decode_full(c), decode_full_torch(c)
@@ -1015,6 +1024,47 @@ def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
                        f"ms ({r['bound_term']}), share {r['share']:.3f}, plain {r['plain_ms']:.4f} "
                        f"ms; one call {dev_ms:.4f} device ms in {acts} activities, was "
                        f"{was_ms:.4f} device ms in {was_acts} activities (torch.profiler)")
+
+
+def refused_uploads(resident, cull_factor):
+    """Phase 2: the compressed bench cloud with index k (one past its last
+    codebook entry) at every 1009th row of either index stream: building a
+    renderer on the card raises ValueError at the upload
+    (io/npz.py:check_codebook_indices), before any kernel launch.  The
+    wrappers' launch counts (build.LAUNCHES) and the device activities in
+    the attempt (torch.profiler) must both stay 0."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from websplat_tpu_torch.config import RasterConfig
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.render.renderer import GaussianRenderer
+    from websplat_tpu_torch.synth import bench_cameras
+
+    q, refused = resident.quantized, []
+    before = sum(build.LAUNCHES.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for stream, k in (("geom_idx", len(q.covars)), ("sh_idx", len(q.sh_codebook))):
+            idx = getattr(q, stream).copy()
+            idx[::1009] = k
+            bad = copy.copy(resident)
+            bad.quantized = dataclasses.replace(q, **{stream: idx})
+            try:
+                GaussianRenderer(bad, RasterConfig(compressed_cull_factor=cull_factor),
+                                 device="cuda").render(bench_cameras()[0], (W, H))
+            except ValueError as e:
+                refused.append(f"{stream} = {k}: {e}")
+        torch.cuda.synchronize()
+    acts = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sum(build.LAUNCHES.values()) - before
+    say("kernels", f"upload of an index one past the codebook refused {len(refused)} of 2 "
+                   f"({'; '.join(refused)}); kernel launches {launches}, device activities "
+                   f"{acts} (torch.profiler)")
+    if len(refused) != 2 or launches or acts:
+        raise AssertionError("a codebook index past the codebook reached the card")
 
 
 def kernels_vs_plain(cloud, resident, cull_factor, results):
@@ -1425,6 +1475,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     sparse_block = device_block(*view_block(resident, make_camera(viewport=(W, H),
                                                                   distance=SPARSE_DISTANCE)))
     decompress_vs_plain(cc, cblock, sparse_block, cull_factor, results)
+    refused_uploads(resident, cull_factor)
 
     # the count-following sort on frame stream buffers: bench view 0's, the
     # window-off path's, one whose stages drop (the instance capacity cut

@@ -138,6 +138,58 @@ def test_imports_without_jax_and_renders():
     assert out.stdout.strip().endswith("OK")
 
 
+PUBLIC_IMPORTS = {
+    "websplat_tpu_torch": ["GaussianCloud", "GaussianRenderer", "PerspectiveCamera",
+                           "PerspectiveProjection", "RasterConfig", "Scene", "SceneCamera",
+                           "SplattingArgs", "Split", "build_proj", "focal2fov", "fov2focal",
+                           "load_gaussian_cloud", "world2view"],
+    "websplat_tpu_torch.models": ["Scene", "SceneCamera", "Split", "build_proj", "focal2fov",
+                                  "fov2focal", "world2view"],
+    "websplat_tpu_torch.io": ["GaussianCloud", "load_gaussian_cloud"],
+    "websplat_tpu_torch.render": ["GaussianRenderer", "render_frame"],
+    "websplat_tpu_torch.ops": ["DeviceCloud", "sort_instances", "tile_ranges"],
+    "websplat_tpu_torch.parallel": ["make_view_parallel_renderer", "render_views",
+                                    "stack_cameras"],
+    "websplat_tpu_torch.utils": ["gmath", "psnr", "write_png"],
+}
+
+
+@pytest.mark.parametrize("first", sorted(PUBLIC_IMPORTS))
+def test_public_names_import_without_jax_or_a_build(first):
+    """In a fresh interpreter where importing jax or websplat_tpu fails and
+    no process can be started, the package's and each subpackage's public
+    names import (the named package first, then the others) and no kernel
+    or native decoder is built or loaded."""
+    order = [first] + sorted(set(PUBLIC_IMPORTS) - {first})
+    code = textwrap.dedent(f"""
+        import subprocess, sys
+        for blocked in ("jax", "jaxlib", "websplat_tpu"):
+            sys.modules[blocked] = None
+        def refuse(*args, **kw):
+            raise AssertionError("a process was started")
+        subprocess.Popen.__init__ = refuse
+        import importlib
+        names = {PUBLIC_IMPORTS!r}
+        for pkg in {order!r}:
+            m = importlib.import_module(pkg)
+            for name in names[pkg]:
+                getattr(m, name)
+        from websplat_tpu_torch.models import Scene, SceneCamera, Split
+        from websplat_tpu_torch.utils import gmath
+        assert gmath.smoothstep(0.0, 1.0, 0.5) == 0.5
+        from websplat_tpu_torch import native
+        from websplat_tpu_torch.kernels import build
+        assert build._lib is None and native._lib is None
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "websplat_tpu")
+                       and sys.modules[m] is not None for m in sys.modules)
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=_repo_root())
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("OK")
+
+
 def _repo_root():
     import os
 

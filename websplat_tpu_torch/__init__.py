@@ -17,6 +17,8 @@ each runs its plain PyTorch version.  The host layer (cameras.json scenes,
 animation, the orbit controller, a stopwatch) and the apps
 (``python -m websplat_tpu_torch.apps.{render,measure,video,viewer}``) are
 the JAX package's.
+The package and its subpackages export the JAX package's public names
+(``tests/test_torch_public_names.py`` accounts for each of them).
 The JAX package ``websplat_tpu`` is the reference this package is held
 against; this package imports neither it nor JAX.
 """
@@ -25,7 +27,15 @@ __version__ = "0.1.0"
 
 from websplat_tpu_torch.config import RasterConfig, SplattingArgs
 from websplat_tpu_torch.io.loader import GaussianCloud, load_gaussian_cloud
-from websplat_tpu_torch.models.camera import PerspectiveCamera, PerspectiveProjection
+from websplat_tpu_torch.models.camera import (
+    PerspectiveCamera,
+    PerspectiveProjection,
+    build_proj,
+    focal2fov,
+    fov2focal,
+    world2view,
+)
+from websplat_tpu_torch.models.scene import Scene, SceneCamera, Split
 from websplat_tpu_torch.render.renderer import GaussianRenderer
 
 __all__ = [
@@ -35,5 +45,12 @@ __all__ = [
     "load_gaussian_cloud",
     "PerspectiveCamera",
     "PerspectiveProjection",
+    "build_proj",
+    "focal2fov",
+    "fov2focal",
+    "world2view",
+    "Scene",
+    "SceneCamera",
+    "Split",
     "GaussianRenderer",
 ]

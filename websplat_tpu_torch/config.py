@@ -14,12 +14,14 @@ cores at the ``mxu_precision`` pass count.  ``qform`` "monomial" and
 "direct" run the same (direct) quadratic form in the scan and tree
 rasterizers (``ops/rasterize.py``).  Values of the remaining fields that
 the port does not implement raise at construction instead of being
-ignored.
+ignored.  ``RasterConfig.from_env`` is the JAX config's ``WS_*`` tuning
+hook.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -41,7 +43,10 @@ MAX_SLOT_SEQ = 64
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
     """Static configuration of the tile pipeline (see the JAX config for
-    the measured rationale behind each default)."""
+    the measured rationale behind each default).  The JAX config's
+    ``for_backend`` picks its XLA fallbacks off the TPU; the port has none
+    (a tensor on the CPU runs each stage's plain version), so its
+    counterpart is this constructor."""
 
     tile_w: int = 32
     tile_h: int = 32
@@ -130,6 +135,48 @@ class RasterConfig:
         """The overflow walk's second level and the dense extreme-tail stage
         run (with overflow on)."""
         return self.overflow_grid_capacity > 0 and self.overflow_window_slots > self.overflow_slots
+
+    @classmethod
+    def from_env(cls, **overrides) -> "RasterConfig":
+        """The config with ``WS_*`` environment overrides applied on top of
+        ``overrides``, parsed as the JAX config's ``from_env`` parses them
+        (config.py:319-354), the measurement scripts' tuning hook:
+
+          WS_COMPOSITE / WS_QFORM / WS_SORT / WS_MXU_PREC   (strings)
+          WS_TILE=WxH  WS_SLOTS / WS_OVERFLOW / WS_OSLOTS   (ints)
+          WS_ALPHA / WS_EPS / WS_CULL                       (floats)
+
+        An empty variable counts as unset.  WS_SEG_K, WS_GROUP_BATCH and
+        WS_BTREE name fields the port does not have, and WS_SORT takes only
+        "xla": setting any of them otherwise raises ValueError."""
+        for var in ("WS_SEG_K", "WS_GROUP_BATCH", "WS_BTREE"):
+            if os.environ.get(var):
+                raise ValueError(f"{var}={os.environ[var]!r}: the PyTorch port has no such "
+                                 "setting")
+        if os.environ.get("WS_SORT", "xla") not in ("", "xla"):
+            raise ValueError(f"WS_SORT={os.environ['WS_SORT']!r}: the PyTorch port sorts only "
+                             "as 'xla' (ops/sort.py)")
+        env = {
+            "composite": os.environ.get("WS_COMPOSITE"),
+            "qform": os.environ.get("WS_QFORM"),
+            "sort_backend": os.environ.get("WS_SORT"),
+            "mxu_precision": os.environ.get("WS_MXU_PREC"),
+        }
+        overrides.update({k: v for k, v in env.items() if v})
+        if os.environ.get("WS_TILE"):
+            tw, th = os.environ["WS_TILE"].split("x")
+            overrides["tile_w"], overrides["tile_h"] = int(tw), int(th)
+        for var, field, cast in (
+            ("WS_SLOTS", "tile_slots", int),
+            ("WS_OVERFLOW", "overflow_capacity", int),
+            ("WS_OSLOTS", "overflow_slots", int),
+            ("WS_ALPHA", "alpha_threshold", float),
+            ("WS_EPS", "transmittance_eps", float),
+            ("WS_CULL", "compressed_cull_factor", float),
+        ):
+            if os.environ.get(var):
+                overrides[field] = cast(os.environ[var])
+        return cls(**overrides)
 
     @classmethod
     def for_viewport(cls, width: int, height: int, **overrides) -> "RasterConfig":

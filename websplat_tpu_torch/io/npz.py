@@ -20,6 +20,13 @@ shader's eigenvalue clamp (preprocess_compressed.wgsl:296-297).  With
 ``keep_compressed=True`` the int8 and index streams and the two small
 codebooks are kept (:class:`QuantizedStreams`) and expanded per frame on the
 device (``render/renderer.py:decompress_cloud``).
+
+Every codebook index must lie in [0, k) of its codebook
+(``check_codebook_indices``), on both outputs: the decode kernels read the
+codebooks without a bounds check, so a cloud with an index outside it is
+refused here and again at upload (``render/renderer.py:
+upload_compressed_cloud``).  The JAX package fills an index >= k on the
+device (or raises where it decodes at load) and wraps -1 to the last entry.
 """
 
 from __future__ import annotations
@@ -51,6 +58,21 @@ class QuantizedStreams:
     geom_idx: np.ndarray  # (N,) i32 into covars
     sh_codebook: np.ndarray  # (C_sh, 16, 3) f32, int8 entries dequantized
     sh_idx: np.ndarray  # (N,) i32 into sh_codebook
+
+
+def check_codebook_indices(geom_idx, k_cov: int, sh_idx, k_sh: int) -> None:
+    """Raises ValueError unless every index of ``geom_idx`` lies in [0,
+    k_cov) and every index of ``sh_idx`` in [0, k_sh), k being the
+    codebook's real entry count (never a padded one).  One vectorised min
+    and max per stream, once per cloud."""
+    for stream, idx, k in (("geom_idx", geom_idx, k_cov), ("sh_idx", sh_idx, k_sh)):
+        idx = np.asarray(idx)
+        if idx.size == 0:
+            continue
+        lo, hi = int(idx.min()), int(idx.max())
+        if lo < 0 or hi >= k:
+            raise ValueError(f"{stream} holds index {lo if lo < 0 else hi}, outside [0, {k}) "
+                             f"of its codebook of {k} entries")
 
 
 def _get(npz, name, default=None):
@@ -149,6 +171,7 @@ def read_npz(f: BinaryIO, keep_compressed: bool = False) -> Dict:
         )
         sh_table[:, 1:num_coefs, :] = (rest_q - rest_zp) * rest_scale
     sh_idx = feature_indices if feature_indices is not None else np.arange(num_points)
+    check_codebook_indices(geom_idx, covars.shape[0], sh_idx, sh_table.shape[0])
 
     meta = dict(
         sh_deg=int(sh_deg),

@@ -46,7 +46,7 @@ import torch
 
 from websplat_tpu_torch.config import RasterConfig, SplattingArgs, resolve_settings
 from websplat_tpu_torch.io.loader import GaussianCloud
-from websplat_tpu_torch.io.npz import QuantizedStreams
+from websplat_tpu_torch.io.npz import QuantizedStreams, check_codebook_indices
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.models.camera import CameraUniforms, PerspectiveCamera
 from websplat_tpu_torch.ops.compact import dense_compact, dense_compact_torch
@@ -104,7 +104,8 @@ def _pad_entries(codebook: np.ndarray) -> np.ndarray:
     """A (planes, k) codebook with zero entries appended up to a multiple of
     4, so that each plane starts and ends on 16 bytes and the decode kernels
     can stage it with bulk copies (ops/decompress.py:decode_plan); the
-    indices never reach the padding."""
+    indices never reach the padding (upload_compressed_cloud checks them
+    first)."""
     pad = -codebook.shape[1] % 4
     return np.pad(codebook, ((0, 0), (0, pad))) if pad else codebook
 
@@ -112,10 +113,13 @@ def _pad_entries(codebook: np.ndarray) -> np.ndarray:
 def upload_compressed_cloud(cloud: GaussianCloud, device) -> CompressedDeviceCloud:
     """Compressed residency upload (renderer.py:79): the int8 and index
     streams and the codebooks stay on the device, ~22 B per splat; the
-    frame expands them (decompress_cloud, decompress_cloud_culled).  The
-    codebooks' planes are padded to a multiple of 4 entries."""
-    dev = resolve_device(device)
+    frame expands them (decompress_cloud, decompress_cloud_culled).  An
+    index outside its codebook raises ValueError before anything reaches
+    the device (io/npz.py:check_codebook_indices).  The codebooks' planes
+    are padded to a multiple of 4 entries."""
     q = cloud.quantized
+    check_codebook_indices(q.geom_idx, len(q.covars), q.sh_idx, len(q.sh_codebook))
+    dev = resolve_device(device)
     t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dt))).to(dev)
     f32 = lambda v: float(np.float32(v))
     return CompressedDeviceCloud(

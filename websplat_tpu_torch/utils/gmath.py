@@ -1,5 +1,5 @@
-"""Pure host-side math helpers (NumPy), shared by loaders and camera model
-(the part of ``websplat_tpu/utils/gmath.py`` the port uses).
+"""Pure host-side math helpers (NumPy), shared by loaders and camera model;
+counterpart of ``websplat_tpu/utils/gmath.py``.
 
 Reference counterparts: web-splat src/utils.rs:179-212 (build_cov,
 sigmoid, SH-degree helpers) and web-splat src/io/mod.rs:181-284
@@ -114,6 +114,15 @@ def build_cov(rot: np.ndarray, scale: np.ndarray) -> np.ndarray:
         [m[..., 0, 0], m[..., 0, 1], m[..., 0, 2], m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]],
         axis=-1,
     )
+
+
+def smoothstep(edge0: float, edge1: float, x):
+    """Hermite step of x from edge0 to edge1, for a float, a NumPy array or
+    a tensor (``models/animation.py:smoothstep`` is the one-argument step
+    on [0, 1])."""
+    t = (x - edge0) / (edge1 - edge0)
+    t = t.clip(0.0, 1.0) if hasattr(t, "clip") else min(max(t, 0.0), 1.0)
+    return t * t * (3.0 - 2.0 * t)
 
 
 def plane_from_points(points: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
