@@ -1,0 +1,138 @@
+"""How a run's output is judged (``correct``), and the reference's counts.
+
+A cell's ``checks/<workload>.json`` states what is compared and each
+number's limit (``PERF.md`` gives the readings each limit was set from):
+
+- ``image_rmse``: over the sampled frames, the largest root-mean-square
+  difference between the program's image and the reference's, over every
+  pixel and channel;
+- ``block_rmse``: the same over each ``block`` x ``block`` pixel block, the
+  largest (a fault confined to a small part of a frame);
+- ``visible_gap``: over every frame of the window whose view is among the
+  checked views, the largest difference between the program's
+  ``num_visible`` and the reference's count of visible splats;
+- ``drops``: over every frame of the window, the sum of ``num_clamped``,
+  ``num_dropped`` and ``num_culled_dropped`` (exact: limit 0).
+
+The sampled frames are drawn from the seed among the window's first cycle
+(a pass cell: one pass of the pool, with a frame from each half of it, the
+rest anywhere; a walk: the first loop).  The reference renders after the
+window has closed, the peak memory has been read and the program's state
+is freed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from splatbench import reference, seeds
+
+DIAG = ("num_instances", "num_visible", "num_clamped", "num_dropped", "num_culled_dropped")
+
+
+def settings(config: dict) -> reference.Settings:
+    r = config["raster"]
+    return reference.Settings(alpha_threshold=float(r["alpha_threshold"]),
+                              transmittance_eps=float(r["transmittance_eps"]),
+                              tile=(int(r["tile_w"]), int(r["tile_h"])))
+
+
+def sampled_units(cell, seed: int, n_views: int) -> List[int]:
+    """The window units whose images are compared."""
+    rng = seeds.rng(seed, "sample")
+    n = int(cell.check["frames"])
+    t = cell.traffic
+    if t["loop"] == "pass":
+        v = int(t["views_per_pass"])
+        p = int(rng.integers(n_views // v))
+        half = v // 2
+        picks = [int(rng.integers(half)), half + int(rng.integers(v - half))]
+        rest = [j for j in range(v) if j not in picks]
+        picks += [int(j) for j in rng.permutation(rest)[:max(0, n - 2)]]
+        return sorted(p * v + j for j in picks[:n])
+    return sorted(int(u) for u in rng.choice(n_views, size=min(n, n_views), replace=False))
+
+
+def counted_views(cell, seed: int, n_views: int) -> List[int]:
+    """The views whose visible counts are checked: all of them, or a sample
+    of ``count_views`` drawn from the seed."""
+    k = int(cell.check["count_views"])
+    if n_views <= k:
+        return list(range(n_views))
+    return sorted(int(i) for i in seeds.rng(seed, "sample").choice(n_views, k, replace=False))
+
+
+def block_rmse(err2: torch.Tensor, block: int) -> float:
+    h, w = err2.shape
+    ph, pw = -h % block, -w % block
+    sq = torch.nn.functional.pad(err2, (0, pw, 0, ph))
+    cnt = torch.nn.functional.pad(torch.ones_like(err2), (0, pw, 0, ph))
+    s = sq.reshape(-1, block, sq.shape[1] // block, block).sum((1, 3))
+    c = cnt.reshape(-1, block, sq.shape[1] // block, block).sum((1, 3))
+    return float(torch.sqrt((s / c).max()))
+
+
+@dataclasses.dataclass
+class Verdict:
+    numbers: Dict[str, float]
+    limits: Dict[str, float]
+    failed: int
+    counts: Dict[str, float]  # the reference's counts, mean over the sampled frames
+    notes: List[str]
+
+    @property
+    def correct(self) -> bool:
+        return (not self.notes and set(self.numbers) == set(self.limits)
+                and all(self.numbers[k] <= self.limits[k] for k in self.limits))
+
+
+def judge(cell, inputs: dict, views, window, sampled: List[int], seed: int, device,
+          dtype=torch.float32, program_images: Optional[Dict[int, torch.Tensor]] = None,
+          program_diags: Optional[np.ndarray] = None) -> Verdict:
+    """Compares the window's outputs with the reference (module docstring)."""
+    dev = torch.device(device)
+    w, h = cell.config["viewport"]
+    st = settings(cell.config)
+    scene = reference.scene_from_inputs(inputs, dev)
+    limits = {k: float(v) for k, v in cell.check["limits"].items()}
+    notes = []
+    diags = window.diags if program_diags is None else program_diags
+    images = window.samples if program_images is None else program_images
+
+    checked = counted_views(cell, seed, len(views))
+    ref_vis = {i: reference.num_visible(scene, reference.make_view(views[i], w, h,
+                                                                   scene.bounds()), st, dtype)
+               for i in checked}
+    on = np.isin(window.view_of, checked)
+    expect = np.array([ref_vis.get(int(i), 0) for i in window.view_of], np.int64)
+    gap = np.abs(diags[:, 1].astype(np.int64) - expect) * on
+    lost = diags[:, 2:5].astype(np.int64).sum(1)
+    bad = (gap > limits.get("visible_gap", 0)) | (lost > 0)
+
+    rmse, brmse, counts = [], [], []
+    for u in sampled:
+        if u not in images:
+            notes.append(f"frame {u} was not rendered in the window ({window.units} frames)")
+            continue
+        frame = reference.render(scene, reference.make_view(views[int(window.view_of[u])], w, h,
+                                                            scene.bounds()), st, dtype)
+        err2 = ((images[u].to(dev).float() - frame.image) ** 2).sum(-1) / 3.0
+        rmse.append(float(torch.sqrt(err2.mean())))
+        brmse.append(block_rmse(err2, int(cell.check["block"])))
+        counts.append(frame.counts)
+        if rmse[-1] > limits["image_rmse"] or brmse[-1] > limits["block_rmse"]:
+            bad[u] = True
+    if lost.any():
+        cols = diags[:, 2:5].astype(np.int64)
+        notes.append("frames with lost splats: " + ", ".join(
+            f"{name} in {int((cols[:, k] > 0).sum())} (max {int(cols[:, k].max())})"
+            for k, name in enumerate(DIAG[2:])))
+    numbers = dict(image_rmse=max(rmse, default=float("inf")),
+                   block_rmse=max(brmse, default=float("inf")),
+                   visible_gap=float(gap.max(initial=0)), drops=float(lost.sum()))
+    mean = {k: float(np.mean([c[k] for c in counts])) for k in counts[0]} if counts else {}
+    return Verdict(numbers, limits, int(bad.sum()), mean, notes)

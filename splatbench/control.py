@@ -1,0 +1,83 @@
+"""The readings each limit of ``checks/<workload>.json`` is set from.
+
+    python3 -m splatbench.control --workload <cell> --seeds 101 102 ... \
+        [--control 3] [--seconds 2]
+
+For each seed, in one process: a run of the cell as the benchmark makes it
+(a short window at the cell's own load; ``run.run_cell``), whose compared
+numbers are the program's readings; and, for the first ``--control``
+seeds, the control: the reference computed in bfloat16 (the precision
+below the configuration's float32) put in the program's place, judged by
+the same comparison.  Prints one JSON line per run and, last, the lower
+reading of each number (the largest over the program's seeds) and the
+upper one (the smallest over the control's).  The benchmark's own runs
+never run this.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from splatbench import cameras, check, drivers, reference, registry
+
+
+def control_numbers(cell, seed: int, device, dtype=torch.bfloat16) -> dict:
+    """The compared numbers with the reference in ``dtype`` in the
+    program's place, over one cycle of the traffic's views."""
+    dev = torch.device(device)
+    w, h = cell.config["viewport"]
+    inputs = registry.scene_maker(cell.config["scene"]["kind"])(cell.config["scene"], seed, dev)
+    views = cameras.views(cell.traffic, seed, (w, h))
+    st = check.settings(cell.config)
+    scene = reference.scene_from_inputs(inputs, dev)
+    checked = check.counted_views(cell, seed, len(views))
+    sampled = check.sampled_units(cell, seed, len(views))
+    diags = np.zeros((len(views), 5), np.int64)
+    for i in checked:
+        diags[i, 1] = reference.num_visible(scene, reference.make_view(views[i], w, h,
+                                                                       scene.bounds()), st, dtype)
+    images = {u: reference.render(scene, reference.make_view(views[u], w, h, scene.bounds()), st,
+                                  dtype).image for u in sampled}
+    window = drivers.Window(0.0, len(views), np.arange(len(views)), diags, images, [])
+    del scene
+    drivers.free(dev)
+    verdict = check.judge(cell, inputs, views, window, sampled, seed, dev)
+    return dict(verdict.numbers, correct=verdict.correct)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--control", type=int, default=3)
+    ap.add_argument("--seconds", type=float, default=2.0)
+    args = ap.parse_args(argv)
+    from splatbench import run
+
+    cell = registry.Bench.load().cell(args.workload)
+    program, control = [], []
+    for k, seed in enumerate(args.seeds):
+        result, _ = run.run_cell(cell, seed, args.seconds, False, t_start=0.0)
+        nums = {n: c["value"] for n, c in result["checks"].items()}
+        program.append(nums)
+        print(json.dumps(dict(side="program", seed=seed, correct=result["correct"], **nums)),
+              flush=True)
+        if k < args.control:
+            c = control_numbers(cell, seed, "cuda")
+            control.append(c)
+            print(json.dumps(dict(side="control", seed=seed, **c)), flush=True)
+    names = list(program[0])
+    lower = {n: max(p[n] for p in program) for n in names}
+    upper = {n: min(c[n] for c in control) for n in names} if control else {}
+    print(json.dumps(dict(workload=args.workload, lower=lower, upper=upper,
+                          seeds=len(program), control_seeds=len(control))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
