@@ -94,7 +94,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              diagnostics, plain-path PSNR, view 0 rendered twice more (max
              abs 0 between the two: run-to-run reproducibility; also on the
              hybrid, culled compressed, tree and overflow-off paths),
-             ms/frame, per-stage ms, device busy ms, idle share and device
+             ms/frame, per-stage host ms, device busy ms, idle share and device
              ms by kernel (torch.profiler)
   4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
              counts, diagnostics and PSNR against the scan frames; view 0
@@ -646,6 +646,26 @@ def event_ms(fn):
     return out, a.elapsed_time(b)
 
 
+def staged_ms(fn):
+    """(fn()'s result, its device time in ms by CUDA events, the host ms of
+    each stage of the uncompiled frames it runs: the ``ws.frame.*`` spans
+    of utils/trace.py, summed by stage): one run."""
+    from websplat_tpu_torch.utils import trace
+
+    t0 = time.time_ns()  # the spans' clock
+    trace.enable()
+    try:
+        out, ms = event_ms(fn)
+    finally:
+        trace.enable(False)
+    stages = {}
+    for r in trace.records():
+        if r.start_ns >= t0 and r.name.startswith("ws.frame."):
+            k = r.name[len("ws.frame."):]
+            stages[k] = stages.get(k, 0.0) + (r.end_ns - r.start_ns) / 1e6
+    return out, ms, stages
+
+
 def mxu_config(variant, **kw):
     from websplat_tpu_torch.config import RasterConfig
 
@@ -1031,7 +1051,7 @@ def refused_uploads(resident, cull_factor):
     codebook entry) at every 1009th row of either index stream: building a
     renderer on the card raises ValueError at the upload
     (io/npz.py:check_codebook_indices), before any kernel launch.  The
-    wrappers' launch counts (build.LAUNCHES) and the device activities in
+    wrappers' launch counts (``launch_counts()``) and the device activities in
     the attempt (torch.profiler) must both stay 0."""
     import copy
 
@@ -1039,12 +1059,12 @@ def refused_uploads(resident, cull_factor):
     from torch.profiler import ProfilerActivity, profile
 
     from websplat_tpu_torch.config import RasterConfig
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.renderer import GaussianRenderer
     from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils import trace
 
     q, refused = resident.quantized, []
-    before = sum(build.LAUNCHES.values())
+    trace.reset()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for stream, k in (("geom_idx", len(q.covars)), ("sh_idx", len(q.sh_codebook))):
@@ -1059,11 +1079,11 @@ def refused_uploads(resident, cull_factor):
                 refused.append(f"{stream} = {k}: {e}")
         torch.cuda.synchronize()
     acts = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(build.LAUNCHES.values()) - before
+    launched = sum(launch_counts().values())
     say("kernels", f"upload of an index one past the codebook refused {len(refused)} of 2 "
-                   f"({'; '.join(refused)}); kernel launches {launches}, device activities "
+                   f"({'; '.join(refused)}); kernel launches {launched}, device activities "
                    f"{acts} (torch.profiler)")
-    if len(refused) != 2 or launches or acts:
+    if len(refused) != 2 or launched or acts:
         raise AssertionError("a codebook index past the codebook reached the card")
 
 
@@ -1421,7 +1441,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     # the general compaction, on the plain dense grid (the JAX frame's use
     # of it; the port's main path runs dense_compact instead)
     dkeys, dwords = dense_grid_emit(k2.giants, k2.stats[1], **geo)
-    build.LAUNCHES["compact"] = 0
+    compact_before = launch_counts()["compact"]
     ck, cp = (compact_instances(dkeys, dwords, capacity=dcap),
               compact_torch(dkeys, dwords, capacity=dcap))
     if int(ck[2]) != int(cp[2]):
@@ -1463,7 +1483,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         keep = ckeys != -1
         return ckeys[keep], cpayload[:, keep]
 
-    launches_e = build.LAUNCHES["compact"]
+    launches_e = launch_counts()["compact"] - compact_before
     results["compact"] = dict(
         max_abs_err=max(err_c, err_cc), launches_phase2=launches_e,
         ms=cuda_ms(ccomp, 50), kernel_ms=kernel_only_ms(ccomp, "compact", 50),
@@ -1526,7 +1546,6 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     # exact n-row prefix, and the words' gather
     library = lambda: torch.index_select(prefix_words, 1,
                                          torch.sort(prefix_keys, stable=True).indices)
-    build.LAUNCHES["sort"] = 0
     results["sort"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in sort_cases.values()), live=n0, rows=t0,
         ms=cuda_ms(sort_k, 20),
@@ -1657,7 +1676,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     pk = preprocess_packed(dc, fs, **geo)
     egeo = dict(slots=cfg.tile_slots, tx_tiles=tx, depth_bits=cfg.key_bits(W, H)[1])
     full_cap = n * cfg.tile_slots
-    build.LAUNCHES["emit_compact"] = 0
+    emit_before = launch_counts()["emit_compact"]
     ek = emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     ep = emit_compact_torch(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     n_valid = int(ek[2])
@@ -1693,7 +1712,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
                       *(fn(*part, capacity=m * cfg.tile_slots, **egeo)
                         for fn in (emit_compact, emit_compact_torch)))
     err_e = 0.0  # every row equal
-    launches_f = build.LAUNCHES["emit_compact"]
+    launches_f = launch_counts()["emit_compact"] - emit_before
     emit = lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     results["emit_compact"] = dict(
         max_abs_err=err_e, launches_phase2=launches_f,
@@ -1938,49 +1957,49 @@ def drive(cloud, config):
     come from the uncompiled frame; phase 4f holds the renderer's replayed
     frames bit-equal to these."""
     from websplat_tpu_torch import GaussianRenderer
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils import trace
 
     renderer = GaussianRenderer(cloud, config)
     blocks = [view_block(cloud, cam) for cam in bench_cameras()]
-    build.reset_launches()
+    trace.reset()
     images, diags = [], []
     for fs, st in blocks:
         img, d = render_frame(renderer.device_cloud, device_block(fs, st), width=W, height=H,
                               config=config, compressed=cloud.compressed, return_diag=True)
         images.append(img.cpu().numpy())
         diags.append(dict(d))
-    return renderer, images, diags, dict(build.LAUNCHES)
+    return renderer, images, diags, launch_counts()
 
 
 def frame_timing(phase, renderer, blocks):
-    """Warm frame time of a renderer's config over the views: spans between
-    the CUDA events of the stage marks (device timeline, host-paced gaps
-    included) and the host clock around each synchronised frame; then the
-    device busy time of one profiled pass (torch.profiler: the union of the
-    device activity intervals, per frame) against the event span."""
+    """Warm frame time of a renderer's config over the views: the span
+    between CUDA events around each uncompiled frame (device timeline,
+    host-paced gaps included), the host clock around each synchronised
+    frame and each stage's host time (``staged_ms``); then the device busy
+    time of one profiled pass (torch.profiler: the union of the device
+    activity intervals, per frame) against the event span."""
     import torch
 
-    from websplat_tpu_torch.render.renderer import StageTimer, render_frame
+    from websplat_tpu_torch.render.renderer import render_frame
 
     geo = dict(width=W, height=H, config=renderer.config, compressed=renderer.cloud.compressed)
     stages, frame_ms, wall_ms = {}, [], []
     for _ in range(TIMED_PASSES):
         for fs, st in blocks:
-            timer = StageTimer()
+            block = device_block(fs, st)
             t0 = time.perf_counter()
-            render_frame(renderer.device_cloud, device_block(fs, st), timer=timer, **geo)
-            ms = timer.stages_ms()
+            _, ms, host = staged_ms(lambda: render_frame(renderer.device_cloud, block, **geo))
             wall_ms.append(1e3 * (time.perf_counter() - t0))
-            frame_ms.append(sum(ms.values()))
-            for k, v in ms.items():
+            frame_ms.append(ms)
+            for k, v in host.items():
                 stages.setdefault(k, []).append(v)
     med = statistics.median(frame_ms)
     split = ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in stages.items())
     say(phase, f"warm frame (median of {len(frame_ms)}): {med:.3f} ms event span "
                f"({1e3 / med:.1f} FPS), {statistics.median(wall_ms):.3f} ms host wall; "
-               f"stages ms: {split}; peak device memory "
+               f"stages host ms: {split}; peak device memory "
                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     busy, acts, events = busy_ms(lambda: [render_frame(renderer.device_cloud,
@@ -2191,7 +2210,7 @@ def refused_frames(cloud, scan_images, smi):
         out[what] = launches
 
     from websplat_tpu_torch import GaussianRenderer
-    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.utils import trace
 
     # viewports past 127 tiles per axis
     for w, h, pulled, check in WIDE_FRAMES:
@@ -2199,11 +2218,11 @@ def refused_frames(cloud, scan_images, smi):
         cfg = RasterConfig()
         renderer = GaussianRenderer(cloud, cfg)
         blockw = device_block(*view_block(cloud, cam, (w, h)))
-        build.reset_launches()
+        trace.reset()
         img, d = render_frame(renderer.device_cloud, blockw, width=w, height=h, config=cfg,
                               return_diag=True)
         img, d = img.cpu().numpy(), dict(d)
-        launches = dict(build.LAUNCHES)
+        launches = launch_counts()
         ms = cuda_ms(lambda: render_frame(renderer.device_cloud, blockw, width=w, height=h,
                                           config=cfg), 5)
         tx, ty = cfg.tiles_for(w, h)
@@ -2265,8 +2284,18 @@ FUNCTIONS = sorted({spec[2] for spec in KERNELS.values()}
                    | {f for fs in EXTRA_FUNCTIONS.values() for f in fs})
 
 
+def launch_counts() -> dict:
+    """The wrappers' launch counts since the last ``trace.reset()``: the
+    counters ``launch.<wrapper>`` of utils/trace.py, every wrapper of
+    KERNELS named."""
+    from websplat_tpu_torch.utils import trace
+
+    counted = trace.counters()
+    return {k: counted.get("launch." + k, 0) for k in KERNELS}
+
+
 def by_function(launches) -> dict:
-    """Launch counts by wrapper (build.LAUNCHES) -> by CUDA function (the
+    """Launch counts by wrapper (``launch_counts()``) -> by CUDA function (the
     name torch.profiler shows), zero counts left out."""
     out = {}
     for name, k in launches.items():
@@ -2378,10 +2407,10 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
     import torch
 
     from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.graph import GraphCache, render_blocks
     from websplat_tpu_torch.render.renderer import frame_stream, render_frame, upload
     from websplat_tpu_torch.synth import bench_cameras
+    from websplat_tpu_torch.utils import trace
 
     say("graph", f"card: {smi}")
     cams = bench_cameras()
@@ -2396,14 +2425,14 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
         blocks = torch.stack([device_block(*view_block(host, cam)) for cam in cams])
         render_frame(dc, blocks[0], **geo)  # warm: allocator, kernels
         torch.cuda.synchronize()
-        build.reset_launches()
+        trace.reset()
         torch.cuda.set_sync_debug_mode("error")
         try:
             eager = [render_frame(dc, blocks[i], return_diag=True, **geo) for i in range(N_VIEWS)]
             eager_diag = torch.stack([d.tensor for _, d in eager])
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        want = by_function(build.LAUNCHES)
+        want = by_function(launch_counts())
         line = {k: (launches[k], want.get(KERNELS[k][2], 0)) for k, p in LINE_PATHS.items()
                 if p == what}
         graphs = GraphCache()
@@ -2574,12 +2603,12 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
                                                      make_splat_sharded_renderer, region_frame,
                                                      region_plan, render_splat_sharded_loopback,
                                                      shard_cloud, split_cloud)
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.graph import FrameGraph
     from websplat_tpu_torch.render.renderer import (build_instance_stream, camera_block,
                                                     render_frame, upload_cloud)
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
+    from websplat_tpu_torch.utils import trace
 
     cams = bench_cameras()
     for cam in cams:
@@ -2614,10 +2643,10 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
                                         region_capacity=n_inst)
     shard = shard_cloud(dc, sgroup)
     run = lambda: sstep(shard, unis[0], settings, bg)
-    build.reset_launches()
+    trace.reset()
     rows_e, st_e = sstep.eager(shard, unis[0], settings, bg)
     rows_e = rows_e.clone()
-    want = by_function(build.LAUNCHES)
+    want = by_function(launch_counts())
     run()  # the capture
     rows_r, st_r = run()
     launched = kernels_by_function(run, want)
@@ -2808,8 +2837,8 @@ def run_apps(cloud, smi, root):
 
     # what a measure frame holds: its first train view through the same
     # config, warm, with the stage spans, diagnostics and launches
-    from websplat_tpu_torch.kernels import build
-    from websplat_tpu_torch.render.renderer import StageTimer, render_frame
+    from websplat_tpu_torch.render.renderer import render_frame
+    from websplat_tpu_torch.utils import trace
 
     sc = Scene.from_json(cams_json).cameras(Split.TRAIN)[0]
     cam = sc.to_perspective()
@@ -2818,12 +2847,11 @@ def run_apps(cloud, smi, root):
     cfg2 = RasterConfig.for_viewport(2048, 2048)
     dc2 = GaussianRenderer(cloud, cfg2).device_cloud
     for _ in range(2):
-        timer = StageTimer()
-        build.reset_launches()
-        _, d2 = render_frame(dc2, block2, width=2048, height=2048, config=cfg2,
-                             return_diag=True, timer=timer)
-        ms2 = timer.stages_ms()
-    want = {f: k * views for f, k in by_function(build.LAUNCHES).items()}
+        trace.reset()
+        (_, d2), span2, ms2 = staged_ms(lambda: render_frame(dc2, block2, width=2048,
+                                                             height=2048, config=cfg2,
+                                                             return_diag=True))
+    want = {f: k * views for f, k in by_function(launch_counts()).items()}
     # the graph of one such frame: the memory its capture takes
     one = graph_mod.FrameGraph(dc2, width=2048, height=2048, config=cfg2)
     one.replay(block2)
@@ -2846,7 +2874,7 @@ def run_apps(cloud, smi, root):
                              f"{measured}, graph launches {replays[0]} in {MEASURE_PASSES} "
                              f"passes, kernels {launched} vs {want}")
     say("apps", f"measure's first train view at 2048x2048 ({cfg2.tile_w}x{cfg2.tile_h} tiles), "
-                f"warm: {sum(ms2.values()):.3f} ms event span; stages ms "
+                f"warm: {span2:.3f} ms event span; stages host ms "
                 + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items()) + f"; {d2}")
 
     out = os.path.join(root, "renders")
@@ -2946,12 +2974,12 @@ def tenm_phase(smi):
 
     from websplat_tpu_torch import RasterConfig
     from websplat_tpu_torch.io.loader import load_gaussian_cloud
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.render.graph import FrameGraph
     from websplat_tpu_torch.render.renderer import (decompress_cloud, frame_stream,
                                                     frustum_visible, render_frame, upload)
     from websplat_tpu_torch.synth import make_bench_npz, make_camera
     from websplat_tpu_torch.utils.image import psnr
+    from websplat_tpu_torch.utils import trace
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2990,10 +3018,10 @@ def tenm_phase(smi):
             geo = dict(width=W, height=H, config=cfg, compressed=True)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            build.reset_launches()
+            trace.reset()
             img, diag = render_frame(cc, block, return_diag=True, **geo)
             img = img.clone()
-            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            launched = {k: v for k, v in launch_counts().items() if v}
             graph = FrameGraph(cc, **geo)
             images, diags = graph.replay(block)  # the capture
             torch.cuda.synchronize()

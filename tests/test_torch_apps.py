@@ -20,6 +20,7 @@ from websplat_tpu_torch.config import RasterConfig
 from websplat_tpu_torch.io.loader import load_gaussian_cloud
 from websplat_tpu_torch.io.ply import write_ply
 from websplat_tpu_torch.models.scene import Scene, SceneCamera, Split
+from websplat_tpu_torch.utils import trace
 from websplat_tpu_torch.utils.image import psnr, read_png
 
 torch.set_num_threads(2)
@@ -152,6 +153,7 @@ def test_viewer_smoke(dataset):
     from websplat_tpu_torch.apps.viewer import make_handler
 
     state = _viewer(dataset, 64, 48)
+    trace.enable()  # as main() does, for /stats's host times
     render_thread = threading.Thread(target=state.render_loop, daemon=True)
     render_thread.start()
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
@@ -175,6 +177,21 @@ def test_viewer_smoke(dataset):
         assert get("/frame.png")[:4] == b"\x89PNG"
         stats = json.loads(get("/stats"))
         assert stats["num_visible"] > 0 and len(stats["cameras"]) == 6
+        # the CPU frame's prep and readback; no graph is replayed on the CPU
+        host = stats["host_ms"]
+        assert host["prep"] > 0 and host["readback"] > 0 and host["launch"] is None
+        assert host["capture"] is None
+        # the counters and a capture's span reach /stats as they are recorded
+        with trace.span("ws.graph.capture"):
+            time.sleep(0.002)
+        trace.count("graph.captures")
+        trace.count("graph.evictions", 2)
+        trace.count("trace.dropped")
+        after = json.loads(get("/stats"))
+        assert after["host_ms"]["capture"] >= 2.0
+        assert after["graph_captures"] == stats["graph_captures"] + 1
+        assert after["graph_evictions"] == stats["graph_evictions"] + 2
+        assert after["trace_dropped"] == stats["trace_dropped"] + 1
         for ev in ({"type": "rotate", "dx": 40, "dy": 5},
                    {"type": "setting", "name": "bg", "value": "#ff0000"},
                    {"type": "snap", "id": 2}, {"type": "save_view"},
@@ -188,6 +205,7 @@ def test_viewer_smoke(dataset):
         server.shutdown()
         state.stop = True
         render_thread.join(timeout=60)
+        trace.enable(False)
 
 
 def test_viewer_view_keys_and_tristate(dataset):

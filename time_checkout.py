@@ -256,7 +256,7 @@ def time_root(root: str, tenm: bool = False, sort_only: bool = False,
     from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu
     from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
     from websplat_tpu_torch.parallel.sharded import render_splat_sharded_loopback, split_cloud
-    from websplat_tpu_torch.render.renderer import StageTimer, build_instance_stream, render_frame
+    from websplat_tpu_torch.render.renderer import build_instance_stream, render_frame
     from websplat_tpu_torch.synth import bench_cameras
 
     try:
@@ -305,10 +305,8 @@ def time_root(root: str, tenm: bool = False, sort_only: bool = False,
     span, wall = [], []
     for p in range(6):  # the first pass warms up
         for a in args:
-            timer = StageTimer()
             t0 = time.perf_counter()
-            frame(a, timer=timer, **geo)
-            ms = sum(timer.stages_ms().values())
+            _, ms = cs.event_ms(lambda: frame(a, **geo))
             if p:
                 span.append(ms)
                 wall.append(1e3 * (time.perf_counter() - t0))

@@ -42,6 +42,7 @@ from websplat_tpu_torch.models.controller import CameraController
 from websplat_tpu_torch.models.camera import PerspectiveCamera
 from websplat_tpu_torch.models.scene import Scene
 from websplat_tpu_torch.render.renderer import GaussianRenderer
+from websplat_tpu_torch.utils import trace
 from websplat_tpu_torch.utils.image import to_u8
 from websplat_tpu_torch.utils.stopwatch import FrameClock
 
@@ -154,6 +155,7 @@ class ViewerState:
         self.height = height
         self.lock = threading.Lock()
         self.clock = FrameClock()
+        self._stats_ns = 0  # host_ms's last read, on the spans' clock
         self.frame_png = b""
         self.stop = False
         self.cloud = None
@@ -201,6 +203,29 @@ class ViewerState:
             self.camera.position = (c + np.array([0, 0, -2.5 * r])).astype(np.float32)
             self.controller.center = np.asarray(c, np.float64)
         self.controller.reset_to_camera(self.camera)
+
+    def host_ms(self) -> dict:
+        """Mean host ms a frame of the render's phases over the spans recorded
+        since the previous call (utils/trace.py, which main() enables):
+        ``prep`` (ws.render.prep), ``launch`` (ws.graph.lookup +
+        ws.graph.replay; None on the CPU, which replays no graph),
+        ``readback`` (ws.render.readback) and ``capture`` (ws.graph.capture,
+        a graph captured anew: a new viewport or settings, or one evicted);
+        None where no such span ran."""
+        with self.lock:
+            since, self._stats_ns = self._stats_ns, time.time_ns()
+        spent = {}
+        for r in trace.records():
+            if r.end_ns > since:
+                spent.setdefault(r.name, []).append((r.end_ns - r.start_ns) / 1e6)
+
+        def mean(*names):
+            if not all(spent.get(n) for n in names):
+                return None
+            return sum(sum(spent[n]) / len(spent[n]) for n in names)
+
+        return dict(prep=mean("ws.render.prep"), launch=mean("ws.graph.lookup", "ws.graph.replay"),
+                    readback=mean("ws.render.readback"), capture=mean("ws.graph.capture"))
 
     def load_scene(self, input_path, scene_path=None):
         """Switch to another scene file at runtime (gallery click — the
@@ -464,7 +489,8 @@ def make_handler(state: ViewerState):
                 else:
                     self._send(503, b"first frame not rendered yet")
             elif self.path.startswith("/stats"):
-                diag = state.renderer._last_diag or {}
+                diag = state.renderer.last_diag or {}
+                counts = trace.counters()
                 cams = [
                     dict(id=c.id, split=c.split.value)
                     for c in (state.scene.cameras() if state.scene else [])
@@ -475,6 +501,10 @@ def make_handler(state: ViewerState):
                         frame_times=[round(t * 1e3, 2) for t in state.clock.history.to_list()[-120:]],
                         num_visible=int(diag.get("num_visible", 0)),
                         num_instances=int(diag.get("num_instances", 0)),
+                        host_ms=state.host_ms(),
+                        graph_captures=counts.get("graph.captures", 0),
+                        graph_evictions=counts.get("graph.evictions", 0),
+                        trace_dropped=counts.get("trace.dropped", 0),
                         cameras=cams,
                     )
                 ).encode()
@@ -575,6 +605,7 @@ def main(argv=None):
     args_ns = ap.parse_args(argv)
     if args_ns.input is None and args_ns.scenes_dir is None:
         ap.error("need a scene file or --scenes-dir")
+    trace.enable()  # /stats reads the frame's spans
 
     if args_ns.input is not None:
         cloud = load_gaussian_cloud(args_ns.input)

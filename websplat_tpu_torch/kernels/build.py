@@ -14,11 +14,12 @@ expf/logf), so the kernels round like their plain PyTorch versions, which
 run as separate, unfused elementwise ops.  Relaxing either is a later
 performance decision.
 
-Each wrapper counts its launches in ``LAUNCHES`` (one per launch of its
-kernel, nowhere else; the sort counts one per sort, whose entry point
-launches its histogram, four digit passes and a gather, and the culled
-decode one per call, whose entry point launches the cull and the decode),
-so a caller can show which kernels a run went through.
+Each wrapper counts its launches in the trace counter ``launch.<wrapper>``
+(utils/trace.py: one per launch of its kernel, nowhere else; the sort
+counts one per sort, whose entry point launches its histogram, four digit
+passes and a gather, and the culled decode one per call, whose entry point
+launches the cull and the decode), so a caller can show which kernels a
+run went through.
 
 The stream kernels append in tile order (``csrc/stream.cuh``): each takes a
 scratch buffer from its wrapper (``ordered_scratch``) that holds its
@@ -49,12 +50,6 @@ HEADERS = ("packing.cuh", "core_math.cuh", "stream.cuh", "cp_async.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
-LAUNCHES: Dict[str, int] = {"rasterize": 0, "rasterize_tree": 0, "rasterize_mxu": 0,
-                            "frontend": 0, "frontend_compressed": 0, "frontend_center_out": 0,
-                            "overflow_walk": 0,
-                            "compact": 0, "dense_compact": 0, "emit_compact": 0, "sort": 0,
-                            "decode": 0, "cull_decode": 0}
-
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry points (see the extern "C" block of each .cu file)
 _SIGNATURES = {
@@ -83,11 +78,6 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def nvcc_path() -> str:

@@ -36,6 +36,7 @@ from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, u32
 from websplat_tpu_torch.ops.preprocess import dense_grid_emit
+from websplat_tpu_torch.utils import trace
 
 MAX_PAYLOAD = 5  # the JAX compactor's limit (compact_pallas.py:181)
 COMPACT_BLOCK = 256  # rows per tile (csrc/compact.cu)
@@ -89,7 +90,7 @@ def compact_instances(keys: torch.Tensor, payload: torch.Tensor, *, capacity: in
         build.stream_ptr(dev),
     )
     if m > 0:  # the C entry launches nothing for an empty stream
-        build.LAUNCHES["compact"] += 1
+        trace.count("launch.compact")
     build.check(err, "compact kernel")
     return out_keys, out_payload, build.scratch_counters(scratch, 1)[0]
 
@@ -143,6 +144,6 @@ def dense_compact(mega_words: torch.Tensor, n_mega: Union[int, torch.Tensor], *,
         build.stream_ptr(dev),
     )
     if g2 > 0:  # the C entry launches nothing for no rows
-        build.LAUNCHES["dense_compact"] += 1
+        trace.count("launch.dense_compact")
     build.check(err, "dense_compact kernel")
     return keys, words, build.scratch_counters(scratch, 1)[0]

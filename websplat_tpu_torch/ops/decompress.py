@@ -40,6 +40,7 @@ import torch
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops.compact import compact_torch
 from websplat_tpu_torch.ops.preprocess import FRAME_BLOCK_LEN, CompressedDeviceCloud, DeviceCloud
+from websplat_tpu_torch.utils import trace
 
 # the kernels' layout (csrc/decompress.cu; chip_smoke.py phase 1 holds these
 # equal to the library's)
@@ -250,7 +251,7 @@ def decode_full(cc: CompressedDeviceCloud) -> DeviceCloud:
     err = build.lib().ws_decode(*codes, cov.data_ptr(), opacity.data_ptr(), sh.data_ptr(),
                                 build.stream_ptr(dev))
     if n > 0:  # the C entry launches nothing for no splats
-        build.LAUNCHES["decode"] += 1
+        trace.count("launch.decode")
     build.check(err, "decode kernel")
     return DeviceCloud(xyz=cc.xyz, cov=cov, opacity=opacity, sh=sh)
 
@@ -277,7 +278,7 @@ def cull_decode(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int
         cc.xyz.data_ptr(), block.data_ptr(), *codes, xyz.data_ptr(), cov.data_ptr(),
         opacity.data_ptr(), sh.data_ptr(), capacity, scratch.data_ptr(), scratch.numel(),
         build.stream_ptr(dev))
-    build.LAUNCHES["cull_decode"] += 1  # one per call: the cull, then the decode
+    trace.count("launch.cull_decode")  # one per call: the cull, then the decode
     build.check(err, "cull_decode kernels")
     count, n_drop = build.scratch_counters(scratch, 2)
     return DeviceCloud(xyz=xyz, cov=cov, opacity=opacity, sh=sh), count, n_drop

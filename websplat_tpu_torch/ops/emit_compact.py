@@ -35,6 +35,7 @@ from websplat_tpu_torch.ops.preprocess import (
     TY0_BITS,
     WT_BITS,
 )
+from websplat_tpu_torch.utils import trace
 
 EMIT_SPLATS = 512  # splats per kernel tile (csrc/emit_compact.cu)
 
@@ -105,6 +106,6 @@ def emit_compact(depth_q: torch.Tensor, rect: torch.Tensor, words: torch.Tensor,
     )
     num_valid = build.scratch_counters(scratch, 1)[0]
     if n > 0:  # the C entry launches nothing for no splats
-        build.LAUNCHES["emit_compact"] += 1
+        trace.count("launch.emit_compact")
     build.check(err, "emit_compact kernel")
     return keys, out_words, num_valid, torch.clamp(num_valid - capacity, min=0)

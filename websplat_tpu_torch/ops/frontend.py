@@ -62,6 +62,7 @@ from websplat_tpu_torch.ops.preprocess import (
     pack_rect4,
     slot_tiles,
 )
+from websplat_tpu_torch.utils import trace
 
 FRONT_BLOCK = 256  # splats per tile (csrc/frontend.cu)
 # csrc/frontend.cu, past 16 slots: walks longer than SHORT_WALK candidates go
@@ -195,6 +196,6 @@ def fused_frontend(cloud: DeviceCloud, block: torch.Tensor, *, width: int, heigh
     )
     stats = build.scratch_counters(scratch, 3)
     if n > 0:  # the C entry launches nothing for an empty cloud
-        build.LAUNCHES[launch_name(compressed, capacity_c)] += 1
+        trace.count("launch." + launch_name(compressed, capacity_c))
     build.check(err, "frontend kernel")
     return FrontendOut(keys, words, cid, stats)

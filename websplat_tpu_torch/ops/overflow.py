@@ -34,6 +34,7 @@ from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
 from websplat_tpu_torch.ops.preprocess import RECT4_MAX_TILES, decoded_reaches, unpack_rect4
+from websplat_tpu_torch.utils import trace
 
 WALK_WARPS = 8  # rows per tile (csrc/overflow.cu)
 
@@ -136,6 +137,6 @@ def overflow_walk(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: i
     )
     stats = build.scratch_counters(scratch, 2)
     if n_cap > 0:  # the C entry launches nothing for no rows
-        build.LAUNCHES["overflow_walk"] += 1
+        trace.count("launch.overflow_walk")
     build.check(err, "overflow walk kernel")
     return WalkOut(keys, words, giants, stats)

@@ -43,6 +43,7 @@ from websplat_tpu_torch.config import CUTOFF, RasterConfig
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import u32
+from websplat_tpu_torch.utils import trace
 
 _EXIT_CHECK = 64  # span positions between saturation checks (host syncs)
 
@@ -413,6 +414,6 @@ def rasterize(words: torch.Tensor, ranges: torch.Tensor,
         float(config.transmittance_eps), cq.margin, cq.scale_x, cq.scale_y, int(tree),
         build.stream_ptr(dev),
     )
-    build.LAUNCHES["rasterize_tree" if tree else "rasterize"] += 1
+    trace.count("launch.rasterize_tree" if tree else "launch.rasterize")
     build.check(err, "rasterize kernel")
     return out

@@ -66,6 +66,7 @@ from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.packing import u32
 from websplat_tpu_torch.ops.preprocess import log32
 from websplat_tpu_torch.ops.rasterize import check_stream
+from websplat_tpu_torch.utils import trace
 
 SLAB = 128
 CHUNK = 16  # splats per chunk of the kernel's per-block walk
@@ -317,6 +318,6 @@ def rasterize_mxu(words: torch.Tensor, ranges: torch.Tensor,
         config.tile_w, config.tile_h, tx_tiles, log_eps(float(config.transmittance_eps)),
         cq.margin, cq.scale_x, cq.scale_y, MODE_IDS[mode], build.stream_ptr(dev),
     )
-    build.LAUNCHES["rasterize_mxu"] += 1
+    trace.count("launch.rasterize_mxu")
     build.check(err, "rasterize_mxu kernel")
     return out

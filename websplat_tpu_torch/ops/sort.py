@@ -44,6 +44,7 @@ import torch
 
 from websplat_tpu_torch.kernels import build
 from websplat_tpu_torch.ops.packing import u32
+from websplat_tpu_torch.utils import trace
 
 SIGN = -(1 << 31)  # 0x80000000 as int32
 # csrc/sort.cu's rows per tile, segment limit, digit plan and scratch
@@ -131,7 +132,7 @@ def sort_live(keys: torch.Tensor, words: torch.Tensor, segments: Sequence[Tuple[
         table.ctypes.data_as(ctypes.c_void_p), len(segments),
         emitted.data_ptr(), out_keys.data_ptr(), out_words.data_ptr(), scratch.data_ptr(),
         scratch.numel(), build.stream_ptr(dev))
-    build.LAUNCHES["sort"] += 1
+    trace.count("launch.sort")
     build.check(err, "sort kernel")
     return out_keys, out_words
 

@@ -43,6 +43,7 @@ import torch
 from websplat_tpu_torch.config import RasterConfig
 from websplat_tpu_torch.ops.preprocess import FRAME_BLOCK_LEN
 from websplat_tpu_torch.render.renderer import DIAG_KEYS, cloud_device, render_frame
+from websplat_tpu_torch.utils import trace
 
 GRAPH_CACHE = 4  # graphs a GraphCache keeps
 
@@ -53,24 +54,28 @@ def capture(fn: Callable, device: torch.device):
     runs first on a side stream, as capture wants: it builds the kernels,
     creates NCCL communicators and does any other one-time set-up outside
     the capture; its result is dropped.  The capture is thread_local:
-    another thread's reads (a viewer's HTTP handler) may go on meanwhile."""
-    stream = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
-        fn()
-    stream.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    # no collection inside the capture: a graph freed there (one left in a
-    # reference cycle) invalidates it; torch.cuda.graph collects on entry
-    gc_was_on = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = fn()
-    finally:
-        if gc_was_on:
-            gc.enable()
+    another thread's reads (a viewer's HTTP handler) may go on meanwhile.
+    Its host time is the span ``ws.graph.capture``; it counts
+    ``graph.captures``."""
+    with trace.span("ws.graph.capture"):
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            fn()
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # no collection inside the capture: a graph freed there (one left in
+        # a reference cycle) invalidates it; torch.cuda.graph collects on entry
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            if gc_was_on:
+                gc.enable()
+    trace.count("graph.captures")
     return graph, out
 
 
@@ -92,13 +97,16 @@ class CapturedGraph:
 
     def replay(self, blocks: torch.Tensor):
         """fn's outputs for ``blocks`` (on the card or the host; copied in on
-        the current stream), which the next replay overwrites."""
-        self.blocks.copy_(blocks.reshape(self.blocks.shape), non_blocking=True)
-        if self.graph is None:
-            self.graph, self.out = capture(lambda: self.fn(self.blocks), self.device)
-            self.captures += 1
-        self.graph.replay()
-        return self.out
+        the current stream), which the next replay overwrites.  Its host
+        time, the copy and the graph's launch, is the span
+        ``ws.graph.replay``."""
+        with trace.span("ws.graph.replay"):
+            self.blocks.copy_(blocks.reshape(self.blocks.shape), non_blocking=True)
+            if self.graph is None:
+                self.graph, self.out = capture(lambda: self.fn(self.blocks), self.device)
+                self.captures += 1
+            self.graph.replay()
+            return self.out
 
 
 class FrameGraph(CapturedGraph):
@@ -137,15 +145,19 @@ class GraphCache:
         self._graphs: "OrderedDict[tuple, CapturedGraph]" = OrderedDict()
 
     def graph(self, source, key: tuple, make: Callable[[], CapturedGraph]) -> CapturedGraph:
-        """The graph of (source, key), made by ``make()`` when absent."""
-        k = (id(source),) + key
-        g = self._graphs.pop(k, None)
-        if g is None or g.source is not source:
-            g = make()
-        self._graphs[k] = g
-        while len(self._graphs) > GRAPH_CACHE:
-            self._graphs.popitem(last=False)
-        return g
+        """The graph of (source, key), made by ``make()`` when absent.  Its
+        host time is the span ``ws.graph.lookup``; a graph dropped counts
+        ``graph.evictions``."""
+        with trace.span("ws.graph.lookup"):
+            k = (id(source),) + key
+            g = self._graphs.pop(k, None)
+            if g is None or g.source is not source:
+                g = make()
+            self._graphs[k] = g
+            while len(self._graphs) > GRAPH_CACHE:
+                self._graphs.popitem(last=False)
+                trace.count("graph.evictions")
+            return g
 
     def get(self, cloud, *, views: int = 1, width: int, height: int, config: RasterConfig,
             compressed: bool = False) -> FrameGraph:

@@ -61,6 +61,7 @@ from websplat_tpu_torch.ops.preprocess import (FRAME_BLOCK_LEN, N_SCALARS, Compr
 from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
 from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
 from websplat_tpu_torch.ops.sort import sort_live, sort_live_torch, tile_ranges
+from websplat_tpu_torch.utils import trace
 
 
 def _pack_sh_f16(sh: np.ndarray) -> np.ndarray:
@@ -245,29 +246,6 @@ class FrameDiag(Mapping):
         return repr(self._read())
 
 
-class StageTimer:
-    """CUDA events recorded on the stream between the frame's stages.  A
-    stage's span is the device timeline between two marks: its kernels and
-    any gap in which the device waited for the host to launch them.  The
-    eager frame's only: a captured frame (render/graph.py) is timed with
-    events around its replays."""
-
-    def __init__(self):
-        self._marks = []
-
-    def mark(self, name: str) -> None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self._marks.append((name, ev))
-
-    def stages_ms(self) -> Dict[str, float]:
-        torch.cuda.synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self._marks, self._marks[1:]):
-            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-        return out
-
-
 class FrameStream(NamedTuple):
     """The frame's unsorted instance stream in one buffer (renderer.py:
     466-555's splice, with each stage at a fixed offset in place of the
@@ -293,7 +271,7 @@ def _plain_stage(fn):
 
 def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
                  config: RasterConfig, compressed: bool = False,
-                 plain: bool = False, timer: Optional[StageTimer] = None,
+                 plain: bool = False,
                  culled_dropped: Optional[torch.Tensor] = None,
                  rows: Optional[int] = None) -> FrameStream:
     """Frontend + overflow walks + dense stage -> the frame's stream buffer
@@ -318,7 +296,6 @@ def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height:
 
     ``compressed`` selects the compressed eigen clamp; ``culled_dropped``
     (0-d, on the device) is num_culled_dropped (0 when None)."""
-    mark = timer.mark if timer is not None else (lambda name: None)
     front = _plain_stage(frontend_torch) if plain else fused_frontend
     walk = _plain_stage(overflow_walk_torch) if plain else overflow_walk
     dense = _plain_stage(dense_compact_torch) if plain else dense_compact
@@ -349,7 +326,6 @@ def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height:
 
     fr = front(cloud, block, capacity=capacity, capacity_c=cap_c, compressed=compressed,
                out=views[0], **geo)
-    mark("frontend")
     emitted = [fr.stats[0]]
     num_visible, clamped = fr.stats[1], fr.stats[2]
     # splats that lost coverage: clamped splats beyond the capture capacity;
@@ -378,14 +354,10 @@ def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height:
                   rank_hi=config.overflow_window_slots,
                   giant_thresh=config.overflow_window_slots, capacity=win_cap,
                   giant_capacity=m_cap, out=views[2], **geo)
-        mark("overflow")
         # ranks >= window_slots of the first min(megas, m_cap) level-2 giants
         _, _, d_count = dense(w2.giants, w2.stats[1], capacity=d_cap, out=views[3], **geo)
-        mark("dense_compact")
         emitted += [w2.stats[0], d_count]
         num_clamped = num_clamped + torch.clamp(w2.stats[1] - m_cap, min=0)
-    elif overflow:
-        mark("overflow")
 
     over = [torch.clamp(e - c, min=0) for e, c in zip(emitted, caps)]
     num_dropped = functools.reduce(torch.add, over)
@@ -398,7 +370,6 @@ def frame_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height:
 def build_instance_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int, height: int,
                           config: RasterConfig,
                           compressed: bool = False, plain: bool = False,
-                          timer: Optional[StageTimer] = None,
                           culled_dropped: Optional[torch.Tensor] = None):
     """The exact-prefix form of frame_stream: the unsorted instance stream
     (keys (M,) int32, words (4, M) int32: each stage's prefix in turn) and
@@ -406,8 +377,7 @@ def build_instance_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int
     num_dropped, num_culled_dropped), after one host read of the counts.
     For the tests; render_frame does not call it."""
     st = frame_stream(cloud, block, width=width, height=height, config=config,
-                      compressed=compressed, plain=plain, timer=timer,
-                      culled_dropped=culled_dropped)
+                      compressed=compressed, plain=plain, culled_dropped=culled_dropped)
     counts = torch.cat([st.emitted, st.diag]).tolist()
     emitted, diag = counts[:len(st.segments)], counts[len(st.segments):]
     spans = [(off, off + min(e, cap)) for (off, cap), e in zip(st.segments, emitted)]
@@ -418,7 +388,6 @@ def build_instance_stream(cloud: DeviceCloud, block: torch.Tensor, *, width: int
 
 def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config: RasterConfig,
                  compressed: bool = False, plain: bool = False, return_diag: bool = False,
-                 timer: Optional[StageTimer] = None,
                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One frame of a DeviceCloud or a CompressedDeviceCloud
     (renderer.py:262): (H, W, 3) f32 linear image on the cloud's device
@@ -432,9 +401,9 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
     eigen clamp.  ``out``: the (H, W, 3) f32 image and (5,) int32
     diagnostics tensors to write, where given (render/graph.py's pass writes
     each view's slots; the rasterizer writes the image in place; not with
-    ``plain``)."""
-    mark = timer.mark if timer is not None else (lambda name: None)
-    mark("start")
+    ``plain``).  Each stage's host time is a span (utils/trace.py):
+    ``ws.frame.decompress``, ``.stream``, ``.sort``, ``.ranges``,
+    ``.raster``."""
     if (tuple(block.shape) != (FRAME_BLOCK_LEN,) or block.dtype != torch.float32
             or block.device != cloud_device(cloud)):
         raise ValueError(f"the frame block must be ({FRAME_BLOCK_LEN},) f32 on "
@@ -443,31 +412,32 @@ def render_frame(cloud, block: torch.Tensor, *, width: int, height: int, config:
     culled_dropped, rows = None, None
     if isinstance(cloud, CompressedDeviceCloud):
         rows = int(cloud.opacity_q.shape[0])
-        if config.compressed_cull_factor > 0.0:
-            cull_cap = max(4096, int(config.compressed_cull_factor * rows))
-            cloud, culled_dropped = decompress_cloud_culled(cloud, block, capacity=cull_cap,
-                                                            plain=plain)
+        with trace.span("ws.frame.decompress"):
+            if config.compressed_cull_factor > 0.0:
+                cull_cap = max(4096, int(config.compressed_cull_factor * rows))
+                cloud, culled_dropped = decompress_cloud_culled(cloud, block, capacity=cull_cap,
+                                                                plain=plain)
+            else:
+                cloud = decompress_cloud(cloud, plain=plain)
+    with trace.span("ws.frame.stream"):
+        st = frame_stream(cloud, block, width=width, height=height, config=config,
+                          compressed=compressed, plain=plain,
+                          culled_dropped=culled_dropped, rows=rows)
+    with trace.span("ws.frame.sort"):
+        sort = sort_live_torch if plain else sort_live
+        sorted_keys, sorted_words = sort(st.keys, st.words, st.segments, st.emitted)
+    with trace.span("ws.frame.ranges"):
+        tx_tiles, ty_tiles = config.tiles_for(width, height)
+        _, depth_bits = config.key_bits(width, height)
+        ranges = tile_ranges(sorted_keys, tx_tiles * ty_tiles, depth_bits)
+    with trace.span("ws.frame.raster"):
+        if config.composite in ("scan", "tree"):
+            raster = rasterize_torch if plain else rasterize
         else:
-            cloud = decompress_cloud(cloud, plain=plain)
-        mark("decompress")
-    st = frame_stream(cloud, block, width=width, height=height, config=config,
-                      compressed=compressed, plain=plain, timer=timer,
-                      culled_dropped=culled_dropped, rows=rows)
-    sort = sort_live_torch if plain else sort_live
-    sorted_keys, sorted_words = sort(st.keys, st.words, st.segments, st.emitted)
-    mark("sort")
-    tx_tiles, ty_tiles = config.tiles_for(width, height)
-    _, depth_bits = config.key_bits(width, height)
-    ranges = tile_ranges(sorted_keys, tx_tiles * ty_tiles, depth_bits)
-    mark("ranges")
-    if config.composite in ("scan", "tree"):
-        raster = rasterize_torch if plain else rasterize
-    else:
-        raster = rasterize_mxu_torch if plain else rasterize_mxu
-    into = {} if out is None else dict(out=out[0])
-    img = raster(sorted_words, ranges, block[N_SCALARS:], width=width, height=height,
-                 config=config, **into)
-    mark("raster")
+            raster = rasterize_mxu_torch if plain else rasterize_mxu
+        into = {} if out is None else dict(out=out[0])
+        img = raster(sorted_words, ranges, block[N_SCALARS:], width=width, height=height,
+                     config=config, **into)
     if not return_diag:
         return img
     parts = [ranges[-1:], st.diag]
@@ -502,23 +472,38 @@ class GaussianRenderer:
     def render(self, camera: PerspectiveCamera, viewport: Tuple[int, int],
                args: SplattingArgs = SplattingArgs(), fit_near_far: bool = True,
                with_diag: bool = False) -> np.ndarray:
-        width, height = int(viewport[0]), int(viewport[1])
-        if fit_near_far:
-            camera.fit_near_far(*self.cloud.aabb)
-        cam = CameraUniforms.from_camera(camera, (width, height))
-        settings = resolve_settings(args, self.cloud)
-        block = frame_block(camera_block(cam, settings), settings.background_color, self.device)
-        geo = dict(width=width, height=height, config=self.config,
-                   compressed=self.cloud.compressed)
-        if self.graphs is not None:
-            # the next replay overwrites the graph's own diagnostics
-            images, diags = self.graphs.get(self.device_cloud, **geo).replay(block)
-            img, diag = images[0], FrameDiag(diags[0].clone())
-        else:
-            img, diag = render_frame(self.device_cloud, block, return_diag=True, **geo)
-        if with_diag:
-            self._last_diag = diag
-        return img.cpu().numpy()
+        """The (H, W, 3) f32 host image of ``camera``.  Its host time is the
+        span ``ws.render``: ``ws.render.prep`` (the camera, the settings and
+        the frame block's copy), the graph's lookup and replay on the card
+        (render/graph.py) or the uncompiled frame's stages on the CPU, then
+        ``ws.render.readback`` (the wait for the frame and its copy)."""
+        with trace.span("ws.render"):
+            width, height = int(viewport[0]), int(viewport[1])
+            with trace.span("ws.render.prep"):
+                if fit_near_far:
+                    camera.fit_near_far(*self.cloud.aabb)
+                cam = CameraUniforms.from_camera(camera, (width, height))
+                settings = resolve_settings(args, self.cloud)
+                block = frame_block(camera_block(cam, settings), settings.background_color,
+                                    self.device)
+            geo = dict(width=width, height=height, config=self.config,
+                       compressed=self.cloud.compressed)
+            if self.graphs is not None:
+                # the next replay overwrites the graph's own diagnostics
+                images, diags = self.graphs.get(self.device_cloud, **geo).replay(block)
+                img, diag = images[0], FrameDiag(diags[0].clone())
+            else:
+                img, diag = render_frame(self.device_cloud, block, return_diag=True, **geo)
+            if with_diag:
+                self._last_diag = diag
+            with trace.span("ws.render.readback"):
+                return img.cpu().numpy()
+
+    @property
+    def last_diag(self) -> Optional[FrameDiag]:
+        """The FrameDiag of the last ``render(..., with_diag=True)``, None
+        before one; its values are read from the device at the first lookup."""
+        return self._last_diag
 
     @property
     def num_visible_points(self) -> Optional[int]:
