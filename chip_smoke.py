@@ -10,7 +10,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM; the
-             sort's tile and segment limit equal to ops/sort.py's, and
+             sort's tile and segment limit equal to ops/sort.py's, the
+             overflow walk's smallest tile to ops/overflow.py's, and
              the decode kernels' layout (csrc/decompress.cu:ws_decode_plan:
              staged codebooks, stages, chunk, shared memory, grid, the
              cull's tiles and scratch) to ops/decompress.py's mirror on 42
@@ -178,7 +179,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              printed); equal num_visible, culled vs full N >= 60 dB; at
              0.45, culled, kernel vs plain path >= 50 dB; per distance the
              sort kernel against its plain version on full N's stream, and
-             timed as in 4f
+             timed as in 4f; and the overflow walk's two levels at the
+             c3dgs-10m configuration's windows and capacities
+             (splatbench/configs/c3dgs-10m.json: ranks [6, 128), then
+             [128, 384) over 26,048 giant rows) on the kernel frontend's
+             clamped rows, each equal to plain element for element, with
+             its kernel-only ms against its bound, live rows, grid and
+             tiles taken
   8 result   per kernel: launches per frame (of the path that runs it: the
              main path; the hybrid path for the slab rasterizer, the culled
              compressed path for the compressed frontend and the culled
@@ -721,6 +728,7 @@ def build_kernels():
 
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.frontend import LONG_QUEUE, SHORT_WALK
+    from websplat_tpu_torch.ops.overflow import MIN_TILE_ROWS
     from websplat_tpu_torch.ops.sort import (DIGIT_BITS, DIGIT_SHIFTS, MAX_SEGMENTS, SORT_TILE,
                                              sort_scratch_words)
     from websplat_tpu_torch.utils import roofline
@@ -766,6 +774,15 @@ def build_kernels():
                  f"stream)")
     if min(per_sm) < 1:
         raise AssertionError(f"decode kernels cannot be resident: {per_sm}")
+    min_tile = lib.ws_overflow_walk_min_tile_rows()
+    tenm_cap = bench_raster("c3dgs-10m").overflow_capacity_for(TENM_SPLATS)
+    say("build", f"overflow walk: tiles of at least {min_tile} rows (ops/overflow.py "
+                 f"{MIN_TILE_ROWS}); at the 10M capture capacity ({tenm_cap} rows) a grid of "
+                 f"{lib.ws_overflow_walk_grid(tenm_cap)} blocks, tiles of "
+                 f"{lib.ws_overflow_walk_tile_rows(tenm_cap, tenm_cap)} rows when all are live")
+    if min_tile != MIN_TILE_ROWS:
+        raise AssertionError(f"csrc/overflow.cu's WALK_WARPS {min_tile} differs from "
+                             f"ops/overflow.py's MIN_TILE_ROWS {MIN_TILE_ROWS}")
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
@@ -2947,6 +2964,95 @@ def run_apps(cloud, smi, root):
         log.close()
 
 
+def bench_raster(name: str):
+    """The RasterConfig of splatbench/configs/<name>.json: the tiles, rank
+    windows and capacities that configuration's benchmark cells run."""
+    from websplat_tpu_torch.config import RasterConfig
+
+    with open(os.path.join(ROOT, "splatbench", "configs", f"{name}.json")) as f:
+        return RasterConfig(**json.load(f)["raster"])
+
+
+def walk_tickets(out) -> int:
+    """The tickets a walk launch's blocks took: word 2 of its ordered scratch
+    (csrc/stream.cuh), whose first words its stats view."""
+    import torch
+
+    words = torch.empty(0, dtype=torch.int64, device=out.stats.device)
+    return int(words.set_(out.stats.untyped_storage())[2])
+
+
+def walk_levels_at(what, dc, block, n, cfg, compressed, reps=20) -> list:
+    """Both overflow-walk levels at cfg's rank windows and capacities, on the
+    clamped rows of the kernel frontend over the decoded cloud dc (n
+    splats) at the frame block: ranks [tile_slots, overflow_slots) over the
+    clamped rows, then [overflow_slots, overflow_window_slots) over level
+    1's giants.  Each level's instances and giant rows must equal its plain
+    version's element for element (AssertionError otherwise).  Per level:
+    kernel-only ms (median of reps launches) against its roofline bound
+    (utils/roofline.py:overflow_walk_work), the live rows and their reach
+    tests, the rows a tile held (sized from the live rows), the grid and
+    the tiles its blocks took (each persistent block takes one ticket past
+    the last live tile)."""
+    import torch
+
+    from websplat_tpu_torch.kernels import build
+    from websplat_tpu_torch.ops.frontend import fused_frontend
+    from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
+    from websplat_tpu_torch.utils import roofline
+
+    geo = dict(width=W, height=H, config=cfg)
+    cap_c = cfg.overflow_capacity_for(n)
+    g_cap = cfg.overflow_grid_capacity_for(cap_c)
+    fk = fused_frontend(dc, block, capacity=max(4096, int(cfg.instance_capacity_factor * n)),
+                        capacity_c=cap_c, compressed=compressed, **geo)
+    rows, n_rows = fk.cid, fk.stats[2]
+    del fk
+    lib = build.lib()
+    levels = ((cfg.tile_slots, cfg.overflow_slots, cap_c, cfg.overflow_walk_capacity_for(cap_c),
+               g_cap),
+              (cfg.overflow_slots, cfg.overflow_window_slots, g_cap,
+               cfg.overflow_window_capacity_for(g_cap), cfg.overflow_dense_capacity_for(cap_c)))
+    out = []
+    for lvl, (lo, hi, n_cap, cap, gc) in enumerate(levels, 1):
+        def call(fn, rows=rows, n_rows=n_rows, lo=lo, hi=hi, n_cap=n_cap, cap=cap, gc=gc):
+            return fn(rows, n_rows, n_cap, rank_lo=lo, rank_hi=hi, giant_thresh=hi,
+                      capacity=cap, giant_capacity=gc, **geo)
+
+        k, p = call(overflow_walk), call(overflow_walk_torch)
+        tot, gt = k.stats.tolist()
+        ti, tg = min(tot, cap), min(gt, gc)
+        same = (k.stats.tolist() == p.stats.tolist() and torch.equal(k.keys[:ti], p.keys[:ti])
+                and torch.equal(k.words[:, :ti], p.words[:, :ti])
+                and torch.equal(k.giants[:, :tg], p.giants[:, :tg]))
+        tickets = walk_tickets(k)
+        live = min(int(n_rows), n_cap)
+        if hasattr(lib, "ws_overflow_walk_grid"):
+            tile_rows = lib.ws_overflow_walk_tile_rows(live, n_cap)
+            grid = lib.ws_overflow_walk_grid(n_cap)
+            taken = tickets - grid
+        else:  # a checkout from before the persistent walk: one 8-row tile a block
+            tile_rows, grid, taken = 8, tickets, tickets
+        ms = kernel_only_ms(lambda: call(overflow_walk), "overflow_walk", reps)
+        tests = roofline.walk_reach_tests(rows[0, :live], lo, hi)
+        r = dict(level=lvl, ranks=(lo, hi), n_cap=n_cap, live=live, reach_tests=tests,
+                 stats=[tot, gt], tile_rows=tile_rows, grid=grid, tiles_taken=taken,
+                 kernel_ms=ms, same=same)
+        with_bound(r, roofline.overflow_walk_work(live, tot, tg, tests))
+        say("walk", f"{what}, level {lvl} (ranks [{lo}, {hi}), n_cap {n_cap}): {live} live "
+                    f"rows, {tests} reach tests, stats [instances, giants] {r['stats']}; tiles "
+                    f"of {tile_rows} rows, grid {grid}, tiles taken {taken}; kernel only "
+                    f"{ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_term']}), share "
+                    f"{r['share']:.3f}; instances and giants equal to plain element for "
+                    f"element: {same}")
+        if not same:
+            raise AssertionError(f"overflow walk {what}, level {lvl}: rows differ from plain")
+        out.append(r)
+        rows, n_rows = k.giants, k.stats[1]
+        del p
+    return out
+
+
 TENM_SPLATS = 10_000_000  # scripts/bench_10m.py's default (BASELINE.json configuration 5)
 TENM_DISTANCES = (3.0, 0.45)  # the bench camera and a walkthrough camera (bench_10m.py:86-101)
 TENM_REPLAYS = 10
@@ -3011,6 +3117,9 @@ def tenm_phase(smi):
         sort_check = check_sort("10m", f"distance {dist_}, full N's stream", st, base)
         sort_ms = sort_timing("10m", f"distance {dist_}, full N's stream", st, smi, reps=5)
         del st
+        # the overflow walk at the c3dgs-10m cells' windows and capacities
+        walk = walk_levels_at(f"10M distance {dist_}", decompress_cloud(cc), block,
+                              resident.num_points, bench_raster("c3dgs-10m"), compressed=True)
         torch.cuda.empty_cache()
         frames = {}
         for name, cfg in (("full N", base),
@@ -3078,6 +3187,7 @@ def tenm_phase(smi):
             del plain
         out[dist_] = {k: {f: v for f, v in fr.items() if f != "img"} for k, fr in frames.items()}
         out[dist_]["sort"] = dict(sort_check, **sort_ms)
+        out[dist_]["walk"] = walk
         del frames, full, culled
     del cc
     torch.cuda.empty_cache()

@@ -8,11 +8,12 @@ The JAX kernel multiplies by hoisted reciprocals in its reach test where
 the port divides (make_reaches), so a tile exactly on a reach boundary
 could flip; observed: 0 differing rows, with the alpha bound on and off.
 
-At the production rank windows (6, 32, 160) the port's plain level 1,
-level 2 and dense grid together are held against the JAX package's XLA
-``ops/preprocess.py:overflow_emit`` (which divides as the port does): the
-same instance multiset.  That is the spec the kernel is held to on the
-card by chip_smoke.py, at the widths it runs.  The plain walk's order is
+At the production rank windows -- RasterConfig()'s (6, 32, 160) and the
+benchmark configurations' (6, 64, 256) and (6, 128, 384) -- the port's
+plain level 1, level 2 and dense grid together are held against the JAX
+package's XLA ``ops/preprocess.py:overflow_emit`` (which divides as the
+port does): the same instance multiset.  That is the spec the kernel is
+held to on the card by chip_smoke.py, at the widths it runs.  The plain walk's order is
 the kernel's: row by row, ranks ascending (test_walk_emits_in_row_order).
 """
 
@@ -175,26 +176,53 @@ def test_walk_emits_in_row_order():
     np.testing.assert_array_equal(u(head.words)[:, :total // 3], u(full.words)[:, :total // 3])
 
 
-PW, PH = 640, 480  # 20 x 15 tiles
+# The rank windows the port runs, (tile_slots, overflow_slots,
+# overflow_window_slots), each with a viewport and rect sizes (w_t, h_t
+# ranges per class) that give every stage rows: clamped only (n_rect <=
+# overflow_slots), giants (up to the window) and megas (past it)
+WINDOWS = {
+    # RasterConfig() defaults: 20 x 15 tiles, rects up to 14 x 12
+    "defaults": dict(raster={}, viewport=(640, 480),
+                     sizes=(((1, 7), (1, 6)), ((5, 13), (7, 13)), ((14, 15), (12, 13)))),
+    # splatbench/configs/bonsai-1.2m.json: 25 x 18 tiles, megas 20 x 14
+    "bonsai-1.2m": dict(raster=dict(overflow_slots=64, overflow_window_slots=256,
+                                    overflow_grid_capacity=8192),
+                        viewport=(800, 576),
+                        sizes=(((1, 9), (1, 8)), ((9, 17), (8, 17)), ((20, 21), (14, 15)))),
+    # splatbench/configs/c3dgs-10m.json: level 2 walks two groups of 128
+    # ranks; megas 24 x 17 (408 tiles)
+    "c3dgs-10m": dict(raster=dict(overflow_slots=128, overflow_window_slots=384,
+                                  overflow_grid_capacity=65536),
+                      viewport=(800, 576),
+                      sizes=(((1, 12), (1, 12)), ((12, 21), (11, 19)), ((24, 25), (17, 18)))),
+}
 
 
-def test_production_windows_match_overflow_emit():
-    """Ranks [6, 32), then [32, 160) over the giants, then the dense grid
-    over the megas (the main path's three overflow stages, RasterConfig()
-    defaults) against overflow_emit on the same rows: rects up to 14 x 12
-    tiles, conics from needle-thin to wide, so that both levels cull by
-    reach and all three stages emit."""
-    cfg = RasterConfig()
+@pytest.mark.parametrize("windows", sorted(WINDOWS))
+def test_production_windows_match_overflow_emit(windows):
+    """Ranks [tile_slots, overflow_slots), then [overflow_slots,
+    overflow_window_slots) over the giants, then the dense grid over the
+    megas (the main path's three overflow stages) against overflow_emit on
+    the same rows, at each rank window the port runs: conics from
+    needle-thin to wide, so that both levels cull by reach and all three
+    stages emit."""
+    case = WINDOWS[windows]
+    cfg, jcfg = RasterConfig(**case["raster"]), JaxRasterConfig(**case["raster"])
+    pw, ph = case["viewport"]
     n = 240
     rng = np.random.default_rng(7)
     sigma = 10.0 ** rng.uniform(-6.0, -2.5, n)
-    # about half of the rows clamped only (n_rect <= 32), 40% giants, 10%
-    # megas (n_rect > 160)
+    # about half of the rows clamped only, 40% giants, 10% megas
     cls = rng.choice(3, n, p=[0.5, 0.4, 0.1])
-    w_t = np.choose(cls, [rng.integers(1, 7, n), rng.integers(5, 13, n), np.full(n, 14)])
-    h_t = np.choose(cls, [rng.integers(1, 6, n), rng.integers(7, 13, n), np.full(n, 12)])
-    rows = _rows(11, n, cfg, sigma, width=PW, height=PH, size=(w_t, h_t))
-    geo = dict(width=PW, height=PH, config=cfg)
+    w_t, h_t = (np.choose(cls, [rng.integers(*size[axis], n) for size in case["sizes"]])
+                for axis in (0, 1))
+    rows = _rows(11, n, cfg, sigma, width=pw, height=ph, size=(w_t, h_t))
+    n_rect = w_t * h_t
+    assert (n_rect[cls == 0] <= cfg.overflow_slots).all()
+    assert (n_rect[cls == 1] > cfg.overflow_slots).all()
+    assert (n_rect[cls == 1] <= cfg.overflow_window_slots).all()
+    assert (n_rect[cls == 2] > cfg.overflow_window_slots).all()
+    geo = dict(width=pw, height=ph, config=cfg)
     g_cap = cfg.overflow_grid_capacity_for(n)
     m_cap = cfg.overflow_dense_capacity_for(n)
     t_rows = torch.from_numpy(rows.view(np.int32))
@@ -218,7 +246,7 @@ def test_production_windows_match_overflow_emit():
     port = np.concatenate(parts)
 
     keys, words, residual = overflow_emit(tuple(jnp.asarray(r) for r in rows),
-                                          config=JaxRasterConfig(), width=PW, height=PH)
+                                          config=jcfg, width=pw, height=ph)
     keys = np.asarray(keys)
     jax_inst = np.stack([keys] + [np.asarray(w) for w in words], 1)[keys != 0xFFFFFFFF]
     assert int(residual) == 0

@@ -68,6 +68,16 @@ the culled decode's kernels summed per call, each in brackets):
 for comparing forms of csrc/decompress.cu, each a root under _dev/; "n/a"
 where the checkout has no ops/decompress.py.
 
+    python3 time_checkout.py --walk-only [--tenm] ROOT [ROOT ...]
+
+times only the overflow walk per root (ops/overflow.py): both levels on
+the bench scene's view 0 at RasterConfig()'s rank windows and at the
+bonsai-1.2m configuration's (and under --tenm on the 10M cloud at both
+distances, at the c3dgs-10m configuration's), each level held to its
+plain version element for element, then timed kernel only
+(chip_smoke.walk_levels_at), with its live rows, grid and tiles taken:
+for comparing forms of csrc/overflow.cu, each a root under _dev/.
+
     python3 time_checkout.py --sass ROOT_A ROOT_B [SOURCE.cu ...]
 
 compiles each named csrc source (default: all) of both roots with the
@@ -206,6 +216,52 @@ def time_decode(cs, tenm: bool) -> list:
     return out
 
 
+def time_walk(cs, tenm: bool) -> list:
+    """The overflow walk's two levels (chip_smoke.walk_levels_at: held to
+    plain element for element, then timed kernel only, median of
+    KERNEL_REPS) on the bench scene's view 0 at RasterConfig()'s windows
+    and at the bonsai-1.2m configuration's, and under --tenm on the 10M
+    cloud at both distances at the c3dgs-10m configuration's: one "walk
+    ..." entry per scene, with each level's ms, live rows, grid and tiles
+    taken; a form that disagrees with plain is said to, not timed."""
+    import numpy as np
+    import torch
+    from websplat_tpu_torch import RasterConfig
+    from websplat_tpu_torch.io.loader import load_gaussian_cloud
+    from websplat_tpu_torch.render.renderer import decompress_cloud, upload, upload_cloud
+    from websplat_tpu_torch.synth import bench_cameras, make_bench_npz, make_camera
+
+    def entry(what, dc, block, n, cfg, compressed):
+        try:
+            levels = cs.walk_levels_at(what, dc, block, n, cfg, compressed, reps=KERNEL_REPS)
+        except AssertionError:
+            return f"walk {what} DISAGREES with its plain version"
+        return f"walk {what} " + ", ".join(
+            f"level {r['level']} {r['kernel_ms']:.4f} ms (bound {r['bound_ms']:.4f}; "
+            f"{r['live']} live rows, tiles of "
+            f"{r['tile_rows']}, grid {r['grid']}, {r['tiles_taken']} tiles taken)" for r in levels)
+
+    cloud = cs.bench_cloud()
+    dc = upload_cloud(cloud, "cuda")
+    block = cs.device_block(*cs.view_block(cloud, bench_cameras()[0]))
+    out = [entry(f"bench view 0 {name}", dc, block, cloud.num_points, cfg, False)
+           for name, cfg in (("defaults", RasterConfig()),
+                             ("bonsai-1.2m", cs.bench_raster("bonsai-1.2m")))]
+    del dc, cloud
+    torch.cuda.empty_cache()
+    if tenm:
+        resident = load_gaussian_cloud(make_bench_npz(np.random.default_rng(0),
+                                                      n=cs.TENM_SPLATS), keep_compressed=True)
+        cc = upload(resident, "cuda")
+        for dist in cs.TENM_DISTANCES:
+            block = cs.device_block(*cs.view_block(
+                resident, make_camera(viewport=(cs.W, cs.H), distance=dist)))
+            out.append(entry(f"10M {dist} c3dgs-10m", decompress_cloud(cc), block,
+                             resident.num_points, cs.bench_raster("c3dgs-10m"), True))
+            torch.cuda.empty_cache()
+    return out
+
+
 def time_compressed(cs, cams) -> list:
     """The compressed bench cloud's replayed frames over the 8 views, full
     N and culled (chip_smoke.py phase 4f's two compressed paths): one
@@ -236,7 +292,7 @@ def time_compressed(cs, cams) -> list:
 
 
 def time_root(root: str, tenm: bool = False, sort_only: bool = False,
-              decode_only: bool = False) -> None:
+              decode_only: bool = False, walk_only: bool = False) -> None:
     sys.path.insert(0, root)
     import torch
     import websplat_tpu_torch
@@ -274,6 +330,11 @@ def time_root(root: str, tenm: bool = False, sort_only: bool = False,
         return block, block[-3:]
 
     usage = build.build_report()
+    if walk_only:
+        regs = [f"{entry[:40]} {u['registers']} registers, {u['spill_stores']} B spills"
+                for entry, u in usage.items() if "overflow_walk_kernel" in entry]
+        print(f"[time] {root}: " + "; ".join(time_walk(cs, tenm) + regs), flush=True)
+        return
     if decode_only:
         regs = [f"{entry[:40]} {u['registers']} registers, {u['spill_stores']} B spills"
                 for entry, u in usage.items() if "decode_kernel" in entry
@@ -431,13 +492,14 @@ def main() -> int:
     if len(sys.argv) >= 4 and sys.argv[1] == "--sass":
         compare_sass(os.path.abspath(sys.argv[2]), os.path.abspath(sys.argv[3]), sys.argv[4:])
         return 0
-    flags = [a for a in sys.argv[1:] if a in ("--tenm", "--sort-only", "--decode-only")]
+    flags = [a for a in sys.argv[1:]
+             if a in ("--tenm", "--sort-only", "--decode-only", "--walk-only")]
     args = [a for a in sys.argv[1:] if a not in flags]
-    tenm, sort_only, decode_only = ("--tenm" in flags, "--sort-only" in flags,
-                                    "--decode-only" in flags)
+    tenm, sort_only, decode_only, walk_only = ("--tenm" in flags, "--sort-only" in flags,
+                                               "--decode-only" in flags, "--walk-only" in flags)
     if args[:1] == ["--in-process"] and len(args) == 2:
         time_root(os.path.abspath(args[1]), tenm=tenm, sort_only=sort_only,
-                  decode_only=decode_only)
+                  decode_only=decode_only, walk_only=walk_only)
         return 0
     roots = args
     if not roots:

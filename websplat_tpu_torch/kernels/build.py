@@ -67,6 +67,9 @@ _SIGNATURES = {
                   _vp],
     "ws_cull_decode": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _f, _f, _f, _f,
                        _vp, _vp, _vp, _vp, _i64, _vp, _i64, _vp],
+    "ws_overflow_walk_min_tile_rows": [],
+    "ws_overflow_walk_grid": [_i],
+    "ws_overflow_walk_tile_rows": [_i, _i],
     "ws_frontend_short_walk": [],
     "ws_frontend_long_queue": [],
     "ws_sort_tile": [],

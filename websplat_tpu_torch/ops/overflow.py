@@ -36,7 +36,10 @@ from websplat_tpu_torch.ops.packing import INVALID_KEY, to_i32, u32
 from websplat_tpu_torch.ops.preprocess import RECT4_MAX_TILES, decoded_reaches, unpack_rect4
 from websplat_tpu_torch.utils import trace
 
-WALK_WARPS = 8  # rows per tile (csrc/overflow.cu)
+# the smallest tile's rows, one status word per stream in the scratch
+# (csrc/overflow.cu:WALK_WARPS); a launch's tiles hold a multiple of it,
+# sized on the card from the live row count
+MIN_TILE_ROWS = 8
 
 
 class WalkOut(NamedTuple):
@@ -128,7 +131,7 @@ def overflow_walk(rows: torch.Tensor, n_rows: Union[int, torch.Tensor], n_cap: i
 
     keys, words, words_ld = build.stream_out(out, capacity, dev)
     giants = torch.empty((6, giant_capacity), dtype=torch.int32, device=dev)
-    scratch = build.ordered_scratch(2, -(-n_cap // WALK_WARPS), dev)
+    scratch = build.ordered_scratch(2, -(-n_cap // MIN_TILE_ROWS), dev)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     err = build.lib().ws_overflow_walk(
         rows.data_ptr(), rows.shape[1], n_rows.data_ptr(), n_cap, p(icfg), p(fcfg),
