@@ -1,12 +1,14 @@
 """The camera traffic of a cell: one general generator of views, driven by
 the parameters of a traffic file (``traffic/<mix>.json``) and the seed.
 
-Two loops read these views (``drivers.py``):
+Three loops read these views (``drivers.py``):
 
 - ``"loop": "pass"``: a pool of ``pool`` orbit views at ``distance`` from
   the target, azimuth uniform over the circle and elevation uniform in
   ``elevation``; the window renders them ``views_per_pass`` at a time, the
   pool in turn.
+- ``"loop": "views"``: the same pool, drawn alike; the view-parallel step
+  takes it ``views_per_step`` at a time, in turn, split over the ranks.
 - ``"loop": "walk"``: one viewer flying a closed path: ``keyframes`` orbit
   points (azimuths spread evenly around the circle, each moved by up to
   ``azimuth_jitter``, elevation in ``elevation``, distance in
@@ -122,10 +124,11 @@ def walk_path(traffic: dict, seed: int, viewport: Tuple[int, int]) -> List[Camer
 
 
 def views(traffic: dict, seed: int, viewport: Tuple[int, int]) -> List[Camera]:
-    """The views of a traffic: the pool of a pass, the loop of a walk."""
+    """The views of a traffic: the pool of a pass or a views step, the loop
+    of a walk."""
     loop = traffic["loop"]
-    if loop == "pass":
+    if loop in ("pass", "views"):
         return pass_pool(traffic, seed, viewport)
     if loop == "walk":
         return walk_path(traffic, seed, viewport)
-    raise ValueError(f"traffic loop {loop!r}: 'pass' or 'walk'")
+    raise ValueError(f"traffic loop {loop!r}: 'pass', 'views' or 'walk'")

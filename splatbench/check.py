@@ -12,13 +12,19 @@ number's limit (``PERF.md`` gives the readings each limit was set from):
   checked views, the largest difference between the program's
   ``num_visible`` and the reference's count of visible splats;
 - ``drops``: over every frame of the window, the sum of ``num_clamped``,
-  ``num_dropped`` and ``num_culled_dropped`` (exact: limit 0).
+  ``num_dropped`` and ``num_culled_dropped`` (exact: limit 0);
+- ``total_visible_gap`` (a views cell): over every step of the window and
+  every rank, the largest difference between the step's ``total_visible``
+  on that rank and the sum of every rank's per-view ``num_visible`` in the
+  step (exact: limit 0; it checks the collective).
 
 The sampled frames are drawn from the seed among the window's first cycle
 (a pass cell: one pass of the pool, with a frame from each half of it, the
-rest anywhere; a walk: the first loop).  The reference renders after the
-window has closed, the peak memory has been read and the program's state
-is freed.
+rest anywhere; a views cell: the same, of each rank's passes; a walk: the
+first loop).  The reference renders after the window has closed, the peak
+memory has been read and the program's state is freed; on several ranks
+each rank judges its own frames on its card, and ``combine`` takes the
+worst of each number over the ranks.
 """
 
 from __future__ import annotations
@@ -46,9 +52,12 @@ def sampled_units(cell, seed: int, n_views: int) -> List[int]:
     rng = seeds.rng(seed, "sample")
     n = int(cell.check["frames"])
     t = cell.traffic
-    if t["loop"] == "pass":
-        v = int(t["views_per_pass"])
-        p = int(rng.integers(n_views // v))
+    if t["loop"] in ("pass", "views"):
+        # a views cell: each rank's pass of views_per_step / chips views, the
+        # same units on every rank
+        step = int(t["views_per_pass"] if t["loop"] == "pass" else t["views_per_step"])
+        v = step if t["loop"] == "pass" else step // cell.chips
+        p = int(rng.integers(n_views // step))
         half = v // 2
         picks = [int(rng.integers(half)), half + int(rng.integers(v - half))]
         rest = [j for j in range(v) if j not in picks]
@@ -103,7 +112,9 @@ def judge(cell, inputs: dict, views, window, sampled: List[int], seed: int, devi
     diags = window.diags if program_diags is None else program_diags
     images = window.samples if program_images is None else program_images
 
-    checked = counted_views(cell, seed, len(views))
+    # only the checked views this window rendered can differ from the reference
+    shown = set(np.unique(window.view_of).tolist())
+    checked = [i for i in counted_views(cell, seed, len(views)) if i in shown]
     ref_vis = {i: reference.num_visible(scene, reference.make_view(views[i], w, h,
                                                                    scene.bounds()), st, dtype)
                for i in checked}
@@ -136,3 +147,17 @@ def judge(cell, inputs: dict, views, window, sampled: List[int], seed: int, devi
                    visible_gap=float(gap.max(initial=0)), drops=float(lost.sum()))
     mean = {k: float(np.mean([c[k] for c in counts])) for k in counts[0]} if counts else {}
     return Verdict(numbers, limits, int(bad.sum()), mean, notes)
+
+
+def combine(verdicts: List[Verdict], extra: Dict[str, float], extra_failed: int = 0) -> Verdict:
+    """One verdict of several ranks' (rank order): each number the worst over
+    them, ``extra`` numbers besides (the collective's), failures summed, the
+    counts rank 0's; one rank's verdict and no extra is returned as it is."""
+    if len(verdicts) == 1 and not extra:
+        return verdicts[0]
+    numbers = {k: max(v.numbers[k] for v in verdicts) for k in verdicts[0].numbers}
+    numbers.update(extra)
+    notes = [n if len(verdicts) == 1 else f"rank {r}: {n}"
+             for r, v in enumerate(verdicts) for n in v.notes]
+    return Verdict(numbers, verdicts[0].limits, sum(v.failed for v in verdicts) + extra_failed,
+                   verdicts[0].counts, notes)

@@ -28,7 +28,10 @@ from splatbench import cameras, check, drivers, reference, registry
 
 def control_numbers(cell, seed: int, device, dtype=torch.bfloat16) -> dict:
     """The compared numbers with the reference in ``dtype`` in the
-    program's place, over one cycle of the traffic's views."""
+    program's place, over one cycle of the traffic's views (of a views
+    cell: each rank's units of one cycle, judged as that rank judges them,
+    each number the worst over the ranks; the collective is exact, as the
+    reference's total is its own sum)."""
     dev = torch.device(device)
     w, h = cell.config["viewport"]
     inputs = registry.scene_maker(cell.config["scene"]["kind"])(cell.config["scene"], seed, dev)
@@ -37,16 +40,28 @@ def control_numbers(cell, seed: int, device, dtype=torch.bfloat16) -> dict:
     scene = reference.scene_from_inputs(inputs, dev)
     checked = check.counted_views(cell, seed, len(views))
     sampled = check.sampled_units(cell, seed, len(views))
-    diags = np.zeros((len(views), 5), np.int64)
-    for i in checked:
-        diags[i, 1] = reference.num_visible(scene, reference.make_view(views[i], w, h,
-                                                                       scene.bounds()), st, dtype)
-    images = {u: reference.render(scene, reference.make_view(views[u], w, h, scene.bounds()), st,
-                                  dtype).image for u in sampled}
-    window = drivers.Window(0.0, len(views), np.arange(len(views)), diags, images, [])
+    t = cell.traffic
+    if t["loop"] == "views":
+        n, v = len(views) // cell.chips, int(t["views_per_step"])
+        view_of = [drivers.step_views(v, v // cell.chips, len(views) // v, r, n)
+                   for r in range(cell.chips)]
+    else:
+        view_of = [np.arange(len(views))]
+    vis = {i: reference.num_visible(scene, reference.make_view(views[i], w, h, scene.bounds()),
+                                    st, dtype) for i in checked}
+    windows = []
+    for of in view_of:
+        diags = np.zeros((len(of), 5), np.int64)
+        diags[:, 1] = [vis.get(int(i), 0) for i in of]
+        images = {u: reference.render(scene, reference.make_view(views[int(of[u])], w, h,
+                                                                 scene.bounds()), st,
+                                      dtype).image for u in sampled}
+        windows.append(drivers.Window(0.0, len(of), of, diags, images, []))
     del scene
     drivers.free(dev)
-    verdict = check.judge(cell, inputs, views, window, sampled, seed, dev)
+    verdicts = [check.judge(cell, inputs, views, window, sampled, seed, dev) for window in windows]
+    extra = {"total_visible_gap": 0.0} if t["loop"] == "views" else {}
+    verdict = check.combine(verdicts, extra)
     return dict(verdict.numbers, correct=verdict.correct)
 
 

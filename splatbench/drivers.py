@@ -11,6 +11,18 @@ user hands it, set-up and warm-up, and the measured window of each loop.
 - ``WalkLoop`` (``"loop": "walk"``): one viewer asks
   ``GaussianRenderer.render`` for each pose of the path in turn, and the
   next only when the previous image is in host memory; each call is timed.
+- ``ViewsLoop`` (``"loop": "views"``): one rank of the view-parallel step
+  (``parallel/multiview.py:make_view_parallel_renderer``) over the cell's
+  ``chips`` ranks, each with its own replica uploaded as ``PassLoop``'s;
+  a step is one call with ``views_per_step`` consecutive views of the
+  pool (the rank builds and uploads its block of them, replays its pass
+  of ``views_per_step / chips`` views and sums the visible counts over the
+  group with one ``all_reduce``) and one synchronise.  The step returns
+  its images and that sum; the per-view diagnostics it passes over are
+  taken from ``render_blocks`` on the way (``DiagTap``).  Rank 0 ends the
+  window on its clock (``Lead``) and names the last step to the others one
+  step ahead on a page they share, so every rank runs as many steps
+  (``Follow``).
 
 The program's functions are looked up on their modules at each call, so a
 test can break the timed path underneath.
@@ -20,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import struct
 import time
 from typing import Dict, List, Optional
 
@@ -31,6 +44,7 @@ from splatbench import trace
 MAX_PASSES = 1 << 16  # rows of a pass cell's diagnostics log
 WARM_PASSES = 3
 WARM_FRAMES = 8
+STEP = struct.Struct("<q")  # the last step's index, as rank 0 writes it (``Lead``)
 
 
 @dataclasses.dataclass
@@ -41,6 +55,8 @@ class Window:
     diags: np.ndarray  # (units, 5) each unit's FrameDiag values
     samples: Dict[int, torch.Tensor]  # unit index -> its (H, W, 3) image
     unit_s: List[float]  # walk: each frame's time in ``render``
+    totals: Optional[np.ndarray] = None  # views: each step's total_visible
+    stop_s: Optional[np.ndarray] = None  # views: each step's host seconds in its stop check
 
 
 def program_cloud(inputs: dict, config: dict):
@@ -209,6 +225,158 @@ class WalkLoop:
         self.renderer = self.poses = None
 
 
+class DiagTap:
+    """Keeps the diagnostics of each ``render_blocks`` call that the
+    view-parallel step makes (it looks the function up on its module at each
+    call, and returns only the images and the summed count)."""
+
+    def __init__(self, module):
+        self.module, self.inner, self.last = module, module.render_blocks, None
+        module.render_blocks = self
+
+    def __call__(self, *args, **kw):
+        images, diags = self.inner(*args, **kw)
+        self.last = diags
+        return images, diags
+
+    def close(self) -> None:
+        self.module.render_blocks = self.inner
+
+
+class Lead:
+    """Ends a window on this process's clock once ``seconds`` have passed.
+    With followers, at the end of step i it names step i + 1 the last on
+    the ranks' shared page ``board`` (the step at byte 8, then the window's
+    number at byte 0), before it launches step i + 1: a follower's step
+    i + 1 ends only after this rank has joined its all_reduce, so the name
+    is there by then."""
+
+    def __init__(self, seconds: float, board=None, window: int = 1):
+        self.seconds, self.board, self.window, self.last = seconds, board, window, None
+
+    def after(self, i: int, elapsed: float) -> bool:
+        """Whether step ``i``, ended ``elapsed`` seconds into the window, is
+        the last."""
+        if self.last is None and (elapsed >= self.seconds or i + 2 >= MAX_PASSES):
+            self.last = i if self.board is None else i + 1
+            if self.board is not None:
+                STEP.pack_into(self.board, 8, self.last)
+                self.board[0] = self.window
+        return i == self.last
+
+
+class Follow:
+    """Ends a window at the step that rank 0 names on the shared page
+    (``Lead``): a memory read a step, no system call."""
+
+    def __init__(self, board, window: int = 1):
+        self.board, self.window, self.last = board, window, None
+
+    def after(self, i: int, elapsed: float) -> bool:
+        if self.last is None and self.board[0] == self.window:
+            (self.last,) = STEP.unpack_from(self.board, 8)
+        # a step that skips its collective lets this rank run ahead: it stops
+        # at the log's end, and the ranks' counts of steps then differ
+        return (self.last is not None and i >= self.last) or i + 1 >= MAX_PASSES
+
+
+def step_views(v: int, per: int, cycle: int, rank: int, units: int) -> np.ndarray:
+    """The pool view of each of a rank's first ``units`` units, in steps of
+    ``v`` views of which the rank renders ``per``, the pool ``cycle`` steps."""
+    u = np.arange(units)
+    return (u // per % cycle) * v + rank * per + u % per
+
+
+class ViewsLoop:
+    def __init__(self, cell, inputs: dict, views, device: torch.device,
+                 cull_factor: Optional[float]):
+        from websplat_tpu_torch.config import SplattingArgs, resolve_settings
+        from websplat_tpu_torch.models.camera import CameraUniforms
+        from websplat_tpu_torch.parallel import multiview
+        from websplat_tpu_torch.parallel.group import device_group
+        from websplat_tpu_torch.render.renderer import upload
+
+        self.device = device
+        self.w, self.h = cell.config["viewport"]
+        self.group = device_group(cell.chips, device.type)
+        if self.group.device != device:
+            raise ValueError(f"rank {self.group.rank} renders on {self.group.device}, not {device}")
+        self.v = int(cell.traffic["views_per_step"])
+        if self.v % self.group.size or len(views) % self.v:
+            raise ValueError(f"a pool of {len(views)} views in steps of {self.v} over "
+                             f"{self.group.size} ranks")
+        self.per = self.v // self.group.size  # views a rank renders a step
+        self.cycle = len(views) // self.v
+        self.cloud = program_cloud(inputs, cell.config)
+        self.config = raster_config(cell.config, cull_factor)
+        self.dc = upload(self.cloud, device)
+        self.settings = resolve_settings(SplattingArgs(), self.cloud)
+        unis = []
+        for cam in views:
+            pc = program_camera(cam, (self.w, self.h))
+            pc.fit_near_far(*self.cloud.aabb)
+            unis.append(CameraUniforms.from_camera(pc, (self.w, self.h)))
+        pool = multiview.stack_cameras(unis)
+        self.batches = [multiview.CameraBatch(*(a[k * self.v:(k + 1) * self.v] for a in pool))
+                        for k in range(self.cycle)]
+        self.step = multiview.make_view_parallel_renderer(
+            self.group, width=self.w, height=self.h, config=self.config,
+            compressed=self.cloud.compressed)
+        self.tap = DiagTap(multiview)
+
+    def run(self, i: int):
+        images, total = self.step(self.dc, self.batches[i % self.cycle], self.settings,
+                                  self.settings.background_color)
+        return images, self.tap.last, total
+
+    def warm(self) -> None:
+        for i in range(WARM_PASSES):
+            self.run(i)
+            sync(self.device)
+
+    def window(self, seconds: float, sampled: set, prof=None, stop=None,
+               pre: bool = False) -> Window:
+        """``pre``: one step before the window (every rank of a traced run
+        makes it, rank 0 inside its profile); ``stop``: a ``Lead`` or a
+        ``Follow`` (a ``Lead`` on this clock alone by default)."""
+        stop = Lead(seconds) if stop is None else stop
+        log = torch.zeros((MAX_PASSES, self.per, 5), dtype=torch.int32, device=self.device)
+        totals = torch.zeros((MAX_PASSES,), dtype=torch.int64, device=self.device)
+        keep = {u // self.per for u in sampled}
+        kept = {}
+        if pre or prof is not None:
+            self.run(0)
+            sync(self.device)
+        i, stop_s = 0, []
+        span = trace.annotate if prof is not None else _null
+        with span(trace.WINDOW):
+            t0 = time.perf_counter()
+            while True:
+                with span("splatbench.step"):
+                    images, diags, total = self.run(i)
+                    log[i].copy_(diags)
+                    totals[i].copy_(total)
+                    if i in keep:
+                        kept[i] = images.clone()
+                with span("splatbench.sync"):
+                    sync(self.device)
+                t = time.perf_counter()
+                last = stop.after(i, t - t0)
+                stop_s.append(time.perf_counter() - t)
+                i += 1
+                if last:
+                    break
+        units = i * self.per
+        samples = {u: kept[u // self.per][u % self.per] for u in sampled if u // self.per in kept}
+        view_of = step_views(self.v, self.per, self.cycle, self.group.rank, units)
+        return Window(t - t0, units, view_of, log[:i].reshape(-1, 5).cpu().numpy(), samples, [],
+                      totals=totals[:i].cpu().numpy(), stop_s=np.asarray(stop_s))
+
+    def release(self) -> None:
+        self.tap.close()
+        self.step = self.batches = self.dc = self.cloud = None
+
+
 class _null:
     """A span that records nothing (the window outside a trace)."""
 
@@ -222,7 +390,7 @@ class _null:
         return False
 
 
-LOOPS = {"pass": PassLoop, "walk": WalkLoop}
+LOOPS = {"pass": PassLoop, "walk": WalkLoop, "views": ViewsLoop}
 
 
 def free(device: torch.device) -> None:

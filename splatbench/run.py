@@ -13,9 +13,18 @@ key of the result.  With ``--trace 1`` the window, of at most
 ``TRACE_SECONDS``, runs under ``torch.profiler`` and the result carries
 the cell's per-layer metrics in place of its end-to-end ones.
 
+A cell whose ``chips`` is 1 runs in this process.  A cell on D > 1 chips
+runs as D spawned ranks, one a card (``ranks.py``): each makes the whole
+set-up on its card, the window starts when the slowest is ready, rank 0
+ends it, and each judges its own frames; this process combines them:
+views over all ranks and rank 0's window, the fullest card's peak, set-up
+to the slowest rank's first timed step, and each compared number the
+worst over the ranks.
+
 It exits non-zero with no result where CUDA is absent or has fewer cards
-than the cell asks for, and where a module whose top-level name is
-``jax``, ``jaxlib``, ``flax`` or ``websplat_tpu`` is loaded at the end.
+than the cell asks for, where a module whose top-level name is ``jax``,
+``jaxlib``, ``flax`` or ``websplat_tpu`` is loaded at the end (in any
+rank), and where a rank fails.
 Build and kernel caches stay inside the checkout: the port builds into
 ``websplat_tpu_torch/_build``; Triton and torch extensions, if anything
 loads them, use ``.splatbench_cache/``.
@@ -28,11 +37,16 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
+import types  # noqa: E402
 from pathlib import Path  # noqa: E402
+from typing import List, Optional, Tuple  # noqa: E402
+
+import numpy as np  # noqa: E402
 
 CHECKOUT = Path(__file__).resolve().parent.parent
 CACHE = CHECKOUT / ".splatbench_cache"
@@ -112,17 +126,35 @@ def end_to_end(window, setup_s: float, peak_bytes: int):
     return per
 
 
-def run_cell(cell, seed: int, seconds: float, trace_on: bool, device="cuda",
-             t_start: float = None):
-    """One run of ``cell`` on ``device`` -> (the result dict, stderr lines).
-    ``device`` "cpu" runs the program's plain path (for the tests)."""
+@dataclasses.dataclass
+class RankOut:
+    """What one rank measured and judged (all of a one-chip run)."""
+
+    marks: List[Tuple[str, float]]  # set-up stages, perf_counter times
+    setup_s: float
+    units: int
+    seconds: float
+    peak: int
+    kind: str
+    verdict: object  # check.Verdict
+    totals: Optional[np.ndarray]  # views: each step's total_visible
+    step_visible: Optional[np.ndarray]  # views: each step's summed num_visible
+    stop_s: Optional[np.ndarray]  # views: each step's stop check, host seconds
+    trace: Optional[dict] = None  # traced: busy_s, window_s, line, lost, and rank 0's
+    metrics: Optional[dict] = None  # traced, rank 0: the per-layer metrics
+
+
+def run_rank(cell, seed: int, seconds: float, trace_on: bool, dev, t_start: float,
+             link=None, marks=None) -> RankOut:
+    """Set-up, the window and the check of one process: the whole of a
+    one-chip run, or one rank of a cell on several (``link``:
+    ``ranks.Link``, its place among them; ``marks``: its set-up stages so
+    far)."""
     import torch
 
     from splatbench import cameras, check, drivers, reference, registry, trace
 
-    t_start = T_START if t_start is None else t_start
-    marks = [("start", t_start), ("imports", time.perf_counter())]
-    dev = torch.device(device)
+    marks = list(marks or [("start", t_start)]) + [("imports", time.perf_counter())]
     cfg = cell.config
     w, h = cfg["viewport"]
     if dev.type == "cuda":
@@ -151,22 +183,34 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device="cuda",
     loop.warm()
     drivers.sync(dev)
     marks.append(("warm-up", time.perf_counter()))
+    if link is not None:  # the window starts when the slowest rank is ready
+        marks.append(("the other ranks", link.latest(marks[-1][1], dev)))
     setup_s = marks[-1][1] - t_start
     sampled = check.sampled_units(cell, seed, len(views))
+    kw = {} if link is None else dict(pre=trace_on)
 
+    traced = None
     if trace_on:
         # a traced window whose profile lost the kernel records of more than
-        # LOST_SHARE of its graph launches is made again, once
+        # LOST_SHARE of its graph launches (on any rank) is made again, once
         for _ in range(2):
             prof = trace.profile()
+            if link is not None:
+                kw["stop"] = link.stop(min(seconds, TRACE_SECONDS))
             with prof:
-                window = loop.window(min(seconds, TRACE_SECONDS), set(sampled), prof)
+                window = loop.window(min(seconds, TRACE_SECONDS), set(sampled), prof, **kw)
             summary = trace.summarize(prof, trace.load_layers(cell.data / "layers"))
             del prof
-            if summary.lost <= LOST_SHARE * summary.launches:
+            lost = summary.lost > LOST_SHARE * summary.launches
+            if not (lost if link is None else link.any(lost, dev)):
                 break
+        traced = dict(busy_s=summary.busy_s, window_s=summary.window_s, lost=lost,
+                      line=trace.summary_line(summary), launches=summary.launches,
+                      lost_launches=summary.lost)
     else:
-        window = loop.window(seconds, set(sampled))
+        if link is not None:
+            kw["stop"] = link.stop(seconds)
+        window = loop.window(seconds, set(sampled), **kw)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     loop.release()
     del loop
@@ -174,35 +218,102 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device="cuda",
 
     verdict = check.judge(cell, inputs, views, window, sampled, seed, dev)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    device_out = {"platform": "gpu" if dev.type == "cuda" else "cpu", "kind": kind,
-                  "count": cell.chips, "memory_peak_bytes": int(peak)}
-    stages = (f"{b[0]} {b[1] - a[1]:.3f} s" for a, b in zip(marks, marks[1:]))
-    lines = ["set-up: " + ", ".join(stages)]
-    result = {"correct": verdict.correct, "attempted": int(window.units),
-              "failed": int(verdict.failed)}
-    if trace_on:
+    metrics = None
+    if trace_on and (link is None or link.rank == 0):
         ctx = Ctx(cell, summary, verdict.counts, window, kind)
         metrics = {}
         for m in cell.per_layer:
             value = registry.reader(cell.data, m.name)(ctx)
             if value is not None:
                 metrics[m.name] = {"value": float(value), "unit": m.unit}
-        device_out.update(busy_s=summary.busy_s, window_s=summary.window_s)
-        result["metrics"] = metrics
-        result["device"] = device_out
-        result["breakdown"] = {"device_ops": summary.device_ops, "idle_gaps": summary.idle_gaps}
-        result["unmatched_kernels"] = sorted(([k, v] for k, v in summary.unmatched.items()),
-                                             key=lambda kv: -kv[1])
-        lines.append(trace.summary_line(summary))
-        if summary.lost > LOST_SHARE * summary.launches:
-            verdict.notes.append(f"the profiler lost kernel records of {summary.lost} of "
-                                 f"{summary.launches} graph launches")
-            result["correct"] = False
+        traced.update(device_ops=summary.device_ops, idle_gaps=summary.idle_gaps,
+                      unmatched=sorted(([k, v] for k, v in summary.unmatched.items()),
+                                       key=lambda kv: -kv[1]))
+    step_visible = None
+    if window.totals is not None:
+        per = window.diags.reshape(len(window.totals), -1, 5)
+        step_visible = per[:, :, 1].astype(np.int64).sum(1)
+    return RankOut(marks, setup_s, int(window.units), window.seconds, int(peak), kind, verdict,
+                   window.totals, step_visible, window.stop_s, traced, metrics)
+
+
+def run_cell(cell, seed: int, seconds: float, trace_on: bool, device="cuda",
+             t_start: float = None, patch=None):
+    """One run of ``cell`` on ``device`` -> (the result dict, stderr lines).
+    ``device`` "cpu" runs the program's plain path (for the tests).  A cell
+    on several chips runs as that many ranks (``ranks.py``; ``patch``, a
+    picklable function each rank calls first, lets a test break them)."""
+    import torch
+
+    t_start = T_START if t_start is None else t_start
+    if cell.chips > 1:
+        from splatbench import ranks
+
+        return result_of(cell, ranks.run(cell, seed, seconds, trace_on, device, t_start, patch),
+                         trace_on)
+    return result_of(cell, [run_rank(cell, seed, seconds, trace_on, torch.device(device),
+                                     t_start)], trace_on)
+
+
+def _stages(marks) -> str:
+    return ", ".join(f"{b[0]} {b[1] - a[1]:.3f} s" for a, b in zip(marks, marks[1:]))
+
+
+def result_of(cell, parts: List[RankOut], trace_on: bool):
+    """The result line's dict and the stderr lines of a run's ranks (one,
+    or the cell's chips, in rank order)."""
+    from splatbench import check
+
+    lead = parts[0]
+    extra, extra_failed, notes = {}, 0, []
+    if lead.totals is not None:
+        steps = {len(p.totals) for p in parts}
+        if len(steps) == 1:
+            visible = sum(p.step_visible for p in parts)
+            gaps = np.stack([np.abs(p.totals - visible) for p in parts])
+            extra["total_visible_gap"] = float(gaps.max(initial=0))
+            extra_failed = int((gaps.max(0) > 0).sum()) * int(cell.traffic["views_per_step"])
+        else:
+            notes.append(f"the ranks ran {[len(p.totals) for p in parts]} steps")
+            extra["total_visible_gap"] = float("inf")
+    verdict = check.combine([p.verdict for p in parts], extra, extra_failed)
+    verdict.notes += notes
+    if len(parts) == 1:
+        lines = ["set-up: " + _stages(lead.marks)]
     else:
-        per = end_to_end(window, setup_s, peak)
+        lines = [f"set-up, rank {r}: " + _stages(p.marks) for r, p in enumerate(parts)]
+        lines += [f"stop checks, rank {r}: median {1e6 * np.median(p.stop_s):.3f} us, mean "
+                  f"{1e6 * p.stop_s.mean():.3f}, max {1e6 * p.stop_s.max():.3f} a step over "
+                  f"{len(p.stop_s)} steps" for r, p in enumerate(parts)]
+    peak = max(p.peak for p in parts)
+    units = sum(p.units for p in parts)
+    result = {"correct": verdict.correct, "attempted": units, "failed": int(verdict.failed)}
+    device_out = {"platform": "gpu" if lead.kind != "cpu" else "cpu", "kind": lead.kind,
+                  "count": cell.chips, "memory_peak_bytes": peak}
+    if trace_on:
+        tr = lead.trace
+        device_out.update(busy_s=sum(p.trace["busy_s"] for p in parts) / len(parts),
+                          window_s=sum(p.trace["window_s"] for p in parts) / len(parts))
+        result["metrics"] = lead.metrics
+        result["device"] = device_out
+        result["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
+        result["unmatched_kernels"] = tr["unmatched"]
+        lines += [p.trace["line"] if len(parts) == 1 else f"rank {r} {p.trace['line']}"
+                  for r, p in enumerate(parts)]
+        for r, p in enumerate(parts):
+            if p.trace["lost"]:
+                verdict.notes.append(("" if len(parts) == 1 else f"rank {r}: ")
+                                     + f"the profiler lost kernel records of "
+                                     f"{p.trace['lost_launches']} of {p.trace['launches']} graph "
+                                     "launches")
+                result["correct"] = False
+    else:
+        window = types.SimpleNamespace(units=units, seconds=lead.seconds)
+        per = end_to_end(window, max(p.setup_s for p in parts), peak)
         result["metrics"] = {m.name: {"value": float(per[m.name]()), "unit": m.unit}
                              for m in cell.end_to_end}
         result["device"] = device_out
+    result["correct"] = result["correct"] and verdict.correct
     counts = ", ".join(f"{k} {v:.1f}" for k, v in verdict.counts.items())
     lines.append(f"reference counts per checked frame: {counts}")
     lines += [f"note: {n}" for n in verdict.notes]
@@ -215,22 +326,36 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device="cuda",
 
 def main(argv=None) -> int:
     args = parse(argv)
-    import torch
-
-    from splatbench import registry
+    from splatbench import ranks, registry
 
     bench = registry.Bench.load()
     cell = bench.cell(args.workload)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        print(f"splatbench: {args.workload} needs {cell.chips} CUDA device(s), found {have}",
-              file=sys.stderr)
-        return 2
     found = forbidden_modules()
     if found:
         print(f"splatbench: loaded at start: {found}", file=sys.stderr)
         return 3
-    result, lines = run_cell(cell, args.seed, args.seconds, bool(args.trace))
+    # a cell on several chips starts its ranks first: they import torch
+    # while this process looks for the cards
+    started = (ranks.Ranks(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
+               if cell.chips > 1 else None)
+    try:
+        import torch
+
+        if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+            have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            print(f"splatbench: {args.workload} needs {cell.chips} CUDA device(s), found {have}",
+                  file=sys.stderr)
+            return 2
+        if started is None:
+            result, lines = run_cell(cell, args.seed, args.seconds, bool(args.trace))
+        else:
+            result, lines = result_of(cell, started.wait(), bool(args.trace))
+    except ranks.RankFailed as e:
+        print(f"splatbench: {e}", file=sys.stderr)
+        return 4
+    finally:
+        if started is not None:
+            started.stop()
     found = forbidden_modules()
     if found:
         print(f"splatbench: loaded by the run: {found}", file=sys.stderr)

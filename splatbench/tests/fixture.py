@@ -13,7 +13,7 @@ from splatbench import registry
 REPO = Path(__file__).resolve().parents[2]
 DATA = REPO / "splatbench"
 TRAFFIC = {"pass8": dict(pool=8, views_per_pass=4), "close8": dict(pool=8, views_per_pass=4),
-           "walk": dict(frames_per_loop=8)}
+           "walk": dict(frames_per_loop=8), "views4": dict(pool=16, views_per_step=8)}
 
 
 def write(path: Path, obj) -> None:

@@ -9,7 +9,8 @@ import torch
 from splatbench import control, registry
 from splatbench.tests import fixture
 
-CELLS = ["bonsai-1.2m.pass8", "c3dgs-10m.pass8", "bonsai-1.2m.walk", "c3dgs-10m.close8"]
+CELLS = ["bonsai-1.2m.pass8", "c3dgs-10m.pass8", "bonsai-1.2m.walk", "c3dgs-10m.close8",
+         "c3dgs-10m.views4"]
 
 
 @pytest.mark.parametrize("name", CELLS)

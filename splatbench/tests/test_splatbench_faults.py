@@ -1,7 +1,12 @@
 """The harness, its look for a card skipped, driven through a whole run with
 the timed path broken underneath: ``correct`` comes out false for each
 fault the cells can have (a step that returns its state unchanged, half of
-a pass left out, an answer altered where it is produced)."""
+a pass left out, an answer altered where it is produced, and, in the views
+cell over two gloo ranks, the exchange between them left out)."""
+
+import dataclasses
+import functools
+import types
 
 import pytest
 import torch
@@ -72,4 +77,38 @@ def test_walk_faults_are_caught(bench, monkeypatch, fault):
 
     monkeypatch.setattr(GaussianRenderer, "render", WALK_FAULTS[fault](GaussianRenderer.render))
     result, lines = _run(bench, "tiny-bonsai-1.2m.walk")
+    assert result["correct"] is False, lines
+
+
+def _no_exchange(dist):
+    """``torch.distributed`` as the view-parallel step sees it, with its
+    ``all_reduce`` doing nothing: each rank keeps its own count."""
+    names = {k: getattr(dist, k) for k in dir(dist) if not k.startswith("__")}
+    return types.SimpleNamespace(**dict(names, all_reduce=lambda *args, **kw: None))
+
+
+def _break_views(fault: str) -> None:
+    """Each rank breaks the view-parallel step before its set-up."""
+    from websplat_tpu_torch.parallel import multiview
+
+    if fault == "no_exchange":
+        multiview.dist = _no_exchange(multiview.dist)
+    elif fault == "stale":
+        multiview.make_view_parallel_renderer = _stale_steps(multiview.make_view_parallel_renderer)
+    else:
+        multiview.render_blocks = PASS_FAULTS[fault](multiview.render_blocks)
+
+
+def _stale_steps(make):
+    def broken(*args, **kw):
+        return _stale(make(*args, **kw))
+
+    return broken
+
+
+@pytest.mark.parametrize("fault", ["altered", "half", "no_exchange", "stale"])
+def test_views_faults_are_caught(bench, fault):
+    cell = dataclasses.replace(bench.cell("tiny-c3dgs-10m.views4"), chips=2)
+    result, lines = run.run_cell(cell, 77, 1.0, False, device="cpu", t_start=0.0,
+                                 patch=functools.partial(_break_views, fault))
     assert result["correct"] is False, lines

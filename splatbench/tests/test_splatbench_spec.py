@@ -30,10 +30,15 @@ def test_keys_and_entries():
     for w in s["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and LINE(w["why"])
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
+        traffic = json.loads((fixture.DATA / "traffic" / f"{w['traffic']}.json").read_text())
+        if traffic["loop"] == "views":  # the step splits its views over the ranks
+            assert traffic["views_per_step"] % w["chips"] == 0
         assert (fixture.DATA / "traffic" / f"{w['traffic']}.json").is_file()
         assert (fixture.DATA / "checks" / f"{w['name']}.json").is_file()
     assert len({(w["config"], w["traffic"]) for w in s["workloads"]}) == len(s["workloads"])
+    four = sum(w["chips"] == 4 for w in s["workloads"])
+    assert four <= max(1, len(s["workloads"]) // 4)
     assert {c["name"] for c in s["configs"]} == {w["config"] for w in s["workloads"]}
     names = [m["name"] for m in s["end_to_end"] + s["per_layer"]]
     assert len(names) == len(set(names))
