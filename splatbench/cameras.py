@@ -15,10 +15,16 @@ Three loops read these views (``drivers.py``):
   ``distance``) joined by a uniform Catmull-Rom spline and sampled at
   ``frames_per_loop`` poses; every pose looks at the target.
 
+A traffic may state ``"time": [t0, t1]``, the scene times its views span
+(a time-dependent scene's): pool view i is at t0 + (t1 - t0) i / pool,
+walk pose f at t0 + (t1 - t0) f / frames_per_loop.  Without it every view
+is at time 0.
+
 Every view looks at the origin, where the scenes are centred.  A camera is
 the plain description both sides take: position, rotation
 (rows: the camera's right, up and forward axes in world coordinates, the
-3DGS camera-from-world convention), its quaternion, and the field of view.
+3DGS camera-from-world convention), its quaternion, the field of view,
+and its scene time.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ class Camera:
     quat: np.ndarray  # (4,) f32 (w, x, y, z) of ``rotation``
     fovx: float
     fovy: float
+    t: float = 0.0  # the scene time the view shows
 
 
 def quat_from_matrix(m: np.ndarray) -> np.ndarray:
@@ -123,12 +130,20 @@ def walk_path(traffic: dict, seed: int, viewport: Tuple[int, int]) -> List[Camer
     return [look_at(p, TARGET, viewport) for p in path]
 
 
+def timed(cams: List[Camera], span) -> List[Camera]:
+    """View i of n at scene time t0 + (t1 - t0) i / n, ``span`` = [t0, t1]."""
+    t0, t1 = (float(x) for x in span)
+    return [dataclasses.replace(c, t=t0 + (t1 - t0) * i / len(cams)) for i, c in enumerate(cams)]
+
+
 def views(traffic: dict, seed: int, viewport: Tuple[int, int]) -> List[Camera]:
     """The views of a traffic: the pool of a pass or a views step, the loop
-    of a walk."""
+    of a walk; at the traffic's scene times, if it states them."""
     loop = traffic["loop"]
     if loop in ("pass", "views"):
-        return pass_pool(traffic, seed, viewport)
-    if loop == "walk":
-        return walk_path(traffic, seed, viewport)
-    raise ValueError(f"traffic loop {loop!r}: 'pass', 'views' or 'walk'")
+        cams = pass_pool(traffic, seed, viewport)
+    elif loop == "walk":
+        cams = walk_path(traffic, seed, viewport)
+    else:
+        raise ValueError(f"traffic loop {loop!r}: 'pass', 'views' or 'walk'")
+    return timed(cams, traffic["time"]) if "time" in traffic else cams

@@ -18,6 +18,10 @@ number's limit (``PERF.md`` gives the readings each limit was set from):
   on that rank and the sum of every rank's per-view ``num_visible`` in the
   step (exact: limit 0; it checks the collective).
 
+The reference's scene is the scene kind's own decode of the run's raw
+inputs (``reference_scenes``): one a run, or, of a time-dependent kind
+(one with ``at``), one for each scene time among the views compared.
+
 The sampled frames are drawn from the seed among the window's first cycle
 (a pass cell: one pass of the pool, with a frame from each half of it, the
 rest anywhere; a views cell: the same, of each rank's passes; a walk: the
@@ -99,6 +103,23 @@ class Verdict:
                 and all(self.numbers[k] <= self.limits[k] for k in self.limits))
 
 
+def reference_scenes(cell, inputs: dict, views, wanted, device):
+    """(scene, its views) over the views ``wanted``: the kind's reference
+    decode, made once; where the kind has ``at``, the scene at each
+    distinct time among the views, made once each, in order of time (one
+    at a time on the device)."""
+    kind = cell.kind()
+    scene = kind.reference(inputs, device)
+    if not hasattr(kind, "at"):
+        yield scene, sorted(wanted)
+        return
+    at = {}
+    for i in sorted(wanted):
+        at.setdefault(views[i].t, []).append(i)
+    for t in sorted(at):
+        yield kind.at(scene, t), at[t]
+
+
 def judge(cell, inputs: dict, views, window, sampled: List[int], seed: int, device,
           dtype=torch.float32, program_images: Optional[Dict[int, torch.Tensor]] = None,
           program_diags: Optional[np.ndarray] = None) -> Verdict:
@@ -106,7 +127,6 @@ def judge(cell, inputs: dict, views, window, sampled: List[int], seed: int, devi
     dev = torch.device(device)
     w, h = cell.config["viewport"]
     st = settings(cell.config)
-    scene = reference.scene_from_inputs(inputs, dev)
     limits = {k: float(v) for k, v in cell.check["limits"].items()}
     notes = []
     diags = window.diags if program_diags is None else program_diags
@@ -115,27 +135,32 @@ def judge(cell, inputs: dict, views, window, sampled: List[int], seed: int, devi
     # only the checked views this window rendered can differ from the reference
     shown = set(np.unique(window.view_of).tolist())
     checked = [i for i in counted_views(cell, seed, len(views)) if i in shown]
-    ref_vis = {i: reference.num_visible(scene, reference.make_view(views[i], w, h,
-                                                                   scene.bounds()), st, dtype)
-               for i in checked}
+    for u in sampled:
+        if u not in images:
+            notes.append(f"frame {u} was not rendered in the window ({window.units} frames)")
+    drawn = [u for u in sampled if u in images]
+    of = {u: int(window.view_of[u]) for u in drawn}
+    ref_vis, frames = {}, {}
+    for scene, idx in reference_scenes(cell, inputs, views, set(checked) | set(of.values()), dev):
+        made = {i: reference.make_view(views[i], w, h, scene.bounds()) for i in idx}
+        ref_vis.update({i: reference.num_visible(scene, made[i], st, dtype)
+                        for i in checked if i in made})
+        for u in drawn:
+            if of[u] in made:
+                frame = reference.render(scene, made[of[u]], st, dtype)
+                err2 = ((images[u].to(dev).float() - frame.image) ** 2).sum(-1) / 3.0
+                frames[u] = (float(torch.sqrt(err2.mean())),
+                             block_rmse(err2, int(cell.check["block"])), frame.counts)
+        del scene
     on = np.isin(window.view_of, checked)
     expect = np.array([ref_vis.get(int(i), 0) for i in window.view_of], np.int64)
     gap = np.abs(diags[:, 1].astype(np.int64) - expect) * on
     lost = diags[:, 2:5].astype(np.int64).sum(1)
     bad = (gap > limits.get("visible_gap", 0)) | (lost > 0)
 
-    rmse, brmse, counts = [], [], []
-    for u in sampled:
-        if u not in images:
-            notes.append(f"frame {u} was not rendered in the window ({window.units} frames)")
-            continue
-        frame = reference.render(scene, reference.make_view(views[int(window.view_of[u])], w, h,
-                                                            scene.bounds()), st, dtype)
-        err2 = ((images[u].to(dev).float() - frame.image) ** 2).sum(-1) / 3.0
-        rmse.append(float(torch.sqrt(err2.mean())))
-        brmse.append(block_rmse(err2, int(cell.check["block"])))
-        counts.append(frame.counts)
-        if rmse[-1] > limits["image_rmse"] or brmse[-1] > limits["block_rmse"]:
+    rmse, brmse, counts = ([frames[u][k] for u in drawn] for k in range(3))
+    for u in drawn:
+        if frames[u][0] > limits["image_rmse"] or frames[u][1] > limits["block_rmse"]:
             bad[u] = True
     if lost.any():
         cols = diags[:, 2:5].astype(np.int64)

@@ -34,10 +34,10 @@ def control_numbers(cell, seed: int, device, dtype=torch.bfloat16) -> dict:
     reference's total is its own sum)."""
     dev = torch.device(device)
     w, h = cell.config["viewport"]
-    inputs = registry.scene_maker(cell.config["scene"]["kind"])(cell.config["scene"], seed, dev)
+    kind = cell.kind()
+    inputs = kind.make(cell.config["scene"], seed, dev)
     views = cameras.views(cell.traffic, seed, (w, h))
     st = check.settings(cell.config)
-    scene = reference.scene_from_inputs(inputs, dev)
     checked = check.counted_views(cell, seed, len(views))
     sampled = check.sampled_units(cell, seed, len(views))
     t = cell.traffic
@@ -47,17 +47,22 @@ def control_numbers(cell, seed: int, device, dtype=torch.bfloat16) -> dict:
                    for r in range(cell.chips)]
     else:
         view_of = [np.arange(len(views))]
-    vis = {i: reference.num_visible(scene, reference.make_view(views[i], w, h, scene.bounds()),
-                                    st, dtype) for i in checked}
+    shown = {int(of[u]) for of in view_of for u in sampled}
+    vis, frames = {}, {}
+    for scene, idx in check.reference_scenes(cell, inputs, views, set(checked) | shown, dev):
+        made = {i: reference.make_view(views[i], w, h, scene.bounds()) for i in idx}
+        vis.update({i: reference.num_visible(scene, made[i], st, dtype)
+                    for i in checked if i in made})
+        frames.update({i: reference.render(scene, made[i], st, dtype).image
+                       for i in shown if i in made})
+        del scene
     windows = []
     for of in view_of:
         diags = np.zeros((len(of), 5), np.int64)
         diags[:, 1] = [vis.get(int(i), 0) for i in of]
-        images = {u: reference.render(scene, reference.make_view(views[int(of[u])], w, h,
-                                                                 scene.bounds()), st,
-                                      dtype).image for u in sampled}
+        images = {u: frames[int(of[u])] for u in sampled}
         windows.append(drivers.Window(0.0, len(of), of, diags, images, []))
-    del scene
+    del frames
     drivers.free(dev)
     verdicts = [check.judge(cell, inputs, views, window, sampled, seed, dev) for window in windows]
     extra = {"total_visible_gap": 0.0} if t["loop"] == "views" else {}

@@ -24,8 +24,12 @@ user hands it, set-up and warm-up, and the measured window of each loop.
   step ahead on a page they share, so every rank runs as many steps
   (``Follow``).
 
-The program's functions are looked up on their modules at each call, so a
-test can break the timed path underneath.
+The scene kind (``scenes/<kind>.py``) loads the scene as the program
+takes it (``program``), and may build the pass and views loops' frame
+blocks (``blocks``, at each view's scene time); without it the loops use
+``parallel/multiview.view_blocks``.  The program's functions are looked up
+on their modules at each call, so a test can break the timed path
+underneath.
 """
 
 from __future__ import annotations
@@ -59,22 +63,6 @@ class Window:
     stop_s: Optional[np.ndarray] = None  # views: each step's host seconds in its stop check
 
 
-def program_cloud(inputs: dict, config: dict):
-    """The scene as the program loads it: a host cloud of a PLY's arrays, or
-    the npz bytes through ``load_gaussian_cloud``."""
-    from websplat_tpu_torch.io import loader
-
-    if inputs["kind"] == "cloud":
-        return loader.GaussianCloud(xyz=inputs["xyz"], opacity=inputs["opacity"],
-                                    cov=inputs["cov"], sh=inputs["sh"],
-                                    sh_deg=int(inputs["sh_deg"]),
-                                    num_points=int(len(inputs["xyz"])))
-    if inputs["kind"] == "c3dgs_npz":
-        return loader.load_gaussian_cloud(inputs["npz"],
-                                          keep_compressed=bool(config["keep_compressed"]))
-    raise ValueError(f"unknown scene kind {inputs['kind']!r}")
-
-
 def raster_config(config: dict, cull_factor: Optional[float]):
     """The program's RasterConfig for a configuration file; its tiles must be
     the ones the file states (the reference counts with them)."""
@@ -99,6 +87,11 @@ def program_camera(cam, viewport):
         projection=PerspectiveProjection.new(viewport, (cam.fovx, cam.fovy), 0.01, 100.0))
 
 
+def times(views) -> np.ndarray:
+    """The views' scene times, f32."""
+    return np.asarray([cam.t for cam in views], np.float32)
+
+
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -119,7 +112,8 @@ class PassLoop:
         if len(views) % self.v:
             raise ValueError(f"a pool of {len(views)} views in passes of {self.v}")
         self.cycle = len(views) // self.v
-        self.cloud = program_cloud(inputs, cell.config)
+        kind = cell.kind()
+        self.cloud = kind.program(inputs, cell.config)
         self.config = raster_config(cell.config, cull_factor)
         self.dc = upload(self.cloud, device)
         settings = resolve_settings(SplattingArgs(), self.cloud)
@@ -128,8 +122,12 @@ class PassLoop:
             pc = program_camera(cam, (self.w, self.h))
             pc.fit_near_far(*self.cloud.aabb)
             unis.append(CameraUniforms.from_camera(pc, (self.w, self.h)))
-        self.pool = view_blocks(stack_cameras(unis), range(len(unis)), settings,
-                                settings.background_color, device)
+        pool, rows = stack_cameras(unis), range(len(unis))
+        if hasattr(kind, "blocks"):
+            self.pool = kind.blocks(pool, times(views), rows, settings, settings.background_color,
+                                    device)
+        else:
+            self.pool = view_blocks(pool, rows, settings, settings.background_color, device)
         self.graphs = GraphCache()
 
     def run(self, i: int):
@@ -184,7 +182,7 @@ class WalkLoop:
 
         self.device = device
         self.w, self.h = cell.config["viewport"]
-        self.renderer = GaussianRenderer(program_cloud(inputs, cell.config),
+        self.renderer = GaussianRenderer(cell.kind().program(inputs, cell.config),
                                          raster_config(cell.config, cull_factor),
                                          device=device)
         self.poses = [program_camera(c, (self.w, self.h)) for c in views]
@@ -241,6 +239,30 @@ class DiagTap:
 
     def close(self) -> None:
         self.module.render_blocks = self.inner
+
+
+class BlockTap:
+    """Builds the view-parallel step's frame blocks (which it builds with
+    ``view_blocks``, looked up on its module at each call) by a scene
+    kind's ``blocks``, at the scene times of the step's batch (``at``: each
+    batch's times, by the batch).  During the kind's call the module's own
+    ``view_blocks`` is back in place, for the kind to build with."""
+
+    def __init__(self, module, blocks, at):
+        self.module, self.inner = module, module.view_blocks
+        of_batch = {id(batch): t for batch, t in at}
+
+        def build(cameras, views, settings, background, device):
+            module.view_blocks = self.inner
+            try:
+                return blocks(cameras, of_batch[id(cameras)], views, settings, background, device)
+            finally:
+                module.view_blocks = build
+
+        module.view_blocks = build
+
+    def close(self) -> None:
+        self.module.view_blocks = self.inner
 
 
 class Lead:
@@ -307,7 +329,8 @@ class ViewsLoop:
                              f"{self.group.size} ranks")
         self.per = self.v // self.group.size  # views a rank renders a step
         self.cycle = len(views) // self.v
-        self.cloud = program_cloud(inputs, cell.config)
+        kind = cell.kind()
+        self.cloud = kind.program(inputs, cell.config)
         self.config = raster_config(cell.config, cull_factor)
         self.dc = upload(self.cloud, device)
         self.settings = resolve_settings(SplattingArgs(), self.cloud)
@@ -319,6 +342,11 @@ class ViewsLoop:
         pool = multiview.stack_cameras(unis)
         self.batches = [multiview.CameraBatch(*(a[k * self.v:(k + 1) * self.v] for a in pool))
                         for k in range(self.cycle)]
+        self.blocks = None
+        if hasattr(kind, "blocks"):
+            at = times(views)
+            self.blocks = BlockTap(multiview, kind.blocks, [
+                (b, at[k * self.v:(k + 1) * self.v]) for k, b in enumerate(self.batches)])
         self.step = multiview.make_view_parallel_renderer(
             self.group, width=self.w, height=self.h, config=self.config,
             compressed=self.cloud.compressed)
@@ -374,6 +402,8 @@ class ViewsLoop:
 
     def release(self) -> None:
         self.tap.close()
+        if self.blocks is not None:
+            self.blocks.close()
         self.step = self.batches = self.dc = self.cloud = None
 
 

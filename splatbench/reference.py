@@ -1,10 +1,10 @@
 """The plain reference renderer that decides ``correct``, and the work counts
 behind the roofline shares.
 
-Plain PyTorch (and NumPy to read the npz), on any device.  It imports
-nothing of the program: it decodes the scene's raw inputs itself (the host
-arrays of a cloud, or the bytes of a c3dgs npz, read as web-splat's
-``io/npz.rs`` reads them), derives the camera matrices from the plain
+Plain PyTorch, on any device.  It imports nothing of the program: each
+scene kind decodes its raw inputs itself into a ``Scene``
+(``scenes/<kind>.py``: ``reference``; a c3dgs npz read as web-splat's
+``io/npz.rs`` reads it); it derives the camera matrices from the plain
 camera description (web-splat ``camera.rs``: 3DGS world-to-view, a z in
 [0, 1] perspective with the viewport's y flipped, near and far fitted to
 the scene's bounding box), and renders by the upstream semantics:
@@ -40,7 +40,6 @@ box meets only stopped tiles are skipped.
 from __future__ import annotations
 
 import dataclasses
-import io
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -102,83 +101,6 @@ class Scene:
             self._bounds = (self.xyz.min(0).values.double().cpu().numpy(),
                             self.xyz.max(0).values.double().cpu().numpy())
         return self._bounds
-
-
-def scene_from_inputs(inputs: dict, device) -> Scene:
-    """The reference's own decode of a scene generator's raw inputs."""
-    if inputs["kind"] == "cloud":
-        t = lambda a: torch.from_numpy(np.asarray(a)).to(device).float()
-        return Scene(xyz=t(inputs["xyz"]), opacity=t(inputs["opacity"]), cov=t(inputs["cov"]),
-                     sh=t(inputs["sh"]), sh_deg=int(inputs["sh_deg"]), compressed=False)
-    if inputs["kind"] == "c3dgs_npz":
-        return decode_c3dgs(inputs["npz"], device)
-    raise ValueError(f"unknown scene kind {inputs['kind']!r}")
-
-
-def positions(inputs: dict, device) -> Scene:
-    """The splat centres of a scene's raw inputs alone (for frustum counts)."""
-    if inputs["kind"] == "cloud":
-        xyz = np.asarray(inputs["xyz"], np.float32)
-    else:
-        xyz = np.asarray(np.load(io.BytesIO(inputs["npz"]))["xyz"], np.float16).reshape(-1, 3)
-    return Scene(xyz=torch.from_numpy(xyz).to(device).float(), opacity=None, sh_deg=0,
-                 compressed=inputs["kind"] == "c3dgs_npz")
-
-
-def _cov6(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    w, x, y, z = q.unbind(1)
-    r = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
-    sc = s.unbind(1)
-    m = [[r[i][k] * sc[k] for k in range(3)] for i in range(3)]
-    dot = lambda i, j: m[i][0] * m[j][0] + m[i][1] * m[j][1] + m[i][2] * m[j][2]
-    return torch.stack([dot(0, 0), dot(0, 1), dot(0, 2), dot(1, 1), dot(1, 2), dot(2, 2)], 1)
-
-
-def decode_c3dgs(npz_bytes: bytes, device) -> Scene:
-    """A c3dgs npz as web-splat reads it (io/npz.rs): int8 streams
-    dequantised as (q - zero point) * scale; opacity used as is; with a
-    ``scaling_factor`` stream the scale is the normalised non-negative
-    scaling and each splat's covariance is the codebook's (rounded to f16,
-    as the GPU table holds it) times the squared factor exp(dequantised
-    factor); SH from the dequantised codebook."""
-    z = np.load(io.BytesIO(npz_bytes), allow_pickle=False)
-    dev = torch.device(device)
-    t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev).to(dt)
-    scal = lambda k, d: float(np.asarray(z[k]).reshape(-1)[0]) if k in z else d
-    deq = lambda k: (t(np.asarray(z[k], np.int8)) - scal(f"{k}_zero_point", 0.0)) * scal(
-        f"{k}_scale", 1.0)
-    if "scaling_factor" not in z:
-        raise ValueError("the reference reads the normalise-and-exp covariance path only")
-    s = torch.clamp(deq("scaling"), min=0.0)
-    norm = torch.linalg.vector_norm(s, dim=1, keepdim=True)
-    s = s / torch.where(norm == 0, torch.ones_like(norm), norm)
-    rot = deq("rotation")
-    rot = rot / torch.linalg.vector_norm(rot, dim=1, keepdim=True)
-    covars = _cov6(rot, s).to(torch.float16).float()
-    dc = deq("features_dc").reshape(-1, 1, 3)
-    rest = deq("features_rest")
-    coefs = rest.shape[1] + 1
-    table = torch.zeros((dc.shape[0], 16, 3), device=dev)
-    table[:, :1] = dc
-    table[:, 1:coefs] = rest
-    n = z["xyz"].shape[0]
-    ident = lambda: torch.arange(n, device=dev)
-    geom_idx = t(z["gaussian_indices"], torch.int64) if "gaussian_indices" in z else ident()
-    sh_idx = t(z["feature_indices"], torch.int64) if "feature_indices" in z else ident()
-    for name, idx, k in (("gaussian_indices", geom_idx, covars.shape[0]),
-                         ("feature_indices", sh_idx, table.shape[0])):
-        if n and (int(idx.min()) < 0 or int(idx.max()) >= k):
-            raise ValueError(f"{name} outside its codebook of {k} entries")
-    kernel = scal("kernel_size", DEFAULT_KERNEL_SIZE)
-    return Scene(xyz=t(np.asarray(z["xyz"], np.float16).reshape(-1, 3)),
-                 opacity=deq("opacity").reshape(-1), sh_deg=int(round(math.sqrt(coefs))) - 1,
-                 compressed=True, covars=covars, geom_idx=geom_idx,
-                 sf=torch.exp(deq("scaling_factor").reshape(-1)), sh_table=table,
-                 sh_idx=sh_idx, kernel_size=kernel,
-                 mip=bool(np.asarray(z["mip_splatting"]).reshape(-1)[0]) if "mip_splatting" in z
-                 else False)
 
 
 @dataclasses.dataclass(frozen=True)

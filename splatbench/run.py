@@ -89,12 +89,10 @@ class Ctx:
         self.width, self.height = cfg["viewport"]
         tw, th = cfg["raster"]["tile_w"], cfg["raster"]["tile_h"]
         self.tiles = -(-self.width // tw) * -(-self.height // th)
-        sc = cfg["scene"]
-        self.compressed = sc["kind"] == "c3dgs_npz"
-        # the two codebooks as the decode reads them: 6 f32 per covariance
-        # entry, 48 f16 per SH entry
-        self.codebook_bytes = (24.0 * sc["geometry_codebook"] + 96.0 * sc["sh_codebook"]
-                               if self.compressed else 0.0)
+        # the decode layer's work, where the kind has one (scenes/<kind>.py)
+        codebooks = cell.kind().codebook_bytes(cfg["scene"])
+        self.compressed = codebooks is not None
+        self.codebook_bytes = codebooks or 0.0
 
     def layer_ms(self, layer_id: str):
         """Device ms per unit (view or frame) of a layer's kernels, or None
@@ -160,14 +158,15 @@ def run_rank(cell, seed: int, seconds: float, trace_on: bool, dev, t_start: floa
     if dev.type == "cuda":
         torch.cuda.init()
         marks.append(("cuda init", time.perf_counter()))
-    inputs = registry.scene_maker(cfg["scene"]["kind"])(cfg["scene"], seed, dev)
+    scene_kind = cell.kind()
+    inputs = scene_kind.make(cfg["scene"], seed, dev)
     marks.append(("scene draw", time.perf_counter()))
     views = cameras.views(cell.traffic, seed, (w, h))
     cull = None
     if cfg.get("cull_headroom"):
         # the cull's capacity: the headroom times the largest share of
         # centres in the frustum over the views, counted by the benchmark
-        scene = reference.positions(inputs, dev)
+        scene = scene_kind.centres(inputs, dev)
         share = max(int(reference.frustum(scene, reference.make_view(v, w, h, scene.bounds()))
                         .sum()) for v in views) / scene.n
         cull = min(1.0, float(cfg["cull_headroom"]) * share)

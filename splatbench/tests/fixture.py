@@ -26,8 +26,8 @@ def build(tmp: Path, splats: int = 1500, viewport=(64, 48)) -> registry.Bench:
     cell, added as new files and new spec entries only."""
     root = Path(tmp)
     data = root / "splatbench"
-    for sub in ("configs", "traffic", "checks", "layers", "metrics"):
-        shutil.copytree(DATA / sub, data / sub)
+    for sub in ("configs", "traffic", "checks", "layers", "metrics", "scenes"):
+        shutil.copytree(DATA / sub, data / sub, ignore=shutil.ignore_patterns("__pycache__"))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     for conf in list(spec["configs"]):
         c = json.loads((REPO / conf["file"]).read_text())

@@ -19,10 +19,10 @@ def _config(name, splats):
     return c
 
 
-def _port_frame(inputs, config, cam, width, height):
+def _port_frame(kind, inputs, config, cam, width, height):
     from websplat_tpu_torch.render.renderer import GaussianRenderer
 
-    pc = drivers.program_cloud(inputs, config)
+    pc = kind.program(inputs, config)
     r = GaussianRenderer(pc, drivers.raster_config(config, 1.0 if config.get("cull_headroom")
                                                    else None), device="cpu")
     img = r.render(drivers.program_camera(cam, (width, height)), (width, height), with_diag=True)
@@ -34,13 +34,14 @@ def _port_frame(inputs, config, cam, width, height):
 def test_reference_against_the_port(name, distance):
     width, height = 128, 96
     config = _config(name, 20000)
-    inputs = (cloud if name.startswith("bonsai") else c3dgs_npz).make(config["scene"], 4, "cpu")
-    scene = reference.scene_from_inputs(inputs, "cpu")
+    kind = cloud if name.startswith("bonsai") else c3dgs_npz
+    inputs = kind.make(config["scene"], 4, "cpu")
+    scene = kind.reference(inputs, "cpu")
     st = check.settings(config)
     for k, az in enumerate((0.4, 2.5)):
         cam = cameras.look_at(cameras.orbit_point(distance, az, 0.2 * k), (0, 0, 0),
                               (width, height))
-        img, diag = _port_frame(inputs, config, cam, width, height)
+        img, diag = _port_frame(kind, inputs, config, cam, width, height)
         frame = reference.render(scene, reference.make_view(cam, width, height, scene.bounds()),
                                  st)
         rmse = float(torch.sqrt(((img - frame.image) ** 2).mean()))
@@ -55,7 +56,7 @@ def test_reference_decodes_the_npz_as_the_port_does():
 
     sc = _config("c3dgs-10m", 5000)["scene"]
     blob = c3dgs_npz.make(sc, 9, "cpu")["npz"]
-    ours = reference.decode_c3dgs(blob, "cpu")
+    ours = c3dgs_npz.decode(blob, "cpu")
     port = load_gaussian_cloud(blob, keep_compressed=False)
     idx = torch.arange(ours.n)
     cov, sh = ours.cov_rows(idx), ours.sh_rows(idx)

@@ -53,7 +53,7 @@ def _hand(p, width, height, st):
 def test_reference_counts_match_a_hand_count(seed):
     width, height = 40, 28
     inputs = cloud.make(SCENE, seed, "cpu")
-    scene = reference.scene_from_inputs(inputs, "cpu")
+    scene = cloud.reference(inputs, "cpu")
     st = reference.Settings(alpha_threshold=1 / 255, transmittance_eps=4e-3, tile=(8, 8))
     cam = cameras.look_at(cameras.orbit_point(0.9, 0.3 * seed, 0.1), (0, 0, 0), (width, height))
     view = reference.make_view(cam, width, height, scene.bounds())
