@@ -73,9 +73,14 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              stages drop (instance_capacity_factor 0.25), a camera that
              sees nothing (n = 0), a 7680x4320 frame's (15 tile bits), a
              64x48 viewport's (3 tile bits) and view 0's with every live
-             key's middle digit, then its top digit, set to one value:
+             key's middle digit, its top digit, its bucket field (one
+             bucket past the on-chip capacity: the oversize route), its
+             bits below the field, then all of it set to one value, and
+             a bucket of 20,000 rows of two passes, then of three:
              keys equal on every row, words on [0, n), the tile ranges
-             ending at n (all zero at n = 0); its
+             ending at n (all zero at n = 0), the sort's counter (buckets,
+             the largest, rows on chip, rows oversize) equal to
+             ops/sort.py:sort_stats_torch's and printed; its
              library_ms is one stable torch.sort of the int32 keys of the
              exact n-row prefix and the words' gather
   3 golden   the 500-splat golden scene through the kernels vs
@@ -307,10 +312,10 @@ KERNELS = {
     "emit_compact": ("websplat_tpu_torch/csrc/emit_compact.cu",
                      "websplat_tpu/ops/emit_compact_pallas.py:81", "emit_compact_kernel", 256),
     # the counterpart of the JAX frame's n_valid sort (lax.sort over a prefix
-    # ladder: an XLA op, no Pallas kernel); named by its histogram kernel,
-    # launched once per sort before the four digit passes
+    # ladder: an XLA op, no Pallas kernel); named by its count kernel,
+    # launched once per sort before the bucket scatter and the local sort
     "sort": ("websplat_tpu_torch/csrc/sort.cu", "websplat_tpu/ops/sort.py:110",
-             "live_sort_histogram_kernel", 512),
+             "live_sort_count_kernel", 512),
     # the compressed cloud's decode: counterparts of two XLA fusions of the
     # JAX frame, the full-N decode and the culled one (frustum test, E's
     # compaction and the decode of the kept rows in one pass)
@@ -327,10 +332,10 @@ CULL_DECODE_KERNELS = 2
 CULL_BALLOT_KERNEL = "cull_ballot_kernel"
 CULL_BLOCK_THREADS = 512  # csrc/decompress.cu:CULL_BLOCK
 CULL_DECODE_NAMES = r"(?<![A-Za-z_])cull_(ballot|decode)_kernel"
-# the sort's kernels per sort (csrc/sort.cu: the histogram, four digit
-# passes, the words' gather)
-SORT_KERNELS = 6
-SORT_PASS_KERNEL = "live_sort_pass_kernel"
+# the sort's kernels per sort (csrc/sort.cu: the count, the bucket scatter,
+# the local sort) and the two after the count, by name
+SORT_KERNELS = 3
+SORT_LATER_KERNELS = r"live_sort_(scatter|local)_kernel"
 # a library sort's kernels by name (torch.sort: CUB's radix sort, or its
 # bitonic and segmented sorts), not torch.searchsorted's; csrc/sort.cu's
 # (live_sort_*) are left out by name
@@ -429,9 +434,9 @@ def calls_kernel_ms(fn, ours: str, reps: int, kernels: Optional[int], first=None
 
 def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
     """(median device time per call of fn() of the sort's kernels, the
-    median of each in launch order: the histogram, the digit passes, the
-    gather): calls_kernel_ms, a call being its histogram kernel and the
-    passes after it."""
+    median of each in launch order: the count, the bucket scatter, the
+    local sort): calls_kernel_ms, a call being its count kernel and the
+    kernels after it."""
     return calls_kernel_ms(fn, r"live_sort_\w*kernel", reps, kernels, kernel_pattern("sort"),
                            "sort")
 
@@ -471,6 +476,47 @@ def live_count(st) -> int:
     return sum(min(e, c) for e, (_, c) in zip(st.emitted.tolist(), st.segments))
 
 
+def bucket_sizes(st, bits: int = 11, capacities=(16_384, 24_576, 32_768)) -> dict:
+    """The sort's screen-tile buckets on one FrameStream, in plain torch
+    (one host read): the live keys' top ``bits`` bits (csrc/sort.cu's
+    bucket field).  Returns the non-empty buckets, the largest, the mean,
+    the share of live rows in buckets of more than each of ``capacities``
+    rows, and the share of rows by the 8-bit passes their bucket's key
+    range needs (0-3: the bits of max - min)."""
+    import torch
+
+    spans = [(o, o + min(e, c)) for (o, c), e in zip(st.segments, st.emitted.tolist())]
+    keys = torch.cat([st.keys[a:b] for a, b in spans]).long() & 0xFFFFFFFF
+    n = int(keys.numel())
+    if n == 0:
+        return dict(buckets=0, largest=0, mean=0.0, over={c: 0.0 for c in capacities},
+                    passes={})
+    b = keys >> (32 - bits)
+    size = torch.bincount(b, minlength=1 << bits)
+    lo = torch.full((1 << bits,), 1 << 32, dtype=torch.long, device=keys.device)
+    hi = torch.zeros((1 << bits,), dtype=torch.long, device=keys.device)
+    lo = lo.scatter_reduce(0, b, keys, "amin")
+    hi = hi.scatter_reduce(0, b, keys, "amax")
+    live = size > 0
+    span = torch.where(live, hi - lo, torch.zeros_like(hi))
+    width = torch.where(span > 0, torch.floor(torch.log2(span.double())).long() + 1,
+                        torch.zeros_like(span))
+    passes = (width + 7) // 8
+    return dict(buckets=int(live.sum()), largest=int(size.max()),
+                mean=n / max(int(live.sum()), 1),
+                over={c: float(size[size > c].sum()) / n for c in capacities},
+                passes={int(p): float(size[live & (passes == p)].sum()) / n
+                        for p in passes[live].unique().tolist()})
+
+
+def bucket_line(r: dict) -> str:
+    """bucket_sizes' result as one line."""
+    return (f"{r['buckets']} buckets, largest {r['largest']}, mean {r['mean']:.0f}; rows over "
+            + ", ".join(f"{c}: {100 * s:.1f}%" for c, s in r["over"].items())
+            + "; rows by passes " + ", ".join(f"{p}: {100 * s:.1f}%"
+                                            for p, s in sorted(r["passes"].items())))
+
+
 def check_sort(phase, what, st, config, width=None, height=None) -> dict:
     """The count-following sort's kernel (ops/sort.py:sort_live) against
     its plain version (the whole buffer's stable torch.sort) on one
@@ -484,7 +530,17 @@ def check_sort(phase, what, st, config, width=None, height=None) -> dict:
 
     width, height = width or W, height or H
     n, t = live_count(st), st.keys.shape[0]
-    kk, kw = sort_live(st.keys, st.words, st.segments, st.emitted)
+    try:  # the sort's counter, where the checkout has one
+        from websplat_tpu_torch.ops.sort import sort_stats_torch
+    except ImportError:
+        sort_stats_torch = None
+    if sort_stats_torch is None:
+        kk, kw = sort_live(st.keys, st.words, st.segments, st.emitted)
+        counter = plain_counter = None
+    else:
+        kk, kw, counter = sort_live(st.keys, st.words, st.segments, st.emitted, stats=True)
+        counter = counter.tolist()
+        plain_counter = sort_stats_torch(st.keys, st.segments, st.emitted).tolist()
     pk, pw = sort_live_torch(st.keys, st.words, st.segments, st.emitted)
     tx, ty = config.tiles_for(width, height)
     ranges = tile_ranges(kk, tx * ty, config.key_bits(width, height)[1])
@@ -499,10 +555,15 @@ def check_sort(phase, what, st, config, width=None, height=None) -> dict:
     say(phase, f"sort, {what}: {n} live of {t} rows (emitted {emitted}, capacities {caps}); "
                f"kernel vs plain: keys equal on all rows {keys_equal}, words equal on [0, n) "
                f"{words_equal}, sentinel tail {tail}, max abs {err:.3g}; ranges[-1] {end}"
-               + ("" if n else f", ranges all zero {not bool(ranges.any())}"))
-    if not (keys_equal and words_equal and tail and end == n and (n or not ranges.any())):
+               + ("" if n else f", ranges all zero {not bool(ranges.any())}")
+               + ("" if counter is None else
+                  f"; counter (buckets, largest, rows on chip, rows oversize) {counter}, "
+                  f"plain {plain_counter}"))
+    if not (keys_equal and words_equal and tail and end == n and (n or not ranges.any())
+            and counter == plain_counter):
         raise AssertionError(f"sort, {what}: kernel disagrees with its plain version")
-    return dict(live=n, rows=t, emitted=emitted, capacities=caps, max_abs_err=err)
+    return dict(live=n, rows=t, emitted=emitted, capacities=caps, max_abs_err=err,
+                counter=counter)
 
 
 def sort_timing(phase, what, st, smi, reps: int, kernels: Optional[int] = SORT_KERNELS) -> dict:
@@ -512,7 +573,8 @@ def sort_timing(phase, what, st, smi, reps: int, kernels: Optional[int] = SORT_K
     the mapped int32 keys and the words' gather (ops/sort.py:sort_stream,
     the sort it replaced), and the library yardstick: one stable torch.sort
     of the int32 keys of the exact n-row prefix and the words' gather; with
-    the kernel's own time (its kernels, torch.profiler: sort_kernel_ms)."""
+    the kernel's own time (its kernels, torch.profiler: sort_kernel_ms) and
+    the stream's screen-tile buckets (bucket_sizes)."""
     import torch
 
     from websplat_tpu_torch.ops.sort import map_keys, sort_live, sort_stream
@@ -533,13 +595,14 @@ def sort_timing(phase, what, st, smi, reps: int, kernels: Optional[int] = SORT_K
     bound, _ = roofline.bound(roofline.sort_work(n, t, len(st.segments)))
     r = dict(live=n, rows=t, kernel_ms=statistics.mean(ms["kernel"]), kernel_runs=ms["kernel"],
              kernel_only_ms=only, kernel_only_parts=parts, bound_ms=bound,
-             whole_ms=ms["whole"][0], library_ms=ms["library"][0])
+             whole_ms=ms["whole"][0], library_ms=ms["library"][0], buckets=bucket_sizes(st))
     say(phase, f"sort, {what}: {n} live of {t} rows; kernel {r['kernel_ms']:.4f} ms (runs "
                f"{', '.join(f'{x:.4f}' for x in ms['kernel'])}; kernel only {only:.4f}: "
                f"{', '.join(f'{x:.4f}' for x in parts)}; bound {bound:.4f} by bytes, share "
                f"{bound / only:.3f}); whole-buffer torch.sort + gather "
                f"{r['whole_ms']:.4f} ms; library: torch.sort of the int32 {n}-row prefix + "
-               f"gather {r['library_ms']:.4f} ms (CUDA events, median of {reps}; {smi})")
+               f"gather {r['library_ms']:.4f} ms (CUDA events, median of {reps}; {smi}); "
+               f"{bucket_line(r['buckets'])}")
     return r
 
 
@@ -729,7 +792,9 @@ def build_kernels():
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.frontend import LONG_QUEUE, SHORT_WALK
     from websplat_tpu_torch.ops.overflow import MIN_TILE_ROWS
-    from websplat_tpu_torch.ops.sort import (DIGIT_BITS, DIGIT_SHIFTS, MAX_SEGMENTS, SORT_TILE,
+    from websplat_tpu_torch.ops.sort import (BUCKET_BITS, INDEX_BITS, LOCAL_CAPACITY,
+                                             LOCAL_DIGIT_BITS, MAX_SEGMENTS, SORT_HEAD_WORDS,
+                                             SORT_TILE, STATS_WORD, WHOLE_CAPACITY,
                                              sort_scratch_words)
     from websplat_tpu_torch.utils import roofline
 
@@ -742,18 +807,22 @@ def build_kernels():
         raise AssertionError(f"csrc/frontend.cu's SHORT_WALK, LONG_QUEUE {walk_split} differ from "
                              f"ops/frontend.py's {(SHORT_WALK, LONG_QUEUE)}")
     plan = np.zeros(16, np.int32)
-    passes = lib.ws_sort_digit_plan(plan.ctypes.data_as(ctypes.c_void_p))
+    entries = lib.ws_sort_bucket_plan(plan.ctypes.data_as(ctypes.c_void_p))
     rows = (1, SORT_TILE, SORT_TILE + 1, 2_987_302, 23_416_064)
     sort_layout = (lib.ws_sort_tile(), lib.ws_sort_max_segments(),
-                   tuple(int(b) for b in plan[0:2 * passes:2]),
-                   tuple(int(b) for b in plan[1:2 * passes:2]),
+                   tuple(int(b) for b in plan[:entries]),
                    [lib.ws_sort_scratch_words(r) for r in rows])
-    mirror = (SORT_TILE, MAX_SEGMENTS, DIGIT_BITS, DIGIT_SHIFTS,
+    mirror = (SORT_TILE, MAX_SEGMENTS, (BUCKET_BITS, LOCAL_DIGIT_BITS, *LOCAL_CAPACITY,
+                                        INDEX_BITS, SORT_HEAD_WORDS, STATS_WORD,
+                                        WHOLE_CAPACITY),
               [sort_scratch_words(r) for r in rows])
-    say("build", f"sort: tile {sort_layout[0]} rows, digits of {sort_layout[2]} bits at shifts "
-                 f"{sort_layout[3]}, scratch words at {rows} rows {sort_layout[4]}")
+    say("build", f"sort: tile {sort_layout[0]} rows; plan (bucket bits, local digit bits, "
+                 f"on-chip rows at 1, 2, 3 passes, index bits, head words, counter word, "
+                 f"rows held whole) "
+                 f"{sort_layout[2]}; "
+                 f"scratch words at {rows} rows {sort_layout[3]}")
     if sort_layout != mirror:
-        raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS, digit plan and scratch "
+        raise AssertionError(f"csrc/sort.cu's SORT_TILE, MAX_SEGMENTS, bucket plan and scratch "
                              f"{sort_layout} differ from ops/sort.py's {mirror}")
     from websplat_tpu_torch.ops import decompress
 
@@ -786,7 +855,7 @@ def build_kernels():
     shown = set()
     for name in KERNELS:
         pat, threads = kernel_pattern(name), KERNELS[name][3]
-        pats = ((pat, re.compile(SORT_PASS_KERNEL)) if name == "sort" else
+        pats = ((pat, re.compile(SORT_LATER_KERNELS)) if name == "sort" else
                 (pat, re.compile(CULL_BALLOT_KERNEL)) if name == "cull_decode" else (pat,))
         for entry, u in usage.items():
             if any(p.search(entry) for p in pats) and entry not in shown:
@@ -1122,8 +1191,9 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, rasterize_work_torch
     from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
                                                       rasterize_mxu_work_torch)
-    from websplat_tpu_torch.ops.sort import (DIGIT_BITS, DIGIT_SHIFTS, map_keys, sort_instances,
-                                             sort_live, sort_live_torch, tile_ranges)
+    from websplat_tpu_torch.ops.sort import (BUCKET_SHIFT, LOCAL_CAPACITY, map_keys,
+                                             sort_instances, sort_live, sort_live_torch,
+                                             tile_ranges)
     from websplat_tpu_torch.render.renderer import (build_instance_stream, cull_stream,
                                                     decompress_cloud, frame_stream, upload,
                                                     upload_cloud)
@@ -1519,7 +1589,12 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     # to a quarter of the splats), a camera that sees nothing (n = 0), a
     # 7680x4320 frame (15 tile bits), a 64x48 viewport (3 tile bits), and
     # view 0's with every live key's middle digit, then its top digit, set
-    # to one value (csrc/sort.cu's digits: ops/sort.py:DIGIT_SHIFTS)
+    # to one value (the old four-pass sort's 8-bit digits 1 and 3), then
+    # every live key's bucket field (ops/sort.py:BUCKET_SHIFT: one bucket of
+    # every row, past the on-chip capacity: the oversize route), its bits
+    # below the field (one distinct key a bucket: no pass), and all of it
+    # (every live key equal); and one bucket of 20,000 rows of two passes,
+    # then of three
     away = make_camera(viewport=(W, H), target=(0.0, 0.0, 100.0), azimuth=0.0, elevation=0.0)
     wide, small = (7680, 4320), (64, 48)
     sort_cases = {}
@@ -1541,14 +1616,34 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         if what == "bench view 0":
             st0 = st
         del st
-    for what, digit in (("middle digit shared", 1), ("top digit shared", len(DIGIT_BITS) - 1)):
-        shift, bits = DIGIT_SHIFTS[digit], DIGIT_BITS[digit]
+    for what, shift, bits in (("middle digit shared", 8, 8), ("top digit shared", 24, 8),
+                              ("one bucket", BUCKET_SHIFT, 32 - BUCKET_SHIFT),
+                              ("one key a bucket", 0, BUCKET_SHIFT), ("every key equal", 0, 32)):
         keep = ~(((1 << bits) - 1) << shift) & 0xFFFFFFFF
         keep -= (keep >> 31) << 32  # as int32
-        # the digit set to 5 (the top digit: tiles 20-23 of the frame's 950)
-        keys = torch.where(st0.keys == -1, st0.keys, (st0.keys & keep) | (5 << shift))
+        # the field set to 5 (the top digit: tiles 20-23 of the frame's 950;
+        # the bucket: tile 2)
+        val = (5 << shift) & 0xFFFFFFFF
+        val -= (val >> 31) << 32
+        keys = torch.where(st0.keys == -1, st0.keys, (st0.keys & keep) | val)
         sort_cases[what] = check_sort("kernels", what, st0._replace(keys=keys), cfg)
         del keys
+    # one bucket of 20,000 rows (bucket 5: tile 2's odd half, empty in the
+    # frame's keys) over the first live rows, past the rows held whole: 16
+    # bits of depth (two passes, key - min staged in shared memory), then
+    # 300 depths under one far key (three passes)
+    r = torch.arange(20_000, device=st0.keys.device, dtype=torch.int64)
+    for what, low in (("a bucket of two passes", (r * 2654435761) & 0xFFFF),
+                      ("a bucket of three passes", torch.where(r == r[-1], 1 << 20, r % 300))):
+        keys = st0.keys.clone()
+        keys[:20_000] = ((5 << BUCKET_SHIFT) | low).to(torch.int32)
+        sort_cases[what] = check_sort("kernels", what, st0._replace(keys=keys), cfg)
+        del keys
+    counters = {k: c.get("counter") for k, c in sort_cases.items()}
+    if not (counters["one bucket"] and counters["one bucket"][3] > max(LOCAL_CAPACITY)
+            and counters["every key equal"][3] == 0 and counters["one key a bucket"][3] == 0):
+        raise AssertionError(f"sort: the oversize route was not taken where it must be, or "
+                             f"taken where it must not: {counters}")
     drops = sort_cases["drops"]
     if not (any(e > c for e, c in zip(drops["emitted"], drops["capacities"]))
             and sort_cases["nothing visible"]["live"] == 0):
@@ -1576,7 +1671,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     with_bound(results["sort"], roofline.sort_work(n0, t0, len(st0.segments)))
     r = results["sort"]
     say("kernels", f"sort, bench view 0: {n0} live of {t0} rows; kernel {r['ms']:.4f} ms "
-                   f"({r['kernel_ms']:.4f} kernel only: histogram, digit passes, gather "
+                   f"({r['kernel_ms']:.4f} kernel only: count, scatter, local sort "
                    f"{', '.join(f'{t:.4f}' for t in parts)}), plain (whole buffer) "
                    f"{r['plain_ms']:.4f} ms, library "
                    f"(torch.sort of the int32 {n0}-row prefix + gather) "

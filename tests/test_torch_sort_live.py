@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from tests.test_torch_frame_graph import BG, CASES, H, W, _block, _cloud
-from tests.test_torch_sort_plan import lsd_order
+from tests.test_torch_sort_plan import plan_order
 from websplat_tpu.ops.sort import sort_instances as jax_sort
 from websplat_tpu_torch.config import SplattingArgs, resolve_settings
 from websplat_tpu_torch.models.camera import CameraUniforms
@@ -135,12 +135,20 @@ def test_order_is_stable_and_tail_is_sentinel(sorted_stream):
 
 
 def test_digit_plan_model_equals_the_port(sorted_stream):
-    """csrc/sort.cu's digit plan, modelled in numpy (one stable argsort per
-    digit), orders the live rows as the port's sort does."""
+    """csrc/sort.cu's bucket plan, modelled in numpy (the bucket scatter,
+    then each bucket's passes, tests/test_torch_sort_plan.py), orders the
+    live rows as the port's sort does, and its counter equals the plain
+    counter's (ops/sort.py:sort_stats_torch, what sort_live(stats=True)
+    returns on the CPU)."""
     s, n = sorted_stream, sorted_stream["n"]
-    perm = lsd_order(s["live_keys"])
+    perm, counter = plan_order(s["live_keys"])
     assert np.array_equal((s["sk"][:n] ^ np.int32(SIGN)).view(np.uint32), s["live_keys"][perm])
     assert np.array_equal(s["sw"][:, :n], s["live_words"][:, perm])
+    keys, words, segments, emitted, _, _ = _buffer(s["name"])
+    *_, stats = sort_live(torch.from_numpy(keys.view(np.int32)),
+                          torch.from_numpy(words.view(np.int32)), segments,
+                          torch.from_numpy(emitted), stats=True)
+    assert tuple(stats.tolist()) == counter
 
 
 def test_plain_version_is_the_whole_buffer_sort():

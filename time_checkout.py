@@ -55,7 +55,11 @@ timed as view 0's.
     python3 time_checkout.py --sort-only [--tenm] ROOT [ROOT ...]
 
 times only the sort per root: view 0's stream (and under --tenm the 10M
-streams), for comparing forms of csrc/sort.cu, each a root under _dev/.
+streams), for comparing forms of csrc/sort.cu, each a root under _dev/:
+per stream the kernel-only ms summed and per kernel, the sort's counter
+(buckets, the largest, rows on chip, rows through the oversize route)
+where the root has one, and the stream's screen-tile buckets in plain
+torch (chip_smoke.bucket_sizes).
 
     python3 time_checkout.py --decode-only [--tenm] ROOT [ROOT ...]
 
@@ -113,14 +117,17 @@ def time_sort(cs, what: str, st, config) -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     try:
-        cs.check_sort("time", what, st, config)
+        counter = cs.check_sort("time", what, st, config)["counter"]
         wrong = ""
     except AssertionError:  # an ablation: timed, and said to be wrong
-        wrong = " (DISAGREES with its plain version)"
+        counter, wrong = None, " (DISAGREES with its plain version)"
     r = cs.sort_timing("time", what, st, smi, SORT_REPS, kernels=None)
     return (f"sort {what} {r['kernel_only_ms']:.4f} ms kernel only ("
             + ", ".join(f"{x:.4f}" for x in r["kernel_only_parts"])
-            + f"), {r['live']} live of {r['rows']} rows{wrong}")
+            + f"), {r['live']} live of {r['rows']} rows{wrong}; "
+            + ("" if counter is None else
+               f"counter (buckets, largest, rows on chip, rows oversize) {counter}; ")
+            + cs.bucket_line(r["buckets"]))
 
 
 def time_tenm(cs, sort_only: bool = False) -> list:

@@ -16,8 +16,8 @@ performance decision.
 
 Each wrapper counts its launches in the trace counter ``launch.<wrapper>``
 (utils/trace.py: one per launch of its kernel, nowhere else; the sort
-counts one per sort, whose entry point launches its histogram, four digit
-passes and a gather, and the culled decode one per call, whose entry point
+counts one per sort, whose entry point launches its count, its bucket
+scatter and its local sort, and the culled decode one per call, whose entry point
 launches the cull and the decode), so a caller can show which kernels a
 run went through.
 
@@ -74,7 +74,7 @@ _SIGNATURES = {
     "ws_frontend_long_queue": [],
     "ws_sort_tile": [],
     "ws_sort_max_segments": [],
-    "ws_sort_digit_plan": [_vp],
+    "ws_sort_bucket_plan": [_vp],
     "ws_sort_scratch_words": [_i64],
     "ws_decode_plan": [_i64, _i64, _i64, _i, _i, _i64, _vp],
     "ws_decode_blocks_per_sm": [_i, _i64],
