@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch + CUDA port (websplat_tpu_torch) on one NVIDIA
-H100: builds the kernels, holds each against its plain PyTorch version,
-renders the committed golden scene, and drives the main path at full size.
+"""Correctness check of the PyTorch + CUDA port (websplat_tpu_torch) on one
+NVIDIA H100: builds the kernels, holds each against its plain PyTorch
+version, renders the committed golden scene, and drives every path at full
+size.  It times nothing: time_checkout.py times kernels, and splatbench
+(python3 -m splatbench.run) measures frames and passes.
 
     python3 chip_smoke.py
 
@@ -10,8 +12,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1 build    nvcc builds of websplat_tpu_torch/csrc (one process per source,
              in parallel, with -Xptxas -v) linked into one library; each
              kernel's registers, shared memory, spills and CTAs per SM; the
-             sort's tile and segment limit equal to ops/sort.py's, the
-             overflow walk's smallest tile to ops/overflow.py's, and
+             sort's tile, segment limit, bucket plan and scratch equal to
+             ops/sort.py's, the frontend's walk split to ops/frontend.py's,
+             the overflow walk's smallest tile to ops/overflow.py's, and
              the decode kernels' layout (csrc/decompress.cu:ws_decode_plan:
              staged codebooks, stages, chunk, shared memory, grid, the
              cull's tiles and scratch) to ops/decompress.py's mirror on 42
@@ -34,39 +37,22 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              and the same padded to 4,096 (staged), both with index 4,094
              (the last entry) at every 101st row of each index stream:
              decoded rows, count and drops equal to plain, dead rows' xyz
-             NaN, the culled decode's two kernels timed per call and each,
-             and the eager chain they replaced timed beside them; a cloud
-             with index k in either stream refused at upload with no kernel
-             launch and no device activity), both rasterizers (the scan one also
-             with the tree composite; the slab one at mxu/highest,
-             mxu/high, mxu/default and hybrid) and the packed emission
-             against their plain versions on the card, at the shapes of the
-             bench scene's first view (1,244,819 splats, 1200x799); the walk
-             also with the alpha bound off and, at level 1, at capacities
-             below its totals; the dense stage also at a quarter of its
-             count and with its row count at 0; the packed emission also at
-             half its row count and on its first 100,003 splats (also with
-             every slot set); the wrappers refuse bad arguments.  The
-             frontend's instances and clamped rows (C, C-o at 6 and 64
-             slots, C at 24 slots), both walk levels' instances and giants,
-             the culled-stream compaction and the packed emission (all
-             four cases) are held equal to plain element for element (the
-             kernels append in tile order).  Per
-             kernel: the wrapper's CUDA-event span, the kernel-only time
-             (torch.profiler, by kernel name), its roofline bound from this
-             run's work counts (utils/roofline.py) with the bounding term and
-             the share bound / kernel time, the plain version's time and, for
-             the compactions, the boolean-mask index that computes the same
-             function (library_ms); the host ops and device activities of one
-             call of the plain dense stage; for the scan rasterizer its span
-             distribution and pair counts (ops/rasterize.py:
-             rasterize_work_torch), for the tree one its (group,
-             sub-block) folds and the records present in them, for the
-             slab one its slab, alpha > 0 pair and live chunk counts
-             (ops/rasterize_mxu.py: rasterize_mxu_work_torch), for the
-             frontend past 16 slots its walk in lane steps (one thread per
-             splat against long walks by warp, utils/roofline.py:
-             frontend_walk_lanes), for the walk each level's time.  The
+             NaN; a cloud with index k in either stream refused at upload
+             with no kernel launch and no device activity), both
+             rasterizers (the scan one also with the tree composite; the
+             slab one at mxu/highest, mxu/high, mxu/default and hybrid) and
+             the packed emission against their plain versions on the card,
+             at the shapes of the bench scene's first view (1,244,819
+             splats, 1200x799); the walk also with the alpha bound off and,
+             at level 1, at capacities below its totals; the dense stage
+             also at a quarter of its count and with its row count at 0;
+             the packed emission also at half its row count and on its
+             first 100,003 splats (also with every slot set); the wrappers
+             refuse bad arguments.  The frontend's instances and clamped
+             rows (C, C-o at 6 and 64 slots, C at 24 slots), both walk
+             levels' instances and giants, the culled-stream compaction and
+             the packed emission (all four cases) are held equal to plain
+             element for element (the kernels append in tile order).  The
              count-following sort (csrc/sort.cu) against its plain version
              (the whole buffer's stable torch.sort) on frame stream
              buffers: bench view 0's, the window-off path's, one whose
@@ -80,55 +66,46 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              keys equal on every row, words on [0, n), the tile ranges
              ending at n (all zero at n = 0), the sort's counter (buckets,
              the largest, rows on chip, rows oversize) equal to
-             ops/sort.py:sort_stats_torch's and printed; its
-             library_ms is one stable torch.sort of the int32 keys of the
-             exact n-row prefix and the words' gather
+             ops/sort.py:sort_stats_torch's
   3 golden   the 500-splat golden scene through the kernels vs
              tests/goldens/oracle_500.png (PSNR > 40 dB); the scan
              rasterizer at two other tile shapes (its other pixel maps) and
              the slab one (hybrid, highest) at two (its other block maps)
   3b oracle  the bench scene's view 0 (make_bench_cloud(rng(0)), 1200x799,
              scripts/psnr_check.py's camera and background) against the
-             port's NumPy oracle (ops/oracle.py, its host time printed):
-             the replayed default frame > 40 dB; hybrid and tree printed
+             port's NumPy oracle (ops/oracle.py): the replayed default
+             frame > 40 dB; hybrid and tree printed
   4 main     make_bench_ply -> load_gaussian_cloud -> GaussianRenderer (on
              the card by default) and its device cloud through the
              uncompiled render_frame (whose launches the wrappers count;
-             4f replays the captured frame) over the 8 orbit views of bench.py; launch
-             counts (the dense grid itself only on the plain path; the
-             sort once per frame),
-             diagnostics, plain-path PSNR, view 0 rendered twice more (max
-             abs 0 between the two: run-to-run reproducibility; also on the
-             hybrid, culled compressed, tree and overflow-off paths),
-             ms/frame, per-stage host ms, device busy ms, idle share and device
-             ms by kernel (torch.profiler)
+             4f replays the captured frame) over the 8 orbit views of
+             bench.py; launch counts (the dense grid itself only on the
+             plain path; the sort once per frame), diagnostics, plain-path
+             PSNR, view 0 rendered twice more (max abs 0 between the two:
+             run-to-run reproducibility; also on the hybrid, culled
+             compressed, tree and overflow-off paths)
   4b slab    the same 8 views with RasterConfig(composite="hybrid"): launch
              counts, diagnostics and PSNR against the scan frames; view 0
-             with composite="mxu" at each precision; ms/frame, busy ms and
-             idle share
+             with composite="mxu" at each precision
   4c compr.  make_bench_npz (1,244,819 splats, 4096-entry codebooks) ->
              load_gaussian_cloud(keep_compressed=True) -> GaussianRenderer
              over the 8 views at compressed_cull_factor 0 (full-N gathers)
              and culled (1.15 x the largest visible fraction of the views),
              and the decode-at-load cloud; launch counts (decode_kernel once
              per full-N frame, cull_ballot_kernel then cull_decode_kernel
-             once per culled frame,
-             E's general compactor never), diagnostics,
-             culled vs full-N and resident vs decoded PSNR, the plain path
-             at view 0, view 0 twice more on the culled path
-             (reproducibility), the decompression's device ms by part (the
-             two kernels, the plain versions and their index_select
-             gathers alone), the culled and full-N paths' frame timing
-             with the "decompress" stage
+             once per culled frame, E's general compactor never),
+             diagnostics, culled vs full-N and resident vs decoded PSNR, the
+             plain path at view 0, view 0 twice more on the culled path
   4d tree    the 8 views with RasterConfig(composite="tree") against the
-             scan frames; qform="direct" at view 0; frame timing
+             scan frames; qform="direct" at view 0
   4e refused the 8 views with overflow off (center-out frontend, no walk)
              and with the window off (walk level 1 alone) against the plain
-             path (PSNR, diagnostics) and the scan frames (printed); frame
-             timing; 4160x2048 (130x64 tiles) against the plain path, camera
+             path (PSNR, diagnostics) and the scan frames (printed);
+             4160x2048 (130x64 tiles) against the plain path, camera
              pulled back and at the bench camera (past the capture capacity:
              the kernel captures the same splats as plain), every
-             diagnostic gated; two 7680x4320 frames timed
+             diagnostic gated; two 7680x4320 frames finite, one frontend
+             launch each
   4f graph   each path's frame as a captured program (render/graph.py):
              main, overflow off, window off, tree, hybrid, full-N and
              culled compressed.  Per path the 8 views through the
@@ -141,21 +118,13 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              its own slots), bit-identical to the per-view replays and the
              eager frames, its kernels by name, no library sort kernel
              among the replays and, on the compressed paths, none of the
-             eager decode's kernels (OLD_DECODE); span alone and back to
-             back, busy ms, activities and idle share, eager, replayed and
-             as one pass.  GaussianRenderer (capture on) over the 8 views:
-             one capture, frames bit-equal to phase 4's; view 0's sort: the
-             kernel, the whole buffer's torch.sort and the library
-             yardstick (torch.sort of the int32 exact prefix + gather)
-  5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure
-             at 2048x2048 MEASURE_RUNS times (each pass's wall time); the
-             median host clock of MEASURE_PASSES passes split into
-             enqueueing the block copy and the replay and waiting (the
-             blocks are built once, before the passes), and the graph
-             launches per pass (must be 1); one pass's device busy ms,
-             wall / busy, and its kernels by name; the graph pool of the
-             7-view pass against one frame's (each graph's own private
-             pool); apps.render's PNGs against
+             eager decode's kernels (OLD_DECODE).  GaussianRenderer
+             (capture on) over the 8 views: one capture, frames bit-equal
+             to phase 4's
+  5 apps     the bench PLY and a cameras.json of the 8 views: apps.measure's
+             pass (measure.prepare at 2048x2048) run MEASURE_PASSES times,
+             one graph launch a pass, its kernels by name the eager
+             frame's launches x the views; apps.render's PNGs against
              GaussianRenderer frames, apps.video, apps.viewer on a free
              local port (/frame.png, a rotate event, /stats)
   6 parallel the 8 views through make_view_parallel_renderer on an NCCL
@@ -166,40 +135,33 @@ Phases (one line each; any failure raises and the exit code is nonzero):
              bit-identical to the eager step's and the loopback's, gathered
              (gather_rows) >= 60 dB from the phase-4 frame, stats a (4,)
              device tensor, no exchange drops, its kernels by name equal to
-             the eager step's launches; span alone and back to back,
-             busy ms, activities and idle share of the eager and replayed
-             step beside the single frame's ms; the eager step's parts;
-             the loopback exchange at D = 2 and 4 at
-             32x8 tiles (>= 60 dB from the single frame, summed stats equal,
-             no drops at 1.15 x n_inst / D, drops at a small capacity);
-             dryrun_multidevice(1, "cuda"); the native PLY decoder on the
-             bench PLY against the NumPy path, both timed
+             the eager step's launches; the loopback exchange at D = 2 and
+             4 at 32x8 tiles (>= 60 dB from the single frame, summed stats
+             equal, no drops at 1.15 x n_inst / D, drops at a small
+             capacity); dryrun_multidevice(1, "cuda"); the native PLY
+             decoder on the bench PLY against the NumPy path
   7 10m      scripts/bench_10m.py's configuration: make_bench_npz(rng(0),
-             n=10M) encoded, loaded resident and uploaded (each timed); at
+             n=10M) loaded resident and uploaded (its MB on the card); at
              distance 3.0 and 0.45, full N and culled at 1.15 x the
              frustum-visible fraction: eager frame and replay
-             (bit-identical), resident MB, peak device memory, the
-             graph's pool, replayed ms (median), busy ms, idle share,
-             capacities, the eager frame's launches, diagnostics (drops
-             printed); equal num_visible, culled vs full N >= 60 dB; at
-             0.45, culled, kernel vs plain path >= 50 dB; per distance the
-             sort kernel against its plain version on full N's stream, and
-             timed as in 4f; and the overflow walk's two levels at the
+             (bit-identical), capacities, the eager frame's launches,
+             diagnostics (drops printed); equal num_visible, culled vs full
+             N >= 60 dB; at 0.45, culled, kernel vs plain path >= 50 dB;
+             per distance the sort kernel against its plain version on
+             full N's stream, and the overflow walk's two levels at the
              c3dgs-10m configuration's windows and capacities
-             (splatbench/configs/c3dgs-10m.json: ranks [6, 128), then
-             [128, 384) over 26,048 giant rows) on the kernel frontend's
+             (splatbench/configs/c3dgs-10m.json) on the kernel frontend's
              clamped rows, each equal to plain element for element, with
-             its kernel-only ms against its bound, live rows, grid and
-             tiles taken
-  8 result   per kernel: launches per frame (of the path that runs it: the
-             main path; the hybrid path for the slab rasterizer, the culled
-             compressed path for the compressed frontend and the culled
-             decode, the full-N compressed path for the full-N decode, the
-             tree path for the tree rasterizer, the overflow-off path for
-             the center-out frontend; 0 for the packed emission and E's
-             general compactor, on no render path) and ms above its bound
-             per frame; a JSON line of per-kernel numbers, then the final
-             JSON line
+             live rows, grid and tiles taken
+  8 result   the phases passed; per kernel: launches per frame (of the
+             path that runs it: the main path; the hybrid path for the slab
+             rasterizer, the culled compressed path for the compressed
+             frontend and the culled decode, the full-N compressed path for
+             the full-N decode, the tree path for the tree rasterizer, the
+             overflow-off path for the center-out frontend; 0 for the
+             packed emission and E's general compactor, on no render path)
+             and its largest difference from plain; a JSON line of them,
+             then the final JSON line
 
 It imports nothing of JAX.  Without CUDA it exits nonzero and prints no
 result.
@@ -214,11 +176,9 @@ import importlib.util
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
-from typing import Optional
 
 import numpy as np
 
@@ -226,7 +186,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "oracle_500.png")
 W, H = 1200, 799
 N_VIEWS = 8
-TIMED_PASSES = 3
 STREAM_TOL = 1e-4  # allowed fraction of differing rows, kernel vs plain
 RASTER_TOL = 1e-4  # max abs difference per channel, kernel vs plain
 # Slab rasterizer, kernel vs plain (max abs per channel).  Both compute the
@@ -250,13 +209,12 @@ SLAB_PSNR = 50.0  # slab composites vs the scan frame of the same view
 CULLED_PSNR = 60.0  # culled vs full-N compressed frame (tests/test_io.py:309)
 RESIDENT_PSNR = 45.0  # resident vs decoded-at-load compressed frame (tests/test_io.py:245)
 PLAIN_PSNR = 50.0  # plain path vs kernel path, same view
-MEASURE_RUNS = 3  # apps.measure runs in phase 5, each at its default 10 samples
-MEASURE_PASSES = 10  # measure passes whose host clock phase 5 splits
+MEASURE_PASSES = 3  # apps.measure passes phase 5 replays, one graph launch each
 # phase 4e's wide frames: (width, height, pulled back: view 0's camera moved
 # away by width / W, so that splats keep the bench view's pixel footprint,
 # else bench view 0's camera (past the capture capacity, which both versions
 # fill in splat order); checked against the plain path (PSNR and every
-# diagnostic), or only timed)
+# diagnostic), or only run: finite, one frontend launch)
 WIDE_FRAMES = ((4160, 2048, True, True), (4160, 2048, False, True),
                (7680, 4320, True, False), (7680, 4320, False, False))
 SHARDED_PSNR = 60.0  # splat-sharded vs single frame (tests/test_sharded.py:61)
@@ -326,15 +284,12 @@ KERNELS = {
     "cull_decode": ("websplat_tpu_torch/csrc/decompress.cu",
                     "websplat_tpu/render/renderer.py:161", "cull_decode_kernel", 1024),
 }
-# the culled decode's kernels per call (csrc/decompress.cu: the cull, the
-# decode) and their names
-CULL_DECODE_KERNELS = 2
+# the culled decode's cull kernel (csrc/decompress.cu), launched before
+# its decode kernel, and its block
 CULL_BALLOT_KERNEL = "cull_ballot_kernel"
 CULL_BLOCK_THREADS = 512  # csrc/decompress.cu:CULL_BLOCK
-CULL_DECODE_NAMES = r"(?<![A-Za-z_])cull_(ballot|decode)_kernel"
-# the sort's kernels per sort (csrc/sort.cu: the count, the bucket scatter,
-# the local sort) and the two after the count, by name
-SORT_KERNELS = 3
+# the sort's two kernels after the count (csrc/sort.cu: the bucket scatter,
+# the local sort), by name
 SORT_LATER_KERNELS = r"live_sort_(scatter|local)_kernel"
 # a library sort's kernels by name (torch.sort: CUB's radix sort, or its
 # bitonic and segmented sorts), not torch.searchsorted's; csrc/sort.cu's
@@ -366,98 +321,13 @@ def kernel_pattern(name: str):
     return re.compile(rf"(?<![A-Za-z_]){KERNELS[name][2]}")
 
 
-def kernel_only_ms(fn, name: str, reps: int) -> float:
-    """Median device time of the kernel's own launches over reps calls of
-    fn() (torch.profiler, by kernel name; one launch per call), after one
-    warm-up call.  The profiler has been seen to drop some kernel records
-    on the H100 machine: a pass that keeps fewer than half is repeated."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    pat = kernel_pattern(name)
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and pat.search(e.name)]
-        if 2 * len(ev) >= reps:
-            return statistics.median(ev)
-    raise AssertionError(f"{name}: the profiler saw {len(ev)} of {reps} launches of "
-                         f"{KERNELS[name][2]}")
-
-
-def calls_kernel_ms(fn, ours: str, reps: int, kernels: Optional[int], first=None,
-                    what: str = ""):
-    """(median device time per call of fn() of the kernels whose names match
-    ``ours``, the median of each in launch order) by torch.profiler, after
-    one warm-up call.  A call starts at each launch of the kernel matching
-    ``first`` (None, or none launched: the first kernel launched) and has
-    ``kernels`` kernels (None: as many as the longest call seen, for a
-    checkout with another count); a call whose records the profiler
-    dropped is left out; a pass that keeps fewer than half of its calls
-    whole is repeated."""
-    import re
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    ours = re.compile(ours)
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and ours.search(e.name))
-        head = (first if first is not None and any(first.search(e[2]) for e in ev)
-                else re.compile(re.escape(ev[0][2])) if ev else None)
-        calls, cur = [], None
-        for start, end, name in ev:
-            if head.search(name):
-                cur = [end - start]
-                calls.append(cur)
-            elif cur is not None:
-                cur.append(end - start)
-        count = kernels or max(map(len, calls), default=0)
-        whole = [[t / 1e3 for t in c] for c in calls if len(c) == count]
-        if 2 * len(whole) >= reps:
-            return (statistics.median(sum(c) for c in whole),
-                    [statistics.median(c[k] for c in whole) for k in range(count)])
-    raise AssertionError(f"{what}: the profiler kept {len(whole)} of {reps} calls whole")
-
-
-def sort_kernel_ms(fn, reps: int, kernels: Optional[int] = SORT_KERNELS):
-    """(median device time per call of fn() of the sort's kernels, the
-    median of each in launch order: the count, the bucket scatter, the
-    local sort): calls_kernel_ms, a call being its count kernel and the
-    kernels after it."""
-    return calls_kernel_ms(fn, r"live_sort_\w*kernel", reps, kernels, kernel_pattern("sort"),
-                           "sort")
-
-
-def cull_decode_ms(fn, reps: int, kernels: Optional[int] = CULL_DECODE_KERNELS):
-    """(median device time per call of fn() of the culled decode's kernels,
-    the median of each: the cull, the decode): calls_kernel_ms, a call
-    starting at its cull kernel (a checkout with one kernel: that one)."""
-    import re
-
-    return calls_kernel_ms(fn, CULL_DECODE_NAMES, reps, kernels,
-                           re.compile(rf"(?<![A-Za-z_]){CULL_BALLOT_KERNEL}"), "cull_decode")
-
-
 def old_decode_kernels(fn) -> list:
     """Names of the eager decode's kernels (OLD_DECODE) among the device
     activities of one profiled call of fn() (profiled: after a warm-up)."""
     import re
 
     pat = re.compile(OLD_DECODE)
-    return sorted({e.name[:80] for e in profiled(fn, ("CUDA",)) if pat.search(e.name)})
+    return sorted({e.name[:80] for e in profiled(fn) if pat.search(e.name)})
 
 
 def library_sorts(fn) -> list:
@@ -466,7 +336,7 @@ def library_sorts(fn) -> list:
     import re
 
     pat = re.compile(LIBRARY_SORT)
-    return sorted({e.name[:80] for e in profiled(fn, ("CUDA",))
+    return sorted({e.name[:80] for e in profiled(fn)
                    if pat.search(e.name) and "live_sort_" not in e.name})
 
 
@@ -476,71 +346,24 @@ def live_count(st) -> int:
     return sum(min(e, c) for e, (_, c) in zip(st.emitted.tolist(), st.segments))
 
 
-def bucket_sizes(st, bits: int = 11, capacities=(16_384, 24_576, 32_768)) -> dict:
-    """The sort's screen-tile buckets on one FrameStream, in plain torch
-    (one host read): the live keys' top ``bits`` bits (csrc/sort.cu's
-    bucket field).  Returns the non-empty buckets, the largest, the mean,
-    the share of live rows in buckets of more than each of ``capacities``
-    rows, and the share of rows by the 8-bit passes their bucket's key
-    range needs (0-3: the bits of max - min)."""
-    import torch
-
-    spans = [(o, o + min(e, c)) for (o, c), e in zip(st.segments, st.emitted.tolist())]
-    keys = torch.cat([st.keys[a:b] for a, b in spans]).long() & 0xFFFFFFFF
-    n = int(keys.numel())
-    if n == 0:
-        return dict(buckets=0, largest=0, mean=0.0, over={c: 0.0 for c in capacities},
-                    passes={})
-    b = keys >> (32 - bits)
-    size = torch.bincount(b, minlength=1 << bits)
-    lo = torch.full((1 << bits,), 1 << 32, dtype=torch.long, device=keys.device)
-    hi = torch.zeros((1 << bits,), dtype=torch.long, device=keys.device)
-    lo = lo.scatter_reduce(0, b, keys, "amin")
-    hi = hi.scatter_reduce(0, b, keys, "amax")
-    live = size > 0
-    span = torch.where(live, hi - lo, torch.zeros_like(hi))
-    width = torch.where(span > 0, torch.floor(torch.log2(span.double())).long() + 1,
-                        torch.zeros_like(span))
-    passes = (width + 7) // 8
-    return dict(buckets=int(live.sum()), largest=int(size.max()),
-                mean=n / max(int(live.sum()), 1),
-                over={c: float(size[size > c].sum()) / n for c in capacities},
-                passes={int(p): float(size[live & (passes == p)].sum()) / n
-                        for p in passes[live].unique().tolist()})
-
-
-def bucket_line(r: dict) -> str:
-    """bucket_sizes' result as one line."""
-    return (f"{r['buckets']} buckets, largest {r['largest']}, mean {r['mean']:.0f}; rows over "
-            + ", ".join(f"{c}: {100 * s:.1f}%" for c, s in r["over"].items())
-            + "; rows by passes " + ", ".join(f"{p}: {100 * s:.1f}%"
-                                            for p, s in sorted(r["passes"].items())))
-
-
 def check_sort(phase, what, st, config, width=None, height=None) -> dict:
     """The count-following sort's kernel (ops/sort.py:sort_live) against
     its plain version (the whole buffer's stable torch.sort) on one
     FrameStream: the mapped keys equal on all T rows (rows [n, T) the
     sentinel in both), the words equal on [0, n), and the tile ranges end
-    at n (all zero when n = 0).  Returns n, T, the segments' counts and
-    capacities and the max abs difference (0)."""
+    at n (all zero when n = 0), and the sort's counter equals
+    sort_stats_torch's.  Returns n, T, the segments' counts and capacities,
+    the max abs difference (0) and the counter."""
     import torch
 
-    from websplat_tpu_torch.ops.sort import sort_live, sort_live_torch, tile_ranges
+    from websplat_tpu_torch.ops.sort import (sort_live, sort_live_torch, sort_stats_torch,
+                                             tile_ranges)
 
     width, height = width or W, height or H
     n, t = live_count(st), st.keys.shape[0]
-    try:  # the sort's counter, where the checkout has one
-        from websplat_tpu_torch.ops.sort import sort_stats_torch
-    except ImportError:
-        sort_stats_torch = None
-    if sort_stats_torch is None:
-        kk, kw = sort_live(st.keys, st.words, st.segments, st.emitted)
-        counter = plain_counter = None
-    else:
-        kk, kw, counter = sort_live(st.keys, st.words, st.segments, st.emitted, stats=True)
-        counter = counter.tolist()
-        plain_counter = sort_stats_torch(st.keys, st.segments, st.emitted).tolist()
+    kk, kw, counter = sort_live(st.keys, st.words, st.segments, st.emitted, stats=True)
+    counter = counter.tolist()
+    plain_counter = sort_stats_torch(st.keys, st.segments, st.emitted).tolist()
     pk, pw = sort_live_torch(st.keys, st.words, st.segments, st.emitted)
     tx, ty = config.tiles_for(width, height)
     ranges = tile_ranges(kk, tx * ty, config.key_bits(width, height)[1])
@@ -556,9 +379,8 @@ def check_sort(phase, what, st, config, width=None, height=None) -> dict:
                f"kernel vs plain: keys equal on all rows {keys_equal}, words equal on [0, n) "
                f"{words_equal}, sentinel tail {tail}, max abs {err:.3g}; ranges[-1] {end}"
                + ("" if n else f", ranges all zero {not bool(ranges.any())}")
-               + ("" if counter is None else
-                  f"; counter (buckets, largest, rows on chip, rows oversize) {counter}, "
-                  f"plain {plain_counter}"))
+               + f"; counter (buckets, largest, rows on chip, rows oversize) {counter}, "
+                 f"plain {plain_counter}")
     if not (keys_equal and words_equal and tail and end == n and (n or not ranges.any())
             and counter == plain_counter):
         raise AssertionError(f"sort, {what}: kernel disagrees with its plain version")
@@ -566,67 +388,7 @@ def check_sort(phase, what, st, config, width=None, height=None) -> dict:
                 counter=counter)
 
 
-def sort_timing(phase, what, st, smi, reps: int, kernels: Optional[int] = SORT_KERNELS) -> dict:
-    """The sort of one FrameStream timed three ways, in turns (kernel,
-    whole buffer, library, kernel; CUDA events, median of reps): the
-    kernel (ops/sort.py:sort_live), the whole buffer's stable torch.sort of
-    the mapped int32 keys and the words' gather (ops/sort.py:sort_stream,
-    the sort it replaced), and the library yardstick: one stable torch.sort
-    of the int32 keys of the exact n-row prefix and the words' gather; with
-    the kernel's own time (its kernels, torch.profiler: sort_kernel_ms) and
-    the stream's screen-tile buckets (bucket_sizes)."""
-    import torch
-
-    from websplat_tpu_torch.ops.sort import map_keys, sort_live, sort_stream
-    from websplat_tpu_torch.utils import roofline
-
-    n, t = live_count(st), st.keys.shape[0]
-    spans = [(o, o + min(e, c)) for (o, c), e in zip(st.segments, st.emitted.tolist())]
-    pk = map_keys(torch.cat([st.keys[a:b] for a, b in spans]))
-    pw = torch.cat([st.words[:, a:b] for a, b in spans], dim=1)
-    fns = dict(kernel=lambda: sort_live(st.keys, st.words, st.segments, st.emitted),
-               whole=lambda: sort_stream(st.keys, st.words),
-               library=lambda: torch.index_select(pw, 1, torch.sort(pk, stable=True).indices))
-    order = ("kernel", "whole", "library", "kernel")
-    ms = {}
-    for k in order:
-        ms.setdefault(k, []).append(cuda_ms(fns[k], reps))
-    only, parts = sort_kernel_ms(fns["kernel"], reps, kernels)
-    bound, _ = roofline.bound(roofline.sort_work(n, t, len(st.segments)))
-    r = dict(live=n, rows=t, kernel_ms=statistics.mean(ms["kernel"]), kernel_runs=ms["kernel"],
-             kernel_only_ms=only, kernel_only_parts=parts, bound_ms=bound,
-             whole_ms=ms["whole"][0], library_ms=ms["library"][0], buckets=bucket_sizes(st))
-    say(phase, f"sort, {what}: {n} live of {t} rows; kernel {r['kernel_ms']:.4f} ms (runs "
-               f"{', '.join(f'{x:.4f}' for x in ms['kernel'])}; kernel only {only:.4f}: "
-               f"{', '.join(f'{x:.4f}' for x in parts)}; bound {bound:.4f} by bytes, share "
-               f"{bound / only:.3f}); whole-buffer torch.sort + gather "
-               f"{r['whole_ms']:.4f} ms; library: torch.sort of the int32 {n}-row prefix + "
-               f"gather {r['library_ms']:.4f} ms (CUDA events, median of {reps}; {smi}); "
-               f"{bucket_line(r['buckets'])}")
-    return r
-
-
-def profile_call(fn):
-    """torch.profiler over one call of fn(), after one warm-up call: (its
-    top-level host aten ops, its device activities, their device ms (the
-    sum of their intervals), the distinct kernel names)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    host = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
-               and e.cpu_parent is None and e.name.startswith("aten::"))
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (host, len(dev), sum(e.time_range.end - e.time_range.start for e in dev) / 1e3,
-            sorted({e.name[:48] for e in dev}))
-
-
-def profiled(fn, activities=("CPU", "CUDA")):
+def profiled(fn):
     """The device activities of one call of fn() (torch.profiler events),
     recorded after a warm-up call in the same window: the profiler on that
     machine has been seen to drop a window's first records (up to a
@@ -636,7 +398,7 @@ def profiled(fn, activities=("CPU", "CUDA")):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[getattr(ProfilerActivity, a) for a in activities]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1000)
@@ -650,20 +412,6 @@ def profiled(fn, activities=("CPU", "CUDA")):
     return [e for e in events if e.time_range.start >= marks[-1]]
 
 
-def busy_ms(fn):
-    """(device busy ms, device activities, their profiler events) of one
-    profiled call of fn() (profiled: after a warm-up call): busy is the
-    union of the device activity intervals (torch.profiler)."""
-    events = profiled(fn)
-    if not events:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-    return busy_us / 1e3, len(events), events
-
-
 def counting(module, name: str):
     """Replaces module.name by a wrapper that counts its calls; returns
     (the one-element count list, a function that restores it)."""
@@ -675,65 +423,6 @@ def counting(module, name: str):
 
     setattr(module, name, wrapped)
     return calls, lambda: setattr(module, name, orig)
-
-
-def with_bound(r: dict, work) -> None:
-    """Adds a kernel's roofline bound (utils/roofline.py) and its share."""
-    from websplat_tpu_torch.utils import roofline
-
-    bound_ms, term = roofline.bound(work)
-    r.update(bound_ms=bound_ms, bound_by=roofline.bound_by(term), bound_term=term,
-             share=bound_ms / r["kernel_ms"], work=work._asdict())
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of fn() over reps runs (CUDA events), after one
-    warm-up run."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def event_ms(fn):
-    """(fn()'s result, its device time in ms by CUDA events): one run."""
-    import torch
-
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    b.synchronize()
-    return out, a.elapsed_time(b)
-
-
-def staged_ms(fn):
-    """(fn()'s result, its device time in ms by CUDA events, the host ms of
-    each stage of the uncompiled frames it runs: the ``ws.frame.*`` spans
-    of utils/trace.py, summed by stage): one run."""
-    from websplat_tpu_torch.utils import trace
-
-    t0 = time.time_ns()  # the spans' clock
-    trace.enable()
-    try:
-        out, ms = event_ms(fn)
-    finally:
-        trace.enable(False)
-    stages = {}
-    for r in trace.records():
-        if r.start_ns >= t0 and r.name.startswith("ws.frame."):
-            k = r.name[len("ws.frame."):]
-            stages[k] = stages.get(k, 0.0) + (r.end_ns - r.start_ns) / 1e6
-    return out, ms, stages
 
 
 def mxu_config(variant, **kw):
@@ -798,10 +487,9 @@ def build_kernels():
                                              sort_scratch_words)
     from websplat_tpu_torch.utils import roofline
 
-    t0 = time.perf_counter()
     usage = build.build_report()  # compiles with -Xptxas -v
     lib = build.lib()
-    say("build", f"{build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    say("build", f"{build.library_path().name}")
     walk_split = (lib.ws_frontend_short_walk(), lib.ws_frontend_long_queue())
     if walk_split != (SHORT_WALK, LONG_QUEUE):
         raise AssertionError(f"csrc/frontend.cu's SHORT_WALK, LONG_QUEUE {walk_split} differ from "
@@ -894,11 +582,9 @@ def bench_cloud():
     from websplat_tpu_torch.io.loader import load_gaussian_cloud
     from websplat_tpu_torch.synth import make_bench_ply
 
-    t0 = time.perf_counter()
     blob = make_bench_ply(np.random.default_rng(0))
     cloud = load_gaussian_cloud(blob)
-    say("scene", f"bench cloud {cloud.num_points} splats via a {len(blob) / 1e6:.0f} MB PLY "
-                 f"in {time.perf_counter() - t0:.1f} s")
+    say("scene", f"bench cloud {cloud.num_points} splats via a {len(blob) / 1e6:.0f} MB PLY")
     return cloud
 
 
@@ -908,21 +594,20 @@ def bench_npz():
     from websplat_tpu_torch.io.loader import load_gaussian_cloud
     from websplat_tpu_torch.synth import make_bench_npz
 
-    t0 = time.perf_counter()
     blob = make_bench_npz(np.random.default_rng(0))
     resident = load_gaussian_cloud(blob, keep_compressed=True)
     decoded = load_gaussian_cloud(blob)
     say("scene", f"compressed bench cloud {resident.num_points} splats via a "
                  f"{len(blob) / 1e6:.1f} MB npz (codebooks {resident.quantized.covars.shape[0]} "
-                 f"geometry, {resident.quantized.sh_codebook.shape[0]} SH), resident and decoded, "
-                 f"in {time.perf_counter() - t0:.1f} s")
+                 f"geometry, {resident.quantized.sh_codebook.shape[0]} SH), resident and "
+                 f"decoded")
     return resident, decoded
 
 
 def cull_factor_for(resident) -> float:
     """compressed_cull_factor sized as scripts/bench_10m.py:111-120 sizes
     it: 1.15 x the largest visible fraction over the 8 views, from one
-    frustum_visible count per view (outside every timing)."""
+    frustum_visible count per view."""
     from websplat_tpu_torch.render.renderer import frustum_visible, upload
     from websplat_tpu_torch.synth import bench_cameras
 
@@ -971,23 +656,16 @@ def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
     with every 101st row of each index stream at the last entry, 4,094.  The
     decoded rows equal to plain element for element (cov within
     DECODE_COV_TOL), the count and drops equal, the dead rows' xyz the plain
-    version's NaN bits.  Timing: kernel-only ms (the culled decode's two
-    kernels summed per call, and each), bound, share, plain ms; for
-    cull_decode also the eager chain the kernels replaced
-    (cull_stream, compact_instances and the eager decode), its device ms and
-    activities in one profiled call (profile_call), beside the kernels';
-    for decode, the eager decode's."""
+    version's NaN bits.  Each kernel's largest difference goes to
+    ``results``."""
     import torch
 
-    from websplat_tpu_torch.ops.compact import compact_instances
     from websplat_tpu_torch.ops.decompress import (cull_decode, cull_decode_torch, decode_full,
                                                    decode_full_torch, decode_plan,
                                                    frustum_visible, planes_aligned)
     from websplat_tpu_torch.ops.preprocess import CompressedDeviceCloud
-    from websplat_tpu_torch.utils import roofline
 
     n = cc.opacity_q.shape[0]
-    cb_words = 6 * cc.covars.shape[1] + 24 * cc.sh_cb.shape[1]
     n_vis = int(frustum_visible(cc.xyz, block).sum())
     n_sparse = int(frustum_visible(cc.xyz, sparse_block).sum())
     cull_cap = max(4096, int(cull_factor * n))
@@ -1091,45 +769,7 @@ def decompress_vs_plain(cc, block, sparse_block, cull_factor, results):
         raise AssertionError(f"a decode wrapper accepted {what}")
     say("kernels", f"decode wrappers refuse: {', '.join(bad_calls)}")
 
-    full, culled = lambda: decode_full(cc), lambda: cull_decode(cc, block, capacity=cull_cap)
-    sparse = lambda: cull_decode(cc, sparse_block, capacity=sparse_cap)
-    results["decode"] = dict(
-        max_abs_err=errs["decode"], ms=cuda_ms(full, 50),
-        kernel_ms=kernel_only_ms(full, "decode", 50),
-        plain_ms=cuda_ms(lambda: decode_full_torch(cc), 20), library_ms=None)
-    with_bound(results["decode"], roofline.decompress_work(n, n, n, False, True, cb_words))
-    only, parts = cull_decode_ms(culled, 50)
-    sparse_only, sparse_parts = cull_decode_ms(sparse, 50)
-    sparse_bound, _ = roofline.bound(roofline.decompress_work(n, n_sparse, sparse_cap, True, True,
-                                                              cb_words))
-    results["cull_decode"] = dict(
-        max_abs_err=errs["cull_decode"], ms=cuda_ms(culled, 50), kernel_ms=only,
-        kernel_ms_parts=parts,
-        plain_ms=cuda_ms(lambda: cull_decode_torch(cc, block, capacity=cull_cap), 20),
-        library_ms=None, sparse_kernel_ms=sparse_only, sparse_kernel_ms_parts=sparse_parts,
-        sparse_bound_ms=sparse_bound, sparse_kept=n_sparse)
-    with_bound(results["cull_decode"],
-               roofline.decompress_work(n, n_vis, cull_cap, True, True, cb_words))
-    say("kernels", f"cull_decode: kernel only {only:.4f} ms (cull, decode: "
-                   f"{', '.join(f'{x:.4f}' for x in parts)}); the close camera ({n_sparse} kept, "
-                   f"capacity {sparse_cap}): {sparse_only:.4f} ms ("
-                   f"{', '.join(f'{x:.4f}' for x in sparse_parts)}), bound {sparse_bound:.4f} ms, "
-                   f"share {sparse_bound / sparse_only:.3f}")
-    # what each replaced on the card: the eager decode (the plain version at
-    # full N), and the chain cull_stream -> compact_instances -> eager decode
-    for name, new, was in (
-            ("decode", full, lambda: decode_full_torch(cc)),
-            ("cull_decode", culled,
-             lambda: cull_decode_torch(cc, block, capacity=cull_cap, compact=compact_instances))):
-        _, acts, dev_ms, _ = profile_call(new)
-        _, was_acts, was_ms, _ = profile_call(was)
-        results[name].update(device_ms=dev_ms, activities=acts, was_device_ms=was_ms,
-                             was_activities=was_acts)
-        r = results[name]
-        say("kernels", f"{name}: kernel only {r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-                       f"ms ({r['bound_term']}), share {r['share']:.3f}, plain {r['plain_ms']:.4f} "
-                       f"ms; one call {dev_ms:.4f} device ms in {acts} activities, was "
-                       f"{was_ms:.4f} device ms in {was_acts} activities (torch.profiler)")
+    results.update(errs)
 
 
 def refused_uploads(resident, cull_factor):
@@ -1176,7 +816,8 @@ def refused_uploads(resident, cull_factor):
 def kernels_vs_plain(cloud, resident, cull_factor, results):
     """Phase 2: each kernel against its plain version at the main path's
     shapes (bench scene, view 0; the compressed bench cloud's view 0 for
-    the compressed frontend and the culled compaction)."""
+    the compressed frontend and the culled compaction).  Each kernel's
+    largest difference from plain goes to ``results``."""
     import torch
 
     from websplat_tpu_torch.config import RasterConfig
@@ -1184,21 +825,16 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
                                                 dense_compact_torch)
     from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
     from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
-    from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.emit_compact import emit_compact, emit_compact_torch
-    from websplat_tpu_torch.ops.preprocess import (N_SCALARS, core_math, dense_grid_emit,
-                                                   preprocess_packed)
-    from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch, rasterize_work_torch
-    from websplat_tpu_torch.ops.rasterize_mxu import (SPLITS, rasterize_mxu, rasterize_mxu_torch,
-                                                      rasterize_mxu_work_torch)
-    from websplat_tpu_torch.ops.sort import (BUCKET_SHIFT, LOCAL_CAPACITY, map_keys,
-                                             sort_instances, sort_live, sort_live_torch,
-                                             tile_ranges)
+    from websplat_tpu_torch.ops.preprocess import N_SCALARS, dense_grid_emit, preprocess_packed
+    from websplat_tpu_torch.ops.rasterize import rasterize, rasterize_torch
+    from websplat_tpu_torch.ops.rasterize_mxu import rasterize_mxu, rasterize_mxu_torch
+    from websplat_tpu_torch.ops.sort import (BUCKET_SHIFT, LOCAL_CAPACITY, sort_instances,
+                                             sort_live, tile_ranges)
     from websplat_tpu_torch.render.renderer import (build_instance_stream, cull_stream,
                                                     decompress_cloud, frame_stream, upload,
                                                     upload_cloud)
     from websplat_tpu_torch.synth import bench_cameras, make_camera
-    from websplat_tpu_torch.utils import roofline
     from websplat_tpu_torch.utils.streams import compare_rows, stream_rows
 
     cfg = RasterConfig()
@@ -1236,7 +872,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     fk, fp = front(fused_frontend), front(frontend_torch)
     if fk.stats.tolist() != fp.stats.tolist():
         raise AssertionError(f"frontend stats {fk.stats.tolist()} != plain {fp.stats.tolist()}")
-    total, visible, clamped = fk.stats.tolist()
+    total, _, clamped = fk.stats.tolist()
     err_f = max(
         check_rows("frontend instances", stream_rows(fk.keys, fk.words, n=total),
                    stream_rows(fp.keys, fp.words, n=total),
@@ -1253,16 +889,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     if not (same_cid and same_inst):
         raise AssertionError("frontend clamped rows or instances differ from plain in order or "
                              "value")
-    results["frontend"] = dict(
-        max_abs_err=err_f, ms=cuda_ms(lambda: front(fused_frontend), 20),
-        kernel_ms=kernel_only_ms(lambda: front(fused_frontend), "frontend", 20),
-        plain_ms=cuda_ms(lambda: front(frontend_torch), 3), library_ms=None)
-    d = core_math(dc, fs, width=W, height=H, config=cfg)
-    with_bound(results["frontend"], roofline.frontend_work(
-        n, visible, total, min(clamped, cap_c),
-        roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots),
-        fs.max_sh_deg, fs.mip))
-    del d
+    results["frontend"] = err_f
 
     # the frontend with the compressed eigen clamp, on the compressed bench
     # cloud expanded at full N (what the full-N compressed path feeds it)
@@ -1277,7 +904,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     if cfk.stats.tolist() != cfp.stats.tolist():
         raise AssertionError(f"frontend (compressed) stats {cfk.stats.tolist()} != plain "
                              f"{cfp.stats.tolist()}")
-    ctotal, cvisible, cclamped = cfk.stats.tolist()
+    ctotal, _, cclamped = cfk.stats.tolist()
     err_cf = max(
         check_rows("frontend (compressed clamp) instances",
                    stream_rows(cfk.keys, cfk.words, n=ctotal),
@@ -1287,16 +914,8 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
                    stream_rows(cfk.cid, n=min(cclamped, ccap_c)),
                    stream_rows(cfp.cid, n=min(cclamped, ccap_c))),
     )
-    results["frontend_compressed"] = dict(
-        max_abs_err=err_cf, ms=cuda_ms(lambda: cfront(fused_frontend), 20),
-        kernel_ms=kernel_only_ms(lambda: cfront(fused_frontend), "frontend_compressed", 20),
-        plain_ms=cuda_ms(lambda: cfront(frontend_torch), 3), library_ms=None)
-    d = core_math(cdc, cfs, width=W, height=H, config=cfg, compressed=True)
-    with_bound(results["frontend_compressed"], roofline.frontend_work(
-        cn, cvisible, ctotal, min(cclamped, ccap_c),
-        roofline.frontend_reach_tests(d["n_rect"], d["visible"], cfg.tile_slots),
-        cfs.max_sh_deg, cfs.mip))
-    del d, cfk, cfp
+    results["frontend_compressed"] = err_cf
+    del cfk, cfp
 
     # the 64-bit-mask instantiation's row-major walk (tile_slots > 16,
     # overflow on): instances, clamped rows and stats element for element
@@ -1305,73 +924,37 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     wcap_c = wcfg.overflow_capacity_for(n)
     wfront = lambda fn: fn(dc, block, capacity=capacity, capacity_c=wcap_c, **wgeo)
     wk, wp = wfront(fused_frontend), wfront(frontend_torch)
-    wtotal, wvisible, wclamped = wk.stats.tolist()
+    wclamped = int(wk.stats[2])
     same_w = same_stream(wk, wp, capacity) and torch.equal(
         wk.cid[:, :min(wclamped, wcap_c)], wp.cid[:, :min(wclamped, wcap_c)])
-    d = core_math(dc, fs, **wgeo)
-    wtests = roofline.frontend_reach_tests(d["n_rect"], d["visible"], wcfg.tile_slots)
-    lanes = roofline.frontend_walk_lanes(d, wcfg.tile_slots, center_out=False)
-    del d
-    r = dict(max_abs_err=0.0 if same_w else float("inf"), slots=wcfg.tile_slots,
-             ms=cuda_ms(lambda: wfront(fused_frontend), 20),
-             kernel_ms=kernel_only_ms(lambda: wfront(fused_frontend), "frontend", 20),
-             plain_ms=cuda_ms(lambda: wfront(frontend_torch), 3), library_ms=None,
-             reach_tests=wtests, walk_lanes=lanes)
-    with_bound(r, roofline.frontend_work(n, wvisible, wtotal, min(wclamped, wcap_c), wtests,
-                                         fs.max_sh_deg, fs.mip))
     say("kernels", f"frontend row-major, {wcfg.tile_slots} slots: stats [emitted, visible, "
                    f"clamped] = {wk.stats.tolist()}, instances and clamped rows equal to plain "
-                   f"element for element: {same_w}; walk in lane steps {lanes}; kernel only "
-                   f"{r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_term']}), "
-                   f"share {r['share']:.3f}, plain {r['plain_ms']:.3f} ms")
+                   f"element for element: {same_w}")
     if not same_w:
         raise AssertionError(f"frontend ({wcfg.tile_slots} slots): kernel disagrees with its "
                              "plain version")
-    results["frontend"]["slots24"] = r
     del wk, wp
 
     # the frontend's overflow-off walk (C-o): clamped splats walk center-out,
     # no rows captured; at the default 6 slots and at the spiral's 64
-    co_geo = {}
     for slots in (6, 64):
-        ocfg = RasterConfig(tile_slots=slots, overflow_capacity=0)
-        co_geo[slots] = dict(width=W, height=H, config=ocfg)
-        ofront = lambda fn, g=co_geo[slots]: fn(dc, block, capacity=capacity, capacity_c=0, **g)
+        ogeo = dict(width=W, height=H, config=RasterConfig(tile_slots=slots, overflow_capacity=0))
+        ofront = lambda fn: fn(dc, block, capacity=capacity, capacity_c=0, **ogeo)
         ok_, op_ = ofront(fused_frontend), ofront(frontend_torch)
         if ok_.stats.tolist() != op_.stats.tolist() or ok_.cid.shape != (6, 0):
             raise AssertionError(f"frontend (center-out, {slots} slots) stats {ok_.stats.tolist()} "
                                  f"!= plain {op_.stats.tolist()}, or rows captured")
-        ototal, ovisible, oclamped = ok_.stats.tolist()
+        ototal = int(ok_.stats[0])
         n_diff, err = compare_rows(stream_rows(ok_.keys, ok_.words, n=ototal),
                                    stream_rows(op_.keys, op_.words, n=ototal))
         same_o = same_stream(ok_, op_, capacity)
-        d = core_math(dc, fs, **co_geo[slots])
-        tests = roofline.center_out_reach_tests(d, slots)
-        # past 16 slots the kernel hands its long walks to warps
-        lanes = roofline.frontend_walk_lanes(d, slots, center_out=True) if slots > 16 else None
-        del d
-        r = dict(max_abs_err=err, slots=slots, walk_lanes=lanes,
-                 ms=cuda_ms(lambda: ofront(fused_frontend), 20),
-                 kernel_ms=kernel_only_ms(lambda: ofront(fused_frontend), "frontend_center_out",
-                                          20),
-                 plain_ms=cuda_ms(lambda: ofront(frontend_torch), 3), library_ms=None,
-                 reach_tests=tests)
-        with_bound(r, roofline.frontend_work(n, ovisible, ototal, 0, tests, fs.max_sh_deg,
-                                             fs.mip))
         say("kernels", f"frontend center-out ({slots} slots): {ototal} rows kernel and plain, "
                        f"{n_diff} differing (allowed 0), equal element for element: {same_o}; "
-                       f"stats [emitted, visible, clamped] = {ok_.stats.tolist()}; {tests} reach "
-                       f"tests; walk in lane steps {lanes or 'n/a (one thread per splat)'}; "
-                       f"kernel only "
-                       f"{r['kernel_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                       f"({r['bound_term']}), share {r['share']:.3f}, plain {r['plain_ms']:.3f} ms")
+                       f"stats [emitted, visible, clamped] = {ok_.stats.tolist()}")
         if n_diff != 0 or not same_o:
             raise AssertionError(f"frontend center-out ({slots} slots): kernel disagrees with "
                                  "its plain version")
-        if slots == 6:
-            results["frontend_center_out"] = r
-        else:
-            results["frontend_center_out"]["slots64"] = r
+        results["frontend_center_out"] = max(results.get("frontend_center_out", 0.0), err)
         del ok_, op_
 
     # overflow walk, both levels on the kernel frontend's clamped rows
@@ -1385,13 +968,6 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         return w1, w2
 
     (k1, k2), (p1, p2) = walks(overflow_walk), walks(overflow_walk_torch)
-    walk_levels = (  # each level alone, on the kernel path's inputs
-        lambda fn: fn(fk.cid, fk.stats[2], cap_c, rank_lo=cfg.tile_slots,
-                      rank_hi=cfg.overflow_slots, giant_thresh=cfg.overflow_slots,
-                      capacity=walk_cap, giant_capacity=g_cap, **geo),
-        lambda fn: fn(k1.giants, k1.stats[1], g_cap, rank_lo=cfg.overflow_slots,
-                      rank_hi=cfg.overflow_window_slots, giant_thresh=cfg.overflow_window_slots,
-                      capacity=win_cap, giant_capacity=m_cap, **geo))
     errs = []
     for lvl, k, p, gc in ((1, k1, p1, g_cap), (2, k2, p2, m_cap)):
         if k.stats.tolist() != p.stats.tolist():
@@ -1454,38 +1030,17 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     tz = kz.stats.tolist()[0]
     nz_diff, _ = compare_rows(stream_rows(kz.keys, kz.words, n=tz),
                               stream_rows(pz.keys, pz.words, n=tz))
-    z_ms = kernel_only_ms(lambda: lvl1_0(overflow_walk), "overflow_walk", 20)
     say("kernels", f"overflow walk level 1 at giant_capacity 0: stats {kz.stats.tolist()} (plain "
                    f"{pz.stats.tolist()}), giants {tuple(kz.giants.shape)}, {nz_diff} rows "
-                   f"differing (allowed 0), kernel only {z_ms:.4f} ms")
+                   f"differing (allowed 0)")
     if not (kz.stats.tolist() == pz.stats.tolist() == [tot1, gt1] and nz_diff == 0
             and kz.giants.shape == (6, 0)):
         raise AssertionError("overflow walk at giant_capacity 0 disagrees with its plain version")
-    level_ms = [kernel_only_ms(lambda: walk(overflow_walk), "overflow_walk", 20)
-                for walk in walk_levels]
-    say("kernels", f"overflow walk kernel only: level 1 {level_ms[0]:.4f} ms, level 2 "
-                   f"{level_ms[1]:.4f} ms")
-    results["overflow_walk"] = dict(
-        max_abs_err=max(errs), ms=cuda_ms(lambda: walks(overflow_walk), 20),
-        kernel_ms=sum(level_ms), kernel_ms_levels=level_ms, level1_giant_capacity0_ms=z_ms,
-        plain_ms=cuda_ms(lambda: walks(overflow_walk_torch), 3), library_ms=None)
-    walk_work, walk_counts = [], []
-    for rows, n_rows, lo, hi, k, gc in ((fk.cid, fk.stats[2], cfg.tile_slots, cfg.overflow_slots,
-                                         k1, g_cap),
-                                        (k1.giants, k1.stats[1], cfg.overflow_slots,
-                                         cfg.overflow_window_slots, k2, m_cap)):
-        nr = min(int(n_rows), rows.shape[1])
-        tot, gt = k.stats.tolist()
-        tests = roofline.walk_reach_tests(rows[0, :nr], lo, hi)
-        walk_counts.append(f"{nr} rows, {tests} reach tests")
-        walk_work.append(roofline.overflow_walk_work(nr, tot, min(gt, gc), tests))
-    with_bound(results["overflow_walk"], roofline.Work(*map(sum, zip(*walk_work))))
-    say("kernels", f"overflow walk work: level 1 {walk_counts[0]}; level 2 {walk_counts[1]}")
+    results["overflow_walk"] = max(errs)
 
     # the dense extreme-tail stage on the level-2 giants, as the main path
     # runs it: the grid emitted and compacted in one kernel
     dcap = cfg.overflow_dense_compact
-    n_tiles = int(np.prod(cfg.tiles_for(W, H)))
     dense_k = lambda cap=dcap, n_mega=k2.stats[1]: dense_compact(k2.giants, n_mega, capacity=cap,
                                                                  **geo)
     dense_p = lambda: dense_compact_torch(k2.giants, k2.stats[1], capacity=dcap, **geo)
@@ -1497,10 +1052,8 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     dense_rows = stream_rows(dk[0], dk[1], n=n_dense)
     n_diff, err_d = compare_rows(dense_rows, stream_rows(dp[0], dp[1], n=n_dense))
     n_megas = min(int(k2.stats[1]), m_cap)
-    dense_tests = roofline.walk_reach_tests(k2.giants[0, :n_megas], cfg.overflow_window_slots,
-                                            n_tiles)
-    say("kernels", f"dense_compact: {n_megas} mega rows, {dense_tests} reach tests, "
-                   f"{n_dense} rows kernel and plain, {n_diff} differing (allowed 0)")
+    say("kernels", f"dense_compact: {n_megas} mega rows, {n_dense} rows kernel and plain, "
+                   f"{n_diff} differing (allowed 0)")
     if n_diff != 0:
         raise AssertionError("dense_compact: kernel disagrees with its plain version")
     # at a quarter of its count the count stays the true total and the kept
@@ -1514,21 +1067,11 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
                    f"{int(zk[2])}")
     if not (int(qk[2]) == n_dense and left == n_dense - cap_q and int(zk[2]) == 0):
         raise AssertionError("dense_compact below capacity or with no rows: count or rows wrong")
-    host_ops, dev_acts, _, _ = profile_call(dense_p)
-    say("kernels", f"plain dense stage (dense_grid_emit + compact_torch), one call: {host_ops} "
-                   f"top-level host aten ops, {dev_acts} device activities (torch.profiler)")
-    results["dense_compact"] = dict(
-        max_abs_err=err_d, ms=cuda_ms(dense_k, 50),
-        kernel_ms=kernel_only_ms(dense_k, "dense_compact", 50),
-        plain_ms=cuda_ms(dense_p, 5), plain_host_ops=host_ops, plain_device_activities=dev_acts,
-        library_ms=None)
-    with_bound(results["dense_compact"],
-               roofline.dense_compact_work(n_megas, dense_tests, n_dense))
+    results["dense_compact"] = err_d
 
     # the general compaction, on the plain dense grid (the JAX frame's use
     # of it; the port's main path runs dense_compact instead)
     dkeys, dwords = dense_grid_emit(k2.giants, k2.stats[1], **geo)
-    compact_before = launch_counts()["compact"]
     ck, cp = (compact_instances(dkeys, dwords, capacity=dcap),
               compact_torch(dkeys, dwords, capacity=dcap))
     if int(ck[2]) != int(cp[2]):
@@ -1536,22 +1079,14 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     nd = min(int(ck[2]), dcap)
     err_c = check_rows(f"compact ({dkeys.shape[0]} grid rows)", stream_rows(ck[0], ck[1], n=nd),
                        stream_rows(cp[0], cp[1], n=nd))
-    def mask_index():  # the one PyTorch call with E's function; the port never calls it
-        keep = dkeys != -1
-        return dkeys[keep], dwords[:, keep]
-
-    grid_ms = kernel_only_ms(lambda: compact_instances(dkeys, dwords, capacity=dcap), "compact", 50)
-    grid_lib_ms = cuda_ms(mask_index, 20)
-    say("kernels", f"compact on the dense grid: kernel only {grid_ms:.4f} ms, boolean-mask index "
-                   f"{grid_lib_ms:.4f} ms")
 
     # ... and as the culled compressed path runs it: view 0's cull keys
     # (int8 codes) and 5 payload words (position bits, codebook indices)
     # over every splat, at the culled capacity of phase 4c
     ckeys, cpayload = cull_stream(cc, cblock)
     cull_cap = max(4096, int(cull_factor * cn))
-    ccomp = lambda: compact_instances(ckeys, cpayload, capacity=cull_cap)
-    ckk, ckp = ccomp(), compact_torch(ckeys, cpayload, capacity=cull_cap)
+    ckk, ckp = (compact_instances(ckeys, cpayload, capacity=cull_cap),
+                compact_torch(ckeys, cpayload, capacity=cull_cap))
     n_cull = int(ckk[2])
     n_diff, err_cc = compare_rows(stream_rows(ckk[0], ckk[1], n=min(n_cull, cull_cap)),
                                   stream_rows(ckp[0], ckp[1], n=min(n_cull, cull_cap)))
@@ -1565,19 +1100,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     if n_cull != int(ckp[2]) or n_diff != 0 or n_cull > cull_cap or not same_cull:
         raise AssertionError("compact on the culled stream: kernel disagrees with its plain version "
                              "or the count passes the capacity")
-
-    def cull_mask_index():  # the one PyTorch call with E's function; the port never calls it
-        keep = ckeys != -1
-        return ckeys[keep], cpayload[:, keep]
-
-    launches_e = launch_counts()["compact"] - compact_before
-    results["compact"] = dict(
-        max_abs_err=max(err_c, err_cc), launches_phase2=launches_e,
-        ms=cuda_ms(ccomp, 50), kernel_ms=kernel_only_ms(ccomp, "compact", 50),
-        plain_ms=cuda_ms(lambda: compact_torch(ckeys, cpayload, capacity=cull_cap), 5),
-        library_ms=cuda_ms(cull_mask_index, 20), grid_kernel_ms=grid_ms,
-        grid_library_ms=grid_lib_ms)
-    with_bound(results["compact"], roofline.compact_work(cn, 5, min(n_cull, cull_cap)))
+    results["compact"] = max(err_c, err_cc)
     del ckk, ckp, cdc
     sparse_block = device_block(*view_block(resident, make_camera(viewport=(W, H),
                                                                   distance=SPARSE_DISTANCE)))
@@ -1639,8 +1162,8 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         keys[:20_000] = ((5 << BUCKET_SHIFT) | low).to(torch.int32)
         sort_cases[what] = check_sort("kernels", what, st0._replace(keys=keys), cfg)
         del keys
-    counters = {k: c.get("counter") for k, c in sort_cases.items()}
-    if not (counters["one bucket"] and counters["one bucket"][3] > max(LOCAL_CAPACITY)
+    counters = {k: c["counter"] for k, c in sort_cases.items()}
+    if not (counters["one bucket"][3] > max(LOCAL_CAPACITY)
             and counters["every key equal"][3] == 0 and counters["one key a bucket"][3] == 0):
         raise AssertionError(f"sort: the oversize route was not taken where it must be, or "
                              f"taken where it must not: {counters}")
@@ -1649,34 +1172,8 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
             and sort_cases["nothing visible"]["live"] == 0):
         raise AssertionError(f"sort: the drops case dropped nothing ({drops}) or the camera "
                              f"that sees nothing saw {sort_cases['nothing visible']['live']} rows")
-    n0, t0 = sort_cases["bench view 0"]["live"], st0.keys.shape[0]
-    spans = [(o, o + min(e, c)) for (o, c), e in zip(st0.segments, st0.emitted.tolist())]
-    prefix_keys = map_keys(torch.cat([st0.keys[a:b] for a, b in spans]))
-    prefix_words = torch.cat([st0.words[:, a:b] for a, b in spans], dim=1)
-    sort_k = lambda: sort_live(st0.keys, st0.words, st0.segments, st0.emitted)
-    # the library yardstick: one stable torch.sort of the int32 keys of the
-    # exact n-row prefix, and the words' gather
-    library = lambda: torch.index_select(prefix_words, 1,
-                                         torch.sort(prefix_keys, stable=True).indices)
-    results["sort"] = dict(
-        max_abs_err=max(c["max_abs_err"] for c in sort_cases.values()), live=n0, rows=t0,
-        ms=cuda_ms(sort_k, 20),
-        plain_ms=cuda_ms(lambda: sort_live_torch(st0.keys, st0.words, st0.segments,
-                                                 st0.emitted), 10),
-        library_ms=cuda_ms(library, 20),
-        cases={k: {f: v for f, v in c.items() if f in ("live", "rows", "max_abs_err")}
-               for k, c in sort_cases.items()})
-    results["sort"]["kernel_ms"], parts = sort_kernel_ms(sort_k, 20)
-    results["sort"]["kernel_ms_parts"] = parts
-    with_bound(results["sort"], roofline.sort_work(n0, t0, len(st0.segments)))
-    r = results["sort"]
-    say("kernels", f"sort, bench view 0: {n0} live of {t0} rows; kernel {r['ms']:.4f} ms "
-                   f"({r['kernel_ms']:.4f} kernel only: count, scatter, local sort "
-                   f"{', '.join(f'{t:.4f}' for t in parts)}), plain (whole buffer) "
-                   f"{r['plain_ms']:.4f} ms, library "
-                   f"(torch.sort of the int32 {n0}-row prefix + gather) "
-                   f"{r['library_ms']:.4f} ms")
-    del st0, prefix_keys, prefix_words
+    results["sort"] = max(c["max_abs_err"] for c in sort_cases.values())
+    del st0
 
     # rasterizer on the kernel path's sorted stream
     keys, words, _ = build_instance_stream(dc, block, **geo)
@@ -1687,108 +1184,50 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
     rk = rasterize(sw, ranges, bg, **geo)
     rp = rasterize_torch(sw, ranges, bg, **geo)
     err_r = float((rk - rp).abs().max())
-    spans = (ranges[1:] - ranges[:-1]).to(torch.float64)
-    say("kernels", f"rasterize: {sw.shape[1]} sorted instances over {tx * ty} tiles, span max "
-                   f"{int(spans.max())} p99 {float(torch.quantile(spans, 0.99)):.0f} median "
-                   f"{float(spans.median()):.0f}; max |kernel - plain| = {err_r:.3g} "
-                   f"(allowed {RASTER_TOL})")
+    say("kernels", f"rasterize: {sw.shape[1]} sorted instances over {tx * ty} tiles; max "
+                   f"|kernel - plain| = {err_r:.3g} (allowed {RASTER_TOL})")
     if not (torch.isfinite(rk).all() and err_r <= RASTER_TOL):
         raise AssertionError("rasterize: kernel disagrees with its plain version")
-    work = rasterize_work_torch(sw, ranges, **geo)
-    stop = work["tile_stop"].to(torch.float64)
-    say("kernels", f"rasterize work: pairs_live {work['pairs_live']}, pairs_blended "
-                   f"{work['pairs_blended']}, pairs visited by a per-pixel stop with no cull "
-                   f"{work['pairs_visited']}, in the record's box {work['pairs_in_box']}, in "
-                   f"the kernel's sub-blocks that meet the box {work['pairs_sub_box']} "
-                   f"({work['sub_evals']} sub-block evaluations of 32 pixels); span "
-                   f"positions walked per tile until its last pixel saturates: max "
-                   f"{int(stop.max())} p99 {float(torch.quantile(stop, 0.99)):.0f} median "
-                   f"{float(stop.median()):.0f} sum {int(stop.sum())}")
-    results["rasterize"] = dict(
-        max_abs_err=err_r, ms=cuda_ms(lambda: rasterize(sw, ranges, bg, **geo), 20),
-        kernel_ms=kernel_only_ms(lambda: rasterize(sw, ranges, bg, **geo), "rasterize", 20),
-        plain_ms=cuda_ms(lambda: rasterize_torch(sw, ranges, bg, **geo), 1), library_ms=None,
-        **{k: v for k, v in work.items() if k != "tile_stop"})
-    n_walked = int(work["tile_stop"].sum())
-    with_bound(results["rasterize"], roofline.rasterize_work(n_walked, W, H, tx * ty,
-                                                             work["pairs_blended"]))
+    results["rasterize"] = err_r
     # the tree composite on the same stream; qform="direct" is the scan
     # kernel's own evaluation, so it must give the same bits
     tgeo = dict(geo, config=RasterConfig(composite="tree"))
-    tk = rasterize(sw, ranges, bg, **tgeo)
-    tp, tplain_ms = event_ms(lambda: rasterize_torch(sw, ranges, bg, **tgeo))
+    tk, tp = rasterize(sw, ranges, bg, **tgeo), rasterize_torch(sw, ranges, bg, **tgeo)
     err_t = float((tk - tp).abs().max())
     direct_equal = bool(torch.equal(rasterize(sw, ranges, bg, **dict(
         geo, config=RasterConfig(qform="direct"))), rk))
-    twork = rasterize_work_torch(sw, ranges, **tgeo)
     tree_equal = bool(torch.equal(tk, tp))
     say("kernels", f"rasterize tree: max |kernel - plain| = {err_t:.3g} (bit-equal required: "
-                   f"{tree_equal}), "
-                   f"mean |tree - scan| {float((tk - rk).abs().mean()):.3g}; pairs_blended "
-                   f"{twork['pairs_blended']} (scan {work['pairs_blended']}); qform='direct' "
-                   f"bit-equal to the scan kernel's image: {direct_equal}; (group, sub-block) "
-                   f"folds {twork['tree_folds']} holding {twork['sub_evals']} records "
-                   f"({twork['sub_evals'] / max(twork['tree_folds'], 1):.3f} per fold, of 8 "
-                   f"positions): {twork['sub_evals'] - twork['tree_folds']} overs folding only "
-                   f"the present records, against {7 * twork['tree_folds']} over all 8")
+                   f"{tree_equal}); qform='direct' bit-equal to the scan kernel's image: "
+                   f"{direct_equal}")
     # the present-only fold keeps the plain fold's association, so the bits
     # are equal; a reassociated tree would differ by ~1e-5, inside RASTER_TOL
     if not (torch.isfinite(tk).all() and tree_equal and direct_equal):
         raise AssertionError("rasterize tree is not bit-equal to its plain version, or "
                              "qform='direct' changed the scan image")
-    results["rasterize_tree"] = dict(
-        max_abs_err=err_t, ms=cuda_ms(lambda: rasterize(sw, ranges, bg, **tgeo), 20),
-        kernel_ms=kernel_only_ms(lambda: rasterize(sw, ranges, bg, **tgeo), "rasterize_tree", 20),
-        plain_ms=tplain_ms, library_ms=None, mean_abs_vs_scan=float((tk - rk).abs().mean()),
-        pairs_blended=twork["pairs_blended"], tree_folds=twork["tree_folds"],
-        tree_fold_records=twork["sub_evals"])
-    with_bound(results["rasterize_tree"], roofline.rasterize_work(
-        int(twork["tile_stop"].sum()), W, H, tx * ty, twork["pairs_blended"], tree=True))
+    results["rasterize_tree"] = err_t
     del tk, tp
-
-    slab = rasterize_mxu_work_torch(sw, ranges, work["tile_stop"], **geo)
-    all_chunks = slab["slab_tiles"] * cfg.tile_w * cfg.tile_h // 16 * 8
-    say("kernels", f"slab work over the slabs the tile stop leaves: {slab['slab_tiles']} (tile, "
-                   f"slab) pairs, {slab['pairs_alpha']} (pixel, splat) pairs with alpha > 0, "
-                   f"{slab['live_chunks']} live of {all_chunks} (16-pixel block, 16-splat "
-                   f"chunk) pairs ({slab['live_chunks'] / max(all_chunks, 1):.3f})")
 
     # slab rasterizer, each variant on the same sorted stream: every error
     # is printed before any is judged
     variants = {}
     for v in ("highest", "high", "default", "hybrid"):
-        vcfg = mxu_config(v)
-        vgeo = dict(geo, config=vcfg)
-        bk = rasterize_mxu(sw, ranges, bg, **vgeo)
-        bp, plain_ms = event_ms(lambda: rasterize_mxu_torch(sw, ranges, bg, **vgeo))
-        variants[v] = dict(mxu_gate(bk, bp, v),
-                           ms=cuda_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo), 10),
-                           kernel_ms=kernel_only_ms(lambda: rasterize_mxu(sw, ranges, bg, **vgeo),
-                                                    "rasterize_mxu", 10),
-                           plain_ms=plain_ms, library_ms=None,
-                           mean_abs_vs_scan=float((bk - rk).abs().mean()))
-        with_bound(variants[v], roofline.rasterize_mxu_work(
-            slab["records"], slab["slab_tiles"], slab["pairs_alpha"], W, H, tx * ty,
-            cfg.tile_w * cfg.tile_h, SPLITS[v]))
-        r = variants[v]
+        vgeo = dict(geo, config=mxu_config(v))
+        variants[v] = r = mxu_gate(rasterize_mxu(sw, ranges, bg, **vgeo),
+                                   rasterize_mxu_torch(sw, ranges, bg, **vgeo), v)
         say("kernels", f"rasterize_mxu {v}: max |kernel - plain| = {r['max_abs_err']:.3g} "
                        f"({r['pixels_over_tol']} pixels over {MXU_TOL[v]}, allowed "
-                       f"{r['pixels_allowed']} up to {MXU_FLIP_TOL}), mean |kernel - scan| "
-                       f"{r['mean_abs_vs_scan']:.3g}, kernel {r['ms']:.3f} ms "
-                       f"({r['kernel_ms']:.4f} kernel only, bound {r['bound_ms']:.3f} by "
-                       f"{r['bound_term']} over {slab['slab_tiles']} (tile, slab) pairs), plain "
-                       f"{plain_ms:.3f} ms")
+                       f"{r['pixels_allowed']} up to {MXU_FLIP_TOL})")
     for v, r in variants.items():
-        if not r.pop("ok"):
+        if not r["ok"]:
             raise AssertionError(f"rasterize_mxu {v}: kernel disagrees with its plain version")
-    results["rasterize_mxu"] = dict(variants["hybrid"], variants=variants)
+    results["rasterize_mxu"] = variants["hybrid"]["max_abs_err"]
 
-    # packed emission + compaction of the view's packed preprocess; its
-    # launches are counted here: no render path calls it
+    # packed emission + compaction of the view's packed preprocess (no
+    # render path calls it)
     pk = preprocess_packed(dc, fs, **geo)
     egeo = dict(slots=cfg.tile_slots, tx_tiles=tx, depth_bits=cfg.key_bits(W, H)[1])
     full_cap = n * cfg.tile_slots
-    emit_before = launch_counts()["emit_compact"]
     ek = emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     ep = emit_compact_torch(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
     n_valid = int(ek[2])
@@ -1823,17 +1262,7 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
         same_emission(f"emit_compact ({m} splats{what})",
                       *(fn(*part, capacity=m * cfg.tile_slots, **egeo)
                         for fn in (emit_compact, emit_compact_torch)))
-    err_e = 0.0  # every row equal
-    launches_f = launch_counts()["emit_compact"] - emit_before
-    emit = lambda: emit_compact(pk.depth_q, pk.rect, pk.words, capacity=full_cap, **egeo)
-    results["emit_compact"] = dict(
-        max_abs_err=err_e, launches_phase2=launches_f,
-        ms=cuda_ms(emit, 20), kernel_ms=kernel_only_ms(emit, "emit_compact", 20),
-        plain_ms=cuda_ms(lambda: emit_compact_torch(pk.depth_q, pk.rect, pk.words,
-                                                    capacity=full_cap, **egeo), 3),
-        library_ms=None)
-    n_emitting = int(((pk.rect.to(torch.int64) & 0xFFFFFFFF) >> 18).ne(0).sum())
-    with_bound(results["emit_compact"], roofline.emit_compact_work(n, n_emitting, n_valid))
+    results["emit_compact"] = 0.0  # every row equal
 
     # the wrappers refuse arguments their kernels cannot take
     bad_mxu = mxu_config("highest")
@@ -1872,13 +1301,6 @@ def kernels_vs_plain(cloud, resident, cull_factor, results):
             continue
         raise AssertionError(f"a wrapper accepted {what}")
     say("kernels", f"wrappers refuse: {', '.join(bad_calls)}")
-
-    for name in KERNELS:
-        r = results[name]
-        say("kernels", f"{name}: wrapper {r['ms']:.4f} ms, kernel only {r['kernel_ms']:.4f} ms, "
-                       f"bound {r['bound_ms']:.4f} ms ({r['bound_term']}), share "
-                       f"{r['share']:.3f}, plain {r['plain_ms']:.3f} ms, library "
-                       + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"))
 
 
 def golden():
@@ -1955,7 +1377,7 @@ def golden():
         torch.cuda.synchronize()
 
 
-def oracle_phase(smi):
+def oracle_phase():
     """Phase 3b: the bench scene's view 0 at 1200x799 against the port's
     NumPy oracle (ops/oracle.py), with scripts/psnr_check.py's --bench
     settings: make_bench_cloud(rng(0)), distance 3.0, background (0.1,
@@ -1972,12 +1394,10 @@ def oracle_phase(smi):
     cam = make_camera(viewport=(W, H), distance=3.0)
     cam.fit_near_far(*cloud.aabb)
     args = SplattingArgs(background_color=(0.1, 0.12, 0.2))
-    t0 = time.perf_counter()
     ref = render_oracle(cloud, CameraUniforms.from_camera(cam, (W, H)),
                         resolve_settings(args, cloud), W, H)
     say("oracle", f"NumPy oracle, bench scene view 0 ({cloud.num_points} splats, {W}x{H}): "
-                  f"{time.perf_counter() - t0:.1f} s host wall, finite "
-                  f"{bool(np.isfinite(ref).all())}")
+                  f"finite {bool(np.isfinite(ref).all())}")
     scores = {}
     for what, cfg in (("scan (defaults)", RasterConfig()),
                       ("scan, transmittance_eps 1e-4", RasterConfig(transmittance_eps=1e-4)),
@@ -1992,7 +1412,7 @@ def oracle_phase(smi):
         del r
     say("oracle", f"the JAX package's figure for the same scene and settings, taken on a TPU "
                   f"v5e (PSNR_r05.json, scripts/psnr_check.py --bench, defaults): 63.19 dB; "
-                  f"the port on this card ({smi}): {scores['scan (defaults)']:.2f} dB")
+                  f"the port on this card: {scores['scan (defaults)']:.2f} dB")
     if not (np.isfinite(ref).all() and scores["scan (defaults)"] > 40.0):
         raise AssertionError(f"the bench frame vs the oracle: {scores}")
     return scores
@@ -2031,11 +1451,9 @@ def main_path(cloud):
                              f"expected one per frame ({N_VIEWS})")
 
     # view 0 through the plain versions on the card
-    blocks = [view_block(cloud, cam) for cam in cams]
-    fs0, settings = blocks[0]
     kw = dict(width=W, height=H, config=renderer.config, return_diag=True)
-    img_p, diag_p = render_frame(renderer.device_cloud, device_block(fs0, settings), plain=True,
-                                 **kw)
+    img_p, diag_p = render_frame(renderer.device_cloud, device_block(*view_block(cloud, cams[0])),
+                                 plain=True, **kw)
     restore()
     p = psnr(img_p.cpu().numpy(), images[0])
     say("main", f"view 0 plain path: PSNR vs kernel frame {p:.2f} dB, diag {diag_p}, dense "
@@ -2046,8 +1464,7 @@ def main_path(cloud):
                              f"dense grids")
 
     reproducibility("main", renderer, cams[0])
-    frame_timing("main", renderer, blocks)
-    return launches, images, diags, blocks
+    return launches, images, diags
 
 
 def reproducibility(phase, renderer, cam):
@@ -2085,54 +1502,7 @@ def drive(cloud, config):
     return renderer, images, diags, launch_counts()
 
 
-def frame_timing(phase, renderer, blocks):
-    """Warm frame time of a renderer's config over the views: the span
-    between CUDA events around each uncompiled frame (device timeline,
-    host-paced gaps included), the host clock around each synchronised
-    frame and each stage's host time (``staged_ms``); then the device busy
-    time of one profiled pass (torch.profiler: the union of the device
-    activity intervals, per frame) against the event span."""
-    import torch
-
-    from websplat_tpu_torch.render.renderer import render_frame
-
-    geo = dict(width=W, height=H, config=renderer.config, compressed=renderer.cloud.compressed)
-    stages, frame_ms, wall_ms = {}, [], []
-    for _ in range(TIMED_PASSES):
-        for fs, st in blocks:
-            block = device_block(fs, st)
-            t0 = time.perf_counter()
-            _, ms, host = staged_ms(lambda: render_frame(renderer.device_cloud, block, **geo))
-            wall_ms.append(1e3 * (time.perf_counter() - t0))
-            frame_ms.append(ms)
-            for k, v in host.items():
-                stages.setdefault(k, []).append(v)
-    med = statistics.median(frame_ms)
-    split = ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in stages.items())
-    say(phase, f"warm frame (median of {len(frame_ms)}): {med:.3f} ms event span "
-               f"({1e3 / med:.1f} FPS), {statistics.median(wall_ms):.3f} ms host wall; "
-               f"stages host ms: {split}; peak device memory "
-               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    busy, acts, events = busy_ms(lambda: [render_frame(renderer.device_cloud,
-                                                       device_block(fs, st), **geo)
-                                          for fs, st in blocks])
-    busy /= len(blocks)
-    say(phase, f"device busy {busy:.3f} ms per frame in {acts / len(blocks):.0f} device "
-               f"activities (torch.profiler); idle share of the event span "
-               f"{1 - busy / med:.3f}")
-    by_name = {}
-    for e in events:
-        name = next((k for k in KERNELS if kernel_pattern(k).search(e.name)), e.name[:60])
-        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    split = "; ".join(f"{k} {v / 1e3 / len(blocks):.4f}" for k, v in top[:8])
-    rest = sum(v for _, v in top[8:]) / 1e3 / len(blocks)
-    say(phase, f"device ms per frame by kernel: {split}; {len(top) - 8} others {rest:.4f}")
-
-
-
-def slab_path(cloud, scan_images, blocks):
+def slab_path(cloud, scan_images):
     """Phase 4b: the user's entry point with the slab composites, the 8
     views against the scan frames of phase 4."""
     from websplat_tpu_torch import GaussianRenderer, SplattingArgs
@@ -2173,7 +1543,6 @@ def slab_path(cloud, scan_images, blocks):
             raise AssertionError(f"mxu/{v} view 0: PSNR {p:.2f} dB or not finite")
 
     reproducibility("slab", renderer, cams[0])
-    frame_timing("slab", renderer, blocks)
     return launches
 
 
@@ -2181,8 +1550,7 @@ def compressed_path(resident, decoded, cull_factor):
     """Phase 4c: the compressed bench cloud through the user's entry
     points: resident at full N and culled, and decoded at load."""
     from websplat_tpu_torch import RasterConfig
-    from websplat_tpu_torch.render.renderer import (decompress_cloud, decompress_cloud_culled,
-                                                    render_frame)
+    from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils.image import psnr
 
@@ -2215,9 +1583,7 @@ def compressed_path(resident, decoded, cull_factor):
                                  f"{same}), resident vs decoded {p_dec:.2f} dB")
 
     renderer = culled[0]
-    blocks = [view_block(resident, cam) for cam in bench_cameras()]
-    fs0, settings = blocks[0]
-    block0 = device_block(fs0, settings)
+    block0 = device_block(*view_block(resident, bench_cameras()[0]))
     img_p, diag_p = render_frame(renderer.device_cloud, block0, width=W, height=H,
                                  config=renderer.config, compressed=True, plain=True,
                                  return_diag=True)
@@ -2225,32 +1591,11 @@ def compressed_path(resident, decoded, cull_factor):
     say("compressed", f"view 0 plain path (culled): PSNR vs kernel frame {p:.2f} dB, diag {diag_p}")
     if not p >= PLAIN_PSNR:
         raise AssertionError(f"compressed plain-path PSNR {p:.2f} dB < {PLAIN_PSNR}")
-    # the decompression's device work by part: the kernels, and the plain
-    # versions with their index_select gathers alone
-    cc = renderer.device_cloud
-    cull_cap = max(4096, int(cull_factor * resident.num_points))
-    gathers = lambda n: (cc.covars.index_select(1, cc.geom_idx[:n]),
-                         cc.sh_cb.index_select(1, cc.sh_idx[:n]))
-    for what, fn in (("codebook gathers (index_select) at full N",
-                      lambda: gathers(resident.num_points)),
-                     (f"codebook gathers (index_select) at the culled capacity {cull_cap}",
-                      lambda: gathers(cull_cap)),
-                     ("decompress_cloud (full N: decode_kernel)", lambda: decompress_cloud(cc)),
-                     ("decompress_cloud_culled (cull_ballot_kernel, cull_decode_kernel)",
-                      lambda: decompress_cloud_culled(cc, block0, capacity=cull_cap)),
-                     ("decompress_cloud, plain", lambda: decompress_cloud(cc, plain=True)),
-                     ("decompress_cloud_culled, plain", lambda: decompress_cloud_culled(
-                         cc, block0, capacity=cull_cap, plain=True))):
-        _, acts, ms, names = profile_call(fn)
-        say("compressed", f"{what}: {ms:.4f} device ms in {acts} device activities "
-                          f"(torch.profiler; kernels {names})")
     reproducibility("compressed", renderer, bench_cameras()[0])
-    frame_timing("compressed", renderer, blocks)
-    frame_timing("compressed full-N", full[0], blocks)
     return culled[3], full[3]
 
 
-def tree_path(cloud, scan_images, scan_diags, blocks):
+def tree_path(cloud, scan_images, scan_diags):
     """Phase 4d: the 8 views with the tree composite against phase 4's
     scan frames, and view 0 with qform="direct"."""
     from websplat_tpu_torch import RasterConfig
@@ -2274,24 +1619,23 @@ def tree_path(cloud, scan_images, scan_diags, blocks):
     if not same:
         raise AssertionError("qform='direct' view 0 differs from the scan frame")
     reproducibility("tree", renderer, bench_cameras()[0])
-    frame_timing("tree", renderer, blocks)
     return launches
 
 
-def refused_frames(cloud, scan_images, smi):
+def refused_frames(cloud, scan_images):
     """Phase 4e: the frames the port used to refuse, through the user's
     entry point: the 8 views with overflow off (C-o, no walk) and with the
     window off (level 1 of the walk alone), each against the plain path on
     the card and (printed, not gated) the scan frames of phase 4; a
     4160 x 2048 frame (130 x 64 tiles) against the plain path; 7680 x 4320
-    frames timed.  Returns the overflow-off run's launch counts."""
+    frames finite, one frontend launch each.  Returns the overflow-off
+    run's launch counts."""
     from websplat_tpu_torch import RasterConfig
     from websplat_tpu_torch.ops.frontend import frontend_torch, fused_frontend
     from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras, make_camera
     from websplat_tpu_torch.utils.image import psnr
 
-    say("refused", f"card: {smi}")
     cams = bench_cameras()
     blocks = [view_block(cloud, cam) for cam in cams]
     need = {"overflow off": dict(frontend_center_out=N_VIEWS, frontend=0, overflow_walk=0,
@@ -2318,7 +1662,6 @@ def refused_frames(cloud, scan_images, smi):
                                      f"diagnostics {d} vs plain {d_p}")
         if what == "overflow off":
             reproducibility(what, renderer, cams[0])
-        frame_timing(what, renderer, blocks)
         out[what] = launches
 
     from websplat_tpu_torch import GaussianRenderer
@@ -2335,11 +1678,9 @@ def refused_frames(cloud, scan_images, smi):
                               return_diag=True)
         img, d = img.cpu().numpy(), dict(d)
         launches = launch_counts()
-        ms = cuda_ms(lambda: render_frame(renderer.device_cloud, blockw, width=w, height=h,
-                                          config=cfg), 5)
         tx, ty = cfg.tiles_for(w, h)
         line = (f"{w}x{h} ({tx}x{ty} tiles), camera distance {np.linalg.norm(cam.position):.2f}: "
-                f"{ms:.3f} ms per frame (CUDA events, median of 5); launches {launches}; {d}")
+                f"finite {bool(np.isfinite(img).all())}; launches {launches}; {d}")
         if not np.isfinite(img).all() or launches["frontend"] != 1:
             raise AssertionError(f"{w}x{h}: image not finite, or launches {launches}")
         if not check:
@@ -2428,7 +1769,7 @@ def kernels_by_function(fn, want, passes: int = 5):
     best = {f: 0 for f in FUNCTIONS}
     for _ in range(passes):
         counts = {f: 0 for f in FUNCTIONS}
-        for e in profiled(fn, ("CUDA",)):
+        for e in profiled(fn):
             f = next((f for f, pat in pats.items() if pat.search(e.name)), None)
             if f is not None:
                 counts[f] += 1
@@ -2438,65 +1779,7 @@ def kernels_by_function(fn, want, passes: int = 5):
     return {f: k for f, k in best.items() if k}
 
 
-def graph_timing(what, frame, smi, phase="graph"):
-    """``frame(i)`` renders view i.  The median CUDA-event span of a frame
-    run alone (synchronised before and after; TIMED_PASSES passes), the
-    span per frame of the 8 views back to back (one synchronise), and the
-    device busy ms and activities per frame of one profiled pass
-    (torch.profiler: the union of the device activity intervals), with the
-    lone frame's idle share."""
-    import torch
-
-    alone = []
-    for _ in range(TIMED_PASSES):
-        for i in range(N_VIEWS):
-            torch.cuda.synchronize()
-            alone.append(event_ms(lambda: frame(i))[1])
-    torch.cuda.synchronize()
-    pass_ms = event_ms(lambda: [frame(i) for i in range(N_VIEWS)])[1] / N_VIEWS
-    busy, acts, _ = busy_ms(lambda: [frame(i) for i in range(N_VIEWS)])
-    r = dict(span_ms=statistics.median(alone), pass_ms=pass_ms, busy_ms=busy / N_VIEWS,
-             activities=acts / N_VIEWS)
-    r["idle_share"] = 1 - r["busy_ms"] / r["span_ms"]
-    say(phase, f"{what}: span {r['span_ms']:.4f} ms alone (median of {len(alone)}), "
-                 f"{pass_ms:.4f} ms per frame back to back, busy {r['busy_ms']:.4f} ms in "
-                 f"{r['activities']:.1f} device activities per frame (torch.profiler), idle "
-                 f"share {r['idle_share']:.3f} ({smi})")
-    return r
-
-
-def pass_timing(what, run, views, smi):
-    """``run()`` renders a pass of ``views`` frames.  The median CUDA-event
-    span of a pass run alone (TIMED_PASSES x 3 passes) and the device busy
-    ms and activities of one profiled pass, all per frame, with the idle
-    share."""
-    import torch
-
-    spans = []
-    for _ in range(3 * TIMED_PASSES):
-        torch.cuda.synchronize()
-        spans.append(event_ms(run)[1] / views)
-    busy, acts, _ = busy_ms(run)
-    r = dict(span_ms=statistics.median(spans), busy_ms=busy / views, activities=acts / views)
-    r["idle_share"] = 1 - r["busy_ms"] / r["span_ms"]
-    say("graph", f"{what}: span {r['span_ms']:.4f} ms per frame (a pass of {views} alone, "
-                 f"median of {len(spans)}), busy {r['busy_ms']:.4f} ms in "
-                 f"{r['activities']:.1f} device activities per frame (torch.profiler), idle "
-                 f"share {r['idle_share']:.3f} ({smi})")
-    return r
-
-
-def pool_bytes(graph) -> int:
-    """Bytes of a captured torch.cuda.CUDAGraph's private memory pool: the
-    caching allocator's segments of graph.pool() (torch.cuda.memory_snapshot)."""
-    import torch
-
-    pool = tuple(graph.pool())
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == pool)
-
-
-def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
+def graph_phase(cloud, resident, cull_factor, scan_images, launches):
     """Phase 4f: each path's frame as a captured program.  Per path: the
     8 views through the uncompiled render_frame under
     torch.cuda.set_sync_debug_mode("error") (no host synchronisation
@@ -2510,25 +1793,20 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
     captured pass (render_blocks: one graph of 8 frames, each writing its
     own slots), every image and diagnostic bit-identical to the per-view
     replays and to the eager frames, its kernels by name equal to the
-    eager launches; span, busy, activities and idle share of eager and
-    replayed frames and of the pass.  Then
-    GaussianRenderer (capture on, the default) over the 8 views: one
-    capture for the viewport, frames bit-equal to phase 4's; and view 0's
-    sort timed (sort_timing): the kernel, the whole buffer's torch.sort it
-    replaced and the library yardstick."""
+    eager launches.  Then GaussianRenderer (capture on, the default) over
+    the 8 views: one capture for the viewport, frames bit-equal to phase
+    4's."""
     import torch
 
     from websplat_tpu_torch import GaussianRenderer, RasterConfig, SplattingArgs
     from websplat_tpu_torch.render.graph import GraphCache, render_blocks
-    from websplat_tpu_torch.render.renderer import frame_stream, render_frame, upload
+    from websplat_tpu_torch.render.renderer import render_frame, upload
     from websplat_tpu_torch.synth import bench_cameras
     from websplat_tpu_torch.utils import trace
 
-    say("graph", f"card: {smi}")
     cams = bench_cameras()
     clouds = {"bench": cloud, "npz": resident}
     device_clouds = {k: upload(c, "cuda") for k, c in clouds.items()}
-    timing = {}
     for what, (kind, fields) in GRAPH_PATHS.items():
         host, dc = clouds[kind], device_clouds[kind]
         cfg = RasterConfig(**(fields if fields is not None
@@ -2594,11 +1872,6 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
             raise AssertionError(f"{what}: the pass graph differs: images {p_same}, "
                                  f"diagnostics {p_diag}, captures {pgraph.captures}, kernels "
                                  f"{p_launched} vs {want}")
-        timing[what] = {mode: graph_timing(f"{what}, {mode}", fn, smi) for mode, fn in (
-            ("eager", lambda i: render_frame(dc, blocks[i], **geo)),
-            ("replay", lambda i: graph.replay(blocks[i])))}
-        timing[what]["pass"] = pass_timing(f"{what}, one pass graph", lambda: render_blocks(
-            dc, blocks, graphs, **geo), N_VIEWS, smi)
         del graphs, graph, pgraph, images, p_images, replays, eager
 
     # the user's entry point on the card replays its graph: one capture for
@@ -2612,21 +1885,12 @@ def graph_phase(cloud, resident, cull_factor, scan_images, launches, smi):
     if not (caps == [1] and all(same)):
         raise AssertionError(f"GaussianRenderer: captures {caps}, frames equal {same}")
 
-    # the sort of view 0's stream: the kernel, the whole buffer's torch.sort
-    # (the parent's sort) and the library yardstick, in turns
-    dc = device_clouds["bench"]
-    block0 = device_block(*view_block(cloud, cams[0]))
-    geo = dict(width=W, height=H, config=RasterConfig())
-    st = frame_stream(dc, block0, **geo)
-    timing["sort"] = sort_timing("graph", "view 0", st, smi, reps=10)
-    return timing
 
-
-def parallel_phase(cloud, scan_images, scan_diags, smi):
+def parallel_phase(cloud, scan_images, scan_diags):
     """Phase 6: the multi-device paths on the one card.  View-parallel over
     an NCCL group of one (the 8 views, bit-equal to phase 4's frames);
     splat-sharded at D = 1 over NCCL on view 0 (region capacity n_inst: no
-    drop possible), timed beside the single frame; the loopback exchange
+    drop possible); the loopback exchange
     (the D ranks' bodies in turn on the card) at D = 2 and 4 with 32 x 8
     tiles against the single frame of that config, and once at a capacity
     that drops; the spawned dry run; the native PLY decoder."""
@@ -2636,16 +1900,12 @@ def parallel_phase(cloud, scan_images, scan_diags, smi):
     from websplat_tpu_torch.parallel.dryrun import dryrun_multidevice
     from websplat_tpu_torch.synth import make_bench_ply
 
-    say("parallel", f"card: {smi}")
-    t0 = time.perf_counter()
     try:
-        parallel_in_process(cloud, scan_images, scan_diags, smi)
+        parallel_in_process(cloud, scan_images, scan_diags)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    say("parallel", f"in-process parts in {time.perf_counter() - t0:.1f} s")
 
-    t1 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         dryrun_multidevice(1, "cuda")
@@ -2655,14 +1915,10 @@ def parallel_phase(cloud, scan_images, scan_diags, smi):
     if not (any("view-parallel ok" in ln for ln in lines)
             and any("splat-sharded ok" in ln for ln in lines)):
         raise AssertionError(f"dryrun_multidevice(1, 'cuda') printed {lines}")
-    say("parallel", f"dryrun_multidevice(1, 'cuda') in {time.perf_counter() - t1:.1f} s")
 
     blob = make_bench_ply(np.random.default_rng(0))
-    t2 = time.perf_counter()
     nat = read_ply(io.BytesIO(blob), native=True)
-    t3 = time.perf_counter()
     ref = read_ply(io.BytesIO(blob), native=False)
-    t4 = time.perf_counter()
     same = {k: bool(np.array_equal(nat[k].view(np.uint8), ref[k].view(np.uint8)))
             for k in ("xyz", "sh")}
     steps = np.abs(nat["opacity"].view(np.uint16).astype(np.int32)
@@ -2670,10 +1926,9 @@ def parallel_phase(cloud, scan_images, scan_diags, smi):
     n_op = int((steps != 0).sum())
     cov_ok = np.allclose(nat["cov"].astype(np.float32), ref["cov"].astype(np.float32),
                          rtol=2e-3, atol=1e-6)
-    say("parallel", f"native PLY decoder, bench PLY ({nat['num_points']} splats): "
-                    f"{1e3 * (t3 - t2):.1f} ms native, {1e3 * (t4 - t3):.1f} ms NumPy (host wall); "
-                    f"bit-equal {same}; opacity differing {n_op} (max {int(steps.max())} f16 "
-                    f"step); cov within rtol 2e-3 {cov_ok}")
+    say("parallel", f"native PLY decoder, bench PLY ({nat['num_points']} splats) against the "
+                    f"NumPy path: bit-equal {same}; opacity differing {n_op} (max "
+                    f"{int(steps.max())} f16 step); cov within rtol 2e-3 {cov_ok}")
     if not (all(same.values()) and cov_ok and int(steps.max()) <= 1
             and n_op <= NATIVE_OPACITY_SLACK * nat["num_points"]):
         raise AssertionError("native PLY decoder disagrees with the NumPy path")
@@ -2699,23 +1954,19 @@ def clamped_centres(keys, words, plan) -> int:
     return int(torch.unique(rows, dim=1).shape[1])
 
 
-def parallel_in_process(cloud, scan_images, scan_diags, smi):
+def parallel_in_process(cloud, scan_images, scan_diags):
     """Phase 6's parts on an in-process NCCL group of one (see
     parallel_phase)."""
     import torch
-    import torch.distributed as dist
 
     from websplat_tpu_torch import RasterConfig, SplattingArgs
     from websplat_tpu_torch.config import resolve_settings
     from websplat_tpu_torch.models.camera import CameraUniforms
-    from websplat_tpu_torch.ops.preprocess import N_SCALARS
     from websplat_tpu_torch.parallel.group import splat_group, view_group
     from websplat_tpu_torch.parallel.multiview import make_view_parallel_renderer, stack_cameras
-    from websplat_tpu_torch.parallel.sharded import (cut_regions, gather_rows,
-                                                     make_splat_sharded_renderer, region_frame,
+    from websplat_tpu_torch.parallel.sharded import (gather_rows, make_splat_sharded_renderer,
                                                      region_plan, render_splat_sharded_loopback,
                                                      shard_cloud, split_cloud)
-    from websplat_tpu_torch.render.graph import FrameGraph
     from websplat_tpu_torch.render.renderer import (build_instance_stream, camera_block,
                                                     render_frame, upload_cloud)
     from websplat_tpu_torch.synth import bench_cameras
@@ -2745,10 +1996,9 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
         raise AssertionError("view-parallel frames or total_visible differ from phase 4's")
 
     # splat-sharded at D = 1 over NCCL: the exchange is an all_to_all with
-    # itself; its cost beside the single frame's is the exchange overhead
-    # (scripts/bench_sharded.py:133, sharded_exchange_overhead_ms).  The
-    # step replays its captured program (exchange and all_reduce captured
-    # too); the eager step and the loopback are the same operations
+    # itself.  The step replays its captured program (exchange and
+    # all_reduce captured too); the eager step and the loopback are the
+    # same operations
     sgroup = splat_group(device="cuda")
     n_inst = scan_diags[0]["num_instances"]
     sstep = make_splat_sharded_renderer(sgroup, width=W, height=H, config=RasterConfig(),
@@ -2785,34 +2035,7 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
         raise AssertionError(f"splat-sharded D = 1: {same}, captures {captures}, {p1:.2f} dB, "
                              f"stats {dict(st_r)}, kernels {launched} vs {want}")
     block0 = device_block(camera_block(unis[0], settings), settings)
-    sharded = {mode: graph_timing(f"splat-sharded D = 1 step, {mode}", lambda i: fn(),
-                                  smi, phase="parallel")
-               for mode, fn in (("eager", lambda: sstep.eager(shard, unis[0], settings, bg)),
-                                ("replay", run))}
-    single = FrameGraph(dc, width=W, height=H, config=RasterConfig())
-    single_ms = cuda_ms(lambda: render_frame(dc, block0, width=W, height=H,
-                                             config=RasterConfig()), 10)
-    single_replay_ms = cuda_ms(lambda: single.replay(block0), 10)
-    # its parts, eager: the cut (the stream, the stable sort, the region
-    # buffers), the exchange, the region's frame (merge, re-sort, rebase,
-    # raster)
-    plan = sstep.plan
-    outgoing, _ = cut_regions(shard, block0, plan, config=RasterConfig())
-    incoming = torch.empty_like(outgoing)
-    cut_ms = cuda_ms(lambda: cut_regions(shard, block0, plan, config=RasterConfig()), 10)
-    x_ms = cuda_ms(lambda: dist.all_to_all_single(incoming, outgoing, group=sgroup.group), 10)
-    region_ms = cuda_ms(lambda: region_frame(incoming, 0, block0[N_SCALARS:], plan,
-                                             config=RasterConfig()), 10)
-    say("parallel", f"splat-sharded D = 1 parts, eager (CUDA events, median of 10): cut "
-                    f"{cut_ms:.3f} ms, all_to_all_single of {tuple(outgoing.shape)} int32 "
-                    f"{x_ms:.3f} ms, region frame {region_ms:.3f} ms")
-    say("parallel", f"splat-sharded D = 1: replayed step {sharded['replay']['span_ms']:.3f} ms "
-                    f"alone vs the replayed single frame's {single_replay_ms:.3f} ms; eager step "
-                    f"{sharded['eager']['span_ms']:.3f} ms vs the eager single frame's "
-                    f"{single_ms:.3f} ms (single frames: CUDA events, median of 10): exchange "
-                    f"overhead replayed {sharded['replay']['span_ms'] - single_replay_ms:.3f} ms, "
-                    f"eager {sharded['eager']['span_ms'] - single_ms:.3f} ms ({smi})")
-    del single, sstep
+    del sstep
 
     # the loopback exchange at D = 2 and 4: 32 x 8 tiles give 100 tile rows
     cfg8 = RasterConfig(**SHARD_CONFIG)
@@ -2846,7 +2069,7 @@ def parallel_in_process(cloud, scan_images, scan_diags, smi):
         raise AssertionError(f"loopback at a small capacity: stats {dict(st)}")
 
 
-def apps_phase(cloud, smi):
+def apps_phase(cloud):
     """Phase 5: the command-line apps on the bench PLY (written to a
     temporary directory, removed at the end) and a cameras.json of the 8
     bench views (camera 0 is the Test split): measure at 2048 x 2048,
@@ -2858,12 +2081,12 @@ def apps_phase(cloud, smi):
 
     root = tempfile.mkdtemp(prefix="chip_smoke_apps_")
     try:
-        run_apps(cloud, smi, root)
+        run_apps(cloud, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_apps(cloud, smi, root):
+def run_apps(cloud, root):
     import socket
     import urllib.request
 
@@ -2871,13 +2094,12 @@ def run_apps(cloud, smi, root):
     from websplat_tpu_torch.apps import measure, render, video
     from websplat_tpu_torch.apps.common import render_resolution
     from websplat_tpu_torch.models.scene import Scene, SceneCamera, Split
+    from websplat_tpu_torch.render import graph as graph_mod
+    from websplat_tpu_torch.render.renderer import render_frame
     from websplat_tpu_torch.synth import bench_cameras, make_bench_ply
+    from websplat_tpu_torch.utils import trace
     from websplat_tpu_torch.utils.image import psnr, read_png, to_u8
 
-    import torch
-
-    say("apps", f"card: {smi}; before measure {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-                f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     ply, cams_json = os.path.join(root, "point_cloud.ply"), os.path.join(root, "cameras.json")
     with open(ply, "wb") as f:
         f.write(make_bench_ply(np.random.default_rng(0)))
@@ -2886,72 +2108,27 @@ def run_apps(cloud, smi, root):
     with open(cams_json, "w") as f:
         json.dump(entries, f)
 
-    # measure as a user runs it (2048 x 2048, its default 10 samples),
-    # MEASURE_RUNS times, each pass's wall time printed
-    fps_runs = []
-    for run in range(MEASURE_RUNS):
-        buf, t0 = io.StringIO(), time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            fps_runs.append(measure.main([ply, cams_json]))
-        for ln in buf.getvalue().splitlines():
-            say("apps", f"measure run {run}: {ln}")
-        say("apps", f"measure run {run}: {time.perf_counter() - t0:.1f} s with load and warm-up")
-    say("apps", f"measure: average FPS {', '.join(f'{f:.2f}' for f in fps_runs)} over "
-                f"{MEASURE_RUNS} runs ({smi})")
-    if not all(f > 0 for f in fps_runs):
-        raise AssertionError(f"measure FPS {fps_runs}")
-    # the device's share of one measure pass: busy ms (torch.profiler)
-    # against the pass's wall time; the first pass captures the views as one
-    # graph: the memory it takes
-    from websplat_tpu_torch.render import graph as graph_mod
-
+    # measure's pass as a user's run replays it (2048 x 2048, the Train
+    # views' blocks built once in prepare), MEASURE_PASSES times after the
+    # capture, counting its graph launches (FrameGraph.replay calls)
     one_pass, views = measure.prepare(measure.parse_args([ply, cams_json]))
-    one_pass()
-    pass_pool = pool_bytes(next(iter(one_pass.graphs)).graph)
-    # the pass's host clock: enqueueing the block copy and the replay, then
-    # waiting in its synchronize (the blocks were built once, in prepare);
-    # and its graph launches (FrameGraph.replay calls)
-    marks, replays = {}, [0]
-
-    def timed(name, fn):
-        def run(*args, **kw):
-            marks[name + "_start"] = time.perf_counter()
-            out = fn(*args, **kw)
-            marks[name + "_end"] = time.perf_counter()
-            return out
-        return run
+    one_pass()  # the capture
+    replays = [0]
 
     def counted(self, blocks):
         replays[0] += 1
         return orig_replay(self, blocks)
 
-    orig, orig_replay = measure.render_blocks, graph_mod.FrameGraph.replay
-    measure.render_blocks = timed("replays", orig)
+    orig_replay = graph_mod.FrameGraph.replay
     graph_mod.FrameGraph.replay = counted
-    parts = {k: [] for k in ("wall", "before", "replays", "wait")}
     try:
         for _ in range(MEASURE_PASSES):
-            t0 = time.perf_counter()
             one_pass()
-            t1 = time.perf_counter()
-            parts["wall"].append(1e3 * (t1 - t0))
-            parts["before"].append(1e3 * (marks["replays_start"] - t0))
-            parts["replays"].append(1e3 * (marks["replays_end"] - marks["replays_start"]))
-            parts["wait"].append(1e3 * (t1 - marks["replays_end"]))
     finally:
-        measure.render_blocks, graph_mod.FrameGraph.replay = orig, orig_replay
-    split = {k: statistics.median(v) for k, v in parts.items()}
-    wall = split["wall"]
-    busy, acts, _ = busy_ms(one_pass)
-    say("apps", f"measure pass host clock (ms, median of {MEASURE_PASSES} passes): " + ", ".join(
-        f"{k} {split[k]:.3f}" for k in ("wall", "before", "replays", "wait"))
-        + f"; graph launches per pass {replays[0] / MEASURE_PASSES:g}")
+        graph_mod.FrameGraph.replay = orig_replay
 
-    # what a measure frame holds: its first train view through the same
-    # config, warm, with the stage spans, diagnostics and launches
-    from websplat_tpu_torch.render.renderer import render_frame
-    from websplat_tpu_torch.utils import trace
-
+    # the launches of one eager frame of measure's first train view, the
+    # same config: the pass must launch them once a view
     sc = Scene.from_json(cams_json).cameras(Split.TRAIN)[0]
     cam = sc.to_perspective()
     cam.projection.resize(2048, 2048)
@@ -2960,34 +2137,19 @@ def run_apps(cloud, smi, root):
     dc2 = GaussianRenderer(cloud, cfg2).device_cloud
     for _ in range(2):
         trace.reset()
-        (_, d2), span2, ms2 = staged_ms(lambda: render_frame(dc2, block2, width=2048,
-                                                             height=2048, config=cfg2,
-                                                             return_diag=True))
+        _, d2 = render_frame(dc2, block2, width=2048, height=2048, config=cfg2, return_diag=True)
     want = {f: k * views for f, k in by_function(launch_counts()).items()}
-    # the graph of one such frame: the memory its capture takes
-    one = graph_mod.FrameGraph(dc2, width=2048, height=2048, config=cfg2)
-    one.replay(block2)
-    frame_pool = pool_bytes(one.graph)
-    del one
-    say("apps", f"graph pool at 2048x2048: the {views}-view pass {pass_pool / 2**20:.1f} MiB, "
-                f"one frame {frame_pool / 2**20:.1f} MiB: ratio {pass_pool / frame_pool:.2f} "
-                f"(each graph's private pool, torch.cuda.memory_snapshot)")
-
     measured = [(g.views, g.captures) for g in one_pass.graphs]
     launched = kernels_by_function(one_pass, want)
-    say("apps", f"measure pass ({views} views): {wall:.3f} ms host wall (median), device busy "
-                f"{busy:.3f} ms in {acts} device activities (torch.profiler, the next pass); "
-                f"per frame {wall / views:.3f} / {busy / views:.3f} ms, wall / busy "
-                f"{wall / busy:.3f}; replayed graphs (views, captures) {measured}, kernels by "
-                f"name {launched} (the eager frame's launches x {views}: {want}) ({smi})")
+    say("apps", f"measure pass ({views} views at 2048x2048, {cfg2.tile_w}x{cfg2.tile_h} tiles): "
+                f"graph launches per pass {replays[0] / MEASURE_PASSES:g}; replayed graphs "
+                f"(views, captures) {measured}, kernels by name {launched} (the eager frame's "
+                f"launches x {views}: {want}); the first train view's eager frame {dict(d2)}")
     if not (measured == [(views, 1)] and launched == want
             and replays[0] == MEASURE_PASSES):
         raise AssertionError(f"measure did not replay one captured pass per pass: graphs "
                              f"{measured}, graph launches {replays[0]} in {MEASURE_PASSES} "
                              f"passes, kernels {launched} vs {want}")
-    say("apps", f"measure's first train view at 2048x2048 ({cfg2.tile_w}x{cfg2.tile_h} tiles), "
-                f"warm: {span2:.3f} ms event span; stages host ms "
-                + ", ".join(f"{k} {v:.3f}" for k, v in ms2.items()) + f"; {d2}")
 
     out = os.path.join(root, "renders")
     render.main([ply, cams_json, "--out", out])
@@ -3045,8 +2207,8 @@ def run_apps(cloud, smi, root):
         with urllib.request.urlopen(url + "/stats", timeout=10) as resp:
             stats = json.loads(resp.read())
         say("apps", f"viewer (port {port}): /frame.png {len(png)} B, rotate -> {posted}, /stats "
-                    f"fps {stats['fps']:.1f} visible {stats['num_visible']} instances "
-                    f"{stats['num_instances']} cameras {len(stats['cameras'])}")
+                    f"visible {stats['num_visible']} instances {stats['num_instances']} cameras "
+                    f"{len(stats['cameras'])}")
         if not (posted == 200 and stats["num_visible"] > 0 and len(stats["cameras"]) == N_VIEWS):
             raise AssertionError(f"viewer stats {stats}")
     finally:
@@ -3077,24 +2239,23 @@ def walk_tickets(out) -> int:
     return int(words.set_(out.stats.untyped_storage())[2])
 
 
-def walk_levels_at(what, dc, block, n, cfg, compressed, reps=20) -> list:
+def walk_levels_at(what, dc, block, n, cfg, compressed) -> list:
     """Both overflow-walk levels at cfg's rank windows and capacities, on the
     clamped rows of the kernel frontend over the decoded cloud dc (n
     splats) at the frame block: ranks [tile_slots, overflow_slots) over the
     clamped rows, then [overflow_slots, overflow_window_slots) over level
     1's giants.  Each level's instances and giant rows must equal its plain
-    version's element for element (AssertionError otherwise).  Per level:
-    kernel-only ms (median of reps launches) against its roofline bound
-    (utils/roofline.py:overflow_walk_work), the live rows and their reach
-    tests, the rows a tile held (sized from the live rows), the grid and
-    the tiles its blocks took (each persistent block takes one ticket past
-    the last live tile)."""
+    version's element for element (AssertionError otherwise).  Per level a
+    dict: its ranks, the live rows it read (``rows``), its stats and the
+    giant rows it kept, the rows a tile held (sized from the live rows),
+    the grid and the tiles its blocks took (each persistent block takes
+    one ticket past the last live tile), the kernel's output (``out``) and
+    ``call``, which launches the level's kernel again on the same inputs."""
     import torch
 
     from websplat_tpu_torch.kernels import build
     from websplat_tpu_torch.ops.frontend import fused_frontend
     from websplat_tpu_torch.ops.overflow import overflow_walk, overflow_walk_torch
-    from websplat_tpu_torch.utils import roofline
 
     geo = dict(width=W, height=H, config=cfg)
     cap_c = cfg.overflow_capacity_for(n)
@@ -3110,39 +2271,30 @@ def walk_levels_at(what, dc, block, n, cfg, compressed, reps=20) -> list:
                cfg.overflow_window_capacity_for(g_cap), cfg.overflow_dense_capacity_for(cap_c)))
     out = []
     for lvl, (lo, hi, n_cap, cap, gc) in enumerate(levels, 1):
-        def call(fn, rows=rows, n_rows=n_rows, lo=lo, hi=hi, n_cap=n_cap, cap=cap, gc=gc):
+        def call(fn=overflow_walk, rows=rows, n_rows=n_rows, lo=lo, hi=hi, n_cap=n_cap, cap=cap,
+                 gc=gc):
             return fn(rows, n_rows, n_cap, rank_lo=lo, rank_hi=hi, giant_thresh=hi,
                       capacity=cap, giant_capacity=gc, **geo)
 
-        k, p = call(overflow_walk), call(overflow_walk_torch)
+        k, p = call(), call(overflow_walk_torch)
         tot, gt = k.stats.tolist()
         ti, tg = min(tot, cap), min(gt, gc)
         same = (k.stats.tolist() == p.stats.tolist() and torch.equal(k.keys[:ti], p.keys[:ti])
                 and torch.equal(k.words[:, :ti], p.words[:, :ti])
                 and torch.equal(k.giants[:, :tg], p.giants[:, :tg]))
-        tickets = walk_tickets(k)
         live = min(int(n_rows), n_cap)
-        if hasattr(lib, "ws_overflow_walk_grid"):
-            tile_rows = lib.ws_overflow_walk_tile_rows(live, n_cap)
-            grid = lib.ws_overflow_walk_grid(n_cap)
-            taken = tickets - grid
-        else:  # a checkout from before the persistent walk: one 8-row tile a block
-            tile_rows, grid, taken = 8, tickets, tickets
-        ms = kernel_only_ms(lambda: call(overflow_walk), "overflow_walk", reps)
-        tests = roofline.walk_reach_tests(rows[0, :live], lo, hi)
-        r = dict(level=lvl, ranks=(lo, hi), n_cap=n_cap, live=live, reach_tests=tests,
-                 stats=[tot, gt], tile_rows=tile_rows, grid=grid, tiles_taken=taken,
-                 kernel_ms=ms, same=same)
-        with_bound(r, roofline.overflow_walk_work(live, tot, tg, tests))
+        tile_rows = lib.ws_overflow_walk_tile_rows(live, n_cap)
+        grid = lib.ws_overflow_walk_grid(n_cap)
+        taken = walk_tickets(k) - grid
         say("walk", f"{what}, level {lvl} (ranks [{lo}, {hi}), n_cap {n_cap}): {live} live "
-                    f"rows, {tests} reach tests, stats [instances, giants] {r['stats']}; tiles "
-                    f"of {tile_rows} rows, grid {grid}, tiles taken {taken}; kernel only "
-                    f"{ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_term']}), share "
-                    f"{r['share']:.3f}; instances and giants equal to plain element for "
-                    f"element: {same}")
+                    f"rows, stats [instances, giants] {[tot, gt]}; tiles of {tile_rows} rows, "
+                    f"grid {grid}, tiles taken {taken}; instances and giants equal to plain "
+                    f"element for element: {same}")
         if not same:
             raise AssertionError(f"overflow walk {what}, level {lvl}: rows differ from plain")
-        out.append(r)
+        out.append(dict(level=lvl, ranks=(lo, hi), n_cap=n_cap, live=live, rows=rows[:, :live],
+                        stats=[tot, gt], giants_kept=tg, tile_rows=tile_rows, grid=grid,
+                        tiles_taken=taken, out=k, call=call))
         rows, n_rows = k.giants, k.stats[1]
         del p
     return out
@@ -3150,25 +2302,22 @@ def walk_levels_at(what, dc, block, n, cfg, compressed, reps=20) -> list:
 
 TENM_SPLATS = 10_000_000  # scripts/bench_10m.py's default (BASELINE.json configuration 5)
 TENM_DISTANCES = (3.0, 0.45)  # the bench camera and a walkthrough camera (bench_10m.py:86-101)
-TENM_REPLAYS = 10
 
 
-def tenm_phase(smi):
+def tenm_phase():
     """Phase 7: the 10M-splat compressed frame (scripts/bench_10m.py's
     configuration): make_bench_npz(rng(0), n=10M) encoded and loaded
     resident (load_gaussian_cloud(keep_compressed=True)); at distance 3.0
     and 0.45, RasterConfig.for_viewport(1200, 799) at full N and culled at
     1.15 x the camera's frustum-visible fraction.  Per distance first the
     sort kernel against its plain version on full N's stream (check_sort)
-    and its timing (sort_timing).  Per variant: the eager
-    frame and the replayed one (bit-identical), the resident MB, peak
-    device memory, the graph's pool, replayed ms per frame (median), busy
-    ms and idle share,
-    its rows and its stream's capacities (full N's for both), and the
-    diagnostics.  Gates: finite images; culled and full N equal in
-    num_visible and >= CULLED_PSNR apart; at 0.45, culled, the kernel frame
-    >= PLAIN_PSNR from the plain path.  Drops are printed, not gated (as in
-    bench_10m.py)."""
+    and both overflow-walk levels at the c3dgs-10m configuration's windows
+    (walk_levels_at).  Per variant: the eager frame and the replayed one
+    (bit-identical), its rows and its stream's capacities (full N's for
+    both), and the diagnostics.  Gates: finite images; culled and full N
+    equal in num_visible and >= CULLED_PSNR apart; at 0.45, culled, the
+    kernel frame >= PLAIN_PSNR from the plain path.  Drops are printed, not
+    gated (as in bench_10m.py)."""
     import dataclasses
 
     import torch
@@ -3183,61 +2332,44 @@ def tenm_phase(smi):
     from websplat_tpu_torch.utils import trace
 
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     blob = make_bench_npz(np.random.default_rng(0), n=TENM_SPLATS)
-    t1 = time.perf_counter()
     resident = load_gaussian_cloud(blob, keep_compressed=True)
-    t2 = time.perf_counter()
     cc = upload(resident, "cuda")
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
     resident_mb = sum(x.numel() * x.element_size() for x in cc
                       if isinstance(x, torch.Tensor)) / 1e6
-    say("10m", f"{resident.num_points} splats: npz {len(blob) / 1e6:.1f} MB encoded in "
-               f"{t1 - t0:.1f} s, loaded resident in {t2 - t1:.1f} s, uploaded in "
-               f"{t3 - t2:.1f} s (host wall); resident on the card {resident_mb:.1f} MB "
-               f"({1e6 * resident_mb / resident.num_points:.1f} B per splat)")
+    say("10m", f"{resident.num_points} splats: npz {len(blob) / 1e6:.1f} MB; resident on the "
+               f"card {resident_mb:.1f} MB ({1e6 * resident_mb / resident.num_points:.1f} B per "
+               f"splat)")
     del blob
     base = RasterConfig.for_viewport(W, H)
-    out = {}
     for dist_ in TENM_DISTANCES:
         cam = make_camera(viewport=(W, H), distance=dist_)
         block = device_block(*view_block(resident, cam))
         n_vis = int(frustum_visible(cc.xyz, block).sum())
         factor = min(1.0, 1.15 * n_vis / resident.num_points)
         # the sort on full N's stream (the culled frame's has its capacities
-        # and, dropping nothing, its rows): kernel vs plain, then timed
+        # and, dropping nothing, its rows): kernel vs plain
         st = frame_stream(decompress_cloud(cc), block, width=W, height=H, config=base,
                           compressed=True, rows=resident.num_points)
-        sort_check = check_sort("10m", f"distance {dist_}, full N's stream", st, base)
-        sort_ms = sort_timing("10m", f"distance {dist_}, full N's stream", st, smi, reps=5)
+        check_sort("10m", f"distance {dist_}, full N's stream", st, base)
         del st
         # the overflow walk at the c3dgs-10m cells' windows and capacities
-        walk = walk_levels_at(f"10M distance {dist_}", decompress_cloud(cc), block,
-                              resident.num_points, bench_raster("c3dgs-10m"), compressed=True)
+        walk_levels_at(f"10M distance {dist_}", decompress_cloud(cc), block,
+                       resident.num_points, bench_raster("c3dgs-10m"), compressed=True)
         torch.cuda.empty_cache()
         frames = {}
         for name, cfg in (("full N", base),
                           ("culled", dataclasses.replace(base, compressed_cull_factor=factor))):
             geo = dict(width=W, height=H, config=cfg, compressed=True)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
             trace.reset()
             img, diag = render_frame(cc, block, return_diag=True, **geo)
             img = img.clone()
             launched = {k: v for k, v in launch_counts().items() if v}
             graph = FrameGraph(cc, **geo)
             images, diags = graph.replay(block)  # the capture
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            pool = pool_bytes(graph.graph) / 2**20
             same = bool(torch.equal(images[0], img)) and bool(torch.equal(diags[0], diag.tensor))
-            times = [event_ms(lambda: graph.replay(block))[1] for _ in range(TENM_REPLAYS)]
-            busy, acts, _ = busy_ms(lambda: graph.replay(block))
-            med = statistics.median(times)
             d = dict(diag)
-            frames[name] = dict(img=img, diag=d, ms=med, busy_ms=busy, same=same, peak_gib=peak,
-                                pool_mib=pool)
+            frames[name] = dict(img=img, diag=d)
             # the frame's rows (the culled capacity, or N) and its stream's
             # capacities, full N's on both variants (renderer.py:render_frame)
             rows = (max(4096, int(cfg.compressed_cull_factor * resident.num_points))
@@ -3250,15 +2382,11 @@ def tenm_phase(smi):
                         megas=cfg.overflow_dense_capacity_for(cap_c))
             say("10m", f"distance {dist_}, {name} (compressed_cull_factor "
                        f"{cfg.compressed_cull_factor:.4f}; frustum-visible {n_vis}; capacities "
-                       f"{caps}; launches {launched}): replayed "
-                       f"{med:.3f} ms per frame (median of {TENM_REPLAYS}), busy {busy:.3f} ms in "
-                       f"{acts} device activities, idle share {1 - busy / med:.3f}; peak device "
-                       f"memory {peak:.2f} GiB, graph pool {pool:.1f} MiB; replay bit-identical "
-                       f"to eager {same}; finite "
-                       f"{bool(torch.isfinite(img).all())}; num_visible {d['num_visible']} "
-                       f"num_instances {d['num_instances']} num_clamped {d['num_clamped']} "
-                       f"num_dropped {d['num_dropped']} num_culled_dropped "
-                       f"{d['num_culled_dropped']} ({smi})")
+                       f"{caps}; launches {launched}): replay bit-identical to eager {same}; "
+                       f"finite {bool(torch.isfinite(img).all())}; num_visible "
+                       f"{d['num_visible']} num_instances {d['num_instances']} num_clamped "
+                       f"{d['num_clamped']} num_dropped {d['num_dropped']} num_culled_dropped "
+                       f"{d['num_culled_dropped']}")
             if not (same and bool(torch.isfinite(img).all())):
                 raise AssertionError(f"10M, distance {dist_}, {name}: replay equal {same}")
             del graph, images, diags
@@ -3280,17 +2408,13 @@ def tenm_phase(smi):
             if not pp >= PLAIN_PSNR:
                 raise AssertionError(f"10M culled kernel vs plain {pp:.2f} dB")
             del plain
-        out[dist_] = {k: {f: v for f, v in fr.items() if f != "img"} for k, fr in frames.items()}
-        out[dist_]["sort"] = dict(sort_check, **sort_ms)
-        out[dist_]["walk"] = walk
         del frames, full, culled
     del cc
     torch.cuda.empty_cache()
-    return out
 
 
 def main() -> int:
-    name, smi = probe()
+    name, _ = probe()
     build_kernels()
     cloud = bench_cloud()
     resident, decoded = bench_npz()
@@ -3298,45 +2422,34 @@ def main() -> int:
     results = {}
     kernels_vs_plain(cloud, resident, cull_factor, results)
     golden()
-    oracle_phase(smi)
-    launches, scan_images, scan_diags, blocks = main_path(cloud)
-    launches["rasterize_mxu"] = slab_path(cloud, scan_images, blocks)["rasterize_mxu"]
+    oracle_phase()
+    launches, scan_images, scan_diags = main_path(cloud)
+    launches["rasterize_mxu"] = slab_path(cloud, scan_images)["rasterize_mxu"]
     c_launches, f_launches = compressed_path(resident, decoded, cull_factor)
     for k in ("frontend_compressed", "cull_decode"):
         launches[k] = c_launches[k]
     launches["decode"] = f_launches["decode"]
-    launches["rasterize_tree"] = tree_path(cloud, scan_images, scan_diags,
-                                           blocks)["rasterize_tree"]
-    launches["frontend_center_out"] = refused_frames(cloud, scan_images,
-                                                     smi)["frontend_center_out"]
-    graph_phase(cloud, resident, cull_factor, scan_images, launches, smi)
-    apps_phase(cloud, smi)
-    parallel_phase(cloud, scan_images, scan_diags, smi)
-    tenm_phase(smi)
+    launches["rasterize_tree"] = tree_path(cloud, scan_images, scan_diags)["rasterize_tree"]
+    launches["frontend_center_out"] = refused_frames(cloud, scan_images)["frontend_center_out"]
+    graph_phase(cloud, resident, cull_factor, scan_images, launches)
+    apps_phase(cloud)
+    parallel_phase(cloud, scan_images, scan_diags)
+    tenm_phase()
     import torch
 
-    # launches per frame of the path each kernel is on (the scan path of
-    # phase 4; the hybrid path of phase 4b for rasterize_mxu; the culled
-    # compressed path of phase 4c for frontend_compressed and cull_decode,
-    # its full-N path for decode; the tree path of phase 4d for
-    # rasterize_tree; the overflow-off path of phase 4e for
-    # frontend_center_out); the packed emission and E's general compactor
-    # are on no render path (their launches_phase2 count phase 2's).  kernel_ms and
-    # bound_ms cover one frame's work of phase 2's view: both walk levels
-    # for the overflow walk, one launch for the others.
-    for k, r in results.items():
-        r["launches_per_frame"] = launches[k] / N_VIEWS
-        per_call = 2 if k == "overflow_walk" else 1
-        gap = r["launches_per_frame"] / per_call * (r["kernel_ms"] - r["bound_ms"])
-        levels = ("" if "kernel_ms_levels" not in r else " (levels "
-                  + " + ".join(f"{t:.4f}" for t in r["kernel_ms_levels"]) + ")")
-        say("result", f"{k}: {r['launches_per_frame']:g} launches/frame, {per_call} in the timed "
-                      f"work; kernel only {r['kernel_ms']:.4f} ms{levels} - bound "
-                      f"{r['bound_ms']:.4f} ms ({r['bound_term']}) per call = {gap:.4f} ms above "
-                      f"the bound per frame; share {r['share']:.3f}")
+    say("result", "phases passed: 0 probe, 1 build, 2 kernels, 3 golden, 3b oracle, 4 main, "
+                  "4b slab, 4c compressed, 4d tree, 4e refused, 4f graph, 5 apps, 6 parallel, "
+                  "7 10m")
+    # launches per frame of the path each kernel is on (LINE_PATHS: held
+    # equal to that path's replays in phase 4f); the packed emission and
+    # E's general compactor are on no render path
+    for k in KERNELS:
+        path = f"the {LINE_PATHS[k]} path" if k in LINE_PATHS else "no render path"
+        say("result", f"{k}: {launches[k] / N_VIEWS:g} launches/frame on {path}; max abs vs "
+                      f"plain {results[k]:.3g}")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=spec[0], replaces=spec[1], launches=launches[k],
-             **{f: v for f, v in results[k].items() if f != "finite"})
+             launches_per_frame=launches[k] / N_VIEWS, max_abs_err=results[k])
         for k, spec in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

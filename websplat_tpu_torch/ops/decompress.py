@@ -174,18 +174,16 @@ def decode_full_torch(cc: CompressedDeviceCloud) -> DeviceCloud:
     return DeviceCloud(xyz=cc.xyz, cov=cov, opacity=opacity, sh=sh)
 
 
-def cull_decode_torch(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int,
-                      compact=compact_torch):
+def cull_decode_torch(cc: CompressedDeviceCloud, block: torch.Tensor, *, capacity: int):
     """Plain cull-before-gather decode (renderer.py:161): cull_stream,
-    ``compact`` (compact_torch; ops/compact.py:compact_instances gives the
-    chain the card ran before cull_decode_kernel) to ``capacity`` rows, then
-    the codebook gathers over those rows only, the int8 codes rebuilt from
-    the key's bytes.  Liveness is ``arange(capacity) < count`` against the
+    compact_torch to ``capacity`` rows, then the codebook gathers over
+    those rows only, the int8 codes rebuilt from the key's bytes.
+    Liveness is ``arange(capacity) < count`` against the
     device-side count (no host read): dead rows get NaN positions and
     codebook index 0.  Returns (the cloud of ``capacity`` rows, the kept
     count, the kept rows past the capacity), the counts 0-d int32."""
     dev = cc.xyz.device
-    keys_c, payload_c, count = compact(*cull_stream(cc, block), capacity=capacity)
+    keys_c, payload_c, count = compact_torch(*cull_stream(cc, block), capacity=capacity)
     live = torch.arange(capacity, device=dev) < count
     xyz = torch.where(live[None, :], payload_c[:3].view(torch.float32),
                       torch.full((), float("nan"), device=dev))

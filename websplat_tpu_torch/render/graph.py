@@ -20,7 +20,7 @@ V = 1 is GaussianRenderer's frame; ``render_blocks`` captures the V views
 of a pass as one graph, as the JAX pass is one program.  Within a capture
 the frames run in turn on one stream, so a frame's working memory is
 freed to the graph's pool before the next frame allocates its own
-(chip_smoke.py phase 5 prints the pool at V = 7 against one frame).
+(splatbench's peak_mem_mib holds a pass graph's pool).
 
 A ``CapturedGraph`` is any such program: a function of a static block
 tensor captured once and replayed (parallel/sharded.py's step is one); a
