@@ -1,14 +1,18 @@
 """The scan rasterizer's per-record pixel box (ops/rasterize.py:
-splat_pixel_bounds, the plain mirror of csrc/rasterize.cu:record_box).
+splat_pixel_bounds, the plain mirror of csrc/rasterize.cu:record_box) and
+its sub-block mask (splat_subblock_mask, the mirror of record_box and
+record_hits).
 
 The kernel skips a record for a warp whose live pixels all lie outside the
-box, so the box must never exclude a pixel where the blend's f32 quadratic
-form is below 2*CUTOFF and op > 0: such a pair changes the pixel.  Checked
-on records decoded by the port's codecs under hypothesis (needles,
-near-singular and non-positive-definite conics, op = 0 included) against
-every pixel of a window around the centre, and on every record of a small
-scene's sorted stream against every pixel of its tile.  The box must also be
-useful: tight around ordinary splats.
+box, and evaluates it only on the sub-blocks its mask holds, so neither may
+exclude a pixel where the blend's f32 quadratic form is below 2*CUTOFF and
+op > 0: such a pair changes the pixel.  Checked on records decoded by the
+port's codecs under hypothesis (needles, near-singular and
+non-positive-definite conics, op = 0 included) against every pixel of a
+window around the centre (the mask on three pixel maps), and on every
+record of a small scene's sorted stream against every pixel of its tile.
+The box must also be useful: tight around ordinary splats; and the mask a
+subset of the box's that cuts the kernel's evaluations.
 """
 
 import numpy as np
@@ -24,8 +28,13 @@ from websplat_tpu_torch.ops import packing
 from websplat_tpu_torch.ops.rasterize import (
     BOX_FAR,
     CUTOFF2_F32,
+    rasterize_torch,
     rasterize_work_torch,
     splat_pixel_bounds,
+    splat_subblock_mask,
+    subblock_hits,
+    subblock_of_pixel,
+    warp_layout,
 )
 from websplat_tpu_torch.ops.sort import sort_instances, tile_ranges
 from websplat_tpu_torch.render.renderer import (
@@ -73,6 +82,8 @@ e5m12 = st.one_of(st.integers(0, (1 << 17) - 1), st.integers(0, 16),
 rho16 = st.one_of(st.integers(0, 65535), st.sampled_from([0, 1, 2, 32767, 32768, 65533, 65534,
                                                           65535]))
 op12 = st.one_of(st.integers(0, 4095), st.just(0))
+# and conics of splats a few to a hundred pixels across, which the mask cuts
+conic = st.one_of(e5m12, st.integers(0x12000, 0x16000))
 centre = st.integers(20000, 45000)  # near the viewport, inside the u16 range
 
 
@@ -87,6 +98,73 @@ def test_box_never_excludes_a_blended_pixel(cx, cy, A, C, rho, op):
     rec = _decode(*_words(cx, cy, A, C, rho, op))
     missed, _ = _violations(rec)
     assert missed == 0
+
+
+# three pixel maps: 16 x 8 warp rectangles of 8 x 4 sub-blocks (the main
+# path's), runs of 32 row-major pixels that wrap rows, one row band of 8 x 4
+LAYOUTS = [(32, 32), (33, 31), (256, 4)]
+
+
+def _mask_misses(rec, tw, th):
+    """Pixels of the window with fl(a) < 2*CUTOFF and op > 0 whose sub-block
+    is not in the record's mask for their tile (every tile of the window),
+    and tiles whose mask is not a subset of the box's."""
+    px, py, ha, hb, hc, op = rec[:6]
+    cx, cy = int(np.floor(float(px))), int(np.floor(float(py)))
+    ix = torch.arange(cx - HALF, cx + HALF + 1)[None, :]
+    iy = torch.arange(cy - HALF, cy + HALF + 1)[:, None]
+    dx = (ix.to(torch.float32) + 0.5) - px
+    dy = (iy.to(torch.float32) + 0.5) - py
+    a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+    blends = ((a < CUTOFF2_F32) & (op > 0.0)).expand(len(iy[:, 0]), len(ix[0]))
+    tx = torch.div(ix, tw, rounding_mode="floor").expand_as(blends)
+    ty = torch.div(iy, th, rounding_mode="floor").expand_as(blends)
+    tiles = torch.unique(torch.stack([tx.reshape(-1), ty.reshape(-1)], 1), dim=0)
+    box, hits = subblock_hits(px, py, ha, hb, hc, op, tiles[:, 0] * tw, tiles[:, 1] * th, tw, th)
+    mask = splat_subblock_mask(px, py, ha, hb, hc, op, tiles[:, 0] * tw, tiles[:, 1] * th, tw, th)
+    assert torch.equal(mask, (hits.long() << torch.arange(32)).sum(-1))
+    # each pixel's tile row in `tiles` and its sub-block there
+    row = torch.searchsorted(tiles[:, 0] * (1 << 20) + tiles[:, 1],
+                             (tx * (1 << 20) + ty).reshape(-1)).reshape(blends.shape)
+    local = (iy - ty * th) * tw + (ix - tx * tw)
+    sub = subblock_of_pixel(tw, th)[local]
+    held = hits[row, sub]
+    return int((blends & ~held).sum()), int((hits & ~box).sum())
+
+
+@settings(max_examples=150, deadline=None, suppress_health_check=[HealthCheck.too_slow])
+@given(cx=centre, cy=centre, A=conic, C=conic, rho=rho16, op=op12)
+@example(cx=30000, cy=30000, A=0x1A000, C=0x0C000, rho=65535, op=4095)  # needle, rho -> 1
+@example(cx=30000, cy=30000, A=0x0C000, C=0x1A000, rho=0, op=4095)  # needle, rho -> -1
+@example(cx=30000, cy=30000, A=0, C=0x10000, rho=32768, op=4095)  # ha = 0: not definite
+@example(cx=30000, cy=30000, A=0x10000, C=0x10000, rho=32768, op=0)  # op = 0
+@example(cx=30000, cy=30000, A=5, C=3, rho=40000, op=2000)  # subnormal codes: huge ellipse
+@example(cx=31234, cy=29876, A=0x14000, C=0x14000, rho=64500, op=4095)  # tilted, ~100 px
+@example(cx=31234, cy=29876, A=0x13000, C=0x13800, rho=1000, op=4095)  # tilted the other way
+@pytest.mark.parametrize("tw, th", LAYOUTS)
+def test_mask_never_drops_a_blended_subblock(tw, th, cx, cy, A, C, rho, op):
+    rec = _decode(*_words(cx, cy, A, C, rho, op))
+    missed, extra = _mask_misses(rec, tw, th)
+    assert missed == 0 and extra == 0
+
+
+def test_mask_layouts():
+    """LAYOUTS are the three pixel maps they stand for."""
+    assert [warp_layout(tw, th) for tw, th in LAYOUTS] == [16, 0, 32]
+
+
+def test_mask_cuts_a_tilted_ellipse():
+    """A long splat tilted at 45 degrees (rho ~0.97): its box covers every
+    sub-block of the 3 x 3 tiles around its centre; its ellipse leaves two
+    corner tiles out whole and most sub-blocks in all, and still holds
+    every blending pixel's sub-block."""
+    rec = _decode(*_words(31234, 29876, 0x14000, 0x14000, 64500, 4095))
+    ox, oy = int(rec[0]) // 32 - 1, int(rec[1]) // 32 - 1
+    tiles = torch.tensor([(ox + i, oy + j) for j in range(3) for i in range(3)]) * 32
+    box, hits = subblock_hits(*rec[:6], tiles[:, 0], tiles[:, 1], 32, 32)
+    per_tile = hits.sum(dim=-1).tolist()
+    assert bool(box.all()) and per_tile[0] == per_tile[8] == 0 and sum(per_tile) < 0.5 * 9 * 32
+    assert _mask_misses(rec, 32, 32) == (0, 0)
 
 
 def test_box_fallbacks():
@@ -165,3 +243,91 @@ def test_box_holds_on_every_record_of_a_scene(scene_stream):
     # the box cuts most pairs: the kernel evaluates far fewer than it visits
     work = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
     assert work["pairs_in_box"] < 0.5 * work["pairs_live"]
+
+
+def _stream_hits(sw, ranges, cfg):
+    """Each stream position's (box, ellipse) sub-block masks in its tile."""
+    tw, th = cfg.tile_w, cfg.tile_h
+    tx_tiles, _ = cfg.tiles_for(W, H)
+    rec = packing.unpack_record(*packing.u32(sw), CQ)
+    r = ranges.to(torch.int64)
+    t_of = torch.repeat_interleave(torch.arange(len(r) - 1), r[1:] - r[:-1])
+    return rec, subblock_hits(*rec[:6], (t_of % tx_tiles) * tw, (t_of // tx_tiles) * th, tw, th)
+
+
+def test_mask_holds_on_every_record_of_a_scene(scene_stream):
+    """Every (record, pixel of its tile) pair of the scene's stream, the
+    pixels past the image's edge included: a blending pixel's sub-block is
+    in the record's mask, which is a subset of its box's."""
+    sw, ranges, cfg = scene_stream
+    tw, th = cfg.tile_w, cfg.tile_h
+    tx_tiles, ty_tiles = cfg.tiles_for(W, H)
+    rec, (box, hits) = _stream_hits(sw, ranges, cfg)
+    assert not bool((hits & ~box).any())
+    tile = torch.arange(tx_tiles * ty_tiles)[:, None]
+    q = torch.arange(tw * th)[None, :]
+    ix, iy = (tile % tx_tiles) * tw + q % tw, (tile // tx_tiles) * th + q // tw
+    sub = subblock_of_pixel(tw, th)
+    r = ranges.to(torch.int64)
+    start, count = r[:-1], r[1:] - r[:-1]
+    m = sw.shape[1]
+    blended = 0
+    for k in range(int(count.max())):
+        i = torch.clamp(start + k, max=m - 1)
+        px, py, ha, hb, hc, op = (v[i][:, None] for v in rec[:6])
+        dx = (ix.to(torch.float32) + 0.5) - px
+        dy = (iy.to(torch.float32) + 0.5) - py
+        a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+        on = (count > k)[:, None] & (a < CUTOFF2_F32) & (op > 0.0)
+        held = hits[i][:, sub]  # (T, P): the pixel's sub-block is in the mask
+        assert not bool((on & ~held).any()), f"span position {k}"
+        blended += int(on.sum())
+    assert blended > 100_000
+    # the ellipse leaves out a share of the box's sub-blocks
+    assert int(hits.sum()) < 0.9 * int(box.sum())
+
+
+def test_masked_walk_blends_the_same_pairs(scene_stream):
+    """The scan composite evaluated only on the sub-blocks of each record's
+    mask, as the kernel walks, gives rasterize_torch's image bit for bit and
+    blends the work counter's pairs; the counter evaluates fewer sub-blocks
+    than the box's mask would."""
+    sw, ranges, cfg = scene_stream
+    tw, th = cfg.tile_w, cfg.tile_h
+    tx_tiles, ty_tiles = cfg.tiles_for(W, H)
+    n_tiles = tx_tiles * ty_tiles
+    eps = float(cfg.transmittance_eps)
+    rec, (_, hits) = _stream_hits(sw, ranges, cfg)
+    tile = torch.arange(n_tiles)[:, None]
+    q = torch.arange(tw * th)[None, :]
+    ix, iy = (tile % tx_tiles) * tw + q % tw, (tile // tx_tiles) * th + q // tw
+    pix_x, pix_y = ix.to(torch.float32) + 0.5, iy.to(torch.float32) + 0.5
+    in_img = (ix < W) & (iy < H)
+    sub = subblock_of_pixel(tw, th)
+    r = ranges.to(torch.int64)
+    start, count = r[:-1], r[1:] - r[:-1]
+    m = sw.shape[1]
+    trans = torch.ones((n_tiles, tw * th))
+    acc = [torch.zeros_like(trans) for _ in range(3)]
+    blended = 0
+    for k in range(int(count.max())):
+        i = torch.clamp(start + k, max=m - 1)
+        px, py, ha, hb, hc, op, cr, cg, cb = (v[i][:, None] for v in rec)
+        dx, dy = pix_x - px, pix_y - py
+        a = ha * dx * dx + hb * dx * dy + hc * dy * dy
+        on = ((count > k)[:, None] & (trans > eps) & hits[i][:, sub] & (a < CUTOFF2_F32)
+              & (op > 0.0))
+        alpha = torch.where(on, torch.clamp(torch.exp(-a) * op, max=0.99), torch.zeros_like(a))
+        w = alpha * trans
+        acc = [acc[0] + w * cr, acc[1] + w * cg, acc[2] + w * cb]
+        trans = trans * (1.0 - alpha)
+        blended += int((on & in_img).sum())
+    img = torch.stack([acc[c] + trans * 0.0 for c in range(3)], dim=-1)  # rasterize_torch's
+    img = img.reshape(ty_tiles, tx_tiles, th, tw, 3).permute(0, 2, 1, 3, 4)
+    img = img.reshape(ty_tiles * th, tx_tiles * tw, 3)[:H, :W]
+    ref = rasterize_torch(sw, ranges, torch.zeros(3), width=W, height=H, config=cfg)
+    assert torch.equal(img, ref)
+    work = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
+    assert work["pairs_blended"] == blended > 100_000
+    assert work["sub_evals"] < work["sub_evals_box"]
+    assert work["pairs_live"] >= work["pairs_sub_box"] >= work["pairs_blended"]

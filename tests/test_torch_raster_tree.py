@@ -47,6 +47,7 @@ from websplat_tpu_torch.ops.rasterize import (
     rasterize,
     rasterize_torch,
     splat_pixel_bounds,
+    splat_subblock_mask,
     subblock_of_pixel,
 )
 
@@ -203,6 +204,18 @@ def test_present_folds_through_a_tile(lead):
     positions whose record's pixel box meets the sub-block (fold_present),
     then C += T c, T *= t for each pixel live at the group's start, is
     rasterize_torch's tree image bit for bit."""
+    _present_folds(lead, ellipse=False)
+
+
+@pytest.mark.parametrize("lead", [0, 3])
+def test_present_folds_over_ellipse_masks(lead):
+    """The same over only the positions whose record's sub-block mask
+    (splat_subblock_mask: its cutoff ellipse) holds the sub-block, as the
+    tree kernel folds: still rasterize_torch's tree image bit for bit."""
+    _present_folds(lead, ellipse=True)
+
+
+def _present_folds(lead, ellipse):
     words = _tile_records(np.random.default_rng(5), 45, conic=0.05)
     m = words.shape[1]
     words = torch.cat([torch.zeros((4, lead), dtype=torch.int32), words], dim=1)
@@ -214,6 +227,8 @@ def test_present_folds_through_a_tile(lead):
 
     rec = packing.unpack_record(*packing.u32(words), packing.CenterQuant.for_viewport(32, 32))
     x_lo, x_hi, y_lo, y_hi = splat_pixel_bounds(*rec[:6])
+    mask = splat_subblock_mask(*rec[:6], 0, 0, 32, 32)
+    cut = 0
     q = torch.arange(32 * 32)
     ix, iy = q % 32, q // 32
     pix_x, pix_y = (ix.to(torch.float32) + 0.5)[None], (iy.to(torch.float32) + 0.5)[None]
@@ -238,6 +253,11 @@ def test_present_folds_through_a_tile(lead):
                 (x_hi[g0 + j] >= ix[pix].min()) & (x_lo[g0 + j] <= ix[pix].max())
                 & (y_hi[g0 + j] >= iy[pix].min()) & (y_lo[g0 + j] <= iy[pix].max()))
                 for j in range(8)]
+            if ellipse:
+                held = [meets[j] and bool((mask[min(g0 + j, start + m - 1)] >> k) & 1)
+                        for j in range(8)]
+                cut += sum(meets) - sum(held)
+                meets = held
             occ = sum(1 << j for j in range(8) if meets[j])
             sel = pix[None] & live
             if occ == 0 or not bool(sel.any()):
@@ -250,3 +270,4 @@ def test_present_folds_through_a_tile(lead):
     img = torch.stack([acc[c] + trans * float(BG[c]) for c in range(3)], dim=-1)
     assert torch.equal(img.reshape(32, 32, 3), ref)
     assert float((ref - torch.tensor(BG)).abs().max()) > 0.1  # the splats blend
+    assert (cut > 0) == ellipse  # the ellipse leaves out sub-blocks its box meets

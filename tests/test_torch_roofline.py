@@ -73,12 +73,18 @@ def _exp32(x: np.ndarray) -> np.ndarray:
 
 
 def _brute_raster_counts(sw, ranges, cfg, tree=False):
-    """(pairs_live, pairs_blended, pairs_in_box, tile_stop, folds, fold
-    records) by walking each in-image pixel's span in numpy.  ``tree``: a
-    pixel stays live through the group of 8 absolute stream positions in
-    which it saturates, and each (group, sub-block) with a live pixel that
-    some record of the group meets (its box against the sub-block's
-    rectangle) is a fold of the records that meet it."""
+    """The rasterizer's counts by walking each in-image pixel's span in
+    numpy: ``live``, ``blended``, ``in_box`` (pairs), ``stop`` (per tile)
+    and, per (sub-block, record) with a live pixel, bounds of the kernel's
+    evaluations from the pixels alone: ``lo`` where a pixel of the
+    sub-block has fl(a) < 2*CUTOFF and op > 0 (the mask must hold it),
+    ``hi`` where the record's box meets the sub-block's rectangle (the
+    mask is a subset of the box's): ``sub_lo`` / ``sub_hi`` of them and
+    ``pairs_lo`` / ``pairs_hi`` their live pixels.  ``tree``: a pixel stays
+    live through the group of 8 absolute stream positions in which it
+    saturates, and each (group, sub-block) with a present record is a fold
+    of the records present: ``folds_lo`` / ``folds_hi`` over the two
+    bounds (``sub_lo`` / ``sub_hi`` count the records present)."""
     cq = packing.CenterQuant.for_viewport(W, H)
     rec = [v.numpy() for v in packing.unpack_record(*packing.u32(sw), cq)]
     box = [v.numpy() for v in splat_pixel_bounds(*packing.unpack_record(
@@ -87,7 +93,8 @@ def _brute_raster_counts(sw, ranges, cfg, tree=False):
     tw, th = cfg.tile_w, cfg.tile_h
     tx_tiles, _ = cfg.tiles_for(W, H)
     r = ranges.numpy().astype(np.int64)
-    live_n = blended_n = in_box_n = folds = fold_records = 0
+    n = dict.fromkeys(("live", "blended", "in_box", "sub_lo", "sub_hi", "pairs_lo", "pairs_hi",
+                       "folds_lo", "folds_hi"), 0)
     stop = np.zeros(len(r) - 1, np.int64)
     sub_of = subblock_of_pixel(tw, th).numpy().reshape(th, tw)
     n_sub = int(sub_of.max()) + 1
@@ -116,39 +123,48 @@ def _brute_raster_counts(sw, ranges, cfg, tree=False):
         live = before > eps  # a prefix of each pixel's span
         x_lo, x_hi, y_lo, y_hi = (v[s0:s1][None, :] for v in box)
         inside = (ix >= x_lo) & (ix <= x_hi) & (iy >= y_lo) & (iy <= y_hi)
-        live_n += int(live.sum())
-        blended_n += int((live & on).sum())
-        in_box_n += int((live & inside).sum())
+        n["live"] += int(live.sum())
+        n["blended"] += int((live & on).sum())
+        n["in_box"] += int((live & inside).sum())
         stop[t] = int(live.sum(axis=1).max())
-        if tree:
-            sub = sub_of[ys.ravel() - y0, xs.ravel() - x0]  # (P,) in-image pixels' sub-blocks
-            group = (s0 + np.arange(s1 - s0)) // 8
-            for j in range(n_sub):
-                if not (sub == j).any():
-                    continue
-                sx0, sx1, sy0, sy1 = sub_rect[j]
-                meets = ((x_hi >= x0 + sx0) & (x_lo <= x0 + sx1) & (y_hi >= y0 + sy0)
-                         & (y_lo <= y0 + sy1))[0]
-                present = live[sub == j].any(axis=0) & meets
-                fold_records += int(present.sum())
-                folds += len(np.unique(group[present]))
-    return live_n, blended_n, in_box_n, stop, folds, fold_records
+        sub = sub_of[ys.ravel() - y0, xs.ravel() - x0]  # (P,) in-image pixels' sub-blocks
+        group = (s0 + np.arange(s1 - s0)) // 8
+        for j in range(n_sub):
+            if not (sub == j).any():
+                continue
+            sx0, sx1, sy0, sy1 = sub_rect[j]
+            meets = ((x_hi >= x0 + sx0) & (x_lo <= x0 + sx1) & (y_hi >= y0 + sy0)
+                     & (y_lo <= y0 + sy1))[0]
+            live_j = live[sub == j]
+            for bound, held in (("lo", on[sub == j].any(axis=0)), ("hi", meets)):
+                present = live_j.any(axis=0) & held
+                n["sub_" + bound] += int(present.sum())
+                n["pairs_" + bound] += int(live_j[:, present].sum())
+                n["folds_" + bound] += len(np.unique(group[present]))
+    n["stop"] = stop
+    return n
 
 
 def test_raster_work_matches_per_pixel_walk(scene):
     sw, ranges, cfg = scene["sw"], scene["ranges"], scene["cfg"]
     work = rasterize_work_torch(sw, ranges, width=W, height=H, config=cfg)
-    live, blended, in_box, stop, _, _ = _brute_raster_counts(sw, ranges, cfg)
-    assert work["pairs_live"] == live
+    n = _brute_raster_counts(sw, ranges, cfg)
+    blended, stop = n["blended"], n["stop"]
+    assert work["pairs_live"] == n["live"]
     assert work["pairs_blended"] == blended > 50_000
-    assert work["pairs_in_box"] == in_box
+    assert work["pairs_in_box"] == n["in_box"]
     assert (work["tile_stop"].numpy() == stop).all()
     walk = roofline.rasterize_work(int(stop.sum()), W, H, 56, blended)
     assert walk.bytes == 16 * int(stop.sum()) + 12 * W * H + 4 * 57
     assert walk.f32 == 21 * blended and walk.sfu == blended
     # edge pixels: the no-cull walk visits more than the image's live pairs
-    assert work["pairs_visited"] > work["pairs_live"] >= work["pairs_sub_box"] >= in_box
-    assert 32 * work["sub_evals"] >= work["pairs_sub_box"]
+    assert work["pairs_visited"] > work["pairs_live"] >= n["pairs_hi"] >= n["in_box"]
+    # the mask's sub-blocks lie between those a blending pixel needs and
+    # those the box meets, which the box's count is
+    assert work["sub_evals_box"] == n["sub_hi"]
+    assert n["sub_lo"] <= work["sub_evals"] < n["sub_hi"]
+    assert n["pairs_lo"] <= work["pairs_sub_box"] <= n["pairs_hi"]
+    assert n["pairs_lo"] >= blended and 32 * work["sub_evals"] >= work["pairs_sub_box"]
 
 
 def test_tree_raster_work_matches_per_pixel_walk(scene):
@@ -158,12 +174,14 @@ def test_tree_raster_work_matches_per_pixel_walk(scene):
     sw, ranges = scene["sw"], scene["ranges"]
     tree_cfg = RasterConfig(composite="tree")
     work = rasterize_work_torch(sw, ranges, width=W, height=H, config=tree_cfg)
-    live, blended, in_box, stop, folds, fold_records = _brute_raster_counts(
-        sw, ranges, tree_cfg, tree=True)
+    n = _brute_raster_counts(sw, ranges, tree_cfg, tree=True)
+    blended, stop = n["blended"], n["stop"]
     assert (work["pairs_live"], work["pairs_blended"], work["pairs_in_box"]) == (
-        live, blended, in_box)
-    # the tree kernel's folds and the records present in them
-    assert (work["tree_folds"], work["sub_evals"]) == (folds, fold_records)
+        n["live"], blended, n["in_box"])
+    # the tree kernel's folds and the records present in them, between
+    # those of the sub-blocks a blending pixel needs and those of the box's
+    assert n["folds_lo"] <= work["tree_folds"] <= n["folds_hi"]
+    assert n["sub_lo"] <= work["sub_evals"] <= n["sub_hi"] == work["sub_evals_box"]
     assert work["sub_evals"] > work["tree_folds"] > 0
     assert "tree_folds" not in rasterize_work_torch(sw, ranges, width=W, height=H,
                                                     config=scene["cfg"])

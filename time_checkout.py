@@ -20,7 +20,10 @@ compactor and the decodes):
     the overflow walk per level);
   - its roofline bound from the call's work counts (utils/roofline.py),
     the term that sets it, and the share bound / kernel time;
-  - its registers and spill bytes (ptxas).
+  - its registers and spill bytes (ptxas);
+  - for the scan and tree rasterizers, their (sub-block, record)
+    evaluations (ops/rasterize.py:rasterize_work_torch) beside those of the
+    records' boxes alone, and the share the cutoff ellipse's mask skips.
 The frontend runs row-major (the main path), with the compressed eigen
 clamp, at 24 slots (its 64-bit-mask walk) and center-out (overflow off)
 at 6 and 64 slots; the overflow walk at RasterConfig()'s rank windows and
@@ -145,6 +148,15 @@ def with_bound(what: str, ms: float, work, parts=None, extra: str = "") -> str:
     split = "" if parts is None else " (" + " + ".join(f"{x:.4f}" for x in parts) + ")"
     return (f"{what}: {ms:.4f} ms kernel only{split}, bound {bound_ms:.4f} ms ({term}), share "
             f"{bound_ms / ms:.3f}{extra}")
+
+
+def sub_evals(work: dict) -> str:
+    """The rasterizer's (sub-block, record) evaluations from its work count
+    (ops/rasterize.py:rasterize_work_torch), beside those of the box's mask
+    and the share the cutoff ellipse's mask skips."""
+    n, box = work["sub_evals"], work["sub_evals_box"]
+    return (f"sub-block evaluations {n} of the box's {box} (skipped "
+            f"{1 - n / max(box, 1):.4f}); ")
 
 
 def registers(usage: dict, pattern) -> str:
@@ -387,7 +399,7 @@ def bench_entries(cs, usage, only) -> list:
                                                       w["pairs_blended"],
                                                       tree=name == "rasterize_tree"),
                               extra=f"; pairs blended {w['pairs_blended']}; "
-                                    + registers(usage, cs.kernel_pattern(name))))
+                                    + sub_evals(w) + registers(usage, cs.kernel_pattern(name))))
     slab = rasterize_mxu_work_torch(sw, ranges, work["tile_stop"], **geo)
     hgeo = dict(geo, config=cs.mxu_config("hybrid"))
     out.append(with_bound("rasterize_mxu hybrid",

@@ -20,7 +20,10 @@
 //    copies the next batch's 4 raw words while the CTA blends the current
 //    one; each thread decodes ONE record (the codecs of packing.cuh), its
 //    conservative pixel box (record_box) and a 32-bit mask of the
-//    sub-blocks the box meets, so decode work is per instance;
+//    sub-blocks its cutoff ellipse meets (record_hits: the box's, cut per
+//    band of warp-rectangle rows to the ellipse's x-extent there), so
+//    decode work is per instance (it adds to the kernel's time in full:
+//    the time follows the instructions issued, PERF.md §6);
 //  - each warp walks only the records that meet one of its live
 //    sub-blocks, in span order (a ballot over 32 masks at a time), and
 //    evaluates only those sub-blocks: warp-uniform branches;
@@ -54,8 +57,8 @@
 namespace ws {
 
 constexpr int RASTER_THREADS = 256;
-// scan: 4 CTAs per SM: 64 registers and at most 12 / 16 bytes of spill
-// stores / loads per thread (ptxas); uncapped, the kernel fits 2 CTAs per SM
+// scan: 4 CTAs per SM: 64 registers and 28 / 36 bytes of spill stores /
+// loads per thread, none in the walk (ptxas); uncapped, the kernel fits 2 CTAs per SM
 // and ran slower on the H100.  tree: 3 CTAs per SM (80 registers, no
 // spill); at 4 (64 registers, 56 / 72 bytes of spill) it ran 1% slower on
 // the H100 (PERF.md §6)
@@ -69,12 +72,14 @@ constexpr int WARP_PIXELS = 32 * MAX_PIX_PER_THREAD;
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 
 // record_box constants: ops/rasterize.py BOX_* (the proof of the margin is
-// there, beside splat_pixel_bounds, the plain mirror of record_box)
+// there, beside splat_pixel_bounds, the plain mirror of record_box, and that
+// of the band extents beside splat_subblock_mask, record_hits' mirror)
 constexpr float BOX_GAMMA = 8.0f / 16777216.0f;  // 8 * 2^-24
 constexpr float BOX_MAX_GR = 0.5f;
 constexpr float BOX_PAD = 1.0f / 65536.0f;  // 2^-16
 constexpr float BOX_ABS = 1.0f / 1024.0f;   // 2^-10
 constexpr float BOX_FAR = 1073741824.0f;    // 2^30
+constexpr float F32_MIN_NORMAL = 1.17549435e-38f;  // 2^-126
 
 struct RasterParams {
   int width, height, tile_w, tile_h, tx_tiles;
@@ -84,18 +89,38 @@ struct RasterParams {
   CenterQuant cq;
 };
 
+// The cutoff ellipse that record_box bounds, as record_hits reads it: a
+// pixel row at offset dy from the centre meets it, if at all, within
+// x - px in [-s dy - w, -s dy + w], s = hb / (2 ha), kx = det / ha^2,
+// w = sqrt(kx (ey^2 - dy^2)); the right edge -s dy + w peaks at a dy in
+// [plo, phi], the left edge bottoms out at a dy in [-phi, -plo].  ok: the
+// box is the ellipse's (no fallback) and these hold (ops/rasterize.py,
+// above splat_subblock_mask).
+struct Ellipse {
+  float s, kx, eb2, plo, phi;
+  bool ok;
+};
+
+// v, a pixel index in f32, as a tile-local index clamped to [-1, size]
+__device__ __forceinline__ int tile_local(float v, int origin, int size) {
+  v = fminf(fmaxf(v, -BOX_FAR), BOX_FAR) - (float)origin;
+  return (int)fminf(fmaxf(v, -1.0f), (float)size);
+}
+
 // A record's pixel box in tile-local pixel indices (x_lo, x_hi, y_lo, y_hi),
 // clamped to [-1, tile size]: every pixel where the blend's f32 quadratic
 // form is < 2*CUTOFF and op > 0 lies inside it.  The determinant, which
 // cancels for needles, in f64, the rest in f32; the whole tile where
 // det <= 0, a value is not finite or the conic is a needle, and empty where
-// op <= 0.
+// op <= 0.  Fills e for record_hits.
 __device__ __forceinline__ int4 record_box(const Record& r, int tile_x, int tile_y, int tile_w,
-                                           int tile_h) {
+                                           int tile_h, Ellipse& e) {
+  e.ok = false;
   if (!(r.op > 0.0f)) return make_int4(tile_w, -1, tile_h, -1);
   const double det64 = (double)r.ha * (double)r.hc - 0.25 * (double)r.hb * (double)r.hb;
   const float det = (float)det64;
-  const float rho = fabsf(r.hb) / (2.0f * sqrtf(r.ha * r.hc));
+  const float rs = r.hb / (2.0f * sqrtf(r.ha * r.hc));  // rho, signed
+  const float rho = fabsf(rs);
   const float r1 = 1.0f + rho;
   const float gr = BOX_GAMMA * r1 * r1 * r.ha * r.hc / det;
   const bool finite = isfinite(r.px) && isfinite(r.py) && isfinite(gr);
@@ -103,15 +128,32 @@ __device__ __forceinline__ int4 record_box(const Record& r, int tile_x, int tile
     return make_int4(0, tile_w - 1, 0, tile_h - 1);
   const float kp = CUTOFF2 / (1.0f - gr);
   const float ex = sqrtf(kp * r.hc / det) * (1.0f + BOX_PAD) + BOX_ABS;
-  const float ey = sqrtf(kp * r.ha / det) * (1.0f + BOX_PAD) + BOX_ABS;
-  auto local = [](float v, int origin, int size) {
-    v = fminf(fmaxf(v, -BOX_FAR), BOX_FAR) - (float)origin;
-    return (int)fminf(fmaxf(v, -1.0f), (float)size);
-  };
-  return make_int4(local(ceilf(r.px - ex - 0.5f), tile_x, tile_w),
-                   local(floorf(r.px + ex - 0.5f), tile_x, tile_w),
-                   local(ceilf(r.py - ey - 0.5f), tile_y, tile_h),
-                   local(floorf(r.py + ey - 0.5f), tile_y, tile_h));
+  const float eyr = sqrtf(kp * r.ha / det);
+  const float ey = eyr * (1.0f + BOX_PAD) + BOX_ABS;
+  if (det >= F32_MIN_NORMAL && ey < BOX_FAR) {
+    e.ok = true;
+    const float iha = 1.0f / r.ha;
+    e.s = 0.5f * r.hb * iha;
+    e.kx = det * iha * iha;
+    e.eb2 = ey * ey;
+    const float m = BOX_PAD * (ey + 1.0f);
+    const float hi = rho * ey + m, lo = rho * (eyr * (1.0f - gr)) - m;
+    e.plo = r.hb >= 0.0f ? -hi : lo;
+    e.phi = r.hb >= 0.0f ? -lo : hi;
+  }
+  return make_int4(tile_local(ceilf(r.px - ex - 0.5f), tile_x, tile_w),
+                   tile_local(floorf(r.px + ex - 0.5f), tile_x, tile_w),
+                   tile_local(ceilf(r.py - ey - 0.5f), tile_y, tile_h),
+                   tile_local(floorf(r.py + ey - 0.5f), tile_y, tile_h));
+}
+
+// The ellipse's edges on the row at offset dy, as x offsets from px: an
+// upper bound of the right edge (x) and a lower bound of the left (y)
+__device__ __forceinline__ float2 edge_offsets(float dy, const Ellipse& e) {
+  const float c = -e.s * dy;
+  const float w = sqrtf(e.kx * fmaxf(e.eb2 - dy * dy, 0.0f));
+  const float wp = w + (BOX_PAD * (fabsf(c) + w) + BOX_ABS);
+  return make_float2(c + wp, c - wp);
 }
 
 // Thread-to-pixel map.  Warp w owns a rectangle of 128 pixels (warp_w wide,
@@ -129,6 +171,16 @@ __device__ __forceinline__ PixelMap pixel_map(const RasterParams& p) {
   const int rh = WARP_PIXELS / p.warp_w;
   const int sb_w = max(min(p.warp_w, 8), 32 / rh);
   return PixelMap{sb_w, 32 / sb_w, p.warp_w / sb_w};
+}
+
+// log2 of the sub-blocks' width and height on grid layouts; -1 for runs
+struct PixelShift {
+  int col, row;
+};
+
+__device__ __forceinline__ PixelShift pixel_shift(const PixelMap& m) {
+  if (m.sb_w == 0) return PixelShift{-1, -1};
+  return PixelShift{__ffs(m.sb_w) - 1, __ffs(m.sb_h) - 1};
 }
 
 // tile-local pixel of lane l in sub-block k of warp w
@@ -150,6 +202,69 @@ __device__ __forceinline__ int4 sub_block_box(int w, int k, const PixelMap& m,
   const int2 a = pixel_of(w, k, 0, m, p), b = pixel_of(w, k, 31, m, p);
   if (m.sb_w == 0 && a.y != b.y) return make_int4(0, p.tile_w - 1, a.y, b.y);
   return make_int4(min(a.x, b.x), max(a.x, b.x), a.y, b.y);
+}
+
+// Per-CTA tables of the sub-block mask: the bands (the distinct row spans of
+// the warps' pixel rectangles, each with the mask of its sub-blocks) and,
+// where the sub-blocks form a grid of sb_w x sb_h cells (warp_w > 0), the
+// masks of the sub-blocks in grid columns (rows) <= c and >= c.  A loop
+// over each band's sub-blocks on every layout ran A 4% slower on the H100
+// (PERF.md §6, PR 25).
+struct MaskTables {
+  int4 band[32];  // (y0, y1, mask, -)
+  // at [c + 1] for c in [-1, 32]: a box's clamped bounds shifted to cells
+  uint32_t col_le[34], col_ge[34], row_le[34], row_ge[34];
+  int n_bands;
+};
+
+// A record's 32-bit sub-block mask: the sub-blocks its box meets, and of
+// those, where e.ok, the ones its cutoff ellipse meets.  Per band, on the
+// band's rows inside the box: the ellipse's right edge is concave in dy,
+// so where its peak lies past one end of the rows their largest x is at
+// that end; likewise the left edge, convex; where the peak may lie among
+// the rows, the box's bound stands.  A sub-block whose x-range misses the
+// band's [x_lo, x_hi] holds no pixel that blends the record.
+// (ops/rasterize.py:subblock_hits mirrors it; the margin argument is there.)
+__device__ __forceinline__ uint32_t record_hits(const Record& r, const Ellipse& e, int4 box,
+                                                int tile_x, int tile_y, int tile_w,
+                                                const PixelShift& sh, const int4* s_sub,
+                                                const MaskTables& mt) {
+  uint32_t hits = 0u;
+  // grid cells: the sub-blocks on the box's rows
+  const uint32_t rows = sh.col >= 0 ? mt.row_le[(box.w >> sh.row) + 1] &
+                                          mt.row_ge[(box.z >> sh.row) + 1]
+                                    : 0u;
+  for (int b = 0; b < mt.n_bands; ++b) {
+    const int4 band = mt.band[b];
+    const int ya = max(band.x, box.z), yb = min(band.y, box.w);
+    if (ya > yb) continue;
+    int xl = box.x, xh = box.y;
+    if (e.ok) {
+      const float dya = ((float)(tile_y + ya) + 0.5f) - r.py;
+      const float dyb = ((float)(tile_y + yb) + 0.5f) - r.py;
+      const bool rb = e.plo > dyb, ra = e.phi < dya, lb = -e.phi > dyb, la = -e.plo < dya;
+      float2 va = make_float2(0.0f, 0.0f), vb = va;
+      if (ra || la) va = edge_offsets(dya, e);
+      if (rb || lb) vb = edge_offsets(dyb, e);
+      // |v| < BOX_FAR: tile_local's clamp to BOX_FAR changes nothing here
+      const float vr = rb ? vb.x : va.x, vl = lb ? vb.y : va.y;
+      if ((rb || ra) && fabsf(vr) < BOX_FAR)
+        xh = min(xh, (int)fmaxf(floorf(r.px + vr - 0.5f) - (float)tile_x, -1.0f));
+      if ((lb || la) && fabsf(vl) < BOX_FAR)
+        xl = max(xl, (int)fminf(ceilf(r.px + vl - 0.5f) - (float)tile_x, (float)tile_w));
+    }
+    if (sh.col >= 0) {  // grid cells: the columns [xl, xh] on the box's rows
+      hits |= (uint32_t)band.z & rows & mt.col_le[(xh >> sh.col) + 1] &
+              mt.col_ge[(xl >> sh.col) + 1];
+    } else {
+      for (uint32_t m = (uint32_t)band.z; m != 0u; m &= m - 1u) {
+        const int j = __ffs(m) - 1;
+        const int4 sb = s_sub[j];
+        if (xh >= sb.x && xl <= sb.y && box.w >= sb.z && box.z <= sb.w) hits |= 1u << j;
+      }
+    }
+  }
+  return hits;
 }
 
 // the tree composite's over operator on (c.rgb, t) pairs
@@ -174,9 +289,10 @@ __device__ __forceinline__ float4 tree_leaf(int s, float cx, float cy, const flo
 
 // One group's tree composite at one pixel (cx, cy) over the positions in
 // `occ` (bit j: record s0 + j meets the pixel's sub-block; warp-uniform),
-// the others being the identity (0, 1) there (alpha is 0 outside the
-// record's box).  The fixed tree ((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7))
-// with the absent positions left out is bit-equal to the tree over all 8,
+// the others being the identity (0, 1) there (alpha is 0 in a sub-block
+// the record's cutoff ellipse misses).  The fixed tree
+// ((0 o 1) o (2 o 3)) o ((4 o 5) o (6 o 7)) with the absent positions left
+// out is bit-equal to the tree over all 8,
 // since x o (0, 1) = x and (0, 1) o y = y exactly for the pairs a record
 // gives; op for op ops/rasterize.py:fold_present:
 //  - one present position (10% of the bench view's folds) is its leaf,
@@ -250,9 +366,10 @@ __device__ __forceinline__ void raster_tile(const uint32_t* __restrict__ words, 
   // decoded records: (px, py, ha, hb), (hc, op, r, g), b
   __shared__ float4 s_ra[RASTER_BATCH], s_rb[RASTER_BATCH];
   __shared__ float s_rc[RASTER_BATCH];
-  // bit 4 w + k: the record's box meets sub-block k of warp w
+  // bit 4 w + k: the record's cutoff ellipse meets sub-block k of warp w
   __shared__ uint32_t s_hits[RASTER_BATCH];
   __shared__ int4 s_sub[32];  // bounding box of sub-block k of warp w at [4 w + k]
+  __shared__ MaskTables s_mt;
 
   const int t = blockIdx.x;
   const int start = ranges[t];
@@ -264,6 +381,7 @@ __device__ __forceinline__ void raster_tile(const uint32_t* __restrict__ words, 
   const int tile_y = (t / p.tx_tiles) * p.tile_h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const PixelMap map = pixel_map(p);
+  const PixelShift shift = pixel_shift(map);
 
   // the centres of the thread's pixels, their transmittance and colour
   float cx[MAX_PIX_PER_THREAD], cy[MAX_PIX_PER_THREAD], T[MAX_PIX_PER_THREAD],
@@ -289,7 +407,35 @@ __device__ __forceinline__ void raster_tile(const uint32_t* __restrict__ words, 
     return m;
   };
   uint32_t live_sub = live_subs();
-  if (threadIdx.x < 32) s_sub[threadIdx.x] = sub_block_box(threadIdx.x >> 2, threadIdx.x & 3, map, p);
+  if (threadIdx.x < 32) {  // warp 0: the sub-blocks and the mask's tables
+    const int4 sb = sub_block_box(lane >> 2, lane & 3, map, p);
+    s_sub[lane] = sb;
+    int y0 = sb.z, y1 = sb.w;  // the rows of the warp's rectangle
+    for (int o = 1; o < 4; o <<= 1) {
+      y0 = min(y0, __shfl_xor_sync(FULL_MASK, y0, o));
+      y1 = max(y1, __shfl_xor_sync(FULL_MASK, y1, o));
+    }
+    const uint32_t same = __match_any_sync(FULL_MASK, ((uint32_t)y0 << 16) | (uint32_t)y1);
+    const bool first = __ffs(same) - 1 == lane;
+    const uint32_t firsts = __ballot_sync(FULL_MASK, first);
+    if (first) s_mt.band[__popc(firsts & ((1u << lane) - 1u))] = make_int4(y0, y1, (int)same, 0);
+    if (lane == 0) s_mt.n_bands = __popc(firsts);
+    if (shift.col >= 0) {  // the sub-blocks' grid cells, for c = -1 .. 32 at [c + 1]
+      const int col = sb.x >> shift.col, row = sb.z >> shift.row;
+      for (int c = -1; c <= 32; ++c) {
+        const uint32_t cle = __ballot_sync(FULL_MASK, col <= c);
+        const uint32_t cge = __ballot_sync(FULL_MASK, col >= c);
+        const uint32_t rle = __ballot_sync(FULL_MASK, row <= c);
+        const uint32_t rge = __ballot_sync(FULL_MASK, row >= c);
+        if (lane == 0) {
+          s_mt.col_le[c + 1] = cle;
+          s_mt.col_ge[c + 1] = cge;
+          s_mt.row_le[c + 1] = rle;
+          s_mt.row_ge[c + 1] = rge;
+        }
+      }
+    }
+  }
   __syncthreads();
 
   auto stage = [&](int b0, int buf) {  // thread i copies record i of the batch
@@ -313,13 +459,9 @@ __device__ __forceinline__ void raster_tile(const uint32_t* __restrict__ words, 
       s_ra[s] = make_float4(r.px, r.py, r.ha, r.hb);
       s_rb[s] = make_float4(r.hc, r.op, r.r, r.g);
       s_rc[s] = r.b;
-      const int4 box = record_box(r, tile_x, tile_y, p.tile_w, p.tile_h);
-      uint32_t hits = 0u;
-      for (int j = 0; j < 32; ++j) {
-        const int4 sb = s_sub[j];
-        if (box.y >= sb.x && box.x <= sb.y && box.w >= sb.z && box.z <= sb.w) hits |= 1u << j;
-      }
-      s_hits[s] = hits;
+      Ellipse e;
+      const int4 box = record_box(r, tile_x, tile_y, p.tile_w, p.tile_h, e);
+      s_hits[s] = record_hits(r, e, box, tile_x, tile_y, p.tile_w, shift, s_sub, s_mt);
     }
     // the other buffer held the previous batch, decoded before the last barrier
     if (b0 + RASTER_BATCH < end) stage(b0 + RASTER_BATCH, buf ^ 1);

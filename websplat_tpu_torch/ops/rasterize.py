@@ -215,35 +215,162 @@ BOX_FAR = 2.0 ** 30  # "every pixel" / "no pixel" bounds
 CUTOFF2_F32 = float(np.float32(2.0 * CUTOFF))  # the blend's f32 2*CUTOFF
 
 
+F32_MIN_NORMAL = float(np.finfo(np.float32).tiny)  # 2^-126
+
+
+def _record_ellipse(px, py, ha, hb, hc, op) -> dict:
+    """record_box's f32 terms, op for op: ``whole`` (the whole-tile
+    fallback), ``empty`` (op <= 0), the padded half-extents ``ex``, ``ey``,
+    and splat_subblock_mask's ``ok``, ``s``, ``kx``, ``eb2``, ``plo``,
+    ``phi`` (csrc/rasterize.cu:Ellipse)."""
+    f32 = lambda v: torch.full_like(px, v, dtype=torch.float32)
+    d = lambda t: t.to(torch.float64)
+    det64 = d(ha) * d(hc) - 0.25 * d(hb) * d(hb)
+    det = det64.to(torch.float32)
+    rs = hb / (2.0 * packing.sqrt(ha * hc))  # rho, signed
+    rho = rs.abs()
+    r1 = 1.0 + rho
+    gr = f32(BOX_GAMMA) * r1 * r1 * ha * hc / det
+    finite = torch.isfinite(px) & torch.isfinite(py) & torch.isfinite(gr)
+    whole = ~((det64 > 0.0) & (det > 0.0) & finite & (gr < BOX_MAX_GR))
+    gr = torch.where(whole, torch.zeros_like(gr), gr)
+    kp = f32(CUTOFF2_F32) / (1.0 - gr)
+    safe = torch.where(whole, torch.ones_like(det), det)
+    ex = packing.sqrt(kp * hc / safe) * (1.0 + BOX_PAD) + BOX_ABS
+    eyr = packing.sqrt(kp * ha / safe)
+    ey = eyr * (1.0 + BOX_PAD) + BOX_ABS
+    m = BOX_PAD * (ey + 1.0)
+    hi, lo = rho * ey + m, rho * (eyr * (1.0 - gr)) - m
+    up = hb >= 0.0
+    iha = 1.0 / ha
+    return dict(whole=whole, empty=~(op > 0.0), ex=ex, ey=ey,
+                ok=~whole & (op > 0.0) & (det >= F32_MIN_NORMAL) & (ey < BOX_FAR),
+                s=0.5 * hb * iha, kx=det * iha * iha, eb2=ey * ey,
+                plo=torch.where(up, -hi, lo), phi=torch.where(up, -lo, hi))
+
+
 def splat_pixel_bounds(px, py, ha, hb, hc, op):
     """Plain mirror of the kernel's per-record box: f32 record fields (any
     shape) -> int64 (x_lo, x_hi, y_lo, y_hi), absolute pixel indices such
     that every pixel i with fl(a) < 2*CUTOFF at its centre i + 0.5 and
     op > 0 has x_lo <= i_x <= x_hi and y_lo <= i_y <= y_hi.  Whole-tile
     fallback: (-BOX_FAR, BOX_FAR); empty: (BOX_FAR, -BOX_FAR)."""
-    f32 = lambda v: torch.full_like(px, v, dtype=torch.float32)
-    d = lambda t: t.to(torch.float64)
-    det64 = d(ha) * d(hc) - 0.25 * d(hb) * d(hb)
-    det = det64.to(torch.float32)
-    rho = hb.abs() / (2.0 * packing.sqrt(ha * hc))
-    r1 = 1.0 + rho
-    gr = f32(BOX_GAMMA) * r1 * r1 * ha * hc / det
-    finite = torch.isfinite(px) & torch.isfinite(py) & torch.isfinite(gr)
-    whole = ~((det64 > 0.0) & (det > 0.0) & finite & (gr < BOX_MAX_GR))
-    kp = f32(CUTOFF2_F32) / (1.0 - torch.where(whole, torch.zeros_like(gr), gr))
-    safe = torch.where(whole, torch.ones_like(det), det)
-    ex = packing.sqrt(kp * hc / safe) * (1.0 + BOX_PAD) + BOX_ABS
-    ey = packing.sqrt(kp * ha / safe) * (1.0 + BOX_PAD) + BOX_ABS
-    far = f32(BOX_FAR)
+    e = _record_ellipse(px, py, ha, hb, hc, op)
+    whole, ex, ey = e["whole"], e["ex"], e["ey"]
+    far = torch.full_like(px, BOX_FAR, dtype=torch.float32)
     clip = lambda v: torch.clamp(torch.where(whole, v * 0.0, v), -BOX_FAR, BOX_FAR)
     x_lo = torch.where(whole, -far, clip(torch.ceil(px - ex - 0.5)))
     x_hi = torch.where(whole, far, clip(torch.floor(px + ex - 0.5)))
     y_lo = torch.where(whole, -far, clip(torch.ceil(py - ey - 0.5)))
     y_hi = torch.where(whole, far, clip(torch.floor(py + ey - 0.5)))
-    empty = ~(op > 0.0)
+    empty = e["empty"]
     x_lo, y_lo = (torch.where(empty, far, v) for v in (x_lo, y_lo))
     x_hi, y_hi = (torch.where(empty, -far, v) for v in (x_hi, y_hi))
     return tuple(v.to(torch.int64) for v in (x_lo, x_hi, y_lo, y_hi))
+
+
+# Per-record sub-block mask (csrc/rasterize.cu:record_hits mirrors it).
+# The box's argument above gives: every blending pixel centre has the exact
+# a < K', and record_box's ey exceeds the exact ellipse's half-height
+# ey' = sqrt(K' ha / det) by BOX_PAD relative, less < 2^-20 of roundings.
+# A row at the exact offset dy from the centre, |dy| <= ey', meets the
+# exact ellipse within x - px in [c - w, c + w], c = -s dy, s = hb / (2 ha),
+# w = sqrt(kx (ey'^2 - dy^2)), kx = det / ha^2 (a row past ey' meets none).
+#  - Taking ey^2 for ey'^2 adds ~2^-15 ey^2, more than the f32 roundings of
+#    dy (one), ey^2 - dy^2 (three), kx (four: det, 1 / ha, two products),
+#    their product and sqrt (one each): the computed w is >= the exact one.
+#    c's four roundings (dy, 1 / ha, s, s dy) and those of the sums are
+#    < 6u (|c| + w), u = 2^-24, which the pad BOX_PAD (|c| + w) covers;
+#    BOX_ABS covers the pixel bound's, as in the box.
+#  - The right edge c + w is concave in dy (the upper boundary of a convex
+#    set) and peaks at dy* = -rho_s ey', rho_s = hb / (2 sqrt(ha hc)), the
+#    left edge c - w convex with its trough at -dy*.  K <= K' puts ey'
+#    between sqrt(K ha / det) = eyr sqrt(1 - gr) >= eyr (1 - gr) and ey, so
+#    dy* lies in [plo, phi], whose margin BOX_PAD (ey + 1) covers the
+#    roundings of rho_s, eyr and each row's dy (< 8u (ey + 1)).
+#  - A band is one of the warps' rectangles' distinct row spans [y0, y1]
+#    (8 rows on 32 x 32 tiles: two rows of sub-blocks, one walk decision
+#    per warp and record).  On its rows inside the box, [dya, dyb] as
+#    offsets from the centre: where plo > dyb the right edge rises over the
+#    rows and its largest x is at dyb, where phi < dya at dya, and else
+#    (the peak may lie among them) the box's x_hi stands; the left edge
+#    likewise.  Only the end nearest the peak counts: a row there past the
+#    ellipse means no row of the band meets it.
+#  - det below f32's normal range or ey >= BOX_FAR keeps the box's mask,
+#    and a bound that is not finite (|v| >= BOX_FAR) keeps the box's side.
+# A sub-block whose x-range misses its band's [x_lo, x_hi] holds no pixel
+# that blends the record, and leaves the mask, a subset of the box's.
+
+
+def _edge(dy, sg: float, e: dict):
+    """csrc/rasterize.cu:edge_offsets, op for op (sg = 1: the right
+    edge's bound, -1: the left's)."""
+    c = -e["s"] * dy
+    w = packing.sqrt(e["kx"] * torch.clamp(e["eb2"] - dy * dy, min=0.0))
+    return c + sg * (w + (BOX_PAD * (c.abs() + w) + BOX_ABS))
+
+
+def _tile_local(v, origin, size: int):
+    """csrc/rasterize.cu:tile_local: an f32 pixel index as a tile-local one
+    clamped to [-1, size]."""
+    v = torch.clamp(v, -BOX_FAR, BOX_FAR) - origin.to(torch.float32)
+    return torch.clamp(v, -1.0, float(size)).to(torch.int64)
+
+
+def subblock_hits(px, py, ha, hb, hc, op, tile_x, tile_y, tile_w: int, tile_h: int):
+    """(box, ellipse): bool (..., 32) masks of the sub-blocks (bit 4 w + k
+    at [..., 4 w + k], ``subblock_boxes``) that a record's box, and its
+    cutoff ellipse, meet in the tile at (tile_x, tile_y) (ints or int64
+    tensors, broadcast with the f32 record fields): csrc/rasterize.cu's
+    record_box and record_hits."""
+    e = _record_ellipse(px, py, ha, hb, hc, op)
+    dev = px.device
+    tile_x = torch.as_tensor(tile_x, dtype=torch.int64, device=dev)
+    tile_y = torch.as_tensor(tile_y, dtype=torch.int64, device=dev)
+    whole, empty = e["whole"], e["empty"]
+    fix = lambda v, w_val, e_val: torch.where(empty, e_val, torch.where(whole, w_val, v))
+    bx0 = fix(_tile_local(torch.ceil(px - e["ex"] - 0.5), tile_x, tile_w), 0, tile_w)
+    bx1 = fix(_tile_local(torch.floor(px + e["ex"] - 0.5), tile_x, tile_w), tile_w - 1, -1)
+    by0 = fix(_tile_local(torch.ceil(py - e["ey"] - 0.5), tile_y, tile_h), 0, tile_h)
+    by1 = fix(_tile_local(torch.floor(py + e["ey"] - 0.5), tile_y, tile_h), tile_h - 1, -1)
+    subs = subblock_boxes(tile_w, tile_h).tolist()
+    box = torch.stack([(bx1 >= x0) & (bx0 <= x1) & (by1 >= y0) & (by0 <= y1)
+                       for x0, x1, y0, y1 in subs], dim=-1)
+    refine = e["ok"]
+    hits = box.clone()
+    bands = {}  # the warps' rectangles' row spans, each with its sub-blocks
+    for w in range(RASTER_WARPS):
+        rows = subs[4 * w:4 * w + 4]
+        span = (min(b[2] for b in rows), max(b[3] for b in rows))
+        bands.setdefault(span, []).extend(range(4 * w, 4 * w + 4))
+    plo, phi = e["plo"], e["phi"]
+    for (y0, y1), members in bands.items():
+        ya, yb = torch.clamp(by0, min=y0), torch.clamp(by1, max=y1)
+        dya = ((tile_y + ya).to(torch.float32) + 0.5) - py
+        dyb = ((tile_y + yb).to(torch.float32) + 0.5) - py
+        r_end, l_end = plo > dyb, -phi > dyb
+        vr = _edge(torch.where(r_end, dyb, dya), 1.0, e)
+        vl = _edge(torch.where(l_end, dyb, dya), -1.0, e)
+        xh = torch.where((r_end | (phi < dya)) & (vr.abs() < BOX_FAR),
+                         torch.minimum(bx1, _tile_local(torch.floor(px + vr - 0.5), tile_x,
+                                                        tile_w)), bx1)
+        xl = torch.where((l_end | (-plo < dya)) & (vl.abs() < BOX_FAR),
+                         torch.maximum(bx0, _tile_local(torch.ceil(px + vl - 0.5), tile_x,
+                                                        tile_w)), bx0)
+        for j in members:
+            x0, x1 = subs[j][:2]
+            hits[..., j] &= ~refine | ((xh >= x0) & (xl <= x1))
+    return box, hits
+
+
+def splat_subblock_mask(px, py, ha, hb, hc, op, tile_x, tile_y, tile_w: int,
+                        tile_h: int) -> torch.Tensor:
+    """Plain mirror of the kernel's per-record sub-block mask: int64, bit
+    4 w + k set where sub-block k of warp w of the tile at (tile_x, tile_y)
+    may hold a pixel with fl(a) < 2*CUTOFF and op > 0 (``subblock_hits``'
+    ellipse mask; the argument above)."""
+    hits = subblock_hits(px, py, ha, hb, hc, op, tile_x, tile_y, tile_w, tile_h)[1]
+    return (hits.to(torch.int64) << torch.arange(32, device=px.device)).sum(dim=-1)
 
 
 WARP_PIXELS = 128  # 32 lanes x 4 pixels
@@ -260,21 +387,46 @@ def warp_layout(tile_w: int, tile_h: int) -> int:
     return min(fits, key=lambda rw: (rw + WARP_PIXELS // rw, -rw)) if fits else 0
 
 
-def subblock_of_pixel(tile_w: int, tile_h: int) -> torch.Tensor:
-    """(tile_w * tile_h,) the kernel's sub-block 4 * warp + k holding each
-    row-major tile pixel (csrc/rasterize.cu:pixel_of): warp w's rectangle
-    cut into four 32-pixel sub-blocks, 8 x 4 on 16 x 8 rectangles; with no
-    rectangle layout, the runs of 32 row-major pixels."""
-    q = torch.arange(tile_w * tile_h)
+def lane_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
+    """(32, 32, 2) int64: the tile-local (x, y) of lane l in the kernel's
+    sub-block 4 * warp + k at [4 * warp + k, l] (csrc/rasterize.cu:pixel_of):
+    warp w's rectangle cut into four 32-pixel sub-blocks, row-major in each,
+    8 x 4 on 16 x 8 rectangles; with no rectangle layout, the runs of 32
+    row-major pixels.  Lanes past the tile's edge keep their place."""
+    j = torch.arange(4 * RASTER_WARPS)[:, None]
+    w, k, lane = j // 4, j % 4, torch.arange(32)[None, :]
     rw = warp_layout(tile_w, tile_h)
     if rw == 0:
-        return q // 32
-    lx, ly = q % tile_w, q // tile_w
+        q = w * WARP_PIXELS + 32 * k + lane
+        return torch.stack((q % tile_w, q // tile_w), dim=-1)
     rh = WARP_PIXELS // rw
     sb_w = max(min(rw, 8), 32 // rh)
-    warp = (ly // rh) * -(-tile_w // rw) + lx // rw
-    k = ((ly % rh) // (32 // sb_w)) * (rw // sb_w) + (lx % rw) // sb_w
-    return 4 * warp + k
+    per_row, gw = rw // sb_w, -(-tile_w // rw)
+    x = (w % gw) * rw + (k % per_row) * sb_w + lane % sb_w
+    y = (w // gw) * rh + (k // per_row) * (32 // sb_w) + lane // sb_w
+    return torch.stack((x, y), dim=-1)
+
+
+def subblock_of_pixel(tile_w: int, tile_h: int) -> torch.Tensor:
+    """(tile_w * tile_h,) the kernel's sub-block 4 * warp + k holding each
+    row-major tile pixel (``lane_pixels``)."""
+    xy = lane_pixels(tile_w, tile_h).reshape(-1, 2)
+    j = torch.arange(4 * RASTER_WARPS).repeat_interleave(32)
+    inside = (xy[:, 0] < tile_w) & (xy[:, 1] < tile_h)
+    out = torch.empty(tile_w * tile_h, dtype=torch.int64)
+    out[xy[inside, 1] * tile_w + xy[inside, 0]] = j[inside]
+    return out
+
+
+def subblock_boxes(tile_w: int, tile_h: int) -> torch.Tensor:
+    """(32, 4) int64 (x0, x1, y0, y1): the tile-local bounding box of the
+    kernel's sub-block 4 * warp + k over its lanes (``lane_pixels``;
+    csrc/rasterize.cu:sub_block_box): a run of row-major pixels that wraps a
+    row spans the tile's width."""
+    xy = lane_pixels(tile_w, tile_h)
+    x, y = xy[..., 0], xy[..., 1]
+    return torch.stack((x.min(1).values, x.max(1).values, y.min(1).values, y.max(1).values),
+                       dim=1)
 
 
 def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: int,
@@ -288,10 +440,13 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     image's edge included: a per-pixel stop with no cull visits these),
     ``pairs_in_box`` (live in-image pairs inside the record's
     ``splat_pixel_bounds`` box), ``sub_evals`` (the kernel's (sub-block,
-    record) evaluations: sub-blocks with a live pixel whose rectangle meets
-    the box), ``pairs_sub_box`` (the live in-image pixels in them) and the
-    (T,) int64 tensor ``tile_stop``: span positions each tile walks until
-    its last in-image pixel saturates (its count when one never does).
+    record) evaluations: sub-blocks with a live pixel in the record's mask,
+    ``splat_subblock_mask``), ``pairs_sub_box`` (the live in-image pixels
+    in them), ``sub_evals_box`` (those sub-blocks had the mask been the
+    box's alone: 1 - sub_evals / sub_evals_box is the share the ellipse
+    skips) and the (T,) int64 tensor ``tile_stop``: span positions each
+    tile walks until its last in-image pixel saturates (its count when one
+    never does).
     With composite="tree" a pixel is live through the group (8 absolute
     positions) in which it saturates; the sequential product of (1 - alpha)
     stands in for the group's composited transmittance (they differ by
@@ -318,22 +473,20 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
     sub = subblock_of_pixel(tw, th).to(dev)
     n_sub = int(sub.max()) + 1
     onehot = (sub[:, None] == torch.arange(n_sub, device=dev)[None, :]).to(torch.float32)
-
-    def sub_bound(coord, fill, reduce):  # (T, n_sub) extreme pixel index of each sub-block
-        local = coord[0:1] - coord[0:1, 0:1]  # offsets in the tile
-        return torch.stack([reduce(coord[:, 0:1] + torch.where(sub == j, local, fill), 1).values
-                            for j in range(n_sub)], 1)
-
-    sx0, sx1 = sub_bound(ix, tw, torch.min), sub_bound(ix, -1, torch.max)
-    sy0, sy1 = sub_bound(iy, th, torch.min), sub_bound(iy, -1, torch.max)
     trans = torch.ones((n_tiles, tw * th), dtype=torch.float32, device=dev)
     t_live = trans  # the transmittance that decides liveness: at the group's start (tree)
 
     ranges = ranges.to(torch.int64)
     start, count = ranges[:-1], ranges[1:] - ranges[:-1]
+    if m:  # each stream position's sub-block masks in the tile whose span holds it
+        t_of = torch.clamp(torch.searchsorted(ranges[1:], torch.arange(m, device=dev),
+                                              right=True), max=n_tiles - 1)
+        hits_box, hits = subblock_hits(*rec[:6], (t_of % tx_tiles) * tw, (t_of // tx_tiles) * th,
+                                       tw, th)
+        hits_box, hits = hits_box[:, :n_sub], hits[:, :n_sub]
     stop = torch.zeros_like(count)
     out = dict(pairs_live=0, pairs_blended=0, pairs_visited=0, pairs_in_box=0, sub_evals=0,
-               pairs_sub_box=0)
+               pairs_sub_box=0, sub_evals_box=0)
     tree = config.composite == "tree"
     if tree:
         out.update(tree_folds=0)
@@ -361,7 +514,7 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
         x_lo, x_hi, y_lo, y_hi = (v[i][:, None] for v in box)
         live_img = live & in_img
         inside = (ix >= x_lo) & (ix <= x_hi) & (iy >= y_lo) & (iy <= y_hi)
-        meets = (sx1 >= x_lo) & (sx0 <= x_hi) & (sy1 >= y_lo) & (sy0 <= y_hi)  # (T, n_sub)
+        meets = hits[i]  # (T, n_sub)
         out["pairs_visited"] += int(live.sum())
         out["pairs_live"] += int(live_img.sum())
         out["pairs_blended"] += int((on & in_img).sum())
@@ -370,6 +523,7 @@ def rasterize_work_torch(words: torch.Tensor, ranges: torch.Tensor, *, width: in
         out["pairs_sub_box"] += int((live_per_sub * meets).sum())
         present = (live_per_sub > 0) & meets
         out["sub_evals"] += int(present.sum())
+        out["sub_evals_box"] += int(((live_per_sub > 0) & hits_box[i]).sum())
         if tree:  # a group starts at each absolute position 8g
             folded = folded & ((start + k) % 8 != 0)[:, None]
             out["tree_folds"] += int((present & ~folded).sum())
